@@ -1,0 +1,14 @@
+"""Public kernel entry points of the port.
+
+Each name launches a hand-written Hopper kernel on CUDA tensors and runs
+its plain PyTorch version on CPU tensors (the tests' path). There is no
+fallback from the card to the plain version: a kernel that cannot build or
+launch raises.
+
+Ported so far: :func:`quorum_aggregate` (``csrc/quorum_aggregate.cu``).
+The other Pallas kernels of :mod:`repro.kernels` are queued in ROADMAP.md.
+"""
+from repro_torch.kernels.quorum_aggregate import (quorum_aggregate,
+                                                  quorum_aggregate_ref)
+
+__all__ = ["quorum_aggregate", "quorum_aggregate_ref"]

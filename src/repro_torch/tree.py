@@ -1,0 +1,53 @@
+"""Parameter trees: nested dicts (lists and tuples also walk) whose leaves
+are tensors — the port's stand-in for JAX pytrees. A ``NamedTuple`` such as
+:class:`repro_torch.optim.compression.Int8Weights` is one leaf."""
+from __future__ import annotations
+
+from typing import Any, Callable, List, Sequence
+
+import torch
+
+
+def _is_node(tree: Any) -> bool:
+    return isinstance(tree, dict) or (
+        isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"))
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` leafwise over one tree or several of one structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if _is_node(tree):
+        return type(tree)(tree_map(fn, *vs) for vs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """Leaves in a fixed order (dict keys sorted, as JAX orders them)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if _is_node(tree):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_structure(tree: Any) -> Any:
+    """A hashable description of the tree's nesting (keys, not leaves)."""
+    if isinstance(tree, dict):
+        return tuple((k, tree_structure(tree[k])) for k in sorted(tree))
+    if _is_node(tree):
+        return (type(tree).__name__,
+                tuple(tree_structure(v) for v in tree))
+    return None
+
+
+def stack_trees(trees: Sequence[Any]) -> Any:
+    """Stack same-structured trees along a new leading axis."""
+    return tree_map(lambda *ls: torch.stack(ls), *trees)
+
+
+def tree_to(tree: Any, device: torch.device) -> Any:
+    """Move every tensor leaf to ``device``."""
+    return tree_map(
+        lambda t: t.to(device) if isinstance(t, torch.Tensor) else t, tree)

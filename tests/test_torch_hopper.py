@@ -1,0 +1,123 @@
+"""The port's CUDA kernel on the card, held to its plain PyTorch version.
+
+Every test here carries the ``hopper`` marker and skips unless a CUDA
+device of capability (9, 0) is present. The file imports neither JAX nor
+the JAX package, so it also runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest --noconftest -m hopper tests/test_torch_hopper.py
+
+(``--noconftest`` skips ``tests/conftest.py``, which imports JAX.)
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.assignment import StudentArch  # noqa: E402
+from repro_torch.core.grouping import Device  # noqa: E402
+from repro_torch.core.plan_ir import (PlanIR, device_matrix,  # noqa: E402
+                                      eq1a_latency, student_matrix)
+from repro_torch.core.simulator import FailureModel  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.runtime.engine import build_demo_server  # noqa: E402
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+pytestmark = pytest.mark.hopper
+
+
+@pytest.fixture
+def hopper():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if torch.cuda.get_device_capability() != (9, 0):
+        pytest.skip("needs a Hopper (sm_90) device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _operands(K, B, Dk, C, mask, int8, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(0, 1, (K, B, Dk)).astype(np.float32)
+    b = rng.normal(size=C).astype(np.float32)
+    if int8:
+        w = rng.integers(-127, 128, (K, Dk, C)).astype(np.int8)
+        s = (rng.uniform(0.5, 1.5, K) / (127 * np.sqrt(K * Dk))
+             ).astype(np.float32)
+    else:
+        w = (rng.normal(size=(K, Dk, C)) / np.sqrt(K * Dk)).astype(np.float32)
+        s = None
+    t = [torch.from_numpy(a).to(dev)
+         for a in (p, w, b, np.asarray(mask, np.int32))]
+    return t + [None if s is None else torch.from_numpy(s).to(dev)]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("K,B,Dk,C", [(8, 256, 32, 10), (6, 7, 43, 10),
+                                      (8, 1000, 640, 100), (6, 1, 43, 100)])
+@pytest.mark.parametrize("mask", ["ones", "mixed", "zeros"])
+def test_kernel_matches_plain_version(hopper, int8, K, B, Dk, C, mask):
+    m = {"ones": np.ones(K), "mixed": np.arange(K) % 3 != 1,
+         "zeros": np.zeros(K)}[mask]
+    args = _operands(K, B, Dk, C, m, int8, hopper, seed=B)
+    before = ops.quorum_aggregate.launches
+    out = ops.quorum_aggregate(*args)
+    torch.cuda.synchronize()
+    assert ops.quorum_aggregate.launches == before + 1
+    ref = ops.quorum_aggregate_ref(*args)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
+
+
+def test_empty_batch_launches_nothing(hopper):
+    before = ops.quorum_aggregate.launches
+    out = ops.quorum_aggregate(*_operands(4, 0, 8, 5, [1] * 4, False,
+                                          hopper))
+    assert out.shape == (0, 5)
+    assert ops.quorum_aggregate.launches == before
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(hopper):
+    p, w, b, m, _ = _operands(2, 3, 4, 5, [1, 1], False, hopper)
+    with pytest.raises(TypeError, match="int32"):
+        ops.quorum_aggregate(p, w, b, m.to(torch.int64))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.quorum_aggregate(p.transpose(1, 2).contiguous().transpose(1, 2),
+                             w, b, m)
+    with pytest.raises(ValueError, match="one device"):
+        ops.quorum_aggregate(p, w.cpu(), b, m)
+
+
+def _toy_ir(M=8):
+    devs = [Device("a", 1e7, 2e6, 500, 0.3), Device("b", 2e7, 2e6, 500, 0.3),
+            Device("c", 1e7, 2e6, 500, 0.3), Device("d", 3e7, 2e6, 500, 0.3)]
+    names, dcaps = device_matrix(devs)
+    snames, scaps = student_matrix([StudentArch("s", 5e6, 0.6e6, 64, 0.15e6)])
+    member = np.array([[1, 1, 0, 0], [0, 0, 1, 1]], bool)
+    part = np.zeros((2, M), bool)
+    part[0, :3] = True
+    part[1, 3:] = True
+    return PlanIR(names, dcaps, snames, scaps, member, part,
+                  np.zeros(2, np.int64), np.arange(2, dtype=np.int64),
+                  eq1a_latency(scaps, dcaps), np.zeros((M, M)), 1.0, 0.5)
+
+
+@pytest.mark.parametrize("fastpath", [None, False], ids=["fused", "legacy"])
+@pytest.mark.parametrize("quantize", ["none", "int8"])
+def test_demo_server_on_the_card_matches_the_cpu(hopper, fastpath, quantize):
+    """One serve_batch = one kernel launch, and the card's logits match the
+    same server on the CPU; quorum fields are equal."""
+    build = dict(feat=8, hidden=16, n_classes=3, seed=0, fastpath=fastpath,
+                 quantize=quantize,
+                 failure=FailureModel(crash_prob=0.3, outages=True))
+    gpu = build_demo_server(_toy_ir(), device=hopper, **build)
+    cpu = build_demo_server(_toy_ir(), device="cpu", **build)
+    rng = np.random.default_rng(1)
+    xs = [rng.normal(size=(r, 8)).astype(np.float32) for r in (3, 5, 1)]
+    for trial in range(4):
+        before = ops.quorum_aggregate.launches
+        rg = gpu.serve_batch(xs, rng=np.random.default_rng(trial))
+        assert ops.quorum_aggregate.launches == before + 1
+        rc = cpu.serve_batch(xs, rng=np.random.default_rng(trial))
+        for a, b in zip(rg, rc):
+            assert (a.arrived == b.arrived).all() and a.latency == b.latency
+            np.testing.assert_allclose(a.block_until_ready().logits,
+                                       b.logits, **TOL)

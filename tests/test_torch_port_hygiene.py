@@ -1,0 +1,140 @@
+"""The PyTorch port stands alone: its numpy modules are faithful copies of
+the JAX package's, and neither the package nor ``chip_smoke.py`` imports
+JAX or anything of ``repro``."""
+import dataclasses
+import importlib.util
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+from repro.core import planner as JPL  # noqa: E402
+from repro.core import simulator as JSIM  # noqa: E402
+from repro_torch.core import planner as TPL  # noqa: E402
+from repro_torch.core import simulator as TSIM  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _load(path, name):
+    """Import a repository script by path (neither it nor ``benchmarks``
+    is a package on ``sys.path``)."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+common = _load("benchmarks/common.py", "_bench_common")
+COPIED = ["obs/stats.py", "core/grouping.py", "core/assignment.py",
+          "core/ncut.py", "core/hwspec.py", "coding/codes.py",
+          "coding/spec.py", "coding/compute.py", "core/plan_ir.py",
+          "core/planner.py", "core/simulator.py", "runtime/clock.py"]
+IMPORT = re.compile(r"^(\s*(?:from|import) )repro\.", re.M)
+
+
+@pytest.mark.parametrize("module", COPIED)
+def test_copied_module_is_verbatim(module):
+    """Each copy is its original with ``repro.`` → ``repro_torch.`` in the
+    import lines, and nothing else changed."""
+    original = (ROOT / "src" / "repro" / module).read_text()
+    copy = (ROOT / "src" / "repro_torch" / module).read_text()
+    assert copy == IMPORT.sub(r"\1repro_torch.", original)
+
+
+@pytest.mark.parametrize("kw", [{}, {"mem_range": (1e6, 4e6)},
+                                {"success_prob": 0.7}])
+def test_same_fleet_same_plan(kw):
+    """The slice's plans: the same fleet and affinity graph give the same
+    PlanIR arrays in both packages."""
+    jf = JSIM.make_fleet(8, seed=1, **kw)
+    tf = TSIM.make_fleet(8, seed=1, **kw)
+    assert [dataclasses.astuple(d) for d in jf] == \
+        [dataclasses.astuple(d) for d in tf]
+    A = common.affinity_graph(64)
+    jir = JPL.tune_d_th_ir(jf, A, common.paper_students(), p_th=0.25)
+    tir = TPL.tune_d_th_ir(tf, A, common.paper_students(), p_th=0.25)
+    for f in dataclasses.fields(jir):
+        a, b = getattr(jir, f.name), getattr(tir, f.name)
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert a == b, f.name
+
+
+@pytest.mark.parametrize("failure", [
+    dict(outages=True), dict(crash_prob=0.2, outages=True),
+    dict(crash_prob=0.3, outages=False),
+    dict(forced_failures=["d1", "d4"], crash_prob=0.1, outages=True)])
+def test_same_failure_draws_and_reductions(failure):
+    A = common.affinity_graph(64)
+    ja = JSIM.plan_arrays(JPL.tune_d_th_ir(
+        JSIM.make_fleet(8, seed=1, mem_range=(1e6, 4e6)), A,
+        common.paper_students(), p_th=0.25))
+    ta = TSIM.plan_arrays(TPL.tune_d_th_ir(
+        TSIM.make_fleet(8, seed=1, mem_range=(1e6, 4e6)), A,
+        common.paper_students(), p_th=0.25))
+    for f in dataclasses.fields(ja):
+        a, b = getattr(ja, f.name), getattr(ta, f.name)
+        if f.name == "slot_cols":
+            assert len(a) == len(b)
+            for ca, cb in zip(a, b):
+                np.testing.assert_array_equal(ca, cb)
+        elif isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert a == b, f.name
+    jalive, _ = JSIM.FailureModel(**failure).sample(
+        np.random.default_rng(7), ja, 50)
+    talive, _ = TSIM.FailureModel(**failure).sample(
+        np.random.default_rng(7), ta, 50)
+    np.testing.assert_array_equal(jalive, talive)
+    for deadline in (float("inf"), 1.5):
+        for a, b in zip(JSIM.reduce_trials(ja, jalive, None, deadline),
+                        TSIM.reduce_trials(ta, talive, None, deadline)):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_chip_smoke_fleet_definitions_match_benchmarks():
+    chip_smoke = _load("chip_smoke.py", "_chip_smoke")
+    for M in (16, 256):
+        np.testing.assert_array_equal(chip_smoke.affinity_graph(M),
+                                      common.affinity_graph(M))
+    assert [dataclasses.astuple(s) for s in chip_smoke.paper_students()] == \
+        [dataclasses.astuple(s) for s in common.paper_students()]
+
+
+def test_port_imports_neither_jax_nor_repro():
+    """Importing every module of the port, and chip_smoke.py, in a fresh
+    interpreter loads no ``jax`` and no ``repro`` module."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, "
+        "'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "print(len(sys.modules), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_sources_name_no_jax_or_repro_import():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    bad = re.compile(r"^\s*(import (jax|repro)\b|from (jax|repro)(\.|\s))",
+                     re.M)
+    offenders = [str(f) for f in files if bad.search(f.read_text())]
+    assert not offenders, offenders
