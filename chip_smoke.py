@@ -25,18 +25,34 @@ result line):
    the same server built on the CPU;
 5. legacy serve: the K=6 mixed-width ensemble, the per-slot loop;
 6. int8: phase 4 with ``quantize="int8"``, also held to the fp32 server
-   with the JAX package's int8 bounds.
+   with the JAX package's int8 bounds;
+7. ``coded_decode`` (``src/repro_torch/kernels/csrc/coded_decode.cu``) vs
+   its plain version over a sweep of shapes, masks and decode rows, and
+   timings at the fused output-coded shape;
+8. coded serving, three plans through the engine, each held batch by
+   batch to the same server on the CPU (quorum fields and share times
+   equal, logits within SERVE_TOL), with ``coded_decode`` launched on the
+   card exactly as often as the CPU replay decoded: ``coded-fused`` (four
+   64-filter slots coded (6,4)), ``coded-legacy`` (the coding benchmark's
+   12-device fleet, five slots of 50-52 filters coded (8,5), mixed widths)
+   and ``compute-fused`` (two 128-filter slots compute-coded (5,3));
+9. repair: a systematic device of the ``coded-fused`` server is removed
+   for good, the controller re-encodes its share onto a spare and the
+   server migrates; its answers stay within 5e-4 of the pre-loss ones and
+   within SERVE_TOL of a CPU twin that went through the same cycle.
 
 The last two lines of standard output are the ``kernels`` JSON line and the
 ``ok`` JSON line. Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -44,17 +60,27 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.coding.codes import decode_matrix, make_generator  # noqa: E402
+from repro_torch.coding.compute import ComputeRuntime  # noqa: E402
+from repro_torch.coding.planner import select_redundancy  # noqa: E402
+from repro_torch.coding.runtime import CodedRuntime  # noqa: E402
 from repro_torch.core import planner as PL  # noqa: E402
 from repro_torch.core.assignment import StudentArch  # noqa: E402
+from repro_torch.core.grouping import Device  # noqa: E402
 from repro_torch.core.pipeline import Ensemble  # noqa: E402
+from repro_torch.core.plan_ir import (PlanIR, device_matrix,  # noqa: E402
+                                      eq1a_latency, student_matrix)
 from repro_torch.core.simulator import FailureModel, make_fleet  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 from repro_torch.runtime.engine import EngineConfig, ServingEngine  # noqa: E402
 from repro_torch.runtime.serving import server_from_ensemble  # noqa: E402
 
+KERNELS = ("quorum_aggregate", "coded_decode")
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/quorum_aggregate.cu"
 TPU_KERNEL = "src/repro/kernels/quorum_aggregate.py:33"
+DECODE_SOURCE = "src/repro_torch/kernels/csrc/coded_decode.cu"
+DECODE_TPU_KERNEL = "src/repro/kernels/coded_decode.py:37"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 FP32_FLOPS = 67e12              # H100 SXM fp32 outside the tensor cores
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -67,7 +93,12 @@ SERVE_TOL = dict(rtol=1e-3, atol=1e-3)
 # (tests/test_fastpath.py::test_int8_masks_failures_like_fp32)
 INT8_TOL = dict(rtol=0.1, atol=0.05)
 INT8_MIN_AGREEMENT = 0.95
+# coded recovery vs the pre-loss answer: the JAX package's own bound
+# (tests/test_coding.py::test_coded_serving_recovers_clean_logits)
+RECOVER_TOL = dict(rtol=5e-4, atol=5e-4)
 MAIN_SHAPE = dict(K=8, B=256, Dk=32, C=10)
+# the fused output-coded step's decode: B rows, R = K + P shares, F = Dk
+DECODE_SHAPE = dict(B=256, R=6, K=4, F=64)
 N_REQUESTS = 64                 # per serving phase, Poisson at 200/s
 MAX_REQUEST_ROWS = 32           # request sizes uniform in 1..32 images
 PROFILE_ROWS, PROFILE_CALLS = 256, 5
@@ -175,11 +206,15 @@ def phase_device() -> str:
 
 
 def phase_build() -> float:
+    """One nvcc per kernel source, all started together, then dlopen."""
     t0 = time.perf_counter()
-    build.load("quorum_aggregate")                  # nvcc, then dlopen
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(build.build, KERNELS))
+    for name in KERNELS:
+        build.load(name)
     secs = time.perf_counter() - t0
-    print(f"build: {build.library_path('quorum_aggregate').name} "
-          f"in {secs:.2f} s")
+    print(f"build: {', '.join(build.library_path(n).name for n in KERNELS)}"
+          f" in {secs:.2f} s")
     return secs
 
 
@@ -226,14 +261,16 @@ def phase_kernel(dev) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
-def phase_profile(ens: Ensemble, dev) -> None:
+def phase_profile(ens: Ensemble, dev, label: str = "fused",
+                  failure: FailureModel = None) -> None:
     """Where one fused batch's time goes: ``torch.profiler`` over a few
-    clean ``serve_batch`` calls of PROFILE_ROWS images (after warm-up). Prints
-    wall and device-busy time per batch, the merge kernel's share, and the
-    kernels that take the most device time."""
+    ``serve_batch`` calls of PROFILE_ROWS images (after warm-up), clean
+    unless ``failure`` says otherwise. Prints wall and device-busy time per
+    batch, the two kernels' shares, and the kernels that take the most
+    device time."""
     rows, calls = PROFILE_ROWS, PROFILE_CALLS
-    srv = server_from_ensemble(ens, failure=FailureModel(outages=False),
-                               device=dev)
+    srv = server_from_ensemble(ens, failure=failure
+                               or FailureModel(outages=False), device=dev)
     x = torch.randn((rows, 32, 32, 3), device=dev)
     for _ in range(3):
         srv.serve_batch([x])[0].block_until_ready()
@@ -247,7 +284,7 @@ def phase_profile(ens: Ensemble, dev) -> None:
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     if not events:
-        print(f"profile: fused batch of {rows}: wall {wall_ms:.3f} ms; "
+        print(f"profile: {label} batch of {rows}: wall {wall_ms:.3f} ms; "
               f"device time not measured (the profiler saw no kernels)")
         return
     per_name = {}                    # kernel name → ms per batch
@@ -265,12 +302,14 @@ def phase_profile(ens: Ensemble, dev) -> None:
     busy = busy_us / 1e3 / calls
     total = sum(per_name.values())
     merge = sum(t for k, t in per_name.items() if "quorum_aggregate" in k)
+    decode = sum(t for k, t in per_name.items() if "coded_decode" in k)
     top = "; ".join(f"{k[:60]} {t:.4f} ms" for k, t in
                     sorted(per_name.items(), key=lambda kv: -kv[1])[:5])
-    print(f"profile: fused batch of {rows}: wall {wall_ms:.3f} ms, device "
+    print(f"profile: {label} batch of {rows}: wall {wall_ms:.3f} ms, device "
           f"busy {busy:.3f} ms ({busy / wall_ms:.1%} of wall; kernel times "
           f"sum to {total:.3f} ms over {len(events) // calls} launches), "
-          f"merge kernel {merge:.4f} ms; top: {top}")
+          f"merge kernel {merge:.4f} ms, decode kernel {decode:.4f} ms; "
+          f"top: {top}")
 
 
 def ensemble(mem_range=None, seed: int = 0) -> Ensemble:
@@ -279,6 +318,12 @@ def ensemble(mem_range=None, seed: int = 0) -> Ensemble:
     kw = {} if mem_range is None else {"mem_range": mem_range}
     ir = PL.tune_d_th_ir(make_fleet(8, seed=1, **kw), affinity_graph(256),
                          paper_students(), p_th=0.25)
+    return ensemble_for(ir, seed)
+
+
+def ensemble_for(ir: PlanIR, seed: int = 0) -> Ensemble:
+    """Full-width WRN-16-1 students for the partitions of ``ir`` and an FC
+    head over their portions, random weights from ``seed``."""
     dims = [int(d) for d in ir.partition.sum(1)]
     gen = torch.Generator().manual_seed(seed)
     students = [cnn.make_student(gen, "wrn-16-1", 10, d) for d in dims]
@@ -303,21 +348,60 @@ def record_calls(server) -> list:
     return calls
 
 
-def warmup_calls(sizes: np.ndarray, cfg: EngineConfig) -> int:
+def warmup_calls(sizes: np.ndarray, cfg: EngineConfig, server) -> int:
     """serve_batch calls of ``ServingEngine._warmup``: every power-of-two
-    row bucket up to max(sizes)·max_batch, clean and with one slot down."""
+    row bucket up to max(sizes)·max_batch, clean and — when slot 0 has
+    replica devices to force down — with slot 0 down."""
     buckets, b = 1, 1
     while b < int(sizes.max()) * cfg.max_batch:
         b <<= 1
         buckets += 1
-    return 2 * buckets
+    arrays = server.arrays
+    passes = 2 if arrays.n_slots and len(arrays.slot_cols[0]) else 1
+    return passes * buckets
+
+
+@contextlib.contextmanager
+def counting_plain_decodes():
+    """Count the ``coded_decode`` calls made while the block runs (the CPU
+    replay's plain-version calls, which the launch counter leaves alone)."""
+    calls = []
+    plain = ops.coded_decode
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape[0])
+        return plain(*args, **kw)
+    ops.coded_decode = counted
+    try:
+        yield calls
+    finally:
+        ops.coded_decode = plain
+
+
+def decode_gain(server, share_times) -> float:
+    """The largest row abs-sum of the decode weights a request was served
+    with (1 when no decode ran): how much the decode can magnify the
+    card-vs-CPU difference of the portions it reads (reported beside the
+    error; the check is SERVE_TOL itself)."""
+    if share_times is None:
+        return 1.0
+    rt = server._coded_runtime(server.ir)
+    if rt is not None:
+        decs = [rt.decode_weights(np.isfinite(share_times)[None])]
+    else:
+        decs, _ = server._compute_runtime(server.ir).decode_weights(
+            share_times[None])
+    return max([1.0] + [float(np.abs(d).sum(-1).max()) for d in decs])
 
 
 def phase_serve(name: str, ens: Ensemble, dev, *, quantize="none",
-                fused: bool, seed: int = 0, fp32_twin=None) -> dict:
+                fused: bool, seed: int = 0, fp32_twin=None,
+                coded: bool = False) -> dict:
     """Serve a Poisson trace through the engine on ``dev``; hold every
     batch to the same server built on the CPU (and, for int8, to the fp32
-    server on ``dev``). Returns the phase's counts and errors."""
+    server on ``dev``). A coded phase replays every call, warm-up included,
+    and holds the card's ``coded_decode`` launches to the replay's decodes.
+    Returns the phase's counts and errors, and both servers."""
     failure = FailureModel(crash_prob=0.05, outages=True)
     srv = server_from_ensemble(ens, failure=failure, seed=seed,
                                quantize=quantize, device=dev)
@@ -338,13 +422,15 @@ def phase_serve(name: str, ens: Ensemble, dev, *, quantize="none",
 
     engine = ServingEngine(srv, cfg, make_input=images)
     ops.quorum_aggregate.launches = 0           # the main path's window
+    ops.coded_decode.launches = 0
     t0 = time.perf_counter()
     report = engine.run(times, sizes)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.quorum_aggregate.launches
+    decodes = ops.coded_decode.launches
 
-    warm = warmup_calls(sizes, cfg)
+    warm = warmup_calls(sizes, cfg, srv)
     if not (launches == len(calls) == len(report.batches) + warm):
         raise AssertionError(
             f"{name}: {launches} kernel launches for {len(calls)} "
@@ -355,38 +441,56 @@ def phase_serve(name: str, ens: Ensemble, dev, *, quantize="none",
         raise AssertionError(f"{name}: served {summary['n']} of "
                              f"{N_REQUESTS} requests")
 
-    worst = 0.0
+    worst = max_gain = 0.0
     agree, total, worst_int8 = 0, 0, 0.0
-    for xs, fm, rng_b, out in calls[warm:]:
-        cpu.failure = fm
-        ref = cpu.serve_batch([x.cpu() for x in xs],
-                              rng=copy.deepcopy(rng_b))
-        twin = None
-        if fp32_twin is not None:
-            fp32_twin.failure = fm
-            twin = fp32_twin.serve_batch(xs, rng=copy.deepcopy(rng_b))
-        for i, (a, b) in enumerate(zip(out, ref)):
-            if not ((a.arrived == b.arrived).all() and a.latency == b.latency
-                    and a.degraded == b.degraded):
-                raise AssertionError(f"{name}: quorum fields differ from "
-                                     f"the CPU server")
-            la = torch.from_numpy(a.logits)
-            if la.shape != (xs[i].shape[0], 10):
-                raise AssertionError(f"{name}: logits {tuple(la.shape)}")
-            worst = max(worst, max_err(la, torch.from_numpy(b.logits),
-                                       **SERVE_TOL))
-            if twin is not None:
-                lf = torch.from_numpy(twin[i].logits)
-                worst_int8 = max(worst_int8, max_err(la, lf, **INT8_TOL))
-                agree += int((la.argmax(-1) == lf.argmax(-1)).sum())
-                total += la.shape[0]
+    with counting_plain_decodes() as cpu_decodes:
+        for xs, fm, rng_b, out in calls[0 if coded else warm:]:
+            cpu.failure = fm
+            ref = cpu.serve_batch([x.cpu() for x in xs],
+                                  rng=copy.deepcopy(rng_b))
+            twin = None
+            if fp32_twin is not None:
+                fp32_twin.failure = fm
+                twin = fp32_twin.serve_batch(xs, rng=copy.deepcopy(rng_b))
+            for i, (a, b) in enumerate(zip(out, ref)):
+                if not ((a.arrived == b.arrived).all()
+                        and a.latency == b.latency
+                        and a.degraded == b.degraded
+                        and (a.share_times is None) == (b.share_times is None)
+                        and (a.share_times is None or np.array_equal(
+                            a.share_times, b.share_times))):
+                    raise AssertionError(f"{name}: quorum fields differ "
+                                         f"from the CPU server")
+                la = torch.from_numpy(a.logits)
+                if la.shape != (xs[i].shape[0], 10):
+                    raise AssertionError(f"{name}: logits "
+                                         f"{tuple(la.shape)}")
+                max_gain = max(max_gain, decode_gain(cpu, b.share_times))
+                worst = max(worst, max_err(la, torch.from_numpy(b.logits),
+                                           **SERVE_TOL))
+                if twin is not None:
+                    lf = torch.from_numpy(twin[i].logits)
+                    worst_int8 = max(worst_int8, max_err(la, lf, **INT8_TOL))
+                    agree += int((la.argmax(-1) == lf.argmax(-1)).sum())
+                    total += la.shape[0]
+    if coded and not (decodes == len(cpu_decodes) and decodes > 0):
+        raise AssertionError(
+            f"{name}: {decodes} coded_decode launches on the card, "
+            f"{len(cpu_decodes)} decodes in the CPU replay")
     rows = int(sum(b.rows for b in report.batches))
     line = (f"{name}: {summary['n']} requests, {rows} rows in "
             f"{len(report.batches)} batches, degraded share "
             f"{summary['degraded_rate']:.3f}, wall {wall:.3f} s, "
             f"launches {launches} (= {len(report.batches)} batches + {warm} "
             f"warm-up), max abs err vs CPU {worst:.3e}")
-    out = dict(launches=launches, max_abs_err=worst)
+    if coded:
+        line += (f", coded_decode launches {decodes} (= CPU replay's "
+                 f"{len(cpu_decodes)}), share futures "
+                 f"{summary['share_futures']}, cancelled shares "
+                 f"{summary['cancelled_shares']}, largest decode gain "
+                 f"{max_gain:.1f}")
+    out = dict(launches=launches, decodes=decodes, max_abs_err=worst,
+               server=srv, cpu=cpu)
     if fp32_twin is not None:
         share = agree / total
         if share < INT8_MIN_AGREEMENT:
@@ -396,6 +500,213 @@ def phase_serve(name: str, ens: Ensemble, dev, *, quantize="none",
                  f"err {worst_int8:.3e}")
     print(line)
     return out
+
+
+# -- coded serving ---------------------------------------------------------------
+
+def replicated_ir(pairs: int, spares: int, p_out: float, M: int,
+                  speed) -> PlanIR:
+    """The coding tests' fixture: ``pairs`` pair-replicated slots of
+    ``M / pairs`` filters each, plus unassigned spare devices
+    (tests/test_coding.py, tests/test_coded_compute.py)."""
+    n = 2 * pairs + spares
+    devs = [Device(f"d{i}", speed(i), 2e6, 500, p_out) for i in range(n)]
+    names, dcaps = device_matrix(devs)
+    snames, scaps = student_matrix([StudentArch("s", 5e6, 0.6e6, 64, 0.15e6)])
+    member = np.zeros((pairs, n), bool)
+    part = np.zeros((pairs, M), bool)
+    for k in range(pairs):
+        member[k, 2 * k:2 * k + 2] = True
+        part[k, (M // pairs) * k:(M // pairs) * (k + 1)] = True
+    return PlanIR(names, dcaps, snames, scaps, member, part,
+                  np.zeros(pairs, np.int64), np.arange(pairs, dtype=np.int64),
+                  eq1a_latency(scaps, dcaps), np.zeros((M, M)), 1.0, 0.5)
+
+
+def coded_plans() -> dict:
+    """The three coded plans of the coded-serving phases, over a 256-filter
+    final conv, each from the port's own ``select_redundancy``."""
+    fleet = make_fleet(12, seed=0, mem_range=(1e6, 4e6), success_prob=0.8)
+    rep = PL.tune_d_th_ir(fleet, affinity_graph(256), paper_students(),
+                          p_th=0.05, seed=0)
+    plans = {
+        "coded-fused": select_redundancy(
+            replicated_ir(4, 2, 0.25, 256, lambda i: (1 + i % 3) * 1e7),
+            code_k=4, parity=2),
+        "coded-legacy": select_redundancy(rep, code_k=5),
+        "compute-fused": select_redundancy(
+            replicated_ir(2, 6, 0.1, 256, lambda i: 1e7 * (1 + 0.01 * i)),
+            code_k=3, parity=2, mode="compute"),
+    }
+    want = {"coded-fused": "coded(6,4)", "coded-legacy": "coded(8,5)",
+            "compute-fused": "coded_compute(5,3)"}
+    for name, ir in plans.items():
+        if set(ir.redundancy_modes()) != {want[name]}:
+            raise AssertionError(f"{name}: modes {ir.redundancy_modes()}")
+        print(f"plan {name}: K={ir.K}, widths "
+              f"{sorted(set(int(d) for d in ir.partition.sum(1)))}, modes "
+              f"{want[name]} x {ir.K}")
+    return plans
+
+
+def erasures(rng, B: int, n: int, k: int) -> np.ndarray:
+    """(B, n) arrival patterns with 1 to n - k erased shares per row."""
+    arrived = np.ones((B, n), bool)
+    for b in range(B):
+        dead = rng.choice(n, int(rng.integers(1, n - k + 1)), replace=False)
+        arrived[b, dead] = False
+    return arrived
+
+
+def pinv_rows(R: int, K: int, B: int, rng, plans: dict) -> np.ndarray:
+    """(B, K, R) pseudo-inverse decode rows for random recoverable erasure
+    patterns, from the serving runtimes of the coded plans where one has
+    this (R, K), else from the codes' own decode matrix."""
+    if (R, K) == (6, 4):
+        return CodedRuntime(plans["coded-fused"]).decode_weights(
+            erasures(rng, B, R, K))
+    if (R, K) == (8, 5):
+        return CodedRuntime(plans["coded-legacy"]).decode_weights(
+            erasures(rng, B, R, K))
+    if (R, K) == (5, 3):
+        rt = ComputeRuntime(plans["compute-fused"])
+        e = rt.entries[0]
+        share_t = rng.exponential(1.0, (B, int(rt.entries[-1].ids[-1]) + 1))
+        share_t[:, e.ids] = np.where(erasures(rng, B, R, K),
+                                     share_t[:, e.ids], np.inf)
+        return rt.decode_weights(share_t)[0][0]
+    G = make_generator(R, K)
+    rows = [decode_matrix(G, a) for a in erasures(rng, B, R, K)]
+    return np.array(rows, np.float32).reshape(B, K, R)
+
+
+def cd_operands(B, R, K, F, mask_kind, dec_kind, int8, gen, dev, rng, plans):
+    """Decode operands: shares, decode rows of one kind, an arrival mask."""
+    if int8:
+        sh = torch.randint(-127, 128, (B, R, F), generator=gen, device=dev,
+                           dtype=torch.int8)
+        s = (0.5 + torch.rand((R,), generator=gen, device=dev)) / 127
+    else:
+        sh = torch.randn((B, R, F), generator=gen, device=dev)
+        s = None
+    if dec_kind == "identity":
+        dec = np.broadcast_to(np.eye(K, R, dtype=np.float32), (B, K, R))
+    elif dec_kind == "pinv":
+        dec = pinv_rows(R, K, B, rng, plans)
+    else:
+        dec = np.zeros((B, K, R), np.float32)
+    mask = {"ones": np.ones((B, R)), "zeros": np.zeros((B, R)),
+            "mixed": rng.random((B, R)) > 0.3}[mask_kind].astype(np.int32)
+    dec = torch.from_numpy(np.array(dec, np.float32, order="C")).to(dev)
+    return sh, dec, torch.from_numpy(mask).to(dev), s
+
+
+def cd_bound(B, R, K, F, mask, int8, scales) -> tuple:
+    """(bound_ms, bound_by) of one decode: the bytes it must move (the
+    arrived shares' payload, dec, mask, scales when given, the output) over
+    the HBM rate vs its flops over the fp32 rate."""
+    live = int(np.count_nonzero(mask))         # arrived (row, share) pairs
+    nbytes = (live * F * (1 if int8 else 4) + B * K * R * 4 + B * R * 4
+              + (R * 4 if scales else 0) + B * K * F * 4)
+    flops = 2 * K * live * F
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_decode_kernel(dev, plans: dict) -> dict:
+    """coded_decode vs its plain version over the sweep; timings at the
+    fused output-coded shape."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rng = np.random.default_rng(1)
+    worst, n_cases = 0.0, 0
+    for int8 in (False, True):
+        for R, K, F in ((6, 4, 64), (8, 5, 52), (5, 3, 43), (12, 8, 640)):
+            errs = []
+            for B in (0, 1, 7, 256, 1000):
+                e_b = 0.0
+                for mname in ("ones", "mixed", "zeros"):
+                    for dname in ("identity", "pinv", "zero"):
+                        sh, dec, m, s = cd_operands(B, R, K, F, mname, dname,
+                                                    int8, gen, dev, rng,
+                                                    plans)
+                        out = ops.coded_decode(sh, dec, m, s)
+                        ref = ops.coded_decode_ref(sh, dec, m, s)
+                        torch.cuda.synchronize()
+                        e_b = max(e_b, max_err(out, ref, **KERNEL_TOL))
+                        n_cases += 1
+                worst = max(worst, e_b)
+                errs.append(f"B{B}:{e_b:.1e}")
+            print(f"decode kernel {'int8' if int8 else 'fp32'} R={R} K={K} "
+                  f"F={F}: " + " ".join(errs))
+    print(f"decode kernel vs plain: {n_cases} cases within rtol/atol 1e-5, "
+          f"max abs err {worst:.3e}")
+
+    B, R, K, F = (DECODE_SHAPE[k] for k in ("B", "R", "K", "F"))
+    sh, dec, m, _ = cd_operands(B, R, K, F, "ones", "pinv", False, gen, dev,
+                                rng, plans)
+    w = dec * m[:, None, :]                     # dec · mask · s, s = 1
+    ms = cuda_ms(lambda: ops.coded_decode(sh, dec, m))
+    plain_ms = cuda_ms(lambda: ops.coded_decode_ref(sh, dec, m))
+    library_ms = cuda_ms(lambda: torch.einsum("bkr,brf->bkf", w, sh))
+    bound_ms, bound_by = cd_bound(B, R, K, F, m.cpu().numpy(), False, False)
+    print(f"decode timing at B={B} R={R} K={K} F={F} fp32, all shares "
+          f"arrived: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, einsum "
+          f"{library_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def phase_repair(name: str, srv, cpu) -> dict:
+    """Permanent loss of a systematic device on the coded-fused server
+    (and its CPU twin): the controller re-encodes the share onto a spare,
+    the server migrates, and the answers stay within RECOVER_TOL of the
+    pre-loss ones — served clean, and with another systematic device down
+    so the re-encoded plan decodes."""
+    x = torch.randn((64, 32, 32, 3), generator=torch.Generator().manual_seed(5))
+    for server in (srv, cpu):
+        server.failure = FailureModel(outages=False)
+    before = srv.serve_batch([x], rng=np.random.default_rng(0))[0].logits
+    ir = srv.ir
+    victim = ir.device_names[int(np.flatnonzero(ir.member[0])[0])]
+    out = srv.remove_device(victim)
+    cpu_out = cpu.remove_device(victim)
+    if out.kind != "reencode" or not out.reencoded_shares:
+        raise AssertionError(f"{name}: repair outcome {out.kind} "
+                             f"{out.reencoded_shares}, expected a re-encode")
+    if (cpu_out.kind, cpu_out.reencoded_shares, cpu_out.moved_devices) != \
+            (out.kind, out.reencoded_shares, out.moved_devices):
+        raise AssertionError(f"{name}: the CPU twin repaired differently")
+    worst = worst_cpu = 0.0
+    dead = srv.ir.device_names[int(np.flatnonzero(srv.ir.member[1])[0])]
+    launches = decodes = 0
+    for failure in (FailureModel(outages=False),
+                    FailureModel(forced_failures=[dead], outages=False)):
+        srv.failure = cpu.failure = failure
+        ops.quorum_aggregate.launches = 0       # the repaired path's window
+        ops.coded_decode.launches = 0
+        a = srv.serve_batch([x], rng=np.random.default_rng(1))[0]
+        torch.cuda.synchronize()
+        launches += ops.quorum_aggregate.launches
+        decodes += ops.coded_decode.launches
+        b = cpu.serve_batch([x], rng=np.random.default_rng(1))[0]
+        if not (a.arrived.all() and not a.degraded
+                and (a.arrived == b.arrived).all()):
+            raise AssertionError(f"{name}: degraded after the repair")
+        la = torch.from_numpy(a.logits)
+        worst = max(worst, max_err(la, torch.from_numpy(before),
+                                   **RECOVER_TOL))
+        worst_cpu = max(worst_cpu, max_err(la, torch.from_numpy(b.logits),
+                                           **SERVE_TOL))
+    if launches != 2 or decodes != 1:
+        raise AssertionError(f"{name}: {launches} merges and {decodes} "
+                             f"decodes for 2 serves, one of them decoded")
+    print(f"{name}: {victim} removed, share(s) {out.reencoded_shares} "
+          f"re-encoded onto {out.moved_devices}; clean and {dead}-down "
+          f"answers within {worst:.3e} of the pre-loss logits and "
+          f"{worst_cpu:.3e} of the CPU twin; launches {launches} merges, "
+          f"{decodes} decode")
+    return dict(launches=launches, decodes=decodes)
 
 
 def main() -> int:
@@ -424,6 +735,27 @@ def main() -> int:
                     seed=2, fp32_twin=server_from_ensemble(
                         uniform, seed=2, device=dev)),
     ]
+
+    plans = coded_plans()
+    decode_timing = phase_decode_kernel(dev, plans)
+    coded = {name: ensemble_for(ir, seed=3) for name, ir in plans.items()}
+    sysdev = plans["coded-fused"].device_names[
+        int(np.flatnonzero(plans["coded-fused"].member[0])[0])]
+    phase_profile(coded["coded-fused"], dev, label="coded-fused decode",
+                  failure=FailureModel(forced_failures=[sysdev],
+                                       outages=False))
+    coded_phases = [
+        phase_serve("coded-fused", coded["coded-fused"], dev, fused=True,
+                    seed=3, coded=True),
+        phase_serve("coded-legacy", coded["coded-legacy"], dev, fused=False,
+                    seed=4, coded=True),
+        phase_serve("compute-fused", coded["compute-fused"], dev, fused=True,
+                    seed=5, coded=True),
+    ]
+    coded_phases.append(phase_repair("repair", coded_phases[0]["server"],
+                                     coded_phases[0]["cpu"]))
+    phases += coded_phases
+
     kernel = dict(name="quorum_aggregate", route="cuda",
                   source=KERNEL_SOURCE, replaces=TPU_KERNEL,
                   launches=sum(p["launches"] for p in phases),
@@ -431,8 +763,16 @@ def main() -> int:
                   plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
                   bound_by=timing["bound_by"],
                   library_ms=timing["library_ms"])
+    decode = dict(name="coded_decode", route="cuda", source=DECODE_SOURCE,
+                  replaces=DECODE_TPU_KERNEL,
+                  launches=sum(p["decodes"] for p in coded_phases),
+                  max_abs_err=decode_timing["max_abs_err"],
+                  ms=decode_timing["ms"], plain_ms=decode_timing["plain_ms"],
+                  bound_ms=decode_timing["bound_ms"],
+                  bound_by=decode_timing["bound_by"],
+                  library_ms=decode_timing["library_ms"])
     print(smi)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel, decode]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

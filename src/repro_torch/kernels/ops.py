@@ -5,10 +5,13 @@ its plain PyTorch version on CPU tensors (the tests' path). There is no
 fallback from the card to the plain version: a kernel that cannot build or
 launch raises.
 
-Ported so far: :func:`quorum_aggregate` (``csrc/quorum_aggregate.cu``).
-The other Pallas kernels of :mod:`repro.kernels` are queued in ROADMAP.md.
+Ported so far: :func:`quorum_aggregate` (``csrc/quorum_aggregate.cu``) and
+:func:`coded_decode` (``csrc/coded_decode.cu``). The other Pallas kernels
+of :mod:`repro.kernels` are queued in ROADMAP.md.
 """
+from repro_torch.kernels.coded_decode import coded_decode, coded_decode_ref
 from repro_torch.kernels.quorum_aggregate import (quorum_aggregate,
                                                   quorum_aggregate_ref)
 
-__all__ = ["quorum_aggregate", "quorum_aggregate_ref"]
+__all__ = ["coded_decode", "coded_decode_ref", "quorum_aggregate",
+           "quorum_aggregate_ref"]

@@ -670,8 +670,11 @@ def build_demo_server(ir, *, feat: int = 32, hidden: int = 64,
     (``tanh(x @ W)``), per-partition head columns, and master FC rows indexed
     by filter id. It draws the SAME numpy weights from the same ``seed`` as
     the JAX package's ``build_demo_server``, so the two servers compute the
-    same function. Full-quorum logits are partition-independent (the merge
-    telescopes to ``tanh(x @ trunk) @ head @ wfc + bias``).
+    same function. Because every weight is addressed by the partition's
+    filter set, ANY partition layout has true weights — the reference
+    implementation of the :attr:`QuorumServer.redeploy_fn` contract — and
+    full-quorum logits are partition-independent (the merge telescopes to
+    ``tanh(x @ trunk) @ head @ wfc + bias``).
 
     The students share one head matmul over the shared trunk, so the server
     always carries the stacked fused export; ``fastpath=False`` pins the
@@ -707,6 +710,13 @@ def build_demo_server(ir, *, feat: int = 32, hidden: int = 64,
             return torch.tanh(x @ trunk) @ cols
         return fn
 
+    def slice_for(mask: np.ndarray) -> "torch.Tensor":
+        return on_dev(wfc[np.flatnonzero(mask)])
+
+    def redeploy(new_ir, slot: int):
+        mask = np.asarray(new_ir.partition[slot])
+        return fn_for(mask), slice_for(mask), params_for(mask)
+
     fused = FusedStudents(
         apply=lambda p, h: h @ p,
         params=[params_for(row) for row in ir.partition],
@@ -727,6 +737,8 @@ def build_demo_server(ir, *, feat: int = 32, hidden: int = 64,
         deadline=deadline,
         failure=failure or FailureModel(outages=False),
         rng=np.random.default_rng(seed),
+        part_dims=tuple(dims),
+        redeploy_fn=redeploy,
         fused=fused,
         fastpath=fastpath,
         quantize=quantize,

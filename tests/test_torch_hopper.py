@@ -121,3 +121,102 @@ def test_demo_server_on_the_card_matches_the_cpu(hopper, fastpath, quantize):
             assert (a.arrived == b.arrived).all() and a.latency == b.latency
             np.testing.assert_allclose(a.block_until_ready().logits,
                                        b.logits, **TOL)
+
+
+# -- coded_decode ------------------------------------------------------------------
+
+def _cd_operands(B, R, K, F, mask, int8, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    if int8:
+        sh = rng.integers(-127, 128, (B, R, F)).astype(np.int8)
+        s = (rng.uniform(0.5, 1.5, R) / 127).astype(np.float32)
+    else:
+        sh = rng.standard_normal((B, R, F)).astype(np.float32)
+        s = None
+    dec = rng.standard_normal((B, K, R)).astype(np.float32)
+    m = {"ones": np.ones((B, R)), "zeros": np.zeros((B, R)),
+         "mixed": rng.random((B, R)) > 0.3}[mask].astype(np.int32)
+    t = [torch.from_numpy(a).to(dev) for a in (sh, dec, m)]
+    return t + [None if s is None else torch.from_numpy(s).to(dev)]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("B,R,K,F", [(256, 6, 4, 64), (7, 8, 5, 52),
+                                     (1, 5, 3, 43), (1000, 12, 8, 640),
+                                     (3, 20, 18, 5)])
+@pytest.mark.parametrize("mask", ["ones", "mixed", "zeros"])
+def test_coded_decode_matches_plain_version(hopper, int8, B, R, K, F, mask):
+    args = _cd_operands(B, R, K, F, mask, int8, hopper, seed=B)
+    before = ops.coded_decode.launches
+    out = ops.coded_decode(*args)
+    torch.cuda.synchronize()
+    assert ops.coded_decode.launches == before + 1
+    ref = ops.coded_decode_ref(*args)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
+
+
+def test_coded_decode_empty_batch_launches_nothing(hopper):
+    before = ops.coded_decode.launches
+    out = ops.coded_decode(*_cd_operands(0, 6, 4, 64, "ones", False, hopper))
+    assert out.shape == (0, 4, 64)
+    assert ops.coded_decode.launches == before
+
+
+def test_coded_decode_rejects_what_the_kernel_does_not_take(hopper):
+    sh, dec, m, _ = _cd_operands(3, 6, 4, 8, "ones", False, hopper)
+    with pytest.raises(ValueError, match="scales"):
+        ops.coded_decode(sh.to(torch.int8), dec, m)
+    with pytest.raises(TypeError, match="int32"):
+        ops.coded_decode(sh, dec, m.to(torch.int64))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.coded_decode(sh.transpose(0, 1).contiguous().transpose(0, 1),
+                         dec, m)
+    with pytest.raises(ValueError, match="one device"):
+        ops.coded_decode(sh, dec.cpu(), m)
+    big = _cd_operands(1, 128, 128, 4, "ones", False, hopper)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.coded_decode(*big)
+
+
+def _coded_toy_ir():
+    """tests/test_coding.py's fixture: four pair-replicated slots and two
+    spares, coded (6,4) by the port's own planner pass."""
+    from repro_torch.coding.planner import select_redundancy
+    devs = [Device(f"d{i}", (1 + i % 3) * 1e7, 2e6, 500, 0.25)
+            for i in range(10)]
+    names, dcaps = device_matrix(devs)
+    snames, scaps = student_matrix([StudentArch("s", 5e6, 0.6e6, 64, 0.15e6)])
+    member = np.zeros((4, 10), bool)
+    part = np.zeros((4, 8), bool)
+    for k in range(4):
+        member[k, 2 * k:2 * k + 2] = True
+        part[k, 2 * k:2 * k + 2] = True
+    ir = PlanIR(names, dcaps, snames, scaps, member, part,
+                np.zeros(4, np.int64), np.arange(4, dtype=np.int64),
+                eq1a_latency(scaps, dcaps), np.zeros((8, 8)), 1.0, 0.5)
+    return select_redundancy(ir, code_k=4, parity=2)
+
+
+@pytest.mark.parametrize("fastpath", [None, False], ids=["fused", "legacy"])
+def test_coded_demo_server_on_the_card_matches_the_cpu(hopper, fastpath):
+    """A systematic device down: each serve_batch decodes once and merges
+    once on the card, and matches the same server on the CPU."""
+    ir = _coded_toy_ir()
+    build = dict(feat=8, hidden=16, n_classes=3, seed=0, fastpath=fastpath,
+                 failure=FailureModel(forced_failures=[
+                     ir.device_names[int(np.flatnonzero(ir.member[0])[0])]],
+                     outages=False))
+    gpu = build_demo_server(ir, device=hopper, **build)
+    cpu = build_demo_server(ir, device="cpu", **build)
+    rng = np.random.default_rng(1)
+    xs = [rng.normal(size=(r, 8)).astype(np.float32) for r in (3, 5)]
+    qa, cd = ops.quorum_aggregate.launches, ops.coded_decode.launches
+    rg = gpu.serve_batch(xs, rng=np.random.default_rng(0))
+    assert ops.quorum_aggregate.launches == qa + 1
+    assert ops.coded_decode.launches == cd + 1
+    rc = cpu.serve_batch(xs, rng=np.random.default_rng(0))
+    for a, b in zip(rg, rc):
+        assert a.arrived.all() and (a.arrived == b.arrived).all()
+        np.testing.assert_array_equal(a.share_times, b.share_times)
+        np.testing.assert_allclose(a.block_until_ready().logits, b.logits,
+                                   **TOL)

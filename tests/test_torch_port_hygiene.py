@@ -12,7 +12,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from repro.core import planner as JPL  # noqa: E402
 from repro.core import simulator as JSIM  # noqa: E402
@@ -34,8 +34,9 @@ def _load(path, name):
 common = _load("benchmarks/common.py", "_bench_common")
 COPIED = ["obs/stats.py", "core/grouping.py", "core/assignment.py",
           "core/ncut.py", "core/hwspec.py", "coding/codes.py",
-          "coding/spec.py", "coding/compute.py", "core/plan_ir.py",
-          "core/planner.py", "core/simulator.py", "runtime/clock.py"]
+          "coding/spec.py", "coding/compute.py", "coding/planner.py",
+          "core/plan_ir.py", "core/planner.py", "core/simulator.py",
+          "runtime/clock.py", "runtime/failures.py", "runtime/controller.py"]
 IMPORT = re.compile(r"^(\s*(?:from|import) )repro\.", re.M)
 
 
@@ -138,3 +139,26 @@ def test_port_sources_name_no_jax_or_repro_import():
                      re.M)
     offenders = [str(f) for f in files if bad.search(f.read_text())]
     assert not offenders, offenders
+
+
+@pytest.mark.parametrize("plan", ["coded(6,4)", "mixed", "adaptive"])
+def test_coded_runtime_equals_jax_exactly(plan):
+    """The port's CodedRuntime (copied but for ``enc_device``) gives the
+    JAX package's encode matrix and decode weights exactly, over every
+    share-arrival pattern of the plan's shares."""
+    from repro.coding.runtime import CodedRuntime as JRT
+    from repro_torch.coding.runtime import CodedRuntime as TRT
+    from test_torch_coded_serving import PLANS
+    jir, tir = PLANS[plan]()
+    jrt, trt = JRT(jir), TRT(tir)
+    np.testing.assert_array_equal(jrt.enc, trt.enc)
+    np.testing.assert_array_equal(jrt.coded_slots, trt.coded_slots)
+    R = jrt.n_shares
+    patterns = ((np.arange(2 ** R)[:, None] >> np.arange(R)) & 1).astype(bool)
+    jd, td = jrt.decode_weights(patterns), trt.decode_weights(patterns)
+    assert jd.dtype == td.dtype == np.float32
+    np.testing.assert_array_equal(jd, td)
+    enc = trt.enc_device(torch.device("cpu"))
+    assert enc.dtype == torch.float32 and enc is trt.enc_device(
+        torch.device("cpu"))
+    np.testing.assert_array_equal(enc.numpy(), jrt.enc)

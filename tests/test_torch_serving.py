@@ -65,7 +65,11 @@ def _plan_ir(dims, M=None, members=2):
 
 
 def _port_ir(ir):
-    """The same plan as the port's PlanIR (a field-for-field copy)."""
+    """The same replicate-only plan as the port's PlanIR (a field-for-field
+    copy). A coded plan is never copied — its spec objects belong to one
+    package; tests/test_torch_coded_serving.py builds each package's coded
+    plan with its own ``select_redundancy``."""
+    assert ir.coding is None and ir.compute_coding is None
     return tplan_ir.PlanIR(**{f.name: getattr(ir, f.name)
                               for f in dataclasses.fields(ir)})
 
@@ -275,20 +279,19 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(ensembles,
                               fc_bias=np.zeros(3, np.float32))
 
 
-def test_live_repair_and_coded_plans_are_refused():
-    from repro.coding.planner import select_redundancy
+def test_migrate_without_store_zeroes_refit_slot():
+    """A server with no weight store (``redeploy_fn=None``) cannot refit a
+    slot whose partition changed: its FC slice is zeroed, its portion
+    forward kept, and the answer reported degraded."""
     tsrv = tengine.build_demo_server(_port_ir(_plan_ir((4, 4))), feat=8,
                                      hidden=16, device="cpu")
-    for call in (lambda: tsrv.migrate(tsrv.ir),
-                 lambda: tsrv.deploy_slot(0, None, None),
-                 lambda: tsrv.remove_device("d0")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
-    ir = _plan_ir((4, 4), members=3)
-    for mode in ("output", "compute"):
-        coded = select_redundancy(ir, code_k=2, parity=1, mode=mode)
-        assert (coded.coding if mode == "output"
-                else coded.compute_coding) is not None
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tengine.build_demo_server(_port_ir(coded), feat=8, hidden=16,
-                                      device="cpu")
+    tsrv.redeploy_fn = None
+    fns = list(tsrv.portion_fns)
+    part = np.array(tsrv.ir.partition)
+    part[0] = ~part[0]
+    stats = tsrv.migrate(tsrv.ir.with_(partition=part))
+    assert stats["zeroed_slots"] == (0,) and stats["refit_slots"] == ()
+    assert tsrv.zeroed_slots == {0} and tsrv.portion_fns[0] is fns[0]
+    assert not tsrv.fc_weights[0].any()
+    r = tsrv.serve(_x(2, 1), rng=np.random.default_rng(0))
+    assert r.arrived.all() and r.degraded
