@@ -41,6 +41,24 @@ result line):
    server migrates; its answers stay within 5e-4 of the pre-loss ones and
    within SERVE_TOL of a CPU twin that went through the same cycle.
 
+The dense-LM serving path (``repro_torch.launch.serve``: prefill, then
+greedy decode over a KV cache) runs three more hand-written kernels,
+``rmsnorm``, ``flash_attention`` and ``decode_attention``
+(``src/repro_torch/kernels/csrc/*.cu``):
+
+10. each held to its plain version over a sweep of shapes in fp32 (rtol/atol
+    3e-5) and bf16 (3e-2), and timed at llama3.2-1b's serving shapes (batch
+    4, prompt 512, bf16) beside its plain version and one PyTorch call;
+11. card vs CPU: llama3.2-1b at full width cut to 2 layers, fp32, weights
+    drawn once on the CPU; prompt 64 x batch 4 and 8 decode steps through
+    the ``greedy_decode`` helper on both; logits within 1e-3, greedy tokens
+    equal, launches exactly 2L+1 / L / L per call;
+12. full-width llama3.2-1b (all 16 layers, bf16, random weights from a seed
+    on the card) served through ``generate(tiny=False)``: prompt 512 x batch
+    4, 32 tokens; launches exactly 1056 / 16 / 496; logits finite; a decode
+    step against a prefill of the same tokens; a profile of one prefill and
+    of 8 decode steps.
+
 The last two lines of standard output are the ``kernels`` JSON line and the
 ``ok`` JSON line. Exits non-zero without a CUDA device.
 """
@@ -71,18 +89,23 @@ from repro_torch.core.pipeline import Ensemble  # noqa: E402
 from repro_torch.core.plan_ir import (PlanIR, device_matrix,  # noqa: E402
                                       eq1a_latency, student_matrix)
 from repro_torch.core.simulator import FailureModel, make_fleet  # noqa: E402
+from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
-from repro_torch.models import cnn  # noqa: E402
+from repro_torch.launch.serve import generate, greedy_decode  # noqa: E402
+from repro_torch.models import api, cnn  # noqa: E402
 from repro_torch.runtime.engine import EngineConfig, ServingEngine  # noqa: E402
 from repro_torch.runtime.serving import server_from_ensemble  # noqa: E402
+from repro_torch.tree import tree_to  # noqa: E402
 
-KERNELS = ("quorum_aggregate", "coded_decode")
+KERNELS = ("quorum_aggregate", "coded_decode", "rmsnorm", "flash_attention",
+           "decode_attention")
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/quorum_aggregate.cu"
 TPU_KERNEL = "src/repro/kernels/quorum_aggregate.py:33"
 DECODE_SOURCE = "src/repro_torch/kernels/csrc/coded_decode.cu"
 DECODE_TPU_KERNEL = "src/repro/kernels/coded_decode.py:37"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 FP32_FLOPS = 67e12              # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12             # H100 SXM bf16 tensor cores, dense
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
 # GPU (cuDNN, TF32 off) vs CPU (oneDNN) fp32: the same 16 conv layers summed
 # in other orders, and cuDNN may pick Winograd or FFT algorithms. On the
@@ -102,6 +125,21 @@ DECODE_SHAPE = dict(B=256, R=6, K=4, F=64)
 N_REQUESTS = 64                 # per serving phase, Poisson at 200/s
 MAX_REQUEST_ROWS = 32           # request sizes uniform in 1..32 images
 PROFILE_ROWS, PROFILE_CALLS = 256, 5
+# the dense-LM serving path
+LM_ARCH = "llama3.2-1b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 512, 32
+LM_DECODE_LENGTH = 528          # the middle of the run's 513..543 fills
+LM_SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu"
+              for k in ("rmsnorm", "flash_attention", "decode_attention")}
+LM_TPU = {"rmsnorm": "src/repro/kernels/rmsnorm.py:13",
+          "flash_attention": "src/repro/kernels/flash_attention.py:28",
+          "decode_attention": "src/repro/kernels/decode_attention.py:21"}
+# the JAX package's own kernel tolerances (tests/test_kernels.py:11-13)
+LM_KERNEL_TOL = {torch.float32: dict(rtol=3e-5, atol=3e-5),
+                 torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+# a bf16 decode step vs a bf16 prefill of the same tokens: bf16 rounds at
+# other places on the two paths; relative to each row's largest |logit|
+LM_STEP_TOL = 5e-2
 
 
 # -- the planner benchmarks' fleet definition (benchmarks/common.py) -----------
@@ -261,6 +299,26 @@ def phase_kernel(dev) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
+def device_breakdown(prof, calls: int) -> tuple:
+    """(kernel launches seen, kernel name → ms per call, device-busy ms per
+    call) of a ``torch.profiler`` run over ``calls`` calls. Busy is the
+    union of the kernels' intervals on the device timeline: kernels on
+    several streams may overlap, so their sum can exceed it."""
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    per_name = {}
+    for e in events:
+        per_name[e.name] = per_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3 / calls
+    busy_us, end = 0.0, float("-inf")
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        start = max(e.time_range.start, end)
+        if e.time_range.end > start:
+            busy_us += e.time_range.end - start
+        end = max(end, e.time_range.end)
+    return len(events), per_name, busy_us / 1e3 / calls
+
+
 def phase_profile(ens: Ensemble, dev, label: str = "fused",
                   failure: FailureModel = None) -> None:
     """Where one fused batch's time goes: ``torch.profiler`` over a few
@@ -281,25 +339,11 @@ def phase_profile(ens: Ensemble, dev, label: str = "fused",
         for _ in range(calls):
             srv.serve_batch([x])[0].block_until_ready()
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
+    n_events, per_name, busy = device_breakdown(prof, calls)
+    if not n_events:
         print(f"profile: {label} batch of {rows}: wall {wall_ms:.3f} ms; "
               f"device time not measured (the profiler saw no kernels)")
         return
-    per_name = {}                    # kernel name → ms per batch
-    for e in events:
-        per_name[e.name] = per_name.get(e.name, 0.0) + \
-            e.time_range.elapsed_us() / 1e3 / calls
-    # busy = the union of the kernels' intervals on the device timeline
-    # (kernels on several streams may overlap, so their sum can exceed it)
-    busy_us, end = 0.0, float("-inf")
-    for e in sorted(events, key=lambda e: e.time_range.start):
-        start = max(e.time_range.start, end)
-        if e.time_range.end > start:
-            busy_us += e.time_range.end - start
-        end = max(end, e.time_range.end)
-    busy = busy_us / 1e3 / calls
     total = sum(per_name.values())
     merge = sum(t for k, t in per_name.items() if "quorum_aggregate" in k)
     decode = sum(t for k, t in per_name.items() if "coded_decode" in k)
@@ -307,7 +351,7 @@ def phase_profile(ens: Ensemble, dev, label: str = "fused",
                     sorted(per_name.items(), key=lambda kv: -kv[1])[:5])
     print(f"profile: {label} batch of {rows}: wall {wall_ms:.3f} ms, device "
           f"busy {busy:.3f} ms ({busy / wall_ms:.1%} of wall; kernel times "
-          f"sum to {total:.3f} ms over {len(events) // calls} launches), "
+          f"sum to {total:.3f} ms over {n_events // calls} launches), "
           f"merge kernel {merge:.4f} ms, decode kernel {decode:.4f} ms; "
           f"top: {top}")
 
@@ -709,6 +753,336 @@ def phase_repair(name: str, srv, cpu) -> dict:
     return dict(launches=launches, decodes=decodes)
 
 
+# -- dense-LM serving: rmsnorm, flash_attention, decode_attention -------------------
+
+def roofline(nbytes: float, flops: float, dtype) -> tuple:
+    """(bound_ms, bound_by): bytes over the HBM rate vs operations over the
+    peak rate for the inputs' type, whichever is larger."""
+    rate = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def rmsnorm_bound(rows, D, dtype) -> tuple:
+    """Read x and the scale once, write the output once; 4 flops per
+    element (square, sum, and two products)."""
+    e = torch.finfo(dtype).bits // 8
+    return roofline(2 * rows * D * e + D * e, 4 * rows * D, dtype)
+
+
+def attention_pairs(Sq: int, Skv: int, causal: bool) -> int:
+    """(query, key) pairs a call must score: ``j <= i`` when causal."""
+    if not causal:
+        return Sq * Skv
+    return sum(min(i + 1, Skv) for i in range(Sq))
+
+
+def flash_bound(B, KV, G, Sq, Skv, D, causal, dtype) -> tuple:
+    """q, k, v read once and o written once; 2·D flops for q·k and 2·D for
+    p·v per scored pair."""
+    e = torch.finfo(dtype).bits // 8
+    nbytes = (2 * B * KV * G * Sq * D + 2 * B * KV * Skv * D) * e
+    flops = 4 * D * B * KV * G * attention_pairs(Sq, Skv, causal)
+    return roofline(nbytes, flops, dtype)
+
+
+def decode_bound(B, KV, G, length, D, dtype) -> tuple:
+    """The K and V rows below ``length`` read once, q read and o written
+    once; 4·D flops per (query head, position)."""
+    e = torch.finfo(dtype).bits // 8
+    nbytes = (2 * B * KV * length * D + 2 * B * KV * G * D) * e
+    return roofline(nbytes, 4 * D * B * KV * G * length, dtype)
+
+
+def flash_operands(B, KV, G, S, D, dtype, strided, gen, dev):
+    """q as a view of a (B, S, KV, G, D) projection and k, v of (B, S, KV,
+    D) ones, as the model passes them (or contiguous copies)."""
+    qm = torch.randn((B, S, KV, G, D), generator=gen, device=dev).to(dtype)
+    km = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dtype)
+    vm = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dtype)
+    q, k, v = qm.permute(0, 2, 3, 1, 4), km.permute(0, 2, 1, 3), \
+        vm.permute(0, 2, 1, 3)
+    if strided:
+        return q, k, v
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def decode_operands(B, KV, G, S, D, dtype, gen, dev):
+    """q as a view of a (B, 1, H, D) projection, caches as views of
+    (B, S, KV, D) ones, as the model passes them."""
+    q = torch.randn((B, 1, KV * G, D), generator=gen, device=dev).to(dtype)
+    kc = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dtype)
+    vc = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dtype)
+    return q.view(B, KV, G, D), kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)
+
+
+def lm_check(out, ref, dtype) -> float:
+    return max_err(out.float(), ref.float(), **LM_KERNEL_TOL[dtype])
+
+
+def phase_lm_kernels(dev) -> dict:
+    """rmsnorm, flash_attention and decode_attention vs their plain
+    versions over sweeps of shapes in fp32 and bf16; each timed at the
+    serving shapes of llama3.2-1b (batch 4, prompt 512, bf16)."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dtypes = (torch.float32, torch.bfloat16)
+    worst = {k: 0.0 for k in LM_SOURCES}
+    cases = {k: 0 for k in LM_SOURCES}
+    for dtype in dtypes:
+        for D in (128, 2048, 3072, 6144):
+            errs = []
+            for rows in (0, 1, 7, 2048, 4097):
+                x = torch.randn((rows, D), generator=gen, device=dev).to(dtype)
+                sc = torch.randn((D,), generator=gen, device=dev).to(dtype)
+                out = ops.rmsnorm(x, sc)
+                torch.cuda.synchronize()
+                e = lm_check(out, ops.rmsnorm_ref(x, sc), dtype)
+                worst["rmsnorm"] = max(worst["rmsnorm"], e)
+                cases["rmsnorm"] += 1
+                errs.append(f"rows{rows}:{e:.1e}")
+            print(f"rmsnorm {str(dtype)[6:]} D={D}: " + " ".join(errs))
+    flash_shapes = ((1, 1, 1, 128, 64), (2, 2, 4, 256, 64), (1, 4, 2, 128, 128),
+                    (4, 8, 4, 512, 64), (1, 1, 4, 7, 64), (2, 8, 4, 509, 64))
+    for dtype in dtypes:
+        for B, KV, G, S, D in flash_shapes:
+            errs = []
+            for causal in (True, False):
+                for strided in (False, True):
+                    q, k, v = flash_operands(B, KV, G, S, D, dtype, strided,
+                                             gen, dev)
+                    out = ops.flash_attention(q, k, v, causal=causal)
+                    torch.cuda.synchronize()
+                    e = lm_check(out, ops.flash_attention_ref(
+                        q, k, v, causal=causal), dtype)
+                    worst["flash_attention"] = max(worst["flash_attention"], e)
+                    cases["flash_attention"] += 1
+                    errs.append(f"{'causal' if causal else 'full'}/"
+                                f"{'strided' if strided else 'contig'}:{e:.1e}")
+            print(f"flash {str(dtype)[6:]} (B,KV,G,S,D)=({B},{KV},{G},{S},{D})"
+                  f": " + " ".join(errs))
+    for dtype in dtypes:
+        for B, KV, G, D in ((4, 8, 4, 64), (1, 1, 48, 128), (2, 32, 1, 96)):
+            errs = []
+            for S in (1, 256, 544):
+                for length in sorted({1, (S + 1) // 2, S}):
+                    q, kc, vc = decode_operands(B, KV, G, S, D, dtype, gen, dev)
+                    ref = ops.decode_attention_ref(q, kc, vc, length)
+                    e = 0.0
+                    for n in (length, torch.tensor([length], dtype=torch.int32,
+                                                   device=dev)):
+                        out = ops.decode_attention(q, kc, vc, n)
+                        torch.cuda.synchronize()
+                        e = max(e, lm_check(out, ref, dtype))
+                        cases["decode_attention"] += 1
+                    worst["decode_attention"] = max(worst["decode_attention"], e)
+                    errs.append(f"S{S}/len{length}:{e:.1e}")
+            print(f"decode {str(dtype)[6:]} (B,KV,G,D)=({B},{KV},{G},{D}): "
+                  + " ".join(errs))
+    for k in LM_SOURCES:
+        print(f"{k} vs plain: {cases[k]} cases within rtol/atol 3e-5 (fp32) "
+              f"and 3e-2 (bf16), max abs err {worst[k]:.3e}")
+
+    # timings at the serving shapes, bf16, the operands as the model has them
+    cfg = get_config(LM_ARCH)
+    bf = torch.bfloat16
+    B, S, d = LM_BATCH, LM_PROMPT, cfg.d_model
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    G = cfg.n_heads // KV
+    F = torch.nn.functional
+    timing = {}
+    x = torch.randn((B, S, d), generator=gen, device=dev).to(bf)
+    sc = (1 + 0.1 * torch.randn((d,), generator=gen, device=dev)).to(bf)
+    timing["rmsnorm"] = dict(
+        ms=cuda_ms(lambda: ops.rmsnorm(x, sc)),
+        plain_ms=cuda_ms(lambda: ops.rmsnorm_ref(x, sc)),
+        library_ms=cuda_ms(lambda: F.rms_norm(x, (d,), sc, 1e-6)),
+        shape=f"x ({B}, {S}, {d}) bf16",
+        bound=rmsnorm_bound(B * S, d, bf))
+    q, k, v = flash_operands(B, KV, G, S, hd, bf, True, gen, dev)
+    qh = q.reshape(B, KV * G, S, hd)               # (B, H, S, D), h = kv·G + g
+    kh, vh = k.contiguous(), v.contiguous()
+    timing["flash_attention"] = dict(
+        ms=cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
+        plain_ms=cuda_ms(lambda: ops.flash_attention_ref(q, k, v, causal=True),
+                         iters=20, warm=3),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, enable_gqa=True)),
+        shape=f"(B,KV,G,S,D)=({B},{KV},{G},{S},{hd}) bf16 causal, strided views",
+        bound=flash_bound(B, KV, G, S, S, hd, True, bf))
+    Smax, n = LM_PROMPT + LM_GEN, LM_DECODE_LENGTH
+    q, kc, vc = decode_operands(B, KV, G, Smax, hd, bf, gen, dev)
+    qd = q.reshape(B, KV * G, 1, hd)
+    kd, vd = kc[:, :, :n].contiguous(), vc[:, :, :n].contiguous()
+    timing["decode_attention"] = dict(
+        ms=cuda_ms(lambda: ops.decode_attention(q, kc, vc, n)),
+        plain_ms=cuda_ms(lambda: ops.decode_attention_ref(q, kc, vc, n)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, enable_gqa=True)),
+        shape=f"(B,KV,G,D)=({B},{KV},{G},{hd}) bf16, cache {Smax}, length {n}",
+        bound=decode_bound(B, KV, G, n, hd, bf))
+    for name, t in timing.items():
+        t["bound_ms"], t["bound_by"] = t.pop("bound")
+        t["max_abs_err"] = worst[name]
+        print(f"{name} timing at {t.pop('shape')}: kernel {t['ms']:.5f} ms, "
+              f"plain {t['plain_ms']:.5f} ms, library {t['library_ms']:.5f} "
+              f"ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
+    return timing
+
+
+def lm_launches() -> tuple:
+    return (ops.rmsnorm.launches, ops.flash_attention.launches,
+            ops.decode_attention.launches)
+
+
+def zero_lm_launches() -> None:
+    ops.rmsnorm.launches = 0
+    ops.flash_attention.launches = 0
+    ops.decode_attention.launches = 0
+
+
+def phase_lm_card_vs_cpu(dev) -> None:
+    """llama3.2-1b at full width cut to 2 layers, fp32: the same weights
+    (drawn once on the CPU) and prompt through ``greedy_decode`` on the
+    CPU and on the card; logits within SERVE_TOL, tokens equal, and the
+    card's kernel launches exactly 2L+1 / L / L per call."""
+    cfg = get_config(LM_ARCH).with_(n_layers=2, param_dtype=torch.float32,
+                                    compute_dtype=torch.float32)
+    L, P, steps = cfg.n_layers, 64, 8
+    params = api.init(torch.Generator().manual_seed(3), cfg)
+    toks = torch.randint(0, cfg.vocab, (LM_BATCH, P),
+                         generator=torch.Generator().manual_seed(4))
+    t0 = time.perf_counter()
+    cpu = greedy_decode(params, cfg, toks, steps + 1, keep_logits=True)
+    cpu_s = time.perf_counter() - t0
+    gparams = tree_to(params, dev)
+    zero_lm_launches()
+    card = greedy_decode(gparams, cfg, toks.to(dev), steps + 1,
+                         keep_logits=True)
+    launches = lm_launches()
+    want = ((2 * L + 1) * (steps + 1), L, L * steps)
+    if launches != want:
+        raise AssertionError(f"card-vs-cpu: launches (rmsnorm, flash, decode)"
+                             f" {launches}, expected {want}")
+    if not np.array_equal(card.tokens, cpu.tokens):
+        raise AssertionError(f"card-vs-cpu: greedy tokens differ:\n"
+                             f"{card.tokens}\n{cpu.tokens}")
+    worst = max(max_err(a.cpu(), b, **SERVE_TOL)
+                for a, b in zip(card.logits, cpu.logits))
+    scale = max(float(b.abs().max()) for b in cpu.logits)
+    print(f"card-vs-cpu: {LM_ARCH} full width, {L} layers, fp32, prompt {P} x "
+          f"batch {LM_BATCH}, {steps} decode steps: tokens equal, logits max "
+          f"abs err {worst:.3e} (largest |logit| {scale:.2f}), launches "
+          f"{launches} = (2L+1, L, L) per call; CPU run {cpu_s:.1f} s")
+
+
+def lm_profile(label: str, fn, calls: int) -> dict:
+    """Wall and device-busy ms per call over ``calls`` calls of ``fn``
+    under ``torch.profiler``, the five longest kernels and the LM
+    kernels' shares of the busy time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    n_events, per_name, busy = device_breakdown(prof, calls)
+    if not n_events:
+        print(f"profile: {label}: wall {wall:.3f} ms; device time not "
+              f"measured (the profiler saw no kernels)")
+        return dict(wall_ms=wall)
+    share = {k: sum(t for n, t in per_name.items() if pat in n
+                    and "coded_decode" not in n)
+             for k, pat in (("rmsnorm", "rmsnorm_kernel"),
+                            ("flash_attention", "flash_kernel"),
+                            ("decode_attention", "decode_kernel"))}
+    top = "; ".join(f"{k[:70]} {t:.4f} ms" for k, t in
+                    sorted(per_name.items(), key=lambda kv: -kv[1])[:5])
+    print(f"profile: {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+          f"({busy / wall:.1%} of wall) over {n_events // calls} launches; "
+          + ", ".join(f"{k} {t:.4f} ms ({t / busy:.1%})"
+                      for k, t in share.items()) + f"; top: {top}")
+    return dict(wall_ms=wall, busy_ms=busy, **share)
+
+
+def phase_lm_serve(dev) -> dict:
+    """The slice's main path: full-width llama3.2-1b served through
+    ``generate`` on the card, with exact launch counts; then, on the same
+    weights and prompt, a warm second run, a decode step
+    against a prefill of the same tokens, and a profile of one prefill and
+    of 8 decode steps."""
+    cfg = get_config(LM_ARCH)
+    L, B, P, n = cfg.n_layers, LM_BATCH, LM_PROMPT, LM_GEN
+    zero_lm_launches()                          # the main path's window
+    res = generate(LM_ARCH, tiny=False, prompt_len=P, gen=n, batch=B, seed=0,
+                   device=dev, keep_logits=True)
+    launches = lm_launches()
+    want = ((2 * L + 1) * n, L, L * (n - 1))
+    if launches != want:
+        raise AssertionError(f"serve: launches (rmsnorm, flash, decode) "
+                             f"{launches}, expected {want}")
+    if res.tokens.shape != (B, n) or not all(
+            bool(torch.isfinite(x).all()) and x.shape == (B, cfg.vocab)
+            for x in res.logits):
+        raise AssertionError("serve: tokens or logits malformed")
+    print(f"serve: {LM_ARCH} full width ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}), {str(cfg.compute_dtype)[6:]}, "
+          f"prompt {P} x batch {B}, "
+          f"{n} tokens: prefill {res.prefill_ms:.3f} ms, decode "
+          f"{res.decode_ms_per_token:.3f} ms/token; launches {launches} "
+          f"(rmsnorm, flash, decode); all logits finite")
+    tokens = res.tokens
+    del res
+
+    g = torch.Generator(device=dev).manual_seed(0)    # generate's weights
+    params = api.init(g, cfg)
+    print(f"serve: {api.param_count(params):,} parameters, peak device "
+          f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    toks = torch.randint(0, cfg.vocab, (B, P), generator=g, device=dev)
+    warm = greedy_decode(params, cfg, toks, n)
+    print(f"serve (warm, same weights and prompt): prefill "
+          f"{warm.prefill_ms:.3f} ms, decode {warm.decode_ms_per_token:.3f} "
+          f"ms/token; tokens equal to the first run's: "
+          f"{np.array_equal(warm.tokens, tokens)}")
+    cache = api.init_cache(cfg, B, P + 1, device=dev)
+    logits, pcache = api.prefill(params, cfg, {"tokens": toks})
+    for name, c in cache.items():
+        c[:, :, :P] = pcache[name]
+    nxt = logits[:, -1:].argmax(-1)
+    step, _ = api.decode_step(params, cfg, {"tokens": nxt}, cache, P)
+    full, _ = api.prefill(params, cfg, {"tokens": torch.cat([toks, nxt], 1)})
+    a, b = step[:, -1].float(), full[:, -1].float()
+    rel = float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max())
+    if not rel <= LM_STEP_TOL:
+        raise AssertionError(f"serve: decode step vs prefill differ by "
+                             f"{rel:.3e} of the row's largest |logit|")
+    print(f"serve: decode step at {P} vs prefill of the same {P + 1} tokens: "
+          f"max |diff| {rel:.3e} of the row's largest |logit| (bound "
+          f"{LM_STEP_TOL})")
+
+    prefill = lm_profile(
+        f"prefill of {P} x batch {B}",
+        lambda: api.prefill(params, cfg, {"tokens": toks}), 1)
+    steps = 8
+    cache = api.init_cache(cfg, B, P + steps, device=dev)
+    for name, c in cache.items():
+        c[:, :, :P] = pcache[name]
+    state = {"t": 0, "cur": nxt}
+
+    def decode_step():
+        lg, _ = api.decode_step(params, cfg, {"tokens": state["cur"]}, cache,
+                                P + state["t"])
+        state["cur"] = lg[:, -1:].argmax(-1)
+        state["t"] += 1
+    decode = lm_profile(f"decode step (batch {B}, fill {P}+)", decode_step,
+                        steps)
+    return dict(launches=dict(zip(LM_SOURCES, launches)), prefill=prefill,
+                decode=decode)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -771,8 +1145,18 @@ def main() -> int:
                   bound_ms=decode_timing["bound_ms"],
                   bound_by=decode_timing["bound_by"],
                   library_ms=decode_timing["library_ms"])
+
+    lm_timing = phase_lm_kernels(dev)
+    phase_lm_card_vs_cpu(dev)
+    lm = phase_lm_serve(dev)
+    lm_kernels = [dict(name=name, route="cuda", source=LM_SOURCES[name],
+                       replaces=LM_TPU[name], launches=lm["launches"][name],
+                       **{k: lm_timing[name][k] for k in (
+                           "max_abs_err", "ms", "plain_ms", "bound_ms",
+                           "bound_by", "library_ms")})
+                  for name in LM_SOURCES]
     print(smi)
-    print(json.dumps({"kernels": [kernel, decode]}))
+    print(json.dumps({"kernels": [kernel, decode] + lm_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,8 +6,10 @@ the port's dict of CPU tensors: 4-D conv kernels go from HWIO to OIHW,
 an absent ``expand`` conv (``None`` in the JAX tree) is left out, and
 everything else — dense kernels, BN ``scale``/``bias``/``mean``/``var`` —
 carries across as it is. ``fc_from_jax`` converts the FC head (or the
-per-slot FC slices) without any permutation. With converted weights both
-packages compute the same function.
+per-slot FC slices) without any permutation. ``lm_params_from_jax``
+converts an LM parameter tree (layer params stacked on axis 0) leaf by
+leaf, with no permutation, and carries bf16 across bit for bit. With
+converted weights both packages compute the same function.
 """
 from __future__ import annotations
 
@@ -43,3 +45,21 @@ def fc_from_jax(tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: fc_from_jax(v) for k, v in tree.items()}
     return _tensor(tree)
+
+
+def _lm_tensor(a) -> torch.Tensor:
+    """One leaf: bf16 arrays (``ml_dtypes.bfloat16``, which
+    ``torch.from_numpy`` refuses) go through their uint16 bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a.view(np.uint16), copy=True)
+                                ).view(torch.bfloat16)
+    return _tensor(a)
+
+
+def lm_params_from_jax(tree: Any) -> Any:
+    """A JAX LM parameter tree (numpy leaves) → the port's tree: the same
+    keys and shapes, every leaf as it is (no HWIO→OIHW rule)."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_jax(v) for k, v in tree.items()}
+    return _lm_tensor(tree)

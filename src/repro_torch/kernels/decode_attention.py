@@ -1,0 +1,133 @@
+"""One-token GQA decode attention against a KV cache.
+
+    q (B, KV, G, D), k/v caches (B, KV, S, D), length → o (B, KV, G, D)
+
+``o = softmax_j(q·k_j / sqrt(D)) · v`` over the first ``length`` cache
+positions, fp32 inside, in q's dtype.
+
+:func:`decode_attention` launches the hand-written CUDA kernel
+``csrc/decode_attention.cu`` on CUDA tensors and takes the plain version
+:func:`decode_attention_ref` only for tensors that lie on the CPU. A failed
+build or launch raises; nothing falls back. ``decode_attention.launches``
+counts kernel launches (plain-version calls do not count).
+
+``length`` is a Python int or a one-element int32 tensor on q's device,
+which the kernel reads on the card (no host sync). q and the caches may be
+strided views with a unit stride on the last axis, so the model passes
+views of its (B, S, KV, D) cache. Positions at or past ``length`` are never
+read.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Union
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+HEAD_DIMS = (32, 64, 96, 128)        # the kernel's instantiated D
+_DTYPES = (torch.float32, torch.bfloat16)
+
+Length = Union[int, torch.Tensor]
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, length: Length
+                         ) -> torch.Tensor:
+    """Plain version: q (B, KV, G, D); caches (B, KV, S, D); length an int
+    or a one-element tensor."""
+    S, D = k_cache.shape[2], q.shape[-1]
+    scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("bhgd,bhsd->bhgs", q.float(), k_cache.float()) * scale
+    if isinstance(length, torch.Tensor):
+        length = length.reshape(())
+    mask = torch.arange(S, device=q.device) < length
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgs,bhsd->bhgd", p, v_cache.float()).to(q.dtype)
+
+
+def _check(q, k_cache, v_cache, length) -> None:
+    if q.dim() != 4 or k_cache.dim() != 4 or v_cache.dim() != 4:
+        raise ValueError(f"q (B, KV, G, D) and caches (B, KV, S, D) "
+                         f"expected, got {tuple(q.shape)}, "
+                         f"{tuple(k_cache.shape)} and {tuple(v_cache.shape)}")
+    B, KV, _, D = q.shape
+    if (k_cache.shape != v_cache.shape or k_cache.shape[0] != B
+            or k_cache.shape[1] != KV or k_cache.shape[3] != D):
+        raise ValueError(f"caches {tuple(k_cache.shape)} and "
+                         f"{tuple(v_cache.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if (q.dtype not in _DTYPES or k_cache.dtype != q.dtype
+            or v_cache.dtype != q.dtype):
+        raise TypeError(f"q and the caches must share one dtype, float32 or "
+                        f"bfloat16; got {q.dtype}, {k_cache.dtype}, "
+                        f"{v_cache.dtype}")
+    if isinstance(length, torch.Tensor) and length.numel() != 1:
+        raise ValueError(f"length must be an int or a one-element tensor, "
+                         f"got shape {tuple(length.shape)}")
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, length: Length) -> torch.Tensor:
+    """q: (B, KV, G, D); caches: (B, KV, S, D), one dtype (f32/bf16);
+    length: the number of valid cache positions. Returns (B, KV, G, D) in
+    q's dtype."""
+    _check(q, k_cache, v_cache, length)
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k_cache, v_cache, length)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention runs on cuda or cpu tensors, not "
+                         f"{q.device}")
+    if k_cache.device != q.device or v_cache.device != q.device:
+        raise ValueError("all operands must be on one device")
+    if isinstance(length, torch.Tensor):
+        if length.device != q.device or length.dtype != torch.int32:
+            raise TypeError("a tensor length must be int32 on q's device")
+        length_ptr, length_val = length.data_ptr(), 0
+    else:
+        length_ptr, length_val = None, int(length)
+    if any(t.stride(-1) != 1 for t in (q, k_cache, v_cache)):
+        raise ValueError("decode_attention needs a unit stride on the last "
+                         "axis of q and the caches")
+    B, KV, G, D = q.shape
+    S = k_cache.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} is not one of {HEAD_DIMS}")
+    out = torch.empty((B, KV, G, D), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out                                  # no query rows
+    lib = _library()
+    with torch.cuda.device(q.device):
+        rc = lib.decode_attention(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            out.data_ptr(), *q.stride()[:3], *k_cache.stride()[:3],
+            *v_cache.stride()[:3], B, KV, G, S, D, length_ptr, length_val,
+            1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        msg = lib.decode_attention_error_string(rc).decode()
+        raise RuntimeError(f"decode_attention launch failed: {msg} ({rc})")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared."""
+    lib = build.load("decode_attention")
+    lib.decode_attention.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 5
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+           ctypes.c_void_p])
+    lib.decode_attention.restype = ctypes.c_int
+    lib.decode_attention_error_string.argtypes = [ctypes.c_int]
+    lib.decode_attention_error_string.restype = ctypes.c_char_p
+    return lib

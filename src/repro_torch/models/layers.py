@@ -1,4 +1,5 @@
-"""Eval-mode layers of the CNN zoo: dense, 2-D convolution, batch norm.
+"""Layers of the CNN zoo (dense, 2-D convolution, batch norm, eval mode)
+and of the LM stack (embedding, RMSNorm, LayerNorm, RoPE, SwiGLU, GELU).
 
 Activations are NHWC at every public function, as in the JAX package, so
 the two compare like with like. Convolution kernels are stored OIHW, the
@@ -6,7 +7,9 @@ layout ``F.conv2d`` takes (``convert.params_from_jax`` permutes the JAX
 package's HWIO kernels). Inside :func:`conv2d_apply` the NHWC tensor is
 handed to ``F.conv2d`` as a channels-last NCHW view, so no activation is
 copied to change layout. Initialisers draw from an explicit
-``torch.Generator`` on the CPU; the caller moves the tree to its device.
+``torch.Generator``: on the CPU unless given a ``device`` (the generator
+must live there too), so full-width LM weights are drawn on the card.
+RMSNorm goes through the hand-written kernel (:func:`ops.rmsnorm`).
 """
 from __future__ import annotations
 
@@ -16,14 +19,18 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
+
 Params = Dict[str, Any]
 
 
-def _trunc_normal(gen: torch.Generator, shape, std: float) -> torch.Tensor:
-    """``std`` times a standard normal truncated to [-2, 2]."""
-    t = torch.empty(shape, dtype=torch.float32)
+def _trunc_normal(gen: torch.Generator, shape, std: float, *,
+                  device=None, dtype=torch.float32) -> torch.Tensor:
+    """``std`` times a standard normal truncated to [-2, 2], drawn in fp32
+    on ``device`` (the CPU by default) and cast to ``dtype``."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return t * std
+    return t.mul_(std).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -31,12 +38,14 @@ def _trunc_normal(gen: torch.Generator, shape, std: float) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
-               use_bias: bool = False, std: Optional[float] = None) -> Params:
+               use_bias: bool = False, std: Optional[float] = None,
+               device=None, dtype=torch.float32) -> Params:
     """A dense layer: (in, out) kernel, std 1/sqrt(in) unless given."""
     std = std if std is not None else 1.0 / math.sqrt(in_dim)
-    p = {"kernel": _trunc_normal(gen, (in_dim, out_dim), std)}
+    p = {"kernel": _trunc_normal(gen, (in_dim, out_dim), std, device=device,
+                                 dtype=dtype)}
     if use_bias:
-        p["bias"] = torch.zeros(out_dim)
+        p["bias"] = torch.zeros(out_dim, device=device, dtype=dtype)
     return p
 
 
@@ -46,6 +55,93 @@ def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     if "bias" in p:
         y = y + p["bias"]
     return y
+
+
+def embed_init(gen: torch.Generator, vocab: int, dim: int, *, device=None,
+               dtype=torch.float32) -> Params:
+    """A (vocab, dim) embedding table, std 0.02."""
+    return {"embedding": _trunc_normal(gen, (vocab, dim), 0.02, device=device,
+                                       dtype=dtype)}
+
+
+def embed_apply(p: Params, ids: torch.Tensor) -> torch.Tensor:
+    """Rows of the table for integer ``ids`` (any shape)."""
+    return p["embedding"][ids]
+
+
+def embed_attend(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Tied-weight logits: (..., d) @ (vocab, d)^T."""
+    return x @ p["embedding"].t()
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_init(dim: int, *, device=None, dtype=torch.float32) -> Params:
+    """Unit RMSNorm scale."""
+    return {"scale": torch.ones(dim, device=device, dtype=dtype)}
+
+
+def rmsnorm_apply(p: Params, x: torch.Tensor, *, eps: float = 1e-6
+                  ) -> torch.Tensor:
+    """``x · rsqrt(mean(x²) + eps) · scale`` over the last axis, fp32
+    inside, in ``x``'s dtype: the hand-written kernel on the card."""
+    return ops.rmsnorm(x, p["scale"], eps=eps)
+
+
+def layernorm_init(dim: int, *, device=None, dtype=torch.float32) -> Params:
+    """Unit scale, zero bias."""
+    return {"scale": torch.ones(dim, device=device, dtype=dtype),
+            "bias": torch.zeros(dim, device=device, dtype=dtype)}
+
+
+def layernorm_apply(p: Params, x: torch.Tensor, *, eps: float = 1e-5
+                    ) -> torch.Tensor:
+    """LayerNorm over the last axis, fp32 inside (plain: no kernel)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings (RoPE)
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, *, theta: float = 10000.0,
+                     device=None) -> torch.Tensor:
+    """(head_dim//2,) fp32 inverse frequencies."""
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim
+    return 1.0 / (theta ** exponents)
+
+
+def rope_table(positions: torch.Tensor, head_dim: int, *,
+               theta: float = 10000.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin), each (..., seq, 1, head_dim//2) fp32, for ``positions``
+    (..., seq). A forward computes it once and every layer reuses it; the
+    values are those :func:`apply_rope` computes."""
+    freqs = rope_frequencies(head_dim, theta=theta, device=positions.device)
+    angles = positions[..., :, None].float() * freqs
+    return torch.cos(angles)[..., :, None, :], torch.sin(angles)[..., :, None, :]
+
+
+def rotate(x: torch.Tensor, table: Tuple[torch.Tensor, torch.Tensor]
+           ) -> torch.Tensor:
+    """Rotate the halves of ``x`` (..., seq, heads, head_dim) by a
+    :func:`rope_table`, in fp32, back to ``x``'s dtype."""
+    cos, sin = table
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: broadcastable to (..., seq)."""
+    return rotate(x, rope_table(positions, x.shape[-1], theta=theta))
 
 
 # ---------------------------------------------------------------------------
@@ -98,3 +194,17 @@ def batchnorm_apply(p: Params, x: torch.Tensor, *, eps: float = 1e-5
     """Normalise the last axis with the running statistics."""
     y = (x - p["mean"]) * torch.rsqrt(p["var"] + eps)
     return y * p["scale"] + p["bias"]
+
+
+# ---------------------------------------------------------------------------
+# activations
+# ---------------------------------------------------------------------------
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """``silu(gate) · up``."""
+    return F.silu(gate) * up
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU, tanh approximation (``jax.nn.gelu(approximate=True)``)."""
+    return F.gelu(x, approximate="tanh")

@@ -1,0 +1,345 @@
+"""Decoder-only LM, dense family: GQA attention with RoPE, SwiGLU (or GELU)
+FFN, RMSNorm (or LayerNorm), layers stacked on a leading axis.
+
+The JAX package's ``models/transformer.py`` for ``family="dense"``, with
+the same parameter tree (layer params stacked on axis 0), the same cache
+layout ``(L, B, Smax, KV, hd)`` and the same head order: query head
+``h = kv·G + g`` reads kv head ``kv``. Prefill attention goes through the
+hand-written ``flash_attention`` kernel (the reference's ``full`` and
+``blocked`` paths are both exact causal attention, so one kernel serves
+both), decode attention through ``decode_attention``, and every RMSNorm
+through ``rmsnorm``.
+
+Differences from the reference:
+
+- a forward builds the RoPE (cos, sin) table once from its positions and
+  every layer reuses it (the values are those of ``apply_rope``), so the
+  attention functions take ``rope`` where the reference takes positions;
+- a decode step writes the new K/V row into the cache in place and returns
+  the same cache dict — the reference's ``generate`` donates the cache to
+  its decode step, so its counterpart here is an in-place update;
+- one card needs no sharding constraints, so ``constrain`` is dropped, and
+  there is no ``train`` flag (it only selects a remat policy there);
+- MoE layers, M-RoPE and precomputed-embedding inputs raise
+  ``NotImplementedError`` (ROADMAP Queue 1 item 9).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.tree import stack_trees, tree_map
+
+Params = Dict[str, Any]
+Index = Union[int, torch.Tensor]
+Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
+
+NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 9)"
+
+
+# ---------------------------------------------------------------------------
+# norms (family-selected)
+# ---------------------------------------------------------------------------
+
+def norm_init(cfg: ModelConfig, dim: int, *, device=None) -> Params:
+    """RMSNorm or LayerNorm params, as ``cfg.norm`` says."""
+    if cfg.norm == "layernorm":
+        return L.layernorm_init(dim, device=device, dtype=cfg.param_dtype)
+    return L.rmsnorm_init(dim, device=device, dtype=cfg.param_dtype)
+
+
+def norm_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The family's norm over the last axis."""
+    if cfg.norm == "layernorm":
+        return L.layernorm_apply(p, x)
+    return L.rmsnorm_apply(p, x)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def attn_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """Head-structured params: wq (d,Hp,hd), wk/wv (d,KV,hd), wo (Hp,hd,d).
+    Hp = heads padded up; padded wo slices are zeroed (inert)."""
+    hd, Hp, KV = cfg.head_dim, cfg.heads_padded, cfg.n_kv_heads
+    d = cfg.d_model
+    kw = dict(device=gen.device, dtype=cfg.param_dtype)
+    std = 1.0 / (d ** 0.5)
+    wo = L._trunc_normal(gen, (Hp, hd, d), 1.0 / ((cfg.n_heads * hd) ** 0.5),
+                         **kw)
+    wo[cfg.n_heads:] = 0
+    return {"wq": L._trunc_normal(gen, (d, Hp, hd), std, **kw),
+            "wk": L._trunc_normal(gen, (d, KV, hd), std, **kw),
+            "wv": L._trunc_normal(gen, (d, KV, hd), std, **kw),
+            "wo": wo}
+
+
+def _project_qkv(p: Params, x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(..., d) → q (..., Hp, hd), k and v (..., KV, hd)."""
+    def proj(w):
+        return (x @ w.flatten(1)).unflatten(-1, w.shape[1:])
+    return proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+
+
+def _out_proj(p: Params, out: torch.Tensor) -> torch.Tensor:
+    """(..., Hp, hd) → (..., d)."""
+    return out.flatten(-2) @ p["wo"].flatten(0, 1)
+
+
+def rope_table(cfg: ModelConfig, positions) -> Rope:
+    """The (cos, sin) table of ``positions`` (B, S) for ``pos="rope"``;
+    None where the config rotates nothing."""
+    if cfg.pos == "rope":
+        return L.rope_table(positions, cfg.head_dim, theta=cfg.rope_theta)
+    if cfg.pos == "mrope":
+        raise NotImplementedError(f"M-RoPE {NOT_PORTED}")
+    return None
+
+
+def _apply_positions(q, k, rope: Rope):
+    """Rotate q and k by the forward's RoPE table (no-op without one)."""
+    if rope is not None:
+        q, k = L.rotate(q, rope), L.rotate(k, rope)
+    return q, k
+
+
+def _grouped(q: torch.Tensor, KV: int) -> torch.Tensor:
+    """(B, S, H, hd) → the (B, KV, G, S, hd) view the kernels take."""
+    B, S, H, hd = q.shape
+    return q.view(B, S, KV, H // KV, hd).permute(0, 2, 3, 1, 4)
+
+
+def attention_apply(p: Params, x: torch.Tensor, rope: Rope, *,
+                    return_kv: bool = False):
+    """Full-sequence (prefill) causal self-attention through
+    ``flash_attention``. x: (B, S, d). With ``return_kv`` also returns k, v
+    (B, S, KV, hd)."""
+    q, k, v = _project_qkv(p, x)
+    q, k = _apply_positions(q, k, rope)
+    B, S, H, hd = q.shape
+    o = ops.flash_attention(_grouped(q, k.shape[2]), k.permute(0, 2, 1, 3),
+                            v.permute(0, 2, 1, 3), causal=True)
+    out = _out_proj(p, o.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd))
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def _write_row(cache: torch.Tensor, row: torch.Tensor, index: Index) -> None:
+    """cache (B, Smax, KV, hd)[:, index] = row (B, 1, KV, hd), in place."""
+    row = row.to(cache.dtype)
+    if isinstance(index, torch.Tensor):
+        cache.index_copy_(1, index.reshape(1).long(), row)
+    else:
+        cache[:, index] = row[:, 0]
+
+
+def attention_decode(p: Params, x: torch.Tensor, rope: Rope,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     index: Index
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode. x: (B, 1, d); caches (B, Smax, KV, hd); index: the
+    new token's position (an int, or an int32 tensor on the card). The new
+    K/V row is written into the caches in place (the reference donates
+    them); attention runs over positions ``<= index`` through
+    ``decode_attention``. Returns (out, k_cache, v_cache)."""
+    q, k, v = _project_qkv(p, x)
+    q, k = _apply_positions(q, k, rope)
+    _write_row(k_cache, k, index)
+    _write_row(v_cache, v, index)
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    length = index + 1
+    if isinstance(length, torch.Tensor):
+        length = length.reshape(1).to(torch.int32)
+    o = ops.decode_attention(q.view(B, KV, H // KV, hd),
+                             k_cache.permute(0, 2, 1, 3),
+                             v_cache.permute(0, 2, 1, 3), length)
+    return _out_proj(p, o.reshape(B, 1, H, hd)), k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# FFN: dense SwiGLU / GELU
+# ---------------------------------------------------------------------------
+
+def ffn_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """SwiGLU: wi (d, 2·d_ff) = [gate | up], wo (d_ff, d); GELU: with
+    biases, wi (d, d_ff)."""
+    d_ff = cfg.d_ff
+    kw = dict(device=gen.device, dtype=cfg.param_dtype)
+    if cfg.act == "swiglu":
+        return {"wi": L.dense_init(gen, cfg.d_model, 2 * d_ff, **kw),
+                "wo": L.dense_init(gen, d_ff, cfg.d_model, **kw)}
+    return {"wi": L.dense_init(gen, cfg.d_model, d_ff, use_bias=True, **kw),
+            "wo": L.dense_init(gen, d_ff, cfg.d_model, use_bias=True, **kw)}
+
+
+def ffn_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The dense FFN."""
+    h = L.dense_apply(p["wi"], x)
+    if cfg.act == "swiglu":
+        gate, up = h.chunk(2, dim=-1)
+        h = L.swiglu(gate, up)
+    else:
+        h = L.gelu(h)
+    return L.dense_apply(p["wo"], h)
+
+
+# ---------------------------------------------------------------------------
+# transformer block
+# ---------------------------------------------------------------------------
+
+def block_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """One layer: attention and FFN, each behind its norm. A MoE layer
+    raises: the MoE FFN is not ported."""
+    if cfg.family == "moe":
+        raise NotImplementedError(f"the MoE FFN {NOT_PORTED}")
+    return {"attn_norm": norm_init(cfg, cfg.d_model, device=gen.device),
+            "attn": attn_init(gen, cfg),
+            "ffn_norm": norm_init(cfg, cfg.d_model, device=gen.device),
+            "ffn": ffn_init(gen, cfg)}
+
+
+def block_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, rope: Rope
+                ) -> torch.Tensor:
+    """Pre-norm causal residual block over a full sequence."""
+    h = norm_apply(cfg, p["attn_norm"], x)
+    x = x + attention_apply(p["attn"], h, rope)
+    h = norm_apply(cfg, p["ffn_norm"], x)
+    return x + ffn_apply(p["ffn"], cfg, h)
+
+
+def block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, rope: Rope,
+                 kc: torch.Tensor, vc: torch.Tensor, index: Index
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pre-norm residual block for one token against the layer's cache."""
+    h = norm_apply(cfg, p["attn_norm"], x)
+    a, kc, vc = attention_decode(p["attn"], h, rope, kc, vc, index)
+    x = x + a
+    h = norm_apply(cfg, p["ffn_norm"], x)
+    return x + ffn_apply(p["ffn"], cfg, h), kc, vc
+
+
+# ---------------------------------------------------------------------------
+# LM: init / forward / cache / decode
+# ---------------------------------------------------------------------------
+
+def lm_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """All params, drawn from ``gen`` on its device: layers stacked on
+    axis 0, the output norm, the embedding and (untied) the LM head."""
+    layers = stack_trees([block_init(gen, cfg) for _ in range(cfg.n_layers)])
+    dev = gen.device
+    p = {"layers": layers, "out_norm": norm_init(cfg, cfg.d_model, device=dev)}
+    p["embed"] = L.embed_init(gen, cfg.vocab, cfg.d_model, device=dev,
+                              dtype=cfg.param_dtype)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab, device=dev,
+                                    dtype=cfg.param_dtype)
+    return p
+
+
+def default_positions(batch: int, seq: int, offset: Index = 0, *,
+                      device=None) -> torch.Tensor:
+    """(B, S) positions ``offset + arange(S)``."""
+    return (torch.arange(seq, device=device)[None, :] + offset).expand(
+        batch, seq)
+
+
+def _layer(params: Params, i: int) -> Params:
+    """Layer ``i``'s slice of the stacked layer params (views)."""
+    return tree_map(lambda t: t[i], params["layers"])
+
+
+def _embed(params: Params, cfg: ModelConfig, tokens, embeds) -> torch.Tensor:
+    if embeds is not None or cfg.embed_inputs:
+        raise NotImplementedError(f"precomputed-embedding inputs {NOT_PORTED}")
+    return L.embed_apply(params["embed"], tokens).to(cfg.compute_dtype)
+
+
+def lm_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+               embeds: Optional[torch.Tensor] = None,
+               positions=None) -> torch.Tensor:
+    """Full-sequence forward → logits (B, S, V)."""
+    x = _embed(params, cfg, tokens, embeds)
+    B, S = x.shape[:2]
+    if positions is None:
+        positions = default_positions(B, S, device=x.device)
+    rope = rope_table(cfg, positions)
+    for i in range(cfg.n_layers):
+        x = block_apply(_layer(params, i), cfg, x, rope)
+    x = norm_apply(cfg, params["out_norm"], x)
+    return _lm_head(params, cfg, x)
+
+
+def _lm_head(params: Params, cfg: ModelConfig, x: torch.Tensor
+             ) -> torch.Tensor:
+    if cfg.tie_embeddings or "lm_head" not in params:
+        return L.embed_attend(params["embed"], x)
+    return L.dense_apply(params["lm_head"], x)
+
+
+def lm_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+               embeds: Optional[torch.Tensor] = None, positions=None
+               ) -> Tuple[torch.Tensor, Params]:
+    """Full-sequence prefill → (last-position logits (B, 1, V), KV cache
+    {"k", "v"} of shape (L, B, S, KV, hd) covering the prompt)."""
+    x = _embed(params, cfg, tokens, embeds)
+    B, S = x.shape[:2]
+    if positions is None:
+        positions = default_positions(B, S, device=x.device)
+    rope = rope_table(cfg, positions)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        h = norm_apply(cfg, lp["attn_norm"], x)
+        a, (k, v) = attention_apply(lp["attn"], h, rope, return_kv=True)
+        x = x + a
+        h = norm_apply(cfg, lp["ffn_norm"], x)
+        x = x + ffn_apply(lp["ffn"], cfg, h)
+        ks.append(k.to(cfg.param_dtype))
+        vs.append(v.to(cfg.param_dtype))
+    x = norm_apply(cfg, params["out_norm"], x)
+    logits = _lm_head(params, cfg, x[:, -1:])
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def lm_init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                  device=None) -> Params:
+    """Zero K/V caches (L, B, max_len, KV, hd) in ``param_dtype``."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.param_dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.param_dtype, device=device)}
+
+
+def lm_decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                   cache: Params, index: Index, *,
+                   embeds: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Params]:
+    """One decode step. tokens: (B, 1); cache from :func:`lm_init_cache`,
+    updated in place at ``index``. Returns (logits (B, 1, V), cache)."""
+    x = _embed(params, cfg, tokens, embeds)
+    pos = default_positions(x.shape[0], 1, offset=index, device=x.device)
+    rope = rope_table(cfg, pos)
+    for i in range(cfg.n_layers):
+        x, _, _ = block_decode(_layer(params, i), cfg, x, rope,
+                               cache["k"][i], cache["v"][i], index)
+    x = norm_apply(cfg, params["out_norm"], x)
+    return _lm_head(params, cfg, x), cache
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy; logits (B,S,V) fp32-softmaxed, labels (B,S)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    return (logz - gold).mean()

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, held to its plain PyTorch version.
+"""The port's CUDA kernels on the card, held to their plain PyTorch versions.
 
 Every test here carries the ``hopper`` marker and skips unless a CUDA
 device of capability (9, 0) is present. The file imports neither JAX nor
@@ -220,3 +220,160 @@ def test_coded_demo_server_on_the_card_matches_the_cpu(hopper, fastpath):
         np.testing.assert_array_equal(a.share_times, b.share_times)
         np.testing.assert_allclose(a.block_until_ready().logits, b.logits,
                                    **TOL)
+
+
+# -- LM kernels: rmsnorm, flash_attention, decode_attention -------------------
+
+LM_TOL = {torch.float32: dict(rtol=3e-5, atol=3e-5),
+          torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+LM_DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _close(out, ref, dtype):
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **LM_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", LM_DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows,D", [(1, 128), (7, 2048), (2048, 2048),
+                                    (4097, 6144), (5, 3072)])
+@pytest.mark.parametrize("scale_dtype", ["same", "fp32"])
+def test_rmsnorm_matches_plain_version(hopper, dtype, rows, D, scale_dtype):
+    g = torch.Generator(device=hopper).manual_seed(rows + D)
+    x = torch.randn((rows, D), generator=g, device=hopper).to(dtype)
+    s = torch.randn((D,), generator=g, device=hopper)
+    s = s.to(dtype) if scale_dtype == "same" else s
+    before = ops.rmsnorm.launches
+    out = ops.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert ops.rmsnorm.launches == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    _close(out, ops.rmsnorm_ref(x, s), dtype)
+
+
+def _flash_operands(B, KV, G, S, D, dtype, strided, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qm = torch.randn((B, S, KV, G, D), generator=g, device=dev).to(dtype)
+    km = torch.randn((B, S, KV, D), generator=g, device=dev).to(dtype)
+    vm = torch.randn((B, S, KV, D), generator=g, device=dev).to(dtype)
+    q, k, v = qm.permute(0, 2, 3, 1, 4), km.permute(0, 2, 1, 3), \
+        vm.permute(0, 2, 1, 3)
+    if not strided:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", LM_DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,KV,G,S,D", [(1, 1, 1, 128, 64), (2, 2, 4, 256, 64),
+                                        (1, 4, 2, 128, 128), (1, 1, 4, 7, 64),
+                                        (2, 8, 4, 509, 64), (1, 2, 3, 33, 96),
+                                        (1, 1, 48, 40, 128), (1, 2, 2, 5, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("strided", [False, True], ids=["contig", "strided"])
+def test_flash_attention_matches_plain_version(hopper, dtype, B, KV, G, S, D,
+                                               causal, strided):
+    q, k, v = _flash_operands(B, KV, G, S, D, dtype, strided, hopper, seed=S)
+    before = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    _close(out, ops.flash_attention_ref(q, k, v, causal=causal), dtype)
+
+
+def _decode_operands(B, KV, G, S, D, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, 1, KV * G, D), generator=g, device=dev).to(dtype)
+    kc = torch.randn((B, S, KV, D), generator=g, device=dev).to(dtype)
+    vc = torch.randn((B, S, KV, D), generator=g, device=dev).to(dtype)
+    return (q.view(B, KV, G, D), kc.permute(0, 2, 1, 3),
+            vc.permute(0, 2, 1, 3))
+
+
+@pytest.mark.parametrize("dtype", LM_DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,KV,G,D", [(4, 8, 4, 64), (2, 2, 4, 64),
+                                      (1, 1, 8, 128), (1, 1, 48, 128),
+                                      (2, 4, 1, 96), (1, 2, 2, 32)])
+@pytest.mark.parametrize("S,length", [(1, 1), (256, 1), (256, 100),
+                                      (256, 256), (544, 528), (544, 544)])
+@pytest.mark.parametrize("as_tensor", [False, True], ids=["int", "tensor"])
+def test_decode_attention_matches_plain_version(hopper, dtype, B, KV, G, D, S,
+                                                length, as_tensor):
+    q, kc, vc = _decode_operands(B, KV, G, S, D, dtype, hopper, seed=S + G)
+    n = (torch.tensor([length], dtype=torch.int32, device=hopper)
+         if as_tensor else length)
+    before = ops.decode_attention.launches
+    out = ops.decode_attention(q, kc, vc, n)
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches == before + 1
+    _close(out, ops.decode_attention_ref(q, kc, vc, length), dtype)
+
+
+def test_decode_attention_never_reads_past_length(hopper):
+    """NaN rows past ``length`` do not reach the output."""
+    q, kc, vc = _decode_operands(1, 2, 4, 64, 64, torch.float32, hopper)
+    kc[:, :, 40:] = float("nan")
+    vc[:, :, 40:] = float("nan")
+    out = ops.decode_attention(q, kc, vc, 40)
+    assert torch.isfinite(out).all()
+    _close(out, ops.decode_attention_ref(q, kc[:, :, :40], vc[:, :, :40], 40),
+           torch.float32)
+
+
+def test_lm_kernels_launch_nothing_for_no_rows(hopper):
+    counts = (ops.rmsnorm.launches, ops.flash_attention.launches,
+              ops.decode_attention.launches)
+    assert ops.rmsnorm(torch.zeros((0, 64), device=hopper),
+                       torch.ones(64, device=hopper)).shape == (0, 64)
+    q, k, v = _flash_operands(0, 2, 2, 8, 64, torch.float32, False, hopper)
+    assert ops.flash_attention(q, k, v).shape == (0, 2, 2, 8, 64)
+    q, kc, vc = _decode_operands(0, 2, 2, 8, 64, torch.float32, hopper)
+    assert ops.decode_attention(q, kc, vc, 3).shape == (0, 2, 2, 64)
+    assert counts == (ops.rmsnorm.launches, ops.flash_attention.launches,
+                      ops.decode_attention.launches)
+
+
+def test_lm_wrappers_reject_what_the_kernels_do_not_take(hopper):
+    x = torch.randn((4, 64), device=hopper)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rmsnorm(x.t(), torch.ones(4, device=hopper))
+    with pytest.raises(ValueError, match="one device"):
+        ops.rmsnorm(x, torch.ones(64))
+    q, k, v = _flash_operands(1, 2, 2, 8, 48, torch.float32, False, hopper)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q, k, v)
+    q, k, v = _flash_operands(1, 2, 2, 8, 64, torch.float32, False, hopper)
+    with pytest.raises(ValueError, match="unit stride"):
+        ops.flash_attention(q.transpose(-1, -2).contiguous().transpose(-1, -2)
+                            [..., :8, :], k[..., :8, :], v[..., :8, :])
+    q, kc, vc = _decode_operands(1, 2, 2, 8, 64, torch.float32, hopper)
+    with pytest.raises(TypeError, match="int32"):
+        ops.decode_attention(q, kc, vc, torch.tensor([3], device=hopper))
+
+
+def test_dense_lm_on_the_card_matches_the_cpu(hopper):
+    """The tiny llama3.2-1b on the card and on the CPU from the same
+    weights: greedy tokens equal, logits within 1e-4, and the kernels
+    launched 2L+1 / L / L times per call."""
+    from repro_torch.configs.archs import tiny_version
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.models import api
+    from repro_torch.tree import tree_to
+    cfg = tiny_version(get_config("llama3.2-1b"))
+    params = api.init(torch.Generator().manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 16),
+                         generator=torch.Generator().manual_seed(1))
+    cpu = greedy_decode(params, cfg, toks, 6, keep_logits=True)
+    counts = (ops.rmsnorm.launches, ops.flash_attention.launches,
+              ops.decode_attention.launches)
+    gpu = greedy_decode(tree_to(params, hopper), cfg, toks.to(hopper), 6,
+                        keep_logits=True)
+    L = cfg.n_layers
+    assert (ops.rmsnorm.launches - counts[0], ops.flash_attention.launches
+            - counts[1], ops.decode_attention.launches - counts[2]) == \
+        ((2 * L + 1) * 6, L, L * 5)
+    np.testing.assert_array_equal(gpu.tokens, cpu.tokens)
+    for a, b in zip(gpu.logits, cpu.logits):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4)

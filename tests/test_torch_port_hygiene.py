@@ -162,3 +162,60 @@ def test_coded_runtime_equals_jax_exactly(plan):
     assert enc.dtype == torch.float32 and enc is trt.enc_device(
         torch.device("cpu"))
     np.testing.assert_array_equal(enc.numpy(), jrt.enc)
+
+
+def _config_fields(cfg):
+    """A config's fields, dtypes by name (``torch.bfloat16`` and
+    ``jnp.bfloat16`` both as "bfloat16")."""
+    import jax.numpy as jnp
+    out = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if f.name.endswith("_dtype"):
+            v = (str(v).removeprefix("torch.") if isinstance(v, torch.dtype)
+                 else jnp.dtype(v).name)
+        out[f.name] = v
+    return out
+
+
+@pytest.mark.parametrize("tiny", [False, True], ids=["published", "tiny"])
+def test_config_registry_equals_the_jax_registry(tiny):
+    """Every registered config (and its ``tiny_version``) equals the JAX
+    package's field by field, dtypes compared by name."""
+    from repro.configs.archs import tiny_version as jtiny
+    from repro.configs.base import all_archs as jall
+    from repro_torch.configs.archs import tiny_version as ttiny
+    from repro_torch.configs.base import all_archs as tall
+    jr, tr = jall(), tall()
+    assert sorted(jr) == sorted(tr) and len(tr) == 10
+    for name in jr:
+        j, t = (jtiny(jr[name]), ttiny(tr[name])) if tiny else \
+            (jr[name], tr[name])
+        assert _config_fields(j) == _config_fields(t), name
+    assert tr["llama3.2-1b"].param_dtype is torch.bfloat16
+    assert ttiny(tr["llama3.2-1b"]).compute_dtype is torch.float32
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_lm_params_from_jax_keeps_shapes_and_values_exactly(dtype):
+    import jax
+    import jax.numpy as jnp
+    from repro.configs.archs import tiny_version as jtiny
+    from repro.configs.base import get_config as jget
+    from repro.models import api as japi
+    from repro_torch.convert import lm_params_from_jax
+    from repro_torch.tree import tree_leaves
+    jd = getattr(jnp, dtype)
+    cfg = jtiny(jget("llama3.2-1b")).with_(param_dtype=jd, compute_dtype=jd)
+    tree = jax.device_get(japi.init(jax.random.key(0), cfg))
+    port = lm_params_from_jax(tree)
+    jl, tl = jax.tree.leaves(tree), tree_leaves(port)
+    assert len(jl) == len(tl) == 11
+    for a, t in zip(jl, tl):
+        assert tuple(t.shape) == a.shape
+        assert t.dtype == getattr(torch, dtype)
+        bits = np.uint16 if dtype == "bfloat16" else np.uint32
+        np.testing.assert_array_equal(
+            t.view(torch.int16 if dtype == "bfloat16" else torch.int32
+                   ).numpy().view(bits), np.asarray(a).view(bits))
+    assert port["layers"]["attn"]["wq"].shape == (2, 128, 4, 32)
