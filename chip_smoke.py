@@ -59,6 +59,34 @@ greedy decode over a KV cache) runs three more hand-written kernels,
     step against a prefill of the same tokens; a profile of one prefill and
     of 8 decode steps.
 
+The SSM, MoE and hybrid LM families (``mamba2-130m``,
+``moonshot-v1-16b-a3b``, ``jamba-v0.1-52b``) run two more hand-written
+kernels, ``ssd_scan`` (the SSM prefill's chunked scan) and ``topk_gating``
+(the MoE router), beside the three above:
+
+13. both held to their plain versions over sweeps (ssd_scan: (P, N, Q) at
+    mamba2's, jamba's and a tiny size, two chunks and one short ragged
+    chunk, contiguous rows and the model's strided views, fp32 and bf16,
+    y in x's dtype and in fp32, the final state; topk_gating: N rows, E
+    experts and k; indices equal, weights within 1e-5; the scan within the
+    JAX package's own 2e-3 in fp32 and 3e-2 in bf16), and timed at the
+    serving shapes beside their plain versions (and, for the gating, the
+    PyTorch softmax → topk → renormalise sequence);
+14. card vs CPU, fp32, TF32 off: mamba2-130m at all 24 layers, moonshot at
+    full width cut to 2 layers, and the tiny jamba; prompt 256 x batch 2
+    and 8 decode steps through ``greedy_decode`` on both; launches exact.
+    Router rows that pick other experts on the two sides (near ties summed
+    in other orders) are counted and must stay under 1%; logits (within
+    1e-3) and tokens (equal) are held in the batch rows where no routing
+    differs;
+15. full-width bf16 serving, prompt 512 x batch 4, 32 tokens: mamba2-130m
+    (24 layers) and moonshot-v1-16b-a3b (48 layers, 56 GB) through
+    ``generate(tiny=False)``, and one full-width period (8 layers) of
+    jamba-v0.1-52b through ``greedy_decode``; launches exact; logits
+    finite; a decode step against a prefill of the same tokens (255 + 1
+    against 256 where the scan runs, the MoE at a capacity that drops
+    nothing); a profile of one prefill and of 8 decode steps.
+
 The last two lines of standard output are the ``kernels`` JSON line and the
 ``ok`` JSON line. Exits non-zero without a CUDA device.
 """
@@ -89,16 +117,18 @@ from repro_torch.core.pipeline import Ensemble  # noqa: E402
 from repro_torch.core.plan_ir import (PlanIR, device_matrix,  # noqa: E402
                                       eq1a_latency, student_matrix)
 from repro_torch.core.simulator import FailureModel, make_fleet  # noqa: E402
+from repro_torch.configs.archs import tiny_version  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
-from repro_torch.launch.serve import generate, greedy_decode  # noqa: E402
-from repro_torch.models import api, cnn  # noqa: E402
+from repro_torch.launch.serve import (generate, greedy_decode,  # noqa: E402
+                                      splice)
+from repro_torch.models import api, cnn, hybrid  # noqa: E402
 from repro_torch.runtime.engine import EngineConfig, ServingEngine  # noqa: E402
 from repro_torch.runtime.serving import server_from_ensemble  # noqa: E402
 from repro_torch.tree import tree_to  # noqa: E402
 
 KERNELS = ("quorum_aggregate", "coded_decode", "rmsnorm", "flash_attention",
-           "decode_attention")
+           "decode_attention", "ssd_scan", "topk_gating")
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/quorum_aggregate.cu"
 TPU_KERNEL = "src/repro/kernels/quorum_aggregate.py:33"
 DECODE_SOURCE = "src/repro_torch/kernels/csrc/coded_decode.cu"
@@ -140,6 +170,27 @@ LM_KERNEL_TOL = {torch.float32: dict(rtol=3e-5, atol=3e-5),
 # a bf16 decode step vs a bf16 prefill of the same tokens: bf16 rounds at
 # other places on the two paths; relative to each row's largest |logit|
 LM_STEP_TOL = 5e-2
+# the SSM, MoE and hybrid serving paths
+LM_KERNELS = ("rmsnorm", "flash_attention", "decode_attention", "ssd_scan",
+              "topk_gating")
+SSM_MOE_SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu"
+                   for k in ("ssd_scan", "topk_gating")}
+SSM_MOE_TPU = {"ssd_scan": "src/repro/kernels/ssd_scan.py:24",
+               "topk_gating": "src/repro/kernels/topk_gating.py:19"}
+MOE_ARCH = "moonshot-v1-16b-a3b"
+# (arch, depth cut or None): phase 15's models, full width
+SSM_MOE_SERVE = (("mamba2-130m", None), (MOE_ARCH, None),
+                 ("jamba-v0.1-52b", 8))
+# the JAX package's gating bounds (tests/test_kernels.py::test_topk_gating)
+GATE_TOL = dict(rtol=1e-5, atol=1e-5)
+# ssd_scan in fp32: the JAX package's own bound for this kernel
+# (tests/test_kernels.py::test_ssd_scan, 2e-3). The scan takes
+# exp(cum_t - cum_s) of fp32 cumulative sums that reach |cum| ~ 10^3 over a
+# 256-step chunk (A down to -e^3), where one rounding is ~1e-4: kernel and
+# plain version sum in other orders and differ by that much relative
+SSD_TOL = {torch.float32: dict(rtol=2e-3, atol=2e-3),
+           torch.bfloat16: LM_KERNEL_TOL[torch.bfloat16]}
+MAX_ROUTE_DIFF = 0.01           # share of router rows that may differ
 
 
 # -- the planner benchmarks' fleet definition (benchmarks/common.py) -----------
@@ -931,14 +982,13 @@ def phase_lm_kernels(dev) -> dict:
 
 
 def lm_launches() -> tuple:
-    return (ops.rmsnorm.launches, ops.flash_attention.launches,
-            ops.decode_attention.launches)
+    """Launches of the five LM kernels, in ``LM_KERNELS`` order."""
+    return tuple(getattr(ops, k).launches for k in LM_KERNELS)
 
 
 def zero_lm_launches() -> None:
-    ops.rmsnorm.launches = 0
-    ops.flash_attention.launches = 0
-    ops.decode_attention.launches = 0
+    for k in LM_KERNELS:
+        getattr(ops, k).launches = 0
 
 
 def phase_lm_card_vs_cpu(dev) -> None:
@@ -960,10 +1010,10 @@ def phase_lm_card_vs_cpu(dev) -> None:
     card = greedy_decode(gparams, cfg, toks.to(dev), steps + 1,
                          keep_logits=True)
     launches = lm_launches()
-    want = ((2 * L + 1) * (steps + 1), L, L * steps)
+    want = ((2 * L + 1) * (steps + 1), L, L * steps, 0, 0)
     if launches != want:
-        raise AssertionError(f"card-vs-cpu: launches (rmsnorm, flash, decode)"
-                             f" {launches}, expected {want}")
+        raise AssertionError(f"card-vs-cpu: launches {LM_KERNELS} "
+                             f"{launches}, expected {want}")
     if not np.array_equal(card.tokens, cpu.tokens):
         raise AssertionError(f"card-vs-cpu: greedy tokens differ:\n"
                              f"{card.tokens}\n{cpu.tokens}")
@@ -973,7 +1023,7 @@ def phase_lm_card_vs_cpu(dev) -> None:
     print(f"card-vs-cpu: {LM_ARCH} full width, {L} layers, fp32, prompt {P} x "
           f"batch {LM_BATCH}, {steps} decode steps: tokens equal, logits max "
           f"abs err {worst:.3e} (largest |logit| {scale:.2f}), launches "
-          f"{launches} = (2L+1, L, L) per call; CPU run {cpu_s:.1f} s")
+          f"{launches[:3]} = (2L+1, L, L) per call; CPU run {cpu_s:.1f} s")
 
 
 def lm_profile(label: str, fn, calls: int) -> dict:
@@ -998,13 +1048,15 @@ def lm_profile(label: str, fn, calls: int) -> dict:
                     and "coded_decode" not in n)
              for k, pat in (("rmsnorm", "rmsnorm_kernel"),
                             ("flash_attention", "flash_kernel"),
-                            ("decode_attention", "decode_kernel"))}
+                            ("decode_attention", "decode_kernel"),
+                            ("ssd_scan", "ssd_kernel"),
+                            ("topk_gating", "topk_gating_kernel"))}
     top = "; ".join(f"{k[:70]} {t:.4f} ms" for k, t in
                     sorted(per_name.items(), key=lambda kv: -kv[1])[:5])
     print(f"profile: {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
           f"({busy / wall:.1%} of wall) over {n_events // calls} launches; "
           + ", ".join(f"{k} {t:.4f} ms ({t / busy:.1%})"
-                      for k, t in share.items()) + f"; top: {top}")
+                      for k, t in share.items() if t) + f"; top: {top}")
     return dict(wall_ms=wall, busy_ms=busy, **share)
 
 
@@ -1020,10 +1072,10 @@ def phase_lm_serve(dev) -> dict:
     res = generate(LM_ARCH, tiny=False, prompt_len=P, gen=n, batch=B, seed=0,
                    device=dev, keep_logits=True)
     launches = lm_launches()
-    want = ((2 * L + 1) * n, L, L * (n - 1))
+    want = ((2 * L + 1) * n, L, L * (n - 1), 0, 0)
     if launches != want:
-        raise AssertionError(f"serve: launches (rmsnorm, flash, decode) "
-                             f"{launches}, expected {want}")
+        raise AssertionError(f"serve: launches {LM_KERNELS} {launches}, "
+                             f"expected {want}")
     if res.tokens.shape != (B, n) or not all(
             bool(torch.isfinite(x).all()) and x.shape == (B, cfg.vocab)
             for x in res.logits):
@@ -1032,7 +1084,7 @@ def phase_lm_serve(dev) -> dict:
           f"{cfg.d_model}, vocab {cfg.vocab}), {str(cfg.compute_dtype)[6:]}, "
           f"prompt {P} x batch {B}, "
           f"{n} tokens: prefill {res.prefill_ms:.3f} ms, decode "
-          f"{res.decode_ms_per_token:.3f} ms/token; launches {launches} "
+          f"{res.decode_ms_per_token:.3f} ms/token; launches {launches[:3]} "
           f"(rmsnorm, flash, decode); all logits finite")
     tokens = res.tokens
     del res
@@ -1047,40 +1099,367 @@ def phase_lm_serve(dev) -> dict:
           f"{warm.prefill_ms:.3f} ms, decode {warm.decode_ms_per_token:.3f} "
           f"ms/token; tokens equal to the first run's: "
           f"{np.array_equal(warm.tokens, tokens)}")
-    cache = api.init_cache(cfg, B, P + 1, device=dev)
+    step_vs_prefill(params, cfg, toks, "serve")
+    prefill, decode = profile_serving(params, cfg, toks, "")
+    return dict(launches=dict(zip(LM_KERNELS, launches)), prefill=prefill,
+                decode=decode)
+
+
+def step_vs_prefill(params, cfg, toks: torch.Tensor, label: str) -> None:
+    """A decode step after a prefill of ``toks`` (B, P) against a prefill
+    of the same P + 1 tokens, relative to each row's largest |logit|;
+    raises above LM_STEP_TOL."""
+    B, P = toks.shape
+    cache = api.init_cache(cfg, B, P + 1, device=toks.device)
     logits, pcache = api.prefill(params, cfg, {"tokens": toks})
     for name, c in cache.items():
-        c[:, :, :P] = pcache[name]
+        splice(c, pcache[name])
     nxt = logits[:, -1:].argmax(-1)
     step, _ = api.decode_step(params, cfg, {"tokens": nxt}, cache, P)
     full, _ = api.prefill(params, cfg, {"tokens": torch.cat([toks, nxt], 1)})
     a, b = step[:, -1].float(), full[:, -1].float()
     rel = float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max())
     if not rel <= LM_STEP_TOL:
-        raise AssertionError(f"serve: decode step vs prefill differ by "
+        raise AssertionError(f"{label}: decode step vs prefill differ by "
                              f"{rel:.3e} of the row's largest |logit|")
-    print(f"serve: decode step at {P} vs prefill of the same {P + 1} tokens: "
-          f"max |diff| {rel:.3e} of the row's largest |logit| (bound "
+    print(f"{label}: decode step at {P} vs prefill of the same {P + 1} "
+          f"tokens: max |diff| {rel:.3e} of the row's largest |logit| (bound "
           f"{LM_STEP_TOL})")
 
+
+def profile_serving(params, cfg, toks: torch.Tensor, label: str) -> tuple:
+    """``lm_profile`` of one prefill of ``toks`` (B, P) and of 8 decode
+    steps after it."""
+    B, P = toks.shape
     prefill = lm_profile(
-        f"prefill of {P} x batch {B}",
+        f"{label}prefill of {P} x batch {B}",
         lambda: api.prefill(params, cfg, {"tokens": toks}), 1)
     steps = 8
-    cache = api.init_cache(cfg, B, P + steps, device=dev)
+    cache = api.init_cache(cfg, B, P + steps, device=toks.device)
+    logits, pcache = api.prefill(params, cfg, {"tokens": toks})
     for name, c in cache.items():
-        c[:, :, :P] = pcache[name]
-    state = {"t": 0, "cur": nxt}
+        splice(c, pcache[name])
+    state = {"t": 0, "cur": logits[:, -1:].argmax(-1)}
 
     def decode_step():
         lg, _ = api.decode_step(params, cfg, {"tokens": state["cur"]}, cache,
                                 P + state["t"])
         state["cur"] = lg[:, -1:].argmax(-1)
         state["t"] += 1
-    decode = lm_profile(f"decode step (batch {B}, fill {P}+)", decode_step,
-                        steps)
-    return dict(launches=dict(zip(LM_SOURCES, launches)), prefill=prefill,
-                decode=decode)
+    decode = lm_profile(f"{label}decode step (batch {B}, fill {P}+)",
+                        decode_step, steps)
+    return prefill, decode
+
+
+# -- SSM, MoE and hybrid serving: ssd_scan, topk_gating -----------------------------
+
+def ssd_operands(Bsz, H, L, P, N, dtype, strided, gen, dev):
+    """Scan operands as the model passes them (x a view of (B, L, H, P), dt
+    of (B, L, H), B/C of (B, L, N) expanded over heads with stride 0) or as
+    contiguous (B·H)-row copies. B and C are scaled to unit-variance scores
+    C·B, as a normalised model's are: with unit-variance B and C the fp32
+    sums of N-term products lose more than 3e-5 relative even in the plain
+    version (against fp64)."""
+    x = torch.randn((Bsz, L, H, P), generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((Bsz, L, H), generator=gen, device=dev))
+    A = -torch.exp(torch.randn((H,), generator=gen, device=dev))
+    Bm, Cm = (torch.randn((Bsz, L, N), generator=gen, device=dev)
+              .div(N ** 0.5).to(dtype) for _ in "BC")
+    views = (x.permute(0, 2, 1, 3), dt.permute(0, 2, 1), A.expand(Bsz, H),
+             Bm[:, None].expand(Bsz, H, L, N), Cm[:, None].expand(Bsz, H, L, N))
+    if strided:
+        return views
+    return tuple(t.reshape(Bsz * H, *t.shape[2:]).contiguous() for t in views)
+
+
+def ssd_bound(Bsz, H, L, P, N, Q, dtype, out_dtype) -> tuple:
+    """x, dt, A, B and C read once (B and C once per batch row: the heads
+    share them), y and the final fp32 state written once; the operations of
+    the chunked form these inputs need: per chunk the causal (t, s) pairs'
+    C·B (once per batch row) and P-wide products, and the inter-chunk and
+    state products (2·Q·P·N flops each) per head."""
+    e = torch.finfo(dtype).bits // 8
+    eo = torch.finfo(out_dtype).bits // 8
+    nbytes = (Bsz * L * H * P * e + Bsz * L * H * 4 + H * 4
+              + 2 * Bsz * L * N * e + Bsz * L * H * P * eo
+              + Bsz * H * P * N * 4)
+    pairs = Q * (Q + 1) // 2
+    flops = (L // Q) * (Bsz * pairs * 2 * N
+                        + Bsz * H * (pairs * 2 * P + 4 * Q * P * N))
+    return roofline(nbytes, flops, dtype)
+
+
+def gating_bound(N, E, k) -> tuple:
+    """The logits read once, the weights and indices written once; per
+    element a max, an exponential, a sum and a division, and k rounds of
+    compares."""
+    return roofline(N * E * 4 + N * k * 8, N * E * (4 + k), torch.float32)
+
+
+def phase_ssm_moe_kernels(dev) -> dict:
+    """ssd_scan and topk_gating vs their plain versions over sweeps; each
+    timed at its serving shape."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst = {k: 0.0 for k in SSM_MOE_SOURCES}
+    cases = {k: 0 for k in SSM_MOE_SOURCES}
+    for dtype in (torch.float32, torch.bfloat16):
+        for P, N, Q in ((64, 128, 256), (64, 16, 256), (32, 16, 32)):
+            errs = []
+            for L in (2 * Q, Q // 2 + 4):          # two chunks; L < chunk
+                for strided in (False, True):
+                    args = ssd_operands(2, 3, L, P, N, dtype, strided, gen,
+                                        dev)
+                    y = ops.ssd_scan(*args, chunk=Q)
+                    y32, h = ops.ssd_scan(*args, chunk=Q, return_state=True,
+                                          out_dtype=torch.float32)
+                    torch.cuda.synchronize()
+                    ry32, rh = ops.ssd_scan_ref(*args, chunk=Q,
+                                                return_state=True,
+                                                out_dtype=torch.float32)
+                    # fp32 outputs of the same (rounded) inputs: fp32 bound
+                    f32 = SSD_TOL[torch.float32]
+                    e = max(max_err(y.float(), ry32.to(dtype).float(),
+                                    **SSD_TOL[dtype]),
+                            max_err(y32, ry32, **f32), max_err(h, rh, **f32))
+                    worst["ssd_scan"] = max(worst["ssd_scan"], e)
+                    cases["ssd_scan"] += 2
+                    errs.append(f"L{L}/{'strided' if strided else 'contig'}"
+                                f":{e:.1e}")
+            print(f"ssd_scan {str(dtype)[6:]} (P,N,Q)=({P},{N},{Q}): "
+                  + " ".join(errs))
+    for E, ks in ((4, (1, 2)), (16, (1, 2, 6, 8)), (64, (1, 2, 6, 8))):
+        errs = []
+        for k in ks:
+            e = 0.0
+            for N in (1, 4, 77, 2048, 4096):
+                logits = torch.randn((N, E), generator=gen, device=dev)
+                w, i = ops.topk_gating(logits, k)
+                torch.cuda.synchronize()
+                rw, ri = ops.topk_gating_ref(logits, k)
+                if not torch.equal(i, ri):
+                    raise AssertionError(f"topk_gating N={N} E={E} k={k}: "
+                                         f"indices differ from the plain "
+                                         f"version's")
+                e = max(e, max_err(w, rw, **GATE_TOL))
+                cases["topk_gating"] += 1
+            worst["topk_gating"] = max(worst["topk_gating"], e)
+            errs.append(f"k{k}:{e:.1e}")
+        print(f"topk_gating E={E}, N in (1, 4, 77, 2048, 4096): "
+              + " ".join(errs))
+    print(f"ssd_scan vs plain: {cases['ssd_scan']} cases within rtol/atol "
+          f"2e-3 (fp32) and 3e-2 (bf16), max abs err "
+          f"{worst['ssd_scan']:.3e}; topk_gating vs plain: "
+          f"{cases['topk_gating']} cases, indices equal, weights within "
+          f"1e-5, max abs err {worst['topk_gating']:.3e}")
+
+    bf = torch.bfloat16
+    timing = {}
+    B, L = LM_BATCH, LM_PROMPT
+    for arch in ("jamba-v0.1-52b", "mamba2-130m"):    # the JSON keeps mamba2
+        cfg = get_config(arch)
+        H, P, N, Q = (cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                      cfg.ssm_chunk)
+        args = ssd_operands(B, H, L, P, N, bf, True, gen, dev)
+        kw = dict(chunk=Q, return_state=True, out_dtype=torch.float32)
+        timing["ssd_scan"] = t = dict(
+            ms=cuda_ms(lambda: ops.ssd_scan(*args, **kw)),
+            plain_ms=cuda_ms(lambda: ops.ssd_scan_ref(*args, **kw), iters=20,
+                             warm=3),
+            library_ms=None, bound=ssd_bound(B, H, L, P, N, Q, bf,
+                                             torch.float32))
+        print(f"ssd_scan timing at {arch}'s (B,L,H,P,N,Q)=({B},{L},{H},{P},"
+              f"{N},{Q}), bf16 x/B/C strided views, y and state fp32: "
+              f"kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, bound "
+              f"{t['bound'][0]:.6f} ms ({t['bound'][1]})")
+    cfg = get_config(MOE_ARCH)
+    N, E, k = LM_BATCH * LM_PROMPT, cfg.n_experts, cfg.top_k
+    logits = torch.randn((N, E), generator=gen, device=dev)
+
+    def library():
+        w, i = torch.softmax(logits, -1).topk(k, dim=-1)
+        return w / w.sum(-1, keepdim=True).clamp_min(1e-9), i
+    timing["topk_gating"] = t = dict(
+        ms=cuda_ms(lambda: ops.topk_gating(logits, k)),
+        plain_ms=cuda_ms(lambda: ops.topk_gating_ref(logits, k)),
+        library_ms=cuda_ms(library), bound=gating_bound(N, E, k))
+    print(f"topk_gating timing at N={N} E={E} k={k} fp32: kernel "
+          f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, softmax→topk→"
+          f"renormalise {t['library_ms']:.5f} ms, bound {t['bound'][0]:.6f} "
+          f"ms ({t['bound'][1]})")
+    for name, t in timing.items():
+        t["bound_ms"], t["bound_by"] = t.pop("bound")
+        t["max_abs_err"] = worst[name]
+    return timing
+
+
+def expected_launches(cfg, steps: int) -> tuple:
+    """Launches of the ``LM_KERNELS`` in one prefill and ``steps`` decode
+    steps, from the model's layers: a norm before every mixer and every
+    FFN (an SSM block has no FFN), one gated norm per mamba mixer and the
+    output norm per call; one
+    flash_attention per attention layer per prefill, one decode_attention
+    per attention layer per step; one ssd_scan per mamba mixer per prefill
+    (a decode step runs the recurrence in PyTorch); one topk_gating per MoE
+    layer per call."""
+    calls, L = steps + 1, cfg.n_layers
+    if cfg.family == "hybrid":
+        kinds = hybrid._layer_kinds(cfg)
+        attn = hybrid.n_periods(cfg) * sum(a for a, _ in kinds)
+        moe = hybrid.n_periods(cfg) * sum(m for _, m in kinds)
+        mamba = L - attn
+    else:
+        attn = L if cfg.family in ("dense", "moe") else 0
+        mamba = L if cfg.family == "ssm" else 0
+        moe = L if cfg.family == "moe" else 0
+    norms = (L if cfg.family == "ssm" else 2 * L) + mamba + 1
+    return norms * calls, attn, attn * steps, mamba, moe * calls
+
+
+@contextlib.contextmanager
+def recording_routes():
+    """Record the experts each ``topk_gating`` call picks while the block
+    runs ((N, k) int32 on the CPU, in call order). The launch counters are
+    read after the block."""
+    routes = []
+    gate = ops.topk_gating
+
+    def recorded(logits, k):
+        w, i = gate(logits, k)
+        routes.append(i.cpu())
+        return w, i
+    ops.topk_gating = recorded
+    try:
+        yield routes
+    finally:
+        ops.topk_gating = gate
+
+
+def phase_ssm_moe_card_vs_cpu(dev) -> None:
+    """mamba2-130m (24 layers), moonshot at full width cut to 2 layers and
+    the tiny jamba, fp32: the same weights (drawn once) and prompt through
+    ``greedy_decode`` on the CPU and on the card; exact launches; router
+    rows that differ (near ties summed in other orders) under 1%; logits
+    within SERVE_TOL and tokens equal in the batch rows no differing route
+    touched (a route changes its token's FFN output, and through attention
+    and the row's capacity positions the rest of its row)."""
+    B, P, steps = 2, 256, 8
+    f32 = dict(param_dtype=torch.float32, compute_dtype=torch.float32)
+    models = (("mamba2-130m", get_config("mamba2-130m").with_(**f32)),
+              (MOE_ARCH, get_config(MOE_ARCH).with_(n_layers=2, **f32)),
+              ("jamba-v0.1-52b tiny", tiny_version(get_config(
+                  "jamba-v0.1-52b"))))
+    for name, cfg in models:
+        params = api.init(torch.Generator(device=dev).manual_seed(3), cfg)
+        cpu_params = tree_to(params, torch.device("cpu"))
+        toks = torch.randint(0, cfg.vocab, (B, P),
+                             generator=torch.Generator().manual_seed(4))
+        t0 = time.perf_counter()
+        with recording_routes() as cpu_routes:
+            cpu = greedy_decode(cpu_params, cfg, toks, steps + 1,
+                                keep_logits=True)
+        cpu_s = time.perf_counter() - t0
+        zero_lm_launches()
+        with recording_routes() as card_routes:
+            card = greedy_decode(params, cfg, toks.to(dev), steps + 1,
+                                 keep_logits=True)
+        launches, want = lm_launches(), expected_launches(cfg, steps)
+        if launches != want:
+            raise AssertionError(f"card-vs-cpu {name}: launches {LM_KERNELS} "
+                                 f"{launches}, expected {want}")
+        if len(card_routes) != len(cpu_routes):
+            raise AssertionError(f"card-vs-cpu {name}: router calls differ")
+        n_rows = n_diff = 0
+        row_hit = np.zeros(B, bool)
+        for a, b in zip(card_routes, cpu_routes):
+            diff = (a != b).any(-1).numpy()
+            n_rows, n_diff = n_rows + diff.size, n_diff + int(diff.sum())
+            row_hit |= diff.reshape(B, -1).any(-1)
+        if n_diff > MAX_ROUTE_DIFF * max(n_rows, 1):
+            raise AssertionError(f"card-vs-cpu {name}: {n_diff} of {n_rows} "
+                                 f"router rows pick other experts")
+        keep = ~row_hit
+        if not np.array_equal(card.tokens[keep], cpu.tokens[keep]):
+            raise AssertionError(f"card-vs-cpu {name}: greedy tokens differ:"
+                                 f"\n{card.tokens}\n{cpu.tokens}")
+        worst = max((max_err(a.cpu()[keep], b[keep], **SERVE_TOL)
+                     for a, b in zip(card.logits, cpu.logits)), default=0.0)
+        scale = max(float(b.abs().max()) for b in cpu.logits)
+        print(f"card-vs-cpu: {name} ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}), fp32, prompt {P} x batch {B}, {steps} decode "
+              f"steps: router rows differing {n_diff} of {n_rows}, batch rows "
+              f"held {int(keep.sum())} of {B}: tokens equal, logits max abs "
+              f"err {worst:.3e} (largest |logit| {scale:.2f}); launches "
+              f"{dict(zip(LM_KERNELS, launches))}; CPU run {cpu_s:.1f} s")
+        del params, cpu_params
+        torch.cuda.empty_cache()
+
+
+def phase_ssm_moe_serve(dev) -> dict:
+    """The slice's main paths at full width, bf16: mamba2-130m and
+    moonshot-v1-16b-a3b through ``generate(tiny=False)``, one period of
+    jamba-v0.1-52b through ``greedy_decode``; exact launches, finite
+    logits; then on the same weights and prompt a decode step against a
+    prefill of the same tokens, and a profile of one prefill and of 8
+    decode steps. Each model is freed before the next is drawn."""
+    B, P, n = LM_BATCH, LM_PROMPT, LM_GEN
+    totals = dict.fromkeys(LM_KERNELS, 0)
+    out = {}
+    for arch, depth in SSM_MOE_SERVE:
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats(dev)
+        if depth is None:
+            zero_lm_launches()                  # the main path's window
+            res = generate(arch, tiny=False, prompt_len=P, gen=n, batch=B,
+                           seed=0, device=dev, keep_logits=True)
+            launches = lm_launches()
+            g = torch.Generator(device=dev).manual_seed(0)  # generate's draw
+            params = api.init(g, cfg)
+            toks = torch.randint(0, cfg.vocab, (B, P), generator=g,
+                                 device=dev)
+        else:
+            cfg = cfg.with_(n_layers=depth)
+            g = torch.Generator(device=dev).manual_seed(0)
+            params = api.init(g, cfg)
+            toks = torch.randint(0, cfg.vocab, (B, P), generator=g,
+                                 device=dev)
+            zero_lm_launches()                  # the main path's window
+            res = greedy_decode(params, cfg, toks, n, keep_logits=True)
+            launches = lm_launches()
+        want = expected_launches(cfg, n - 1)
+        if launches != want:
+            raise AssertionError(f"serve {arch}: launches {LM_KERNELS} "
+                                 f"{launches}, expected {want}")
+        if res.tokens.shape != (B, n) or not all(
+                bool(torch.isfinite(x).all()) and x.shape == (B, cfg.vocab)
+                for x in res.logits):
+            raise AssertionError(f"serve {arch}: tokens or logits malformed")
+        per_call = expected_launches(cfg, 0)
+        print(f"serve: {arch} full width ({cfg.n_layers} layers"
+              f"{'' if depth is None else ', depth cut to one period'}, "
+              f"d_model {cfg.d_model}, vocab {cfg.vocab}), "
+              f"{str(cfg.compute_dtype)[6:]}, {api.param_count(params):,} "
+              f"parameters, prompt {P} x batch {B}, {n} tokens: prefill "
+              f"{res.prefill_ms:.3f} ms, decode {res.decode_ms_per_token:.3f} "
+              f"ms/token; launches {dict(zip(LM_KERNELS, launches))} (per "
+              f"prefill {dict(zip(LM_KERNELS, per_call))}); all logits "
+              f"finite; peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        del res
+        # a one-token step never drops a slot: give the MoE room for all
+        ccfg = (cfg.with_(capacity_factor=cfg.n_experts / cfg.top_k)
+                if cfg.n_experts else cfg)
+        # where the scan runs, P - 1 and P tokens keep L % min(chunk, L) == 0
+        pre = toks[:, :P // 2 - 1] if cfg.family in ("ssm", "hybrid") \
+            else toks
+        step_vs_prefill(params, ccfg, pre, f"serve {arch}")
+        prefill, decode = profile_serving(params, cfg, toks, f"{arch} ")
+        for k, v in zip(LM_KERNELS, launches):
+            totals[k] += v
+        out[arch] = dict(prefill=prefill, decode=decode)
+        del params
+        torch.cuda.empty_cache()
+    return dict(launches=totals, **out)
 
 
 def main() -> int:
@@ -1149,12 +1528,19 @@ def main() -> int:
     lm_timing = phase_lm_kernels(dev)
     phase_lm_card_vs_cpu(dev)
     lm = phase_lm_serve(dev)
-    lm_kernels = [dict(name=name, route="cuda", source=LM_SOURCES[name],
-                       replaces=LM_TPU[name], launches=lm["launches"][name],
+    lm_timing.update(phase_ssm_moe_kernels(dev))
+    phase_ssm_moe_card_vs_cpu(dev)
+    ssm_moe = phase_ssm_moe_serve(dev)
+    sources = {**LM_SOURCES, **SSM_MOE_SOURCES}
+    tpu = {**LM_TPU, **SSM_MOE_TPU}
+    lm_kernels = [dict(name=name, route="cuda", source=sources[name],
+                       replaces=tpu[name],
+                       launches=lm["launches"][name]
+                       + ssm_moe["launches"][name],
                        **{k: lm_timing[name][k] for k in (
                            "max_abs_err", "ms", "plain_ms", "bound_ms",
                            "bound_by", "library_ms")})
-                  for name in LM_SOURCES]
+                  for name in LM_KERNELS]
     print(smi)
     print(json.dumps({"kernels": [kernel, decode] + lm_kernels}))
     print(json.dumps({"ok": True, "device": {

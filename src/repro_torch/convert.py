@@ -7,9 +7,12 @@ an absent ``expand`` conv (``None`` in the JAX tree) is left out, and
 everything else — dense kernels, BN ``scale``/``bias``/``mean``/``var`` —
 carries across as it is. ``fc_from_jax`` converts the FC head (or the
 per-slot FC slices) without any permutation. ``lm_params_from_jax``
-converts an LM parameter tree (layer params stacked on axis 0) leaf by
-leaf, with no permutation, and carries bf16 across bit for bit. With
-converted weights both packages compute the same function.
+converts an LM parameter tree of any ported family leaf by leaf, with no
+permutation: the dense and MoE ``layers`` and the SSM ``layers`` stacked on
+axis 0, the hybrid's stacked ``periods`` with their ``sub{i}`` dicts; bf16
+leaves bit for bit, fp32 ones (the MoE router, the SSM ``A_log``, ``D``
+and ``dt_bias``) as they are. With converted weights both packages compute
+the same function.
 """
 from __future__ import annotations
 

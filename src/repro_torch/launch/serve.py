@@ -1,21 +1,22 @@
-"""Serving entry point: prefill + greedy decode loop for a dense ``--arch``.
+"""Serving entry point: prefill + greedy decode loop for an ``--arch`` of
+the dense, moe, ssm or hybrid family.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
       --prompt-len 64 --gen 32 --batch 2
 
 The JAX package's ``launch/serve.py`` on one card. :func:`generate` draws
 random weights and a random prompt from ``seed`` on the device (the card
 unless ``device="cpu"``), then :func:`greedy_decode` runs the reference
 loop's steps: prefill, splice the prompt's cache into a ``prompt_len +
-gen`` cache, take the argmax of the last logits, then ``gen - 1`` decode
-steps at ``index = prompt_len + t``. The decode steps update the cache in
-place (the reference donates it).
+gen`` cache (:func:`splice`), take the argmax of the last logits, then
+``gen - 1`` decode steps at ``index = prompt_len + t``. The decode steps
+update the cache in place (the reference donates it).
 
 The CLI keeps the reference's flags as they are, so ``--tiny`` (a
 ``store_true`` flag whose default is True) is always on; call
 ``generate(..., tiny=False)`` for the published widths. Only token inputs
 with RoPE (or no) positions are served: precomputed embeddings and M-RoPE
-raise ``NotImplementedError``, as do the non-dense families.
+raise ``NotImplementedError``, as do the vlm and encdec families.
 """
 from __future__ import annotations
 
@@ -50,6 +51,15 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def splice(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Copy a prefill cache leaf into the zeroed serving cache leaf, as the
+    reference's ``splice`` does: whole where the shapes agree, else into
+    the leading corner of every axis (the reference zero-pads ``src`` at
+    the end of each axis: the KV caches' sequence axis, and a conv window
+    of a prompt shorter than it)."""
+    dst[tuple(slice(0, n) for n in src.shape)] = src
+
+
 def greedy_decode(params, cfg: ModelConfig, tokens: torch.Tensor, gen: int,
                   *, keep_logits: bool = False) -> Generation:
     """Prefill ``tokens`` (B, P), then ``gen - 1`` greedy decode steps, on
@@ -60,8 +70,8 @@ def greedy_decode(params, cfg: ModelConfig, tokens: torch.Tensor, gen: int,
     _sync(dev)
     t0 = time.perf_counter()
     logits, pcache = api.prefill(params, cfg, {"tokens": tokens})
-    for name, c in cache.items():           # splice the prompt's cache in
-        c[:, :, :P] = pcache[name]
+    for name, c in cache.items():
+        splice(c, pcache[name])
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 

@@ -1,4 +1,4 @@
-"""Unified model API, dense family.
+"""Unified model API over the dense, moe, ssm and hybrid families.
 
     init(gen, cfg)                          -> params (on gen's device)
     forward(params, cfg, batch)             -> logits
@@ -7,9 +7,9 @@
     init_cache(cfg, batch, max_len)         -> cache dict
     decode_step(params, cfg, batch, cache, index) -> (logits, cache)
 
-``batch`` keys: tokens (B,S) int | positions (B,S) | labels (B,S). The JAX
-package's ``models/api.py`` also serves the moe, vlm, ssm, hybrid and encdec
-families; here they raise ``NotImplementedError`` naming ROADMAP Queue 1
+``batch`` keys: tokens (B,S) int | positions (B,S) | labels (B,S). The
+JAX package's ``models/api.py`` dispatches the same way; its vlm and
+encdec families raise ``NotImplementedError`` here, naming ROADMAP Queue 1
 item 9, with no fallback.
 """
 from __future__ import annotations
@@ -20,32 +20,39 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import hybrid as HY
+from repro_torch.models import ssm as SS
 from repro_torch.models import transformer as T
 from repro_torch.tree import tree_leaves
 
 Params = Dict[str, Any]
 
 
-def _dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _ported(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"the {cfg.family!r} family ({cfg.name}) {T.NOT_PORTED}; the "
-            f"port serves the dense family")
+            f"port serves the dense, moe, ssm and hybrid families")
 
 
 def init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """Params drawn from ``gen``, on the generator's device."""
-    _dense(cfg)
+    _ported(cfg)
+    if cfg.family == "ssm":
+        return SS.ssm_lm_init(gen, cfg)
+    if cfg.family == "hybrid":
+        return HY.hybrid_init(gen, cfg)
     return T.lm_init(gen, cfg)
 
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
             ) -> torch.Tensor:
     """Full-sequence logits (B, S, V)."""
-    _dense(cfg)
-    return T.lm_forward(params, cfg, batch.get("tokens"),
-                        embeds=batch.get("embeds"),
-                        positions=batch.get("positions"))
+    _ported(cfg)
+    fn = {"ssm": SS.ssm_lm_forward, "hybrid": HY.hybrid_forward}.get(
+        cfg.family, T.lm_forward)
+    return fn(params, cfg, batch.get("tokens"), embeds=batch.get("embeds"),
+              positions=batch.get("positions"))
 
 
 def loss(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
@@ -56,26 +63,31 @@ def loss(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
             ) -> Tuple[torch.Tensor, Params]:
-    """Last-position logits (B, 1, V) and the prompt's KV cache."""
-    _dense(cfg)
-    return T.lm_prefill(params, cfg, batch.get("tokens"),
-                        embeds=batch.get("embeds"),
-                        positions=batch.get("positions"))
+    """Last-position logits (B, 1, V) and the prompt's cache."""
+    _ported(cfg)
+    fn = {"ssm": SS.ssm_prefill, "hybrid": HY.hybrid_prefill}.get(
+        cfg.family, T.lm_prefill)
+    return fn(params, cfg, batch.get("tokens"), embeds=batch.get("embeds"),
+              positions=batch.get("positions"))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: DeviceLike = None) -> Params:
-    """Zero KV caches on ``device`` (the card unless told otherwise)."""
-    _dense(cfg)
-    return T.lm_init_cache(cfg, batch, max_len, device=resolve_device(device))
+    """A zero cache on ``device`` (the card unless told otherwise)."""
+    _ported(cfg)
+    fn = {"ssm": SS.ssm_init_cache, "hybrid": HY.hybrid_init_cache}.get(
+        cfg.family, T.lm_init_cache)
+    return fn(cfg, batch, max_len, device=resolve_device(device))
 
 
 def decode_step(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
                 cache: Params, index) -> Tuple[torch.Tensor, Params]:
     """One token at position ``index``; the cache is updated in place."""
-    _dense(cfg)
-    return T.lm_decode_step(params, cfg, batch["tokens"], cache, index,
-                            embeds=batch.get("embeds"))
+    _ported(cfg)
+    fn = {"ssm": SS.ssm_decode_step, "hybrid": HY.hybrid_decode_step}.get(
+        cfg.family, T.lm_decode_step)
+    return fn(params, cfg, batch["tokens"], cache, index,
+              embeds=batch.get("embeds"))
 
 
 def param_count(params: Params) -> int:

@@ -1,14 +1,17 @@
-"""Decoder-only LM, dense family: GQA attention with RoPE, SwiGLU (or GELU)
-FFN, RMSNorm (or LayerNorm), layers stacked on a leading axis.
+"""Decoder-only LM, dense and MoE families: GQA attention with RoPE (or no
+positions), SwiGLU (or GELU) FFN or a token-dropping MoE FFN, RMSNorm (or
+LayerNorm), layers stacked on a leading axis.
 
-The JAX package's ``models/transformer.py`` for ``family="dense"``, with
-the same parameter tree (layer params stacked on axis 0), the same cache
-layout ``(L, B, Smax, KV, hd)`` and the same head order: query head
-``h = kv·G + g`` reads kv head ``kv``. Prefill attention goes through the
-hand-written ``flash_attention`` kernel (the reference's ``full`` and
-``blocked`` paths are both exact causal attention, so one kernel serves
-both), decode attention through ``decode_attention``, and every RMSNorm
-through ``rmsnorm``.
+The JAX package's ``models/transformer.py`` for ``family="dense"`` and
+``"moe"``, with the same parameter tree (layer params stacked on axis 0),
+the same cache layout ``(L, B, Smax, KV, hd)`` and the same head order:
+query head ``h = kv·G + g`` reads kv head ``kv``. Prefill attention goes
+through the hand-written ``flash_attention`` kernel (the reference's
+``full`` and ``blocked`` paths are both exact causal attention, so one
+kernel serves both), decode attention through ``decode_attention``, every
+RMSNorm through ``rmsnorm`` and the MoE router's softmax and top-k through
+``topk_gating``. The hybrid family (``models/hybrid.py``) reuses the
+attention, FFN and MoE pieces.
 
 Differences from the reference:
 
@@ -20,19 +23,24 @@ Differences from the reference:
   its decode step, so its counterpart here is an in-place update;
 - one card needs no sharding constraints, so ``constrain`` is dropped, and
   there is no ``train`` flag (it only selects a remat policy there);
-- MoE layers, M-RoPE and precomputed-embedding inputs raise
-  ``NotImplementedError`` (ROADMAP Queue 1 item 9).
+- ``moe_apply`` is the reference's single-device path
+  (``_moe_apply_dense``); its multi-device ``shard_map`` path (ROADMAP
+  Queue 1 item 11) and the training loss ``moe_aux_loss`` (item 7) are not
+  ported;
+- M-RoPE and precomputed-embedding inputs raise ``NotImplementedError``
+  (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.tree import stack_trees, tree_map
+from repro_torch.tree import stack_init, tree_map
 
 Params = Dict[str, Any]
 Index = Union[int, torch.Tensor]
@@ -192,18 +200,100 @@ def ffn_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# MoE FFN — sort-free scatter dispatch (token-dropping, GShard-style capacity)
+# ---------------------------------------------------------------------------
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """fp32 router (d, E); experts wi (E, 2, d, d_ff) with wi[e, 0] the
+    gate and wi[e, 1] the up projection, wo (E, d_ff, d)."""
+    E, d, ff = cfg.n_experts, cfg.d_model, cfg.d_ff
+    kw = dict(device=gen.device, dtype=cfg.param_dtype)
+    std = 1.0 / (d ** 0.5)
+    return {"router": L.dense_init(gen, d, E, device=gen.device),
+            "wi": L._trunc_normal(gen, (E, 2, d, ff), std, **kw),
+            "wo": L._trunc_normal(gen, (E, ff, d), std, **kw)}
+
+
+def moe_capacity(cfg: ModelConfig, tokens_per_row: int) -> int:
+    """Slots per expert and batch row: cf·k·S/E + 1 rounded up to 8."""
+    cap = int(cfg.capacity_factor * cfg.top_k * tokens_per_row
+              / cfg.n_experts) + 1
+    return max(cfg.top_k, -(-cap // 8) * 8)
+
+
+def _moe_route(router_kernel: torch.Tensor, cfg: ModelConfig,
+               x: torch.Tensor):
+    """fp32 router logits → ``topk_gating`` → each of the S·K slots' expert
+    and its position among that expert's slots in (token, k) order; a slot
+    past the capacity C is dropped. Returns (top_w (B, S, K) fp32, flat_e
+    (B, S·K), pos (B, S·K), keep (B, S·K), C)."""
+    B, S, _ = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = moe_capacity(cfg, S)
+    gates = x.float() @ router_kernel                          # (B, S, E)
+    top_w, top_e = ops.topk_gating(gates.reshape(B * S, E), K)
+    flat_e = top_e.reshape(B, S * K).long()
+    pos_in_e = F.one_hot(flat_e, E).cumsum(1) - 1              # (B, SK, E)
+    pos = pos_in_e.gather(2, flat_e[..., None])[..., 0]
+    return top_w.reshape(B, S, K), flat_e, pos, pos < C, C
+
+
+def _gather_dispatch(x: torch.Tensor, dest: torch.Tensor, n_slots: int,
+                     K: int) -> torch.Tensor:
+    """x (B, S, d); dest (B, S·K) flat slot ids (``n_slots`` = the
+    dustbin). Scatters only the slot → token indices, then gathers token
+    rows; an unrouted slot reads a zero row. Returns (B, n_slots, d)."""
+    B, S, d = x.shape
+    src = torch.full((B, n_slots + 1), S, dtype=torch.long, device=x.device)
+    tok = torch.arange(S * K, device=x.device) // K
+    src.scatter_(1, dest, tok.expand(B, -1))
+    x_pad = torch.cat([x, x.new_zeros((B, 1, d))], dim=1)
+    return x_pad[torch.arange(B, device=x.device)[:, None], src[:, :n_slots]]
+
+
+def _expert_compute(buf: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor
+                    ) -> torch.Tensor:
+    """buf (B, E, C, d) × wi (E, 2, d, ff) × wo (E, ff, d) → (B, E, C, d):
+    batched products, as the reference leaves them to XLA."""
+    gate = torch.einsum("becd,edf->becf", buf, wi[:, 0])
+    up = torch.einsum("becd,edf->becf", buf, wi[:, 1])
+    return torch.einsum("becf,efd->becd", L.swiglu(gate, up), wo)
+
+
+def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The MoE FFN on one card — the reference's single-device path
+    (``_moe_apply_dense``): dispatch per batch row with capacity C; a
+    dropped slot adds nothing (its token keeps only the residual of that
+    slot)."""
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    top_w, flat_e, pos, keep, C = _moe_route(p["router"]["kernel"], cfg, x)
+    dest = torch.where(keep, flat_e * C + pos, E * C)          # dustbin E·C
+    buf = _gather_dispatch(x, dest, E * C, K).reshape(B, E, C, d)
+    out = _expert_compute(buf, p["wi"], p["wo"]).reshape(B, E * C, d)
+    out = torch.cat([out, out.new_zeros((B, 1, d))], dim=1)
+    slot_out = out[torch.arange(B, device=x.device)[:, None], dest]
+    return torch.einsum("bskd,bsk->bsd", slot_out.reshape(B, S, K, d),
+                        top_w.to(x.dtype))
+
+
+def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, moe: bool
+         ) -> torch.Tensor:
+    return moe_apply(p, cfg, x) if moe else ffn_apply(p, cfg, x)
+
+
+# ---------------------------------------------------------------------------
 # transformer block
 # ---------------------------------------------------------------------------
 
 def block_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    """One layer: attention and FFN, each behind its norm. A MoE layer
-    raises: the MoE FFN is not ported."""
-    if cfg.family == "moe":
-        raise NotImplementedError(f"the MoE FFN {NOT_PORTED}")
+    """One layer: attention and the FFN (MoE for ``family="moe"``), each
+    behind its norm."""
     return {"attn_norm": norm_init(cfg, cfg.d_model, device=gen.device),
             "attn": attn_init(gen, cfg),
             "ffn_norm": norm_init(cfg, cfg.d_model, device=gen.device),
-            "ffn": ffn_init(gen, cfg)}
+            "ffn": (moe_init(gen, cfg) if cfg.family == "moe"
+                    else ffn_init(gen, cfg))}
 
 
 def block_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, rope: Rope
@@ -212,7 +302,7 @@ def block_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, rope: Rope
     h = norm_apply(cfg, p["attn_norm"], x)
     x = x + attention_apply(p["attn"], h, rope)
     h = norm_apply(cfg, p["ffn_norm"], x)
-    return x + ffn_apply(p["ffn"], cfg, h)
+    return x + _ffn(p["ffn"], cfg, h, cfg.family == "moe")
 
 
 def block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, rope: Rope,
@@ -223,7 +313,7 @@ def block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, rope: Rope,
     a, kc, vc = attention_decode(p["attn"], h, rope, kc, vc, index)
     x = x + a
     h = norm_apply(cfg, p["ffn_norm"], x)
-    return x + ffn_apply(p["ffn"], cfg, h), kc, vc
+    return x + _ffn(p["ffn"], cfg, h, cfg.family == "moe"), kc, vc
 
 
 # ---------------------------------------------------------------------------
@@ -232,8 +322,9 @@ def block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, rope: Rope,
 
 def lm_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """All params, drawn from ``gen`` on its device: layers stacked on
-    axis 0, the output norm, the embedding and (untied) the LM head."""
-    layers = stack_trees([block_init(gen, cfg) for _ in range(cfg.n_layers)])
+    axis 0 (drawn one at a time into the stack), the output norm, the
+    embedding and (untied) the LM head."""
+    layers = stack_init(cfg.n_layers, lambda: block_init(gen, cfg))
     dev = gen.device
     p = {"layers": layers, "out_norm": norm_init(cfg, cfg.d_model, device=dev)}
     p["embed"] = L.embed_init(gen, cfg.vocab, cfg.d_model, device=dev,
@@ -301,7 +392,7 @@ def lm_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         a, (k, v) = attention_apply(lp["attn"], h, rope, return_kv=True)
         x = x + a
         h = norm_apply(cfg, lp["ffn_norm"], x)
-        x = x + ffn_apply(lp["ffn"], cfg, h)
+        x = x + _ffn(lp["ffn"], cfg, h, cfg.family == "moe")
         ks.append(k.to(cfg.param_dtype))
         vs.append(v.to(cfg.param_dtype))
     x = norm_apply(cfg, params["out_norm"], x)

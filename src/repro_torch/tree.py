@@ -47,6 +47,23 @@ def stack_trees(trees: Sequence[Any]) -> Any:
     return tree_map(lambda *ls: torch.stack(ls), *trees)
 
 
+def stack_init(n: int, init: Callable[[], Any]) -> Any:
+    """The trees of ``n`` calls of ``init()``, stacked along a new leading
+    axis: the same values as ``stack_trees([init() for _ in range(n)])``,
+    but each leaf is allocated once and every tree is copied in and dropped
+    before the next is drawn, so the peak is the stack plus one tree (not
+    two stacks). One tree is returned as a view, with no copy."""
+    first = init()
+    if n == 1:
+        return tree_map(lambda t: t.unsqueeze(0), first)
+    out = tree_map(lambda t: t.new_empty((n, *t.shape)), first)
+    tree_map(lambda o, t: o[0].copy_(t), out, first)
+    del first
+    for i in range(1, n):
+        tree_map(lambda o, t: o[i].copy_(t), out, init())
+    return out
+
+
 def tree_to(tree: Any, device: torch.device) -> Any:
     """Move every tensor leaf to ``device``."""
     return tree_map(

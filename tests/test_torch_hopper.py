@@ -377,3 +377,140 @@ def test_dense_lm_on_the_card_matches_the_cpu(hopper):
     for a, b in zip(gpu.logits, cpu.logits):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
                                    atol=1e-4)
+
+
+# -- SSM and MoE kernels: ssd_scan, topk_gating ---------------------------------
+
+# the JAX package's own bound for its ssd_scan kernel in fp32
+# (tests/test_kernels.py::test_ssd_scan): exp(cum_t - cum_s) of fp32
+# cumulative sums that reach |cum| ~ 10^3 in a 256-step chunk carries ~1e-4
+# of rounding that depends on the order of summation
+SSD_TOL = dict(rtol=2e-3, atol=2e-3)
+
+
+def _ssd_operands(Bsz, H, L, P, N, dtype, strided, dev, seed=0):
+    """Scan operands as the model passes them (x a view of (B, L, H, P),
+    B/C of (B, L, N) expanded over heads with stride 0) or as contiguous
+    (B·H)-row copies. B and C are scaled to unit-variance scores C·B, as a
+    normalised model's are: with unit-variance B and C the fp32 sums of
+    N-term products lose more than 3e-5 relative even in the plain version
+    (against fp64), so the kernel could not be held to the fp32 bound."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((Bsz, L, H, P), generator=g, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((Bsz, L, H), generator=g, device=dev))
+    A = -torch.exp(torch.randn((H,), generator=g, device=dev))
+    Bm, Cm = (torch.randn((Bsz, L, N), generator=g, device=dev)
+              .div(N ** 0.5).to(dtype) for _ in "BC")
+    views = (x.permute(0, 2, 1, 3), dt.permute(0, 2, 1), A.expand(Bsz, H),
+             Bm[:, None].expand(Bsz, H, L, N), Cm[:, None].expand(Bsz, H, L, N))
+    if strided:
+        return views
+    return tuple(t.reshape(Bsz * H, *t.shape[2:]).contiguous() for t in views)
+
+
+@pytest.mark.parametrize("dtype", LM_DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("P,N,Q", [(64, 128, 256), (64, 16, 256), (32, 16, 32)])
+@pytest.mark.parametrize("length", ["chunks", "short"])
+@pytest.mark.parametrize("strided", [False, True], ids=["contig", "strided"])
+def test_ssd_scan_matches_plain_version(hopper, dtype, P, N, Q, length,
+                                        strided):
+    """L a multiple of Q (two chunks), and L < chunk (one ragged chunk of
+    Q = L rows); y in x's dtype and fp32, and the final state."""
+    L = 2 * Q if length == "chunks" else Q // 2 + 4
+    args = _ssd_operands(2, 3, L, P, N, dtype, strided, hopper, seed=P + N + L)
+    before = ops.ssd_scan.launches
+    y, h = ops.ssd_scan(*args, chunk=Q, return_state=True)
+    y32 = ops.ssd_scan(*args, chunk=Q, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert ops.ssd_scan.launches == before + 2
+    ry, rh = ops.ssd_scan_ref(*args, chunk=Q, return_state=True)
+    assert y.dtype == dtype and y32.dtype == h.dtype == torch.float32
+    tol = SSD_TOL if dtype == torch.float32 else LM_TOL[dtype]
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               ry.float().cpu().numpy(), **tol)
+    # fp32 outputs of the same (rounded) inputs: the fp32 bound either way
+    for out, ref in ((y32, ops.ssd_scan_ref(*args, chunk=Q,
+                                            out_dtype=torch.float32)),
+                     (h, rh)):
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                                   **SSD_TOL)
+
+
+@pytest.mark.parametrize("N", [1, 4, 77, 2048, 4096])
+@pytest.mark.parametrize("E,k", [(4, 1), (4, 2), (16, 2), (16, 6), (64, 6),
+                                 (64, 8), (8, 8)])
+def test_topk_gating_matches_plain_version(hopper, N, E, k):
+    g = torch.Generator(device=hopper).manual_seed(N + E + k)
+    logits = 3 * torch.randn((N, E), generator=g, device=hopper)
+    before = ops.topk_gating.launches
+    w, i = ops.topk_gating(logits, k)
+    torch.cuda.synchronize()
+    assert ops.topk_gating.launches == before + 1
+    rw, ri = ops.topk_gating_ref(logits, k)
+    assert i.dtype == torch.int32 and w.dtype == torch.float32
+    assert torch.equal(i, ri)
+    np.testing.assert_allclose(w.cpu().numpy(), rw.cpu().numpy(), **TOL)
+
+
+def test_topk_gating_ties_and_zero_rows(hopper):
+    logits = torch.zeros((3, 8), device=hopper)
+    logits[1, [2, 5]] = 1.0
+    w, i = ops.topk_gating(logits, 4)
+    assert i.tolist() == [[0, 1, 2, 3], [2, 5, 0, 1], [0, 1, 2, 3]]
+    before = ops.topk_gating.launches
+    w, i = ops.topk_gating(torch.zeros((0, 8), device=hopper), 2)
+    assert w.shape == i.shape == (0, 2)
+    assert ops.topk_gating.launches == before
+
+
+def test_ssm_moe_wrappers_reject_what_the_kernels_do_not_take(hopper):
+    x, dt, A, Bm, Cm = _ssd_operands(1, 2, 64, 64, 16, torch.float32, False,
+                                     hopper)
+    with pytest.raises(TypeError, match="float32"):
+        ops.ssd_scan(x, dt.double(), A, Bm, Cm)
+    with pytest.raises(TypeError, match="one dtype"):
+        ops.ssd_scan(x, dt, A, Bm.to(torch.bfloat16), Cm)
+    with pytest.raises(ValueError, match="unit stride"):
+        ops.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
+                     Bm, Cm)
+    with pytest.raises(ValueError, match="power of two"):
+        ops.ssd_scan(x[..., :48], dt, A, Bm, Cm)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ops.ssd_scan(x, dt, A, Bm, Cm, chunk=48)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.topk_gating(torch.randn((8, 4), device=hopper).t(), 2)
+    with pytest.raises(ValueError, match="E <= 256"):
+        ops.topk_gating(torch.randn((2, 300), device=hopper), 2)
+
+
+@pytest.mark.parametrize("arch,launches", [
+    # per greedy_decode(P, gen=6): rmsnorm, flash, decode, ssd_scan, gating
+    ("mamba2-130m", lambda L: ((2 * L + 1) * 6, 0, 0, L, 0)),
+    ("moonshot-v1-16b-a3b", lambda L: ((2 * L + 1) * 6, L, 5 * L, 0, 6 * L)),
+    ("jamba-v0.1-52b", lambda L: (24 * 6, 1, 5, 7, 4 * 6))])
+def test_ssm_moe_hybrid_lm_on_the_card_match_the_cpu(hopper, arch, launches):
+    """The tiny model on the card and on the CPU from the same weights:
+    greedy tokens equal, logits within 1e-4, and each kernel launched as
+    often as the model's layers call it."""
+    from repro_torch.configs.archs import tiny_version
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.models import api
+    from repro_torch.tree import tree_to
+    names = ("rmsnorm", "flash_attention", "decode_attention", "ssd_scan",
+             "topk_gating")
+    cfg = tiny_version(get_config(arch))
+    params = api.init(torch.Generator().manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 16),
+                         generator=torch.Generator().manual_seed(1))
+    cpu = greedy_decode(params, cfg, toks, 6, keep_logits=True)
+    counts = [getattr(ops, n).launches for n in names]
+    gpu = greedy_decode(tree_to(params, hopper), cfg, toks.to(hopper), 6,
+                        keep_logits=True)
+    assert tuple(getattr(ops, n).launches - c for n, c in
+                 zip(names, counts)) == launches(cfg.n_layers)
+    np.testing.assert_array_equal(gpu.tokens, cpu.tokens)
+    for a, b in zip(gpu.logits, cpu.logits):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4)

@@ -233,8 +233,7 @@ def test_prefill_then_decode_equals_forward(arch):
 
 def test_other_families_and_inputs_raise():
     from repro_torch.launch.serve import generate
-    for arch in ("mamba2-130m", "grok-1-314b", "qwen2-vl-7b", "whisper-medium",
-                 "jamba-v0.1-52b"):
+    for arch in ("qwen2-vl-7b", "whisper-medium"):
         cfg = tiny_version(get_config(arch))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             api.init(torch.Generator().manual_seed(0), cfg)
