@@ -87,16 +87,39 @@ kernels, ``ssd_scan`` (the SSM prefill's chunked scan) and ``topk_gating``
     against 256 where the scan runs, the MoE at a capacity that drops
     nothing); a profile of one prefill and of 8 decode steps.
 
-The last two lines of standard output are the ``kernels`` JSON line and the
-``ok`` JSON line. Exits non-zero without a CUDA device.
+The measured cost model and the autotuner (``repro_torch.launch.microbench``,
+``repro_torch.kernels.autotune``) run the last two hand-written kernels,
+``dequant_matmul`` (the tuner's int8 weight-dequant product) and
+``coded_matmul`` (compute coding's shard products):
+
+16. both held to their plain versions (rtol/atol 1e-5) over the JAX tests'
+    shapes, ragged and degenerate tiles, B = 0, per-tensor and
+    per-channel scales; every candidate tile of ``dequant_matmul``, and
+    every ``block_batch`` of ``quorum_aggregate`` and ``coded_decode`` over
+    phases 3 and 7's sweeps, bit for bit against the default; both timed
+    beside their plain versions and one PyTorch call;
+17. the measured path: portion forwards timed on the card and fitted into
+    a ``DeviceSpec``; the paper's 8-device fleet planned on measured
+    latency (``latency_source == "measured"``) beside the declared plan;
+    the three tuners into a fresh table at the serving shapes of phases 4
+    and 7 and at bench_roofline's six; the measured plan served through
+    the engine with admission on and that table installed, against a CPU
+    twin; ``shard_linear_weights`` → ``coded_matmul`` → ``coded_decode``
+    for all 10 erasure patterns of a (5, 3) code within 1e-6 × the decode
+    gain of ``x @ W``; the table written to a temporary directory.
+
+The last two lines of standard output are the ``kernels`` JSON line (nine
+entries) and the ``ok`` JSON line. Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -107,7 +130,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.coding.codes import decode_matrix, make_generator  # noqa: E402
-from repro_torch.coding.compute import ComputeRuntime  # noqa: E402
+from repro_torch.coding.compute import (ComputeRuntime,  # noqa: E402
+                                        shard_linear_weights)
 from repro_torch.coding.planner import select_redundancy  # noqa: E402
 from repro_torch.coding.runtime import CodedRuntime  # noqa: E402
 from repro_torch.core import planner as PL  # noqa: E402
@@ -119,16 +143,20 @@ from repro_torch.core.plan_ir import (PlanIR, device_matrix,  # noqa: E402
 from repro_torch.core.simulator import FailureModel, make_fleet  # noqa: E402
 from repro_torch.configs.archs import tiny_version  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.kernels import autotune as AT  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.launch import microbench as MB  # noqa: E402
 from repro_torch.launch.serve import (generate, greedy_decode,  # noqa: E402
                                       splice)
 from repro_torch.models import api, cnn, hybrid  # noqa: E402
+from repro_torch.optim.compression import quantize_weight  # noqa: E402
 from repro_torch.runtime.engine import EngineConfig, ServingEngine  # noqa: E402
 from repro_torch.runtime.serving import server_from_ensemble  # noqa: E402
 from repro_torch.tree import tree_to  # noqa: E402
 
 KERNELS = ("quorum_aggregate", "coded_decode", "rmsnorm", "flash_attention",
-           "decode_attention", "ssd_scan", "topk_gating")
+           "decode_attention", "ssd_scan", "topk_gating", "dequant_matmul",
+           "coded_matmul")
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/quorum_aggregate.cu"
 TPU_KERNEL = "src/repro/kernels/quorum_aggregate.py:33"
 DECODE_SOURCE = "src/repro_torch/kernels/csrc/coded_decode.cu"
@@ -491,12 +519,14 @@ def decode_gain(server, share_times) -> float:
 
 def phase_serve(name: str, ens: Ensemble, dev, *, quantize="none",
                 fused: bool, seed: int = 0, fp32_twin=None,
-                coded: bool = False) -> dict:
+                coded: bool = False, admission: bool = False) -> dict:
     """Serve a Poisson trace through the engine on ``dev``; hold every
     batch to the same server built on the CPU (and, for int8, to the fp32
     server on ``dev``). A coded phase replays every call, warm-up included,
     and holds the card's ``coded_decode`` launches to the replay's decodes.
-    Returns the phase's counts and errors, and both servers."""
+    ``admission`` turns on the engine's SLO admission control, which sheds
+    on the plan's ``objective()``. Returns the phase's counts and errors,
+    and both servers."""
     failure = FailureModel(crash_prob=0.05, outages=True)
     srv = server_from_ensemble(ens, failure=failure, seed=seed,
                                quantize=quantize, device=dev)
@@ -509,7 +539,8 @@ def phase_serve(name: str, ens: Ensemble, dev, *, quantize="none",
     rng = np.random.default_rng(seed)
     times = np.cumsum(rng.exponential(1 / 200.0, N_REQUESTS))
     sizes = rng.integers(1, MAX_REQUEST_ROWS + 1, N_REQUESTS)
-    cfg = EngineConfig(max_batch=8, max_wait=0.01, slo=1.0, seed=seed)
+    cfg = EngineConfig(max_batch=8, max_wait=0.01, slo=1.0, seed=seed,
+                       admission=admission)
 
     def images(r, rows):
         x = r.standard_normal((rows, 32, 32, 3)).astype(np.float32)
@@ -532,9 +563,10 @@ def phase_serve(name: str, ens: Ensemble, dev, *, quantize="none",
             f"serve_batch calls = {len(report.batches)} batches + {warm} "
             f"warm-up calls")
     summary = report.summary()
-    if summary["n"] != N_REQUESTS:
-        raise AssertionError(f"{name}: served {summary['n']} of "
-                             f"{N_REQUESTS} requests")
+    if summary["n"] + summary["rejected"] != N_REQUESTS:
+        raise AssertionError(f"{name}: served {summary['n']} and shed "
+                             f"{summary['rejected']} of {N_REQUESTS} "
+                             f"requests")
 
     worst = max_gain = 0.0
     agree, total, worst_int8 = 0, 0, 0.0
@@ -578,6 +610,10 @@ def phase_serve(name: str, ens: Ensemble, dev, *, quantize="none",
             f"{summary['degraded_rate']:.3f}, wall {wall:.3f} s, "
             f"launches {launches} (= {len(report.batches)} batches + {warm} "
             f"warm-up), max abs err vs CPU {worst:.3e}")
+    if admission:
+        line += (f", admission on: {summary['admitted']} admitted, "
+                 f"{summary['rejected']} shed at objective "
+                 f"{srv.ir.objective():.3e} s")
     if coded:
         line += (f", coded_decode launches {decodes} (= CPU replay's "
                  f"{len(cpu_decodes)}), share futures "
@@ -1462,6 +1498,389 @@ def phase_ssm_moe_serve(dev) -> dict:
     return dict(launches=totals, **out)
 
 
+# -- the measured cost model and the autotuner: dequant_matmul, coded_matmul --
+
+MEASURED_SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu"
+                    for k in ("dequant_matmul", "coded_matmul")}
+MEASURED_TPU = {"dequant_matmul": "src/repro/kernels/dequant_matmul.py:23",
+                "coded_matmul": "src/repro/kernels/coded_matmul.py:29"}
+# dequant_matmul's sweep: the JAX tests' shapes (tests/test_fastpath.py),
+# then its ragged and degenerate tiles (B, D, N, block_batch, block_n)
+DQ_SHAPES = ((1, 8, 5), (7, 16, 11), (130, 8, 300), (0, 4, 3))
+DQ_TILED = ((7, 16, 13, 4, 8), (33, 8, 257, 32, 64), (1, 8, 1, 128, 256),
+            (250, 32, 100, 128, 256), (5, 8, 6, 0, 0), (5, 8, 6, -5, 4),
+            (5, 8, 6, 4096, 4096))
+# (B, D, N): bench_roofline's two shapes (benchmarks/bench_roofline.py) and
+# llama3.2-1b's gate projection over 2048 rows, where the kernel sets the time
+DQ_TIMED = ((1024, 64, 256), (64, 64, 512), (2048, 2048, 8192))
+# coded_matmul (B, D, F, n, k): the JAX tests' cases, then the timed ones:
+# the compute-fused plan's (5, 3) slot over the serving batch (64 features
+# of WRN-16-1's last stage → its 128-filter portion) and (8, 5) over a
+# (1024, 1000) layer
+CM_SHAPES = ((9, 6, 13, 5, 3), (4, 6, 12, 3, 2), (37, 16, 40, 8, 5),
+             (0, 6, 13, 5, 3))
+CM_TIMED = ((256, 64, 128, 5, 3), (256, 1024, 1000, 8, 5))
+ROUND_TRIP_TOL = 1e-6           # × the decode gain (test_torch_coded_serving)
+# bench_roofline's six cells (benchmarks/bench_roofline.py:36-78)
+ROOFLINE_QA = ((4, 1024, 16, 10), (4, 64, 16, 10))       # K, B, Dk, C
+ROOFLINE_CD = ((1024, 6, 4, 16), (64, 6, 4, 16))         # B, R, K, F
+ROOFLINE_DQ = ((1024, 64, 256), (64, 64, 512))           # B, D, N
+
+
+def dq_operands(B, D, N, per_channel, gen, dev):
+    """x ~ N(0, 1) and an int8 weight quantized from N(0, 1) by the port's
+    quantize_weight (per tensor or per output channel), as the JAX tests
+    draw them."""
+    x = torch.randn((B, D), generator=gen, device=dev)
+    wq = quantize_weight(torch.randn((D, N), generator=gen, device=dev),
+                         axis=1 if per_channel else None)
+    return x, wq.q.contiguous(), wq.scale.reshape(-1 if per_channel else ())
+
+
+def dq_bound(B, D, N, per_channel) -> tuple:
+    """x, q and the scales read once, y written once; 2·B·D·N fp32 flops."""
+    nbytes = 4 * B * D + D * N + 4 * (N if per_channel else 1) + 4 * B * N
+    return roofline(nbytes, 2 * B * D * N, torch.float32)
+
+
+def dq_walk_bound(D: int, exact: torch.Tensor) -> float:
+    """The largest distance from the fp64 product that fp32 accumulation
+    over D terms may show under a random-walk model, 8 · 2^-24 · √D ·
+    max|y| (tests/test_torch_hopper.py); a wrong sum is off by O(|y|)."""
+    return 8 * 2.0 ** -24 * D ** 0.5 * float(exact.abs().max())
+
+
+def cm_bound(B, D, w, n) -> tuple:
+    """x and the n shards read once, the (n, B, w) products written once."""
+    return roofline(4 * (B * D + n * D * w + n * B * w), 2 * n * B * D * w,
+                    torch.float32)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def phase_matmul_kernels(dev, plans: dict) -> dict:
+    """dequant_matmul and coded_matmul vs their plain versions (rtol/atol
+    1e-5) over the JAX tests' shapes, ragged and degenerate tiles, B = 0,
+    both scale kinds; every candidate tile of dequant_matmul, and of
+    quorum_aggregate and coded_decode at phases 3 and 7's sweeps, bit for bit
+    against the default; then each new kernel timed at its shapes."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    worst = {"dequant_matmul": 0.0, "coded_matmul": 0.0}
+    n_cases, n_tiles = 0, 0
+    dq_default = AT.DEFAULTS["dequant_matmul"]
+    for per_channel in (False, True):
+        cases = [(B, D, N, None, None) for B, D, N in DQ_SHAPES] + \
+            list(DQ_TILED)
+        errs = []
+        for B, D, N, bb, bn in cases:
+            x, q, sc = dq_operands(B, D, N, per_channel, gen, dev)
+            out = ops.dequant_matmul(x, q, sc, block_batch=bb, block_n=bn)
+            ref = ops.dequant_matmul_ref(x, q, sc)
+            torch.cuda.synchronize()
+            e = max_err(out, ref, **KERNEL_TOL)
+            worst["dequant_matmul"] = max(worst["dequant_matmul"], e)
+            n_cases += 1
+            base = ops.dequant_matmul(x, q, sc, **dq_default)
+            for c in AT._configs("dequant_matmul"):
+                if not same_bits(ops.dequant_matmul(x, q, sc, **c), base):
+                    raise AssertionError(f"dequant_matmul ({B},{D},{N}) "
+                                         f"tile {c}: bits differ from the "
+                                         f"default")
+                n_tiles += 1
+            errs.append(f"({B},{D},{N})" + (f"/{bb}x{bn}" if bb is not None
+                                             else "") + f":{e:.1e}")
+        kind = "per-channel" if per_channel else "per-tensor"
+        print(f"dequant_matmul {kind}: " + " ".join(errs))
+    errs = []
+    for B, D, F, n, k in CM_SHAPES + CM_TIMED:
+        W = torch.randn((D, F), generator=gen, device=dev) / D ** 0.5
+        sh = torch.from_numpy(shard_linear_weights(W.cpu().numpy(), n, k)
+                              ).to(dev)
+        x = torch.randn((B, D), generator=gen, device=dev)
+        out = ops.coded_matmul(x, sh)
+        torch.cuda.synchronize()
+        e = max_err(out, ops.coded_matmul_ref(x, sh), **KERNEL_TOL)
+        worst["coded_matmul"] = max(worst["coded_matmul"], e)
+        n_cases += 1
+        errs.append(f"B{B}/D{D}/({n},{k})w{sh.shape[2]}:{e:.1e}")
+    print("coded_matmul: " + " ".join(errs))
+    print(f"matmul kernels vs plain: {n_cases} cases within rtol/atol 1e-5; "
+          f"{n_tiles} dequant_matmul tile launches bit-equal to the default "
+          f"({len(AT._configs('dequant_matmul'))} candidates)")
+
+    # every candidate block_batch of the two serving kernels, bit for bit
+    qa_tiles = cd_tiles = 0
+    rng = np.random.default_rng(4)
+    for int8 in (False, True):
+        for K in (6, 8):
+            for Dk in (32, 43, 640):
+                for C in (10, 100):
+                    for B in (0, 1, 7, 256, 1000):
+                        mask = (np.arange(K) % 3 != 1).astype(np.int32)
+                        p, w, b, m, s = qa_operands(K, B, Dk, C, mask, int8,
+                                                    gen, dev)
+                        base = ops.quorum_aggregate(p, w, b, m, s)
+                        for c in AT._configs("quorum_aggregate"):
+                            if not same_bits(ops.quorum_aggregate(
+                                    p, w, b, m, s, **c), base):
+                                raise AssertionError(
+                                    f"quorum_aggregate K={K} B={B} Dk={Dk} "
+                                    f"C={C} tile {c}: bits differ")
+                            qa_tiles += 1
+        for R, K, F in ((6, 4, 64), (8, 5, 52), (5, 3, 43), (12, 8, 640)):
+            for B in (0, 1, 7, 256, 1000):
+                for mname in ("ones", "mixed", "zeros"):
+                    sh, dec, m, s = cd_operands(B, R, K, F, mname, "pinv",
+                                                int8, gen, dev, rng, plans)
+                    base = ops.coded_decode(sh, dec, m, s)
+                    for c in AT._configs("coded_decode"):
+                        if not same_bits(ops.coded_decode(sh, dec, m, s, **c),
+                                         base):
+                            raise AssertionError(
+                                f"coded_decode B={B} R={R} K={K} F={F} "
+                                f"tile {c}: bits differ")
+                        cd_tiles += 1
+    print(f"tiles: {qa_tiles} quorum_aggregate launches over "
+          f"{len(AT._configs('quorum_aggregate'))} block_batch candidates and "
+          f"{cd_tiles} coded_decode launches over "
+          f"{len(AT._configs('coded_decode'))}, each bit-equal to its default")
+
+    timing = {}
+    for B, D, N in DQ_TIMED:
+        x, q, sc = dq_operands(B, D, N, True, gen, dev)
+        it = dict(iters=20, warm=3) if B * D * N > 1e9 else {}
+        t = dict(ms=cuda_ms(lambda: ops.dequant_matmul(x, q, sc), **it),
+                 plain_ms=cuda_ms(lambda: ops.dequant_matmul_ref(x, q, sc),
+                                  **it),
+                 library_ms=cuda_ms(lambda: x @ (q.float() * sc), **it))
+        t["bound_ms"], t["bound_by"] = dq_bound(B, D, N, True)
+        out = ops.dequant_matmul(x, q, sc)
+        ref = ops.dequant_matmul_ref(x, q, sc)
+        torch.cuda.synchronize()
+        if D <= 64:
+            e = max_err(out, ref, **KERNEL_TOL)
+            held = "within rtol/atol 1e-5"
+        else:
+            e = float((out - ref).abs().max())
+            exact = x.double() @ (q.double() * sc.double())
+            tol = dq_walk_bound(D, exact)
+            for y in (out, ref):
+                err = float((y.double() - exact).abs().max())
+                if err > tol:
+                    raise AssertionError(f"dequant_matmul ({B},{D},{N}): "
+                                         f"{err:.3e} from the fp64 product,"
+                                         f" beyond the fp32 bound {tol:.3e}")
+            held = f"both within {tol:.3e} of the fp64 product"
+        worst["dequant_matmul"] = max(worst["dequant_matmul"], e)
+        print(f"dequant_matmul timing at (B,D,N)=({B},{D},{N}) per-channel, "
+              f"default tile {dq_default}: kernel {t['ms']:.5f} ms, plain "
+              f"{t['plain_ms']:.5f} ms, x @ (q.float() * scale) "
+              f"{t['library_ms']:.5f} ms, bound {t['bound_ms']:.6f} ms "
+              f"({t['bound_by']}); max abs diff vs plain {e:.3e} of max "
+              f"|y| {float(ref.abs().max()):.3e}, {held}")
+        # the kernels line takes the first shape, the tuner's main path's
+        timing.setdefault("dequant_matmul", t)
+    for B, D, F, n, k in CM_TIMED:
+        W = torch.randn((D, F), generator=gen, device=dev) / D ** 0.5
+        sh = torch.from_numpy(shard_linear_weights(W.cpu().numpy(), n, k)
+                              ).to(dev)
+        x = torch.randn((B, D), generator=gen, device=dev)
+        xb = x.expand(n, B, D)
+        t = dict(ms=cuda_ms(lambda: ops.coded_matmul(x, sh)),
+                 plain_ms=cuda_ms(lambda: ops.coded_matmul_ref(x, sh)),
+                 library_ms=cuda_ms(lambda: torch.bmm(xb, sh)))
+        t["bound_ms"], t["bound_by"] = cm_bound(B, D, sh.shape[2], n)
+        print(f"coded_matmul timing at B={B} D={D} ({n},{k}) w={sh.shape[2]}:"
+              f" kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, bmm "
+              f"{t['library_ms']:.5f} ms, bound {t['bound_ms']:.6f} ms "
+              f"({t['bound_by']})")
+        # the kernels line takes the first shape, the round trip's
+        timing.setdefault("coded_matmul", t)
+    for name, t in timing.items():
+        t["max_abs_err"] = worst[name]
+    return timing
+
+
+def tuning_cells(gen, dev) -> list:
+    """(kernel, args, flops, bytes, tag) cells the tuners search: the
+    serving shapes of phases 4 and 7, then bench_roofline's six, drawn on
+    the card as bench_roofline draws them."""
+    qa = [(*MAIN_SHAPE.values(), "serve")] + \
+        [(*c, f"B{c[1]}") for c in ROOFLINE_QA]
+    cd = [(*DECODE_SHAPE.values(), "serve")] + \
+        [(*c, f"B{c[0]}") for c in ROOFLINE_CD]
+    cells = []
+    for K, B, Dk, C, tag in qa:
+        p, w, b, m, _ = qa_operands(K, B, Dk, C, np.ones(K, np.int32), False,
+                                    gen, dev)
+        cells.append(("quorum_aggregate", (p, w, b, m), 2.0 * K * B * Dk * C,
+                      4.0 * (K * B * Dk + K * Dk * C + C + B * C), tag))
+    for B, R, K, F, tag in cd:
+        sh = torch.randn((B, R, F), generator=gen, device=dev)
+        dec = torch.randn((B, K, R), generator=gen, device=dev)
+        m = torch.ones((B, R), dtype=torch.int32, device=dev)
+        cells.append(("coded_decode", (sh, dec, m), 2.0 * B * K * R * F,
+                      4.0 * (B * R * F + B * K * R + B * R + B * K * F), tag))
+    for B, D, N in ROOFLINE_DQ:
+        x = torch.randn((B, D), generator=gen, device=dev)
+        q = torch.randint(-127, 128, (D, N), generator=gen, device=dev,
+                          dtype=torch.int8)
+        sc = 0.01 + 0.09 * torch.rand((N,), generator=gen, device=dev)
+        cells.append(("dequant_matmul", (x, q, sc), 2.0 * B * D * N,
+                      4.0 * B * D + D * N + 4.0 * N + 4.0 * B * N,
+                      f"B{B}xN{N}"))
+    return cells
+
+
+def phase_measured(dev) -> dict:
+    """The measured path on the card: fit the card's spec from timed
+    portion forwards, plan the paper's fleet on it, tune the three kernels
+    into a fresh table at the serving shapes and bench_roofline's, serve the
+    measured plan through the engine (admission on) with that table
+    installed against a CPU twin, run the compute-coding round trip for
+    every erasure pattern, and write the table to a temporary directory."""
+    for k in ("quorum_aggregate", "coded_decode", *MEASURED_SOURCES):
+        getattr(ops, k).launches = 0        # the measured path's window
+
+    # 1-3: the fitted spec and the plan on it
+    samples = MB.portion_forward_samples(device=dev)
+    spec = MB.fit_host_spec(samples, name=torch.cuda.get_device_name(0))
+    print(f"microbench: {len(samples)} portion forwards, wall "
+          f"{min(s.wall_s for s in samples) * 1e6:.1f}-"
+          f"{max(s.wall_s for s in samples) * 1e6:.1f} us; fitted "
+          f"peak_flops {spec.peak_flops:.4e} FLOP/s, peak_bw "
+          f"{spec.peak_bw:.4e} B/s, latency_floor "
+          f"{spec.latency_floor * 1e6:.3f} us")
+    # the paper's 8-device fleet as the legacy phase draws it: the plain
+    # draw (seed 1) leaves a slot without a student (objective inf), which
+    # admission would shed whole
+    fleet = make_fleet(8, seed=1, mem_range=(1e6, 4e6))
+    A, students = affinity_graph(256), paper_students()
+    declared = PL.tune_d_th_ir(fleet, A, students, p_th=0.25)
+    specs = MB.fleet_specs_from_microbench(fleet, samples)
+    # the planner's d_th sweep, each candidate through
+    # make_plan_ir(..., device_specs=specs), on measured latency
+    measured = PL.tune_d_th_ir(fleet, A, students, p_th=0.25,
+                               device_specs=specs)
+    if measured.latency_source != "measured" or \
+            declared.latency_source != "declared":
+        raise AssertionError(f"latency sources {declared.latency_source} / "
+                             f"{measured.latency_source}")
+    print(f"plan on measured latency: K={measured.K}, d_th "
+          f"{measured.d_th}, objective {measured.objective():.6e} s, widths "
+          f"{measured.partition.sum(1).tolist()}; declared plan K="
+          f"{declared.K}, d_th {declared.d_th}, objective "
+          f"{declared.objective():.6e} s")
+
+    # 4: the three tuners into a fresh table
+    gen = torch.Generator(device=dev).manual_seed(5)
+    table = AT.TuningTable()
+    AT.set_table(table)
+    cells = tuning_cells(gen, dev)
+    tuners = {"quorum_aggregate": AT.tune_quorum_aggregate,
+              "coded_decode": AT.tune_coded_decode,
+              "dequant_matmul": AT.tune_dequant_matmul}
+    keys = {"quorum_aggregate": AT.key_quorum_aggregate,
+            "coded_decode": AT.key_coded_decode,
+            "dequant_matmul": AT.key_dequant_matmul}
+    rows, worst = [], dict.fromkeys(tuners, 0.0)
+    for kernel, args, flops, nbytes, tag in cells:
+        fn = getattr(ops, kernel)
+        shape, dtype = keys[kernel](args[0], args[1])
+        default = AT.defaults(kernel, shape)
+        t_default = MB.time_callable(lambda: fn(*args, **default),
+                                     repeats=20)
+        timings = tuners[kernel](table, *args, repeats=20)
+        blocks = table.get(kernel, shape, dtype)
+        dkey = ",".join(f"{k}={v}" for k, v in sorted(default.items()))
+        rival = min((k for k in timings if k != dkey), key=timings.get)
+        t_tuned = t_default if blocks == default else \
+            MB.time_callable(lambda: fn(*args), repeats=20)
+        # the tuned call against its plain version: a check, not the path
+        before = fn.launches
+        out = fn(*args)
+        fn.launches = before
+        ref = getattr(ops, f"{kernel}_ref")(*args)
+        torch.cuda.synchronize()
+        e = max_err(out, ref, **KERNEL_TOL)
+        worst[kernel] = max(worst[kernel], e)
+        bound = float(spec.latency(flops, nbytes))
+        rows.append((kernel, tag, t_default, t_tuned))
+        tile = "/".join(f"{k}={v}" for k, v in sorted(blocks.items()))
+        print(f"tune {kernel} {tag}: default {t_default * 1e3:.5f} ms, tuned "
+              f"{t_tuned * 1e3:.5f} ms ({tile}), fastest other tile "
+              f"{rival} at {timings[rival] * 1e3:.5f} ms in the search, "
+              f"speedup {t_default / t_tuned:.3f}, fitted-spec bound "
+              f"{bound * 1e3:.5f} ms, efficiency {bound / t_tuned:.4f}; "
+              f"tuned tile vs plain {e:.3e} (rtol/atol 1e-5)")
+    slower = [(k, t) for k, t, td, tt in rows if tt > td * 1.15]
+    best = max(td / tt for _, _, td, tt in rows)
+    print(f"tuning: {len(table)} entries; bench_roofline's gates (reported, "
+          f"not enforced: set for the TPU's tile grid): no regression "
+          f"beyond 1.15x {'ok' if not slower else slower}, best speedup "
+          f"{best:.3f} "
+          f"({'> 1.05' if best > 1.05 else 'not > 1.05'})")
+
+    # 5: the measured plan served with the table installed, admission on
+    ens = ensemble_for(measured, seed=6)
+    served = phase_serve("measured", ens, dev, seed=6, admission=True,
+                         fused=ens.fused_export() is not None)
+
+    # 6: the compute-coding round trip, every erasure pattern of (5, 3);
+    # x and W on a dyadic grid, so every product and sum of x @ W is exact
+    # in fp32 whatever its order and the bound measures the decode alone
+    n, k = 5, 3
+    B, D, F = CM_TIMED[0][:3]
+    x = (torch.randint(-16, 17, (B, D), generator=gen, device=dev) / 16.0)
+    W = (torch.randint(-32, 33, (D, F), generator=gen, device=dev) / 256.0)
+    shards = torch.from_numpy(shard_linear_weights(W.cpu().numpy(), n, k)
+                              ).to(dev)
+    parts = ops.coded_matmul(x, shards)                     # (n, B, w)
+    shares = parts.transpose(0, 1).contiguous()             # (B, n, w)
+    want = (x.double() @ W.double()).float()
+    G = make_generator(n, k)
+    worst_rt, gains = 0.0, []
+    for dead in itertools.combinations(range(n), n - k):
+        arrived = np.ones(n, bool)
+        arrived[list(dead)] = False
+        d = decode_matrix(G, arrived).astype(np.float32)    # (k, n)
+        gain = float(np.abs(d).sum(-1).max())
+        dec = torch.from_numpy(np.ascontiguousarray(
+            np.broadcast_to(d, (B, k, n)))).to(dev)
+        mask = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
+            arrived.astype(np.int32), (B, n)))).to(dev)
+        rec = ops.coded_decode(shares, dec, mask)
+        y = rec.reshape(B, -1)[:, :F]
+        tol = ROUND_TRIP_TOL * gain
+        worst_rt = max(worst_rt, max_err(y, want, rtol=tol, atol=tol) / gain)
+        gains.append(gain)
+    torch.cuda.synchronize()
+    print(f"compute-coding round trip ({n},{k}), x ({B}, {D}) @ W ({D}, {F}):"
+          f" {len(gains)} erasure patterns within {ROUND_TRIP_TOL} x decode "
+          f"gain (gains {min(gains):.2f}-{max(gains):.2f}), largest "
+          f"error / gain {worst_rt:.3e}")
+
+    # 7: the table goes to a temporary directory, never into the repo
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "tuning_table.json"
+        table.save(path)
+        if AT.TuningTable.load(path).entries != table.entries:
+            raise AssertionError("the tuning table did not round-trip")
+        print(f"tuning table: {len(table)} entries written to a temporary "
+              f"directory and read back")
+    AT.set_table(AT.TuningTable())
+    launches = {k: getattr(ops, k).launches for k in (
+        "quorum_aggregate", "coded_decode", *MEASURED_SOURCES)}
+    print(f"measured path launches: {launches}")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the measured path never "
+                             f"launched: {launches}")
+    return dict(launches=launches, serve=served, max_abs_err=worst)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1531,6 +1950,24 @@ def main() -> int:
     lm_timing.update(phase_ssm_moe_kernels(dev))
     phase_ssm_moe_card_vs_cpu(dev)
     ssm_moe = phase_ssm_moe_serve(dev)
+    matmul_timing = phase_matmul_kernels(dev, plans)
+    measured = phase_measured(dev)
+    for entry in (kernel, decode):
+        entry["launches"] += measured["launches"][entry["name"]]
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   measured["max_abs_err"][entry["name"]])
+    matmul_timing["dequant_matmul"]["max_abs_err"] = max(
+        matmul_timing["dequant_matmul"]["max_abs_err"],
+        measured["max_abs_err"]["dequant_matmul"])
+    matmul_kernels = [dict(name=name, route="cuda",
+                           source=MEASURED_SOURCES[name],
+                           replaces=MEASURED_TPU[name],
+                           launches=measured["launches"][name],
+                           **{k: matmul_timing[name][k] for k in (
+                               "max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")})
+                      for name in MEASURED_SOURCES]
+
     sources = {**LM_SOURCES, **SSM_MOE_SOURCES}
     tpu = {**LM_TPU, **SSM_MOE_TPU}
     lm_kernels = [dict(name=name, route="cuda", source=sources[name],
@@ -1542,7 +1979,8 @@ def main() -> int:
                            "bound_by", "library_ms")})
                   for name in LM_KERNELS]
     print(smi)
-    print(json.dumps({"kernels": [kernel, decode] + lm_kernels}))
+    print(json.dumps({"kernels": [kernel, decode] + lm_kernels
+                      + matmul_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,19 +16,26 @@ counts kernel launches (plain-version calls do not count).
 
 int8 share transport: ``shares`` int8 with per-share fp32 ``scales`` (R,);
 the kernel scales each share on the way in.
+
+``block_batch`` (batch rows per block) is resolved through the tuning table
+(:mod:`repro_torch.kernels.autotune`) unless the caller pins it;
+:func:`block_rows` clamps it to a legal launch. Every value gives the same
+bits.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 
-# the kernel's (K, R) weight tile and mask row live in shared memory
+# the kernel's (K, R) weight tile and mask row live in shared memory, one
+# per row the block decodes at a time
 _MAX_SMEM_BYTES = 48 * 1024
+_MAX_THREADS = 512
 
 
 def coded_decode_ref(shares: torch.Tensor, dec: torch.Tensor,
@@ -66,13 +73,30 @@ def _check(shares, dec, mask, scales) -> None:
         raise ValueError(f"scales must be float32 of shape ({R},)")
 
 
+def block_rows(B: int, R: int, K: int, F: int,
+               block_batch: int) -> Tuple[int, int]:
+    """(rows, lanes) of one block: ``block_batch`` clamped into [1, B]
+    rows, decoded ``lanes`` at a time, as many as 512 threads (128 feature
+    columns per lane at most) and 48 KB of weight tiles allow."""
+    threads = 128 if F >= 128 else -(-F // 32) * 32
+    rows = max(1, min(int(block_batch), B))
+    lanes = min(rows, _MAX_THREADS // max(threads, 1),
+                _MAX_SMEM_BYTES // ((K * R + R) * 4))
+    return rows, max(1, lanes)
+
+
 def coded_decode(shares: torch.Tensor, dec: torch.Tensor, mask: torch.Tensor,
-                 scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 scales: Optional[torch.Tensor] = None, *,
+                 block_batch: Optional[int] = None) -> torch.Tensor:
     """shares: (B, R, F) f32 or int8; dec: (B, K, R) f32; mask: (B, R)
     int32 (1 = share arrived; any integer or bool type on the CPU); scales:
     (R,) f32, required for int8 shares. Returns the recovered portions
-    (B, K, F) f32."""
+    (B, K, F) f32. ``block_batch=None`` consults the tuning table for this
+    shape."""
     _check(shares, dec, mask, scales)
+    shape, dtype = autotune.key_coded_decode(shares, dec)
+    bb = autotune.resolve("coded_decode", shape, dtype,
+                          {"block_batch": block_batch})["block_batch"]
     if shares.device.type == "cpu":
         return coded_decode_ref(shares, dec, mask, scales)
     if shares.device.type != "cuda":
@@ -99,7 +123,7 @@ def coded_decode(shares: torch.Tensor, dec: torch.Tensor, mask: torch.Tensor,
     with torch.cuda.device(shares.device):
         rc = fn(shares.data_ptr(), dec.data_ptr(), mask.data_ptr(),
                 scales.data_ptr() if scales is not None else None,
-                out.data_ptr(), B, R, K, F,
+                out.data_ptr(), B, R, K, F, *block_rows(B, R, K, F, bb),
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         msg = lib.coded_decode_error_string(rc).decode()
@@ -115,7 +139,7 @@ coded_decode.launches = 0
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = build.load("coded_decode")
-    args = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    args = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     for fn in (lib.coded_decode_f32, lib.coded_decode_i8):
         fn.argtypes = args
         fn.restype = ctypes.c_int

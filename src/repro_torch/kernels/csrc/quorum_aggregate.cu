@@ -25,6 +25,11 @@
 //     with CIFAR-100's 100 classes does not fit one 48 KB slice).
 // The per-slot dot is summed in its own fp32 register and then added to the
 // accumulator (acc += dot_k, k ascending), the order of the JAX kernel.
+// A block holds bm = block_batch rows of bn classes, one thread each
+// (bm * bn <= 1024 threads; 16 rows of 16 classes for CIFAR-10's C = 10 is
+// the launch this kernel made before it took a tile). bm changes which block
+// owns an output, never the order of its sum, so every bm gives the same
+// bits.
 // No wgmma or TMA: at the serving shapes (K=8, Dk=32, C=10) one call moves a
 // few hundred KB and launch latency dominates.
 
@@ -33,19 +38,20 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // one output element per thread
-constexpr int kTD = 32;        // depth of one staged Dk slice
+constexpr int kMaxThreads = 1024;  // one output element per thread
+constexpr int kTD = 32;            // depth of one staged Dk slice
 
 template <typename W>
-__global__ void quorum_aggregate_kernel(const float* __restrict__ portions,
-                                        const W* __restrict__ weights,
-                                        const float* __restrict__ scales,
-                                        const float* __restrict__ bias,
-                                        const int32_t* __restrict__ mask,
-                                        float* __restrict__ out,
-                                        int K, int B, int Dk, int C, int bn) {
-  // bn (16 or 32) classes per tile, bm = kThreads / bn rows per tile
-  const int bm = kThreads / bn;
+__global__ void __launch_bounds__(kMaxThreads)
+quorum_aggregate_kernel(const float* __restrict__ portions,
+                        const W* __restrict__ weights,
+                        const float* __restrict__ scales,
+                        const float* __restrict__ bias,
+                        const int32_t* __restrict__ mask,
+                        float* __restrict__ out, int K, int B, int Dk, int C,
+                        int bm, int bn) {
+  // bn (16 or 32) classes and bm rows per tile, bm * bn threads
+  const int threads = bm * bn;
   const int tid = threadIdx.x;
   const int ty = tid / bn;  // row inside the tile
   const int tx = tid % bn;  // class inside the tile
@@ -55,8 +61,8 @@ __global__ void quorum_aggregate_kernel(const float* __restrict__ portions,
   const int col = c0 + tx;
 
   // +1 column keeps the row-broadcast reads of sp off one bank
-  __shared__ float sp[kThreads / 16][kTD + 1];  // (bm, TD) portion slice
-  __shared__ float sw[kTD][32];                 // (TD, bn) weight slice
+  extern __shared__ float sp[];   // (bm, TD + 1) portion slice
+  __shared__ float sw[kTD][32];   // (TD, bn) weight slice
 
   float acc = 0.f;
   for (int k = 0; k < K; ++k) {
@@ -66,12 +72,13 @@ __global__ void quorum_aggregate_kernel(const float* __restrict__ portions,
     const W* wk = weights + (size_t)k * Dk * C;
     float dot = 0.f;
     for (int d0 = 0; d0 < Dk; d0 += kTD) {
-      for (int i = tid; i < bm * kTD; i += kThreads) {
+      for (int i = tid; i < bm * kTD; i += threads) {
         const int r = i / kTD, d = i % kTD;
         const int gr = r0 + r, gd = d0 + d;
-        sp[r][d] = (gr < B && gd < Dk) ? pk[(size_t)gr * Dk + gd] : 0.f;
+        sp[r * (kTD + 1) + d] =
+            (gr < B && gd < Dk) ? pk[(size_t)gr * Dk + gd] : 0.f;
       }
-      for (int i = tid; i < kTD * bn; i += kThreads) {
+      for (int i = tid; i < kTD * bn; i += threads) {
         const int d = i / bn, c = i % bn;
         const int gd = d0 + d, gc = c0 + c;
         sw[d][c] = (gd < Dk && gc < C)
@@ -80,7 +87,7 @@ __global__ void quorum_aggregate_kernel(const float* __restrict__ portions,
       }
       __syncthreads();
 #pragma unroll
-      for (int d = 0; d < kTD; ++d) dot += sp[ty][d] * sw[d][tx];
+      for (int d = 0; d < kTD; ++d) dot += sp[ty * (kTD + 1) + d] * sw[d][tx];
       __syncthreads();
     }
     acc += dot;
@@ -91,13 +98,15 @@ __global__ void quorum_aggregate_kernel(const float* __restrict__ portions,
 template <typename W>
 int launch(const float* portions, const W* weights, const float* scales,
            const float* bias, const int32_t* mask, float* out, int K, int B,
-           int Dk, int C, cudaStream_t stream) {
+           int Dk, int C, int bm, cudaStream_t stream) {
   if (B <= 0 || C <= 0) return 0;
   const int bn = C <= 16 ? 16 : 32;
-  const int bm = kThreads / bn;
+  if (bm < 1 || bm * bn > kMaxThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((B + bm - 1) / bm, (C + bn - 1) / bn);
-  quorum_aggregate_kernel<W><<<grid, kThreads, 0, stream>>>(
-      portions, weights, scales, bias, mask, out, K, B, Dk, C, bn);
+  const size_t smem = (size_t)bm * (kTD + 1) * sizeof(float);
+  quorum_aggregate_kernel<W><<<grid, bm * bn, smem, stream>>>(
+      portions, weights, scales, bias, mask, out, K, B, Dk, C, bm, bn);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -107,28 +116,31 @@ extern "C" {
 
 // Each entry point launches on ``stream`` and returns cudaGetLastError().
 // ``scales`` may be null on the fp32 path (scale 1); the int8 path needs it.
+// ``bm`` rows per block, with bm * bn <= 1024 (bn = 16 for C <= 16, else
+// 32); the Python wrapper clamps a table's entry there.
 int quorum_aggregate_f32(const void* portions, const void* weights,
                          const void* scales, const void* bias,
                          const void* mask, void* out, int K, int B, int Dk,
-                         int C, void* stream) {
+                         int C, int bm, void* stream) {
   return launch<float>(static_cast<const float*>(portions),
                        static_cast<const float*>(weights),
                        static_cast<const float*>(scales),
                        static_cast<const float*>(bias),
                        static_cast<const int32_t*>(mask),
-                       static_cast<float*>(out), K, B, Dk, C,
+                       static_cast<float*>(out), K, B, Dk, C, bm,
                        static_cast<cudaStream_t>(stream));
 }
 
 int quorum_aggregate_i8(const void* portions, const void* weights,
                         const void* scales, const void* bias, const void* mask,
-                        void* out, int K, int B, int Dk, int C, void* stream) {
+                        void* out, int K, int B, int Dk, int C, int bm,
+                        void* stream) {
   return launch<int8_t>(static_cast<const float*>(portions),
                         static_cast<const int8_t*>(weights),
                         static_cast<const float*>(scales),
                         static_cast<const float*>(bias),
                         static_cast<const int32_t*>(mask),
-                        static_cast<float*>(out), K, B, Dk, C,
+                        static_cast<float*>(out), K, B, Dk, C, bm,
                         static_cast<cudaStream_t>(stream));
 }
 

@@ -13,6 +13,11 @@ counts kernel launches (plain-version calls do not count).
 
 int8 deployment: ``weights`` int8 with per-slot fp32 ``scales`` (K,); the
 kernel expands ``q · s_k`` on the way into shared memory.
+
+``block_batch`` (output rows per block) is resolved through the tuning
+table (:mod:`repro_torch.kernels.autotune`) unless the caller pins it;
+:func:`rows_per_block` clamps it to a legal launch. Every value gives the
+same bits.
 """
 from __future__ import annotations
 
@@ -22,7 +27,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
+
+MAX_THREADS = 1024      # bm * bn threads, one per output of the tile
 
 
 def quorum_aggregate_ref(portions: torch.Tensor, weights: torch.Tensor,
@@ -65,13 +72,26 @@ def _check(portions, weights, bias, mask, scales) -> None:
         raise ValueError(f"scales must be float32 of shape ({K},)")
 
 
+def rows_per_block(C: int, block_batch: int) -> int:
+    """The kernel's rows per block for ``C`` classes: ``block_batch``
+    clamped into [1, 1024 / bn], bn = 16 classes per tile for C <= 16, else
+    32 (a stale table entry is a legal launch)."""
+    bn = 16 if C <= 16 else 32
+    return max(1, min(int(block_batch), MAX_THREADS // bn))
+
+
 def quorum_aggregate(portions: torch.Tensor, weights: torch.Tensor,
                      bias: torch.Tensor, mask: torch.Tensor,
-                     scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     scales: Optional[torch.Tensor] = None, *,
+                     block_batch: Optional[int] = None) -> torch.Tensor:
     """portions: (K, B, Dk) f32; weights: (K, Dk, C) f32 or int8; bias:
     (C,) f32; mask: (K,) int32 (1 = portion arrived); scales: (K,) f32,
-    required for int8 weights. Returns logits (B, C) f32."""
+    required for int8 weights. Returns logits (B, C) f32.
+    ``block_batch=None`` consults the tuning table for this shape."""
     _check(portions, weights, bias, mask, scales)
+    shape, dtype = autotune.key_quorum_aggregate(portions, weights)
+    bm = autotune.resolve("quorum_aggregate", shape, dtype,
+                          {"block_batch": block_batch})["block_batch"]
     if portions.device.type == "cpu":
         return quorum_aggregate_ref(portions, weights, bias, mask, scales)
     if portions.device.type != "cuda":
@@ -96,7 +116,8 @@ def quorum_aggregate(portions: torch.Tensor, weights: torch.Tensor,
         rc = fn(portions.data_ptr(), weights.data_ptr(),
                 scales.data_ptr() if scales is not None else None,
                 bias.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                K, B, Dk, C, torch.cuda.current_stream().cuda_stream)
+                K, B, Dk, C, rows_per_block(C, bm),
+                torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         msg = lib.quorum_aggregate_error_string(rc).decode()
         raise RuntimeError(f"quorum_aggregate launch failed: {msg} ({rc})")
@@ -111,7 +132,7 @@ quorum_aggregate.launches = 0
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = build.load("quorum_aggregate")
-    args = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    args = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     for fn in (lib.quorum_aggregate_f32, lib.quorum_aggregate_i8):
         fn.argtypes = args
         fn.restype = ctypes.c_int

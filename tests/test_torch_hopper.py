@@ -514,3 +514,152 @@ def test_ssm_moe_hybrid_lm_on_the_card_match_the_cpu(hopper, arch, launches):
     for a, b in zip(gpu.logits, cpu.logits):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
                                    atol=1e-4)
+
+
+# -- the measured-cost-model and autotune slice: dequant_matmul, coded_matmul,
+# -- and the tiles of the tunable kernels
+
+def _dq_operands(B, D, N, per_channel, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, D)).astype(np.float32)
+    q = rng.integers(-127, 128, (D, N)).astype(np.int8)
+    s = (rng.uniform(0.01, 0.1, (N,)) if per_channel
+         else np.asarray(rng.uniform(0.01, 0.1))).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (x, q, s)]
+
+
+@pytest.mark.parametrize("per_channel", [False, True],
+                         ids=["per_tensor", "per_channel"])
+@pytest.mark.parametrize("B,D,N,bb,bn", [
+    (1, 8, 5, None, None), (7, 16, 11, None, None), (130, 8, 300, None, None),
+    (7, 16, 13, 4, 8), (33, 8, 257, 32, 64), (1, 8, 1, 128, 256),
+    (250, 32, 100, 128, 256), (5, 8, 6, 0, 0), (5, 8, 6, -5, 4),
+    (5, 8, 6, 4096, 4096)])
+def test_dequant_matmul_matches_plain_version(hopper, per_channel, B, D, N,
+                                              bb, bn):
+    args = _dq_operands(B, D, N, per_channel, hopper, seed=B + N)
+    before = ops.dequant_matmul.launches
+    out = ops.dequant_matmul(*args, block_batch=bb, block_n=bn)
+    torch.cuda.synchronize()
+    assert ops.dequant_matmul.launches == before + 1
+    ref = ops.dequant_matmul_ref(*args)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
+
+
+@pytest.mark.parametrize("per_channel", [False, True],
+                         ids=["per_tensor", "per_channel"])
+@pytest.mark.parametrize("B,D,N", [(64, 2048, 1024), (2048, 2048, 1024)])
+def test_dequant_matmul_wide_reduction_within_fp32_rounding(hopper,
+                                                           per_channel, B,
+                                                           D, N):
+    """At D = 2048 the partial sums reach |y| ~ 10^2, and the kernel (d
+    ascending) and cuBLAS (its own order, split over D at small B) round
+    differently by ~1e-3 near y = 0. Both are held to the fp64 product
+    within a random-walk model of fp32 accumulation: 8 · 2^-24 · √D ·
+    max|y| (a wrong sum is off by O(|y|))."""
+    x, q, s = _dq_operands(B, D, N, per_channel, hopper, seed=D + B)
+    out = ops.dequant_matmul(x, q, s)
+    exact = x.double() @ (q.double() * s.double())
+    tol = 8 * 2.0 ** -24 * D ** 0.5 * exact.abs().max().item()
+    for y in (out, ops.dequant_matmul_ref(x, q, s)):
+        err = (y.double() - exact).abs().max().item()
+        assert err <= tol, (err, tol)
+
+
+def test_dequant_matmul_empty_batch_launches_nothing(hopper):
+    before = ops.dequant_matmul.launches
+    out = ops.dequant_matmul(*_dq_operands(0, 4, 3, False, hopper))
+    assert out.shape == (0, 3)
+    assert ops.dequant_matmul.launches == before
+
+
+@pytest.mark.parametrize("B,D,w,n", [(9, 6, 5, 5), (256, 64, 43, 5),
+                                     (256, 1024, 200, 8), (1, 3, 1, 3),
+                                     (130, 17, 70, 4)])
+def test_coded_matmul_matches_plain_version(hopper, B, D, w, n):
+    rng = np.random.default_rng(B + w)
+    x = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32)
+                         ).to(hopper)
+    sh = torch.from_numpy((rng.standard_normal((n, D, w)) / np.sqrt(D)
+                           ).astype(np.float32)).to(hopper)
+    before = ops.coded_matmul.launches
+    out = ops.coded_matmul(x, sh)
+    torch.cuda.synchronize()
+    assert ops.coded_matmul.launches == before + 1
+    np.testing.assert_allclose(out.cpu().numpy(),
+                               ops.coded_matmul_ref(x, sh).cpu().numpy(),
+                               **TOL)
+
+
+def test_coded_matmul_empty_batch_launches_nothing(hopper):
+    before = ops.coded_matmul.launches
+    out = ops.coded_matmul(torch.zeros((0, 4), device=hopper),
+                           torch.zeros((3, 4, 2), device=hopper))
+    assert out.shape == (3, 0, 2)
+    assert ops.coded_matmul.launches == before
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("K,B,Dk,C", [(8, 256, 32, 10), (6, 7, 43, 100),
+                                      (4, 1024, 16, 10)])
+def test_quorum_aggregate_every_tile_same_bits(hopper, int8, K, B, Dk, C):
+    from repro_torch.kernels import autotune as AT
+    args = _operands(K, B, Dk, C, np.arange(K) % 3 != 1, int8, hopper)
+    base = ops.quorum_aggregate(*args, block_batch=16)
+    for c in AT._configs("quorum_aggregate"):
+        assert _same_bits(ops.quorum_aggregate(*args, **c), base), c
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("B,R,K,F", [(256, 6, 4, 64), (7, 8, 5, 52),
+                                     (1024, 6, 4, 16), (33, 12, 8, 640)])
+def test_coded_decode_every_tile_same_bits(hopper, int8, B, R, K, F):
+    from repro_torch.kernels import autotune as AT
+    args = _cd_operands(B, R, K, F, "mixed", int8, hopper, seed=B)
+    base = ops.coded_decode(*args, block_batch=1)
+    for c in AT._configs("coded_decode"):
+        assert _same_bits(ops.coded_decode(*args, **c), base), c
+
+
+@pytest.mark.parametrize("per_channel", [False, True],
+                         ids=["per_tensor", "per_channel"])
+@pytest.mark.parametrize("B,D,N", [(1024, 64, 256), (64, 64, 512),
+                                   (37, 40, 300)])
+def test_dequant_matmul_every_tile_same_bits(hopper, per_channel, B, D, N):
+    from repro_torch.kernels import autotune as AT
+    args = _dq_operands(B, D, N, per_channel, hopper, seed=N)
+    base = ops.dequant_matmul(*args, **AT.DEFAULTS["dequant_matmul"])
+    for c in AT._configs("dequant_matmul"):
+        assert _same_bits(ops.dequant_matmul(*args, **c), base), c
+
+
+def test_time_callable_times_the_card_not_the_launches(hopper):
+    """On the card the microbench timer reads device time: a long product
+    agrees with CUDA events around one call, and a small merge, whose wall
+    time per call is mostly the host's launch work, reads less than that
+    wall time."""
+    import time
+
+    from repro_torch.launch import microbench as MB
+    a = torch.randn((4096, 4096), device=hopper)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a @ a
+    start.record()
+    a @ a
+    end.record()
+    end.synchronize()
+    one = start.elapsed_time(end) * 1e-3
+    assert 0.7 * one <= MB.time_callable(lambda: a @ a, repeats=5) <= \
+        1.4 * one
+    args = _operands(8, 256, 32, 10, np.ones(8, bool), False, hopper)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        ops.quorum_aggregate(*args)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 50
+    assert 0 < MB.time_callable(lambda: ops.quorum_aggregate(*args),
+                                repeats=50) < wall

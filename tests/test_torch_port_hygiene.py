@@ -150,6 +150,35 @@ def test_new_lm_modules_import_neither_jax_nor_repro(module):
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+MEASURED_PATH = ["kernels.dequant_matmul", "kernels.coded_matmul",
+                 "kernels.autotune", "launch.microbench"]
+
+
+@pytest.mark.parametrize("module", MEASURED_PATH)
+def test_measured_path_modules_import_neither_jax_nor_repro(module):
+    """Each module of the measured-cost-model and autotune slice, imported
+    alone in a fresh interpreter, loads no ``jax`` and no ``repro``
+    module."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('repro_torch.{module}')\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_source_walk_covers_the_measured_path_modules():
+    walked = {p.relative_to(ROOT / "src" / "repro_torch").with_suffix("")
+              .as_posix().replace("/", ".")
+              for p in (ROOT / "src" / "repro_torch").rglob("*.py")}
+    assert set(MEASURED_PATH) <= walked
+
+
 def test_port_sources_name_no_jax_or_repro_import():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
