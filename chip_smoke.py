@@ -47,8 +47,12 @@ greedy decode over a KV cache) runs three more hand-written kernels,
 (``src/repro_torch/kernels/csrc/*.cu``):
 
 10. each held to its plain version over a sweep of shapes in fp32 (rtol/atol
-    3e-5) and bf16 (3e-2), and timed at llama3.2-1b's serving shapes (batch
-    4, prompt 512, bf16) beside its plain version and one PyTorch call;
+    3e-5) and bf16 (3e-2), the tile edges of the tensor-core flash kernel
+    and decode lengths below the number of splits among them, and timed at
+    llama3.2-1b's serving shapes (batch 4, prompt 512, bf16) beside its
+    plain version and one PyTorch call; the two attention kernels and SDPA
+    also by device time (``time_callable``), flash also at moonshot's and
+    jamba's D 128 shapes;
 11. card vs CPU: llama3.2-1b at full width cut to 2 layers, fp32, weights
     drawn once on the CPU; prompt 64 x batch 4 and 8 decode steps through
     the ``greedy_decode`` helper on both; logits within 1e-3, greedy tokens
@@ -930,7 +934,15 @@ def phase_lm_kernels(dev) -> dict:
                 errs.append(f"rows{rows}:{e:.1e}")
             print(f"rmsnorm {str(dtype)[6:]} D={D}: " + " ".join(errs))
     flash_shapes = ((1, 1, 1, 128, 64), (2, 2, 4, 256, 64), (1, 4, 2, 128, 128),
-                    (4, 8, 4, 512, 64), (1, 1, 4, 7, 64), (2, 8, 4, 509, 64))
+                    (4, 8, 4, 512, 64), (1, 1, 4, 7, 64), (2, 8, 4, 509, 64),
+                    # the tensor-core kernel's tile edges (64 keys a tile,
+                    # 128 rows a block), grok's G = 6, MQA past one kv tile,
+                    # and the CUDA-core kernel's head dims
+                    (1, 2, 1, 63, 64), (2, 1, 2, 65, 64), (1, 2, 1, 127, 128),
+                    (1, 1, 1, 129, 64), (1, 2, 6, 100, 128),
+                    (1, 1, 48, 130, 128), (1, 2, 3, 33, 96), (1, 2, 2, 5, 32),
+                    # D 128 past the 3-stage K/V ring (5 and 8 kv tiles)
+                    (1, 2, 1, 300, 128), (4, 16, 1, 512, 128))
     for dtype in dtypes:
         for B, KV, G, S, D in flash_shapes:
             errs = []
@@ -949,10 +961,13 @@ def phase_lm_kernels(dev) -> dict:
             print(f"flash {str(dtype)[6:]} (B,KV,G,S,D)=({B},{KV},{G},{S},{D})"
                   f": " + " ".join(errs))
     for dtype in dtypes:
-        for B, KV, G, D in ((4, 8, 4, 64), (1, 1, 48, 128), (2, 32, 1, 96)):
+        for B, KV, G, D in ((4, 8, 4, 64), (1, 1, 48, 128), (2, 32, 1, 96),
+                            (4, 16, 1, 128)):
             errs = []
             for S in (1, 256, 544):
-                for length in sorted({1, (S + 1) // 2, S}):
+                # 2 and 3 leave splits past ``length`` empty
+                for length in sorted({min(n, S) for n in
+                                      (1, 2, 3, (S + 1) // 2, S)}):
                     q, kc, vc = decode_operands(B, KV, G, S, D, dtype, gen, dev)
                     ref = ops.decode_attention_ref(q, kc, vc, length)
                     e = 0.0
@@ -984,37 +999,82 @@ def phase_lm_kernels(dev) -> dict:
         ms=cuda_ms(lambda: ops.rmsnorm(x, sc)),
         plain_ms=cuda_ms(lambda: ops.rmsnorm_ref(x, sc)),
         library_ms=cuda_ms(lambda: F.rms_norm(x, (d,), sc, 1e-6)),
-        shape=f"x ({B}, {S}, {d}) bf16",
-        bound=rmsnorm_bound(B * S, d, bf))
-    q, k, v = flash_operands(B, KV, G, S, hd, bf, True, gen, dev)
-    qh = q.reshape(B, KV * G, S, hd)               # (B, H, S, D), h = kv·G + g
-    kh, vh = k.contiguous(), v.contiguous()
-    timing["flash_attention"] = dict(
-        ms=cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
-        plain_ms=cuda_ms(lambda: ops.flash_attention_ref(q, k, v, causal=True),
-                         iters=20, warm=3),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True, enable_gqa=True)),
-        shape=f"(B,KV,G,S,D)=({B},{KV},{G},{S},{hd}) bf16 causal, strided views",
-        bound=flash_bound(B, KV, G, S, S, hd, True, bf))
+        shape=f"x ({B}, {S}, {d}) bf16")
+    timing["rmsnorm"]["bound_ms"], timing["rmsnorm"]["bound_by"] = \
+        rmsnorm_bound(B * S, d, bf)
+    # llama3.2-1b's shape (D 64), then moonshot's and jamba's (D 128); each
+    # timed shape's output is also held to the plain version
+    more = []
+    for i, (Bf, KVf, Gf, Df) in enumerate(((B, KV, G, hd), (B, 16, 1, 128),
+                                           (B, 8, 4, 128))):
+        q, k, v = flash_operands(Bf, KVf, Gf, S, Df, bf, True, gen, dev)
+        e = lm_check(ops.flash_attention(q, k, v, causal=True),
+                     ops.flash_attention_ref(q, k, v, causal=True), bf)
+        worst["flash_attention"] = max(worst["flash_attention"], e)
+        print(f"flash bf16 timed shape (B,KV,G,S,D)=({Bf},{KVf},{Gf},{S},"
+              f"{Df}) causal/strided vs plain: {e:.1e}")
+        qh = q.reshape(Bf, KVf * Gf, S, Df)         # (B, H, S, D), h = kv·G + g
+        kh, vh = k.contiguous(), v.contiguous()
+        t = attention_timing(
+            lambda: ops.flash_attention(q, k, v, causal=True),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                   enable_gqa=Gf > 1),
+            f"(B,KV,G,S,D)=({Bf},{KVf},{Gf},{S},{Df}) bf16 causal, strided "
+            f"views", flash_bound(Bf, KVf, Gf, S, S, Df, True, bf))
+        if i == 0:
+            t["plain_ms"] = cuda_ms(lambda: ops.flash_attention_ref(
+                q, k, v, causal=True), iters=20, warm=3)
+            timing["flash_attention"] = t
+        else:
+            more.append(t)
     Smax, n = LM_PROMPT + LM_GEN, LM_DECODE_LENGTH
     q, kc, vc = decode_operands(B, KV, G, Smax, hd, bf, gen, dev)
     qd = q.reshape(B, KV * G, 1, hd)
     kd, vd = kc[:, :, :n].contiguous(), vc[:, :, :n].contiguous()
-    timing["decode_attention"] = dict(
-        ms=cuda_ms(lambda: ops.decode_attention(q, kc, vc, n)),
-        plain_ms=cuda_ms(lambda: ops.decode_attention_ref(q, kc, vc, n)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qd, kd, vd, enable_gqa=True)),
-        shape=f"(B,KV,G,D)=({B},{KV},{G},{hd}) bf16, cache {Smax}, length {n}",
-        bound=decode_bound(B, KV, G, n, hd, bf))
+    e = lm_check(ops.decode_attention(q, kc, vc, n),
+                 ops.decode_attention_ref(q, kc, vc, n), bf)
+    worst["decode_attention"] = max(worst["decode_attention"], e)
+    print(f"decode bf16 timed shape (B,KV,G,D)=({B},{KV},{G},{hd}), cache "
+          f"{Smax}, length {n} vs plain: {e:.1e}")
+    t = attention_timing(
+        lambda: ops.decode_attention(q, kc, vc, n),
+        lambda: F.scaled_dot_product_attention(qd, kd, vd, enable_gqa=True),
+        f"(B,KV,G,D)=({B},{KV},{G},{hd}) bf16, cache {Smax}, length {n}",
+        decode_bound(B, KV, G, n, hd, bf))
+    t["plain_ms"] = cuda_ms(lambda: ops.decode_attention_ref(q, kc, vc, n))
+    timing["decode_attention"] = t
     for name, t in timing.items():
-        t["bound_ms"], t["bound_by"] = t.pop("bound")
         t["max_abs_err"] = worst[name]
-        print(f"{name} timing at {t.pop('shape')}: kernel {t['ms']:.5f} ms, "
-              f"plain {t['plain_ms']:.5f} ms, library {t['library_ms']:.5f} "
-              f"ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
+        report_timing(name, t)
+    for t in more:
+        report_timing("flash_attention", t)
     return timing
+
+
+def attention_timing(kernel, library, shape: str, bound: tuple) -> dict:
+    """ms per call back to back (``cuda_ms``) and device ms per call
+    (``time_callable``: the calls queued behind a spin kernel, so the
+    host's launch work is out of the time) of an attention kernel and of
+    its SDPA yardstick."""
+    t = dict(ms=cuda_ms(kernel), library_ms=cuda_ms(library), shape=shape,
+             device_ms=MB.time_callable(kernel, repeats=200, warmup=3) * 1e3,
+             library_device_ms=MB.time_callable(library, repeats=200,
+                                                warmup=3) * 1e3)
+    t["bound_ms"], t["bound_by"] = bound
+    return t
+
+
+def report_timing(name: str, t: dict) -> None:
+    """One line of a timing; takes ``shape`` and ``library_device_ms`` out
+    of ``t`` (the kernels line keeps its own keys)."""
+    dev_part = ""
+    if "device_ms" in t:
+        dev_part = (f"; device {t['device_ms']:.5f} ms, library device "
+                    f"{t.pop('library_device_ms'):.5f} ms")
+    plain = f"plain {t['plain_ms']:.5f} ms, " if "plain_ms" in t else ""
+    print(f"{name} timing at {t.pop('shape')}: kernel {t['ms']:.5f} ms, "
+          f"{plain}library {t['library_ms']:.5f} ms, bound "
+          f"{t['bound_ms']:.6f} ms ({t['bound_by']}){dev_part}")
 
 
 def lm_launches() -> tuple:
@@ -1976,7 +2036,8 @@ def main() -> int:
                        + ssm_moe["launches"][name],
                        **{k: lm_timing[name][k] for k in (
                            "max_abs_err", "ms", "plain_ms", "bound_ms",
-                           "bound_by", "library_ms")})
+                           "bound_by", "library_ms", "device_ms")
+                          if k in lm_timing[name]})
                   for name in LM_KERNELS]
     print(smi)
     print(json.dumps({"kernels": [kernel, decode] + lm_kernels

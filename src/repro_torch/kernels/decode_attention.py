@@ -14,23 +14,38 @@ counts kernel launches (plain-version calls do not count).
 ``length`` is a Python int or a one-element int32 tensor on q's device,
 which the kernel reads on the card (no host sync). q and the caches may be
 strided views with a unit stride on the last axis, so the model passes
-views of its (B, S, KV, D) cache. Positions at or past ``length`` are never
-read.
+views of its (B, S, KV, D) cache; the kernel reads the caches 16 bytes at
+a time and takes a contiguous copy of a cache whose base or strides are
+not 16-byte aligned (the model's are). Positions at or past ``length`` are
+never read.
+
+On the card :func:`split_plan` spreads each (b, kv head, chunk of query
+heads) over several blocks, fixed at launch from the shapes and the SM
+count; the kernel divides ``[0, length)`` among them after it reads
+``length`` and merges their partial softmax states in the same launch,
+the last block of each group through a ticket counter. The counters
+(int32, zeroed once and left zeroed by every call) and the scratch of
+partial states are kept per device and shape, so calls on one device must
+not overlap on two streams.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Union
+from typing import Optional, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels._layout import aligned
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 96, 128)        # the kernel's instantiated D
 _DTYPES = (torch.float32, torch.bfloat16)
+BLOCKS_PER_SM = 2                    # the split plan's target occupancy
+MIN_SPLIT_ROWS = 16                  # cache capacity per split, at least
+MAX_SPLITS = 64                      # the kernel's merge takes at most 64
 
 Length = Union[int, torch.Tensor]
 
@@ -49,6 +64,23 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhgs,bhsd->bhgd", p, v_cache.float()).to(q.dtype)
+
+
+def head_chunk(G: int) -> int:
+    """Query heads a block takes: G itself when it is 1 or 2, 4 for G 3
+    and 4, else 8 (the kernel's template argument)."""
+    return G if G <= 2 else 4 if G <= 4 else 8
+
+
+def split_plan(B: int, KV: int, G: int, S: int, num_sms: int) -> int:
+    """Blocks that share one (b, kv head, chunk of query heads): enough
+    for about ``BLOCKS_PER_SM`` blocks per SM over the whole grid, at most
+    one per ``MIN_SPLIT_ROWS`` rows of the cache's capacity S and at most
+    ``MAX_SPLITS``, at least one. A function of the shapes alone, never of
+    ``length``."""
+    groups = B * KV * -(-G // head_chunk(G))
+    want = -(-BLOCKS_PER_SM * num_sms // max(groups, 1))
+    return max(1, min(want, S // MIN_SPLIT_ROWS, MAX_SPLITS))
 
 
 def _check(q, k_cache, v_cache, length) -> None:
@@ -101,13 +133,20 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty((B, KV, G, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out                                  # no query rows
+    ks, vs = k_cache.stride(), v_cache.stride()
+    if (k_cache.data_ptr() | v_cache.data_ptr() | (
+            ks[0] | ks[1] | ks[2] | vs[0] | vs[1] | vs[2]) * q.element_size()
+            ) % 16:                 # one test for the usual, aligned caches
+        k_cache, v_cache = aligned(k_cache, 16), aligned(v_cache, 16)
+        ks, vs = k_cache.stride(), v_cache.stride()
+    nsplit, ws, counters, _ = _launch_plan(q.device.index, B, KV, G, S, D)
     lib = _library()
     with torch.cuda.device(q.device):
         rc = lib.decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            out.data_ptr(), *q.stride()[:3], *k_cache.stride()[:3],
-            *v_cache.stride()[:3], B, KV, G, S, D, length_ptr, length_val,
-            1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16),
+            out.data_ptr(), *q.stride()[:3], *ks[:3], *vs[:3], B, KV, G, S,
+            D, length_ptr, length_val, 1.0 / math.sqrt(D),
+            int(q.dtype == torch.bfloat16), nsplit, ws, counters,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         msg = lib.decode_attention_error_string(rc).decode()
@@ -119,6 +158,32 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 decode_attention.launches = 0
 
 
+@functools.lru_cache(maxsize=256)
+def _launch_plan(index: int, B: int, KV: int, G: int, S: int, D: int
+                 ) -> Tuple[int, Optional[int], Optional[int],
+                            Tuple[torch.Tensor, ...]]:
+    """``(splits, scratch, counters, buffers)`` of one shape on one
+    device: :func:`split_plan`, then, when it splits, the addresses of an
+    fp32 scratch for the splits' partial states and of the int32 ticket
+    counters (zeroed here, left zeroed by every call), and the two tensors
+    that own them. Kept across calls (calls on one stream run in order),
+    so a call does no planning or allocation of its own."""
+    nsplit = split_plan(B, KV, G, S, _num_sms(index))
+    if nsplit == 1:
+        return 1, None, None, ()
+    dev = torch.device("cuda", index)
+    counters = torch.zeros(B * KV * -(-G // head_chunk(G)), dtype=torch.int32,
+                           device=dev)
+    ws = torch.empty(B * KV * G * nsplit * (D + 2), dtype=torch.float32,
+                     device=dev)
+    return nsplit, ws.data_ptr(), counters.data_ptr(), (ws, counters)
+
+
+@functools.cache
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
@@ -126,7 +191,7 @@ def _library() -> ctypes.CDLL:
     lib.decode_attention.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 5
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-           ctypes.c_void_p])
+           ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
     lib.decode_attention.restype = ctypes.c_int
     lib.decode_attention_error_string.argtypes = [ctypes.c_int]
     lib.decode_attention_error_string.restype = ctypes.c_char_p

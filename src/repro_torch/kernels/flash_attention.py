@@ -12,9 +12,16 @@ of the model reads kv head ``h``.
 build or launch raises; nothing falls back. ``flash_attention.launches``
 counts kernel launches (plain-version calls do not count).
 
-On the card, q, k and v may be strided views (unit stride on the last
-axis only), so the model passes views of its projections without a copy;
-the output is laid out (B, Sq, KV, G, D) in memory and returned as the
+On the card the kernel is chosen by dtype and head dim: bf16 at D = 64
+and 128 runs both products on the tensor cores (``wgmma``, K/V tiles
+staged by TMA; P is rounded to bf16 before P·V, which the plain version
+does not do, within the bf16 bound), fp32 and bf16 at D = 32 and 96 the
+CUDA-core kernel. q, k and v may be strided views (unit stride on the
+last axis only), so the model passes views of its projections without a
+copy; the tensor-core kernel reads k and v through TMA, which needs their
+base and strides 16-byte aligned (and q's 4-byte aligned), and takes a
+contiguous copy of an operand that is not (the model's never needs one).
+The output is laid out (B, Sq, KV, G, D) in memory and returned as the
 (B, KV, G, Sq, D) view, so the model's ``(B, Sq, H·D)`` reshape is free.
 Any Sq and Skv work (the TPU kernel needs multiples of its blocks).
 """
@@ -27,9 +34,11 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels._layout import aligned, strides
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 96, 128)        # the kernel's instantiated D
+WGMMA_HEAD_DIMS = (64, 128)          # bf16 on the tensor cores
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -88,13 +97,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return o                                    # no query rows
     if Skv == 0:
         return o.zero_()                            # nothing to attend to
+    if q.dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS:
+        q = aligned(q, 4)
+        k, v = aligned(k, 16), aligned(v, 16)
     lib = _library()
     with torch.cuda.device(q.device):
         rc = lib.flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            *q.stride()[:4], *k.stride()[:3], *v.stride()[:3],
-            *o.stride()[:4], B, KV, G, Sq, Skv, D, int(causal),
-            1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16),
+            *strides(q)[:4], *strides(k)[:3], *strides(v)[:3],
+            *o.stride()[:4], B, KV, G, Sq, Skv, D,
+            int(causal), 1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         msg = lib.flash_attention_error_string(rc).decode()

@@ -267,7 +267,23 @@ def _flash_operands(B, KV, G, S, D, dtype, strided, dev, seed=0):
 @pytest.mark.parametrize("B,KV,G,S,D", [(1, 1, 1, 128, 64), (2, 2, 4, 256, 64),
                                         (1, 4, 2, 128, 128), (1, 1, 4, 7, 64),
                                         (2, 8, 4, 509, 64), (1, 2, 3, 33, 96),
-                                        (1, 1, 48, 40, 128), (1, 2, 2, 5, 32)])
+                                        (1, 1, 48, 40, 128), (1, 2, 2, 5, 32),
+                                        # the tensor-core kernel's tile edges:
+                                        # 64 keys a tile, 128 rows a block
+                                        (1, 2, 1, 63, 64), (1, 1, 4, 64, 128),
+                                        (2, 1, 2, 65, 64), (1, 2, 1, 127, 128),
+                                        (1, 1, 1, 129, 64),
+                                        # grok's G = 6, MQA at G = 48 past
+                                        # one kv tile, and more than one
+                                        # wave of blocks
+                                        (1, 2, 6, 100, 128),
+                                        (1, 1, 48, 130, 128),
+                                        (8, 32, 1, 256, 64),
+                                        # D 128 past the 3-stage K/V ring
+                                        # (5 and 8 kv tiles), the latter
+                                        # moonshot's serving shape
+                                        (1, 2, 1, 300, 128),
+                                        (4, 16, 1, 512, 128)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("strided", [False, True], ids=["contig", "strided"])
 def test_flash_attention_matches_plain_version(hopper, dtype, B, KV, G, S, D,
@@ -295,7 +311,9 @@ def _decode_operands(B, KV, G, S, D, dtype, dev, seed=0):
                                       (1, 1, 8, 128), (1, 1, 48, 128),
                                       (2, 4, 1, 96), (1, 2, 2, 32)])
 @pytest.mark.parametrize("S,length", [(1, 1), (256, 1), (256, 100),
-                                      (256, 256), (544, 528), (544, 544)])
+                                      (256, 256), (544, 528), (544, 544),
+                                      # fewer positions than splits
+                                      (544, 2), (544, 3)])
 @pytest.mark.parametrize("as_tensor", [False, True], ids=["int", "tensor"])
 def test_decode_attention_matches_plain_version(hopper, dtype, B, KV, G, D, S,
                                                 length, as_tensor):
@@ -318,6 +336,45 @@ def test_decode_attention_never_reads_past_length(hopper):
     assert torch.isfinite(out).all()
     _close(out, ops.decode_attention_ref(q, kc[:, :, :40], vc[:, :, :40], 40),
            torch.float32)
+
+
+def test_decode_attention_splits_reset_their_counters(hopper):
+    """Consecutive calls of other lengths on one set of ticket counters are
+    each right: the last block of every group leaves its counter at 0. The
+    serving shape splits into at least one block per SM."""
+    from repro_torch.kernels import decode_attention as da
+    B, KV, G, S, D = 4, 8, 4, 544, 64
+    sms = torch.cuda.get_device_properties(hopper).multi_processor_count
+    assert da.split_plan(B, KV, G, S, sms) * B * KV >= sms
+    q, kc, vc = _decode_operands(B, KV, G, S, D, torch.bfloat16, hopper)
+    for length in (528, 3, 544, 1, 100):
+        out = ops.decode_attention(q, kc, vc, length)
+        torch.cuda.synchronize()
+        _close(out, ops.decode_attention_ref(q, kc, vc, length),
+               torch.bfloat16)
+        nsplit, _, _, (_, counters) = da._launch_plan(q.device.index, B, KV,
+                                                      G, S, D)
+        assert nsplit > 1 and int(counters.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", LM_DTYPES, ids=["fp32", "bf16"])
+def test_attention_kernels_copy_views_they_cannot_address(hopper, dtype):
+    """Views whose strides are odd (not 16-byte aligned) reach the kernels
+    as contiguous copies and give the plain versions' answers."""
+    g = torch.Generator(device=hopper).manual_seed(5)
+    B, KV, G, S, D = 2, 2, 4, 70, 64
+    wide = torch.randn((B, S, KV, D + 1), generator=g, device=hopper)
+    k = wide.to(dtype)[..., :D].permute(0, 2, 1, 3)
+    v = (wide.to(dtype)[..., 1:] * 0.5).permute(0, 2, 1, 3)
+    q = torch.randn((B, S, KV, G, D + 1), generator=g, device=hopper).to(
+        dtype)[..., :D].permute(0, 2, 3, 1, 4)
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _close(out, ops.flash_attention_ref(q, k, v, causal=True), dtype)
+    qd = q[:, :, :, 0].contiguous()
+    out = ops.decode_attention(qd, k, v, 61)
+    torch.cuda.synchronize()
+    _close(out, ops.decode_attention_ref(qd, k, v, 61), dtype)
 
 
 def test_lm_kernels_launch_nothing_for_no_rows(hopper):

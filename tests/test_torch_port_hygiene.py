@@ -182,6 +182,7 @@ def test_source_walk_covers_the_measured_path_modules():
 def test_port_sources_name_no_jax_or_repro_import():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "tools").glob("*.py"))
     bad = re.compile(r"^\s*(import (jax|repro)\b|from (jax|repro)(\.|\s))",
                      re.M)
     offenders = [str(f) for f in files if bad.search(f.read_text())]
