@@ -69,13 +69,18 @@ kernels, ``ssd_scan`` (the SSM prefill's chunked scan) and ``topk_gating``
 (the MoE router), beside the three above:
 
 13. both held to their plain versions over sweeps (ssd_scan: (P, N, Q) at
-    mamba2's, jamba's and a tiny size, two chunks and one short ragged
-    chunk, contiguous rows and the model's strided views, fp32 and bf16,
-    y in x's dtype and in fp32, the final state; topk_gating: N rows, E
-    experts and k; indices equal, weights within 1e-5; the scan within the
-    JAX package's own 2e-3 in fp32 and 3e-2 in bf16), and timed at the
-    serving shapes beside their plain versions (and, for the gating, the
-    PyTorch softmax → topk → renormalise sequence);
+    mamba2's, jamba's and two tiny sizes, 2, 4 and 16 chunks and one short
+    ragged chunk, contiguous rows and the model's strided views, fp32 (the
+    CUDA-core kernel) and bf16 (the tensor-core kernel, also with four
+    heads under each head group its plan takes; at the tiny N 8 the
+    CUDA-core kernel), y in x's dtype and in fp32, the final
+    state; topk_gating: N rows, E experts and k; indices equal, weights
+    within 1e-5; the scan within the JAX package's own 2e-3 in fp32, and
+    for fp32 y and the state from bf16 inputs, and 3e-2 for bf16 y), and
+    timed at the serving shapes beside their plain versions (ssd_scan at
+    mamba2's and jamba's, also by device time and by head group; the
+    gating also beside the PyTorch softmax → topk → renormalise sequence
+    and by device time);
 14. card vs CPU, fp32, TF32 off: mamba2-130m at all 24 layers, moonshot at
     full width cut to 2 layers, and the tiny jamba; prompt 256 x batch 2
     and 8 decode steps through ``greedy_decode`` on both; launches exact.
@@ -149,6 +154,7 @@ from repro_torch.configs.archs import tiny_version  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels import autotune as AT  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import ssd_scan as SS  # noqa: E402
 from repro_torch.launch import microbench as MB  # noqa: E402
 from repro_torch.launch.serve import (generate, greedy_decode,  # noqa: E402
                                       splice)
@@ -275,6 +281,16 @@ def cuda_ms(fn, iters: int = 200, warm: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_pair(kernel, library) -> dict:
+    """Device ms per call (``time_callable``: the calls queued behind a spin
+    kernel, so the host's launch work is out of the time) of a kernel and
+    of its library yardstick."""
+    return dict(device_ms=MB.time_callable(kernel, repeats=200,
+                                           warmup=3) * 1e3,
+                library_device_ms=MB.time_callable(library, repeats=200,
+                                                   warmup=3) * 1e3)
+
+
 def qa_operands(K, B, Dk, C, mask, int8, gen, dev):
     """Merge operands shaped like the serving path's: pooled ReLU features
     in [0, 1) and FC slices of scale 1/sqrt(K·Dk)."""
@@ -374,10 +390,14 @@ def phase_kernel(dev) -> dict:
     ms = cuda_ms(lambda: ops.quorum_aggregate(p, w, b, m))
     plain_ms = cuda_ms(lambda: ops.quorum_aggregate_ref(p, w, b, m))
     library_ms = cuda_ms(lambda: torch.einsum("kbd,kdc->bc", p, w) + b)
+    dev_t = device_pair(lambda: ops.quorum_aggregate(p, w, b, m),
+                        lambda: torch.einsum("kbd,kdc->bc", p, w) + b)
     bound_ms, bound_by = qa_bound(K, B, Dk, C, mask, False)
     print(f"timing at K={K} B={B} Dk={Dk} C={C} fp32: kernel {ms:.5f} ms, "
           f"plain {plain_ms:.5f} ms, einsum+bias {library_ms:.5f} ms, "
-          f"bound {bound_ms:.6f} ms ({bound_by})")
+          f"bound {bound_ms:.6f} ms ({bound_by}); device: kernel "
+          f"{dev_t['device_ms']:.5f} ms, einsum+bias "
+          f"{dev_t['library_device_ms']:.5f} ms")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
@@ -784,10 +804,14 @@ def phase_decode_kernel(dev, plans: dict) -> dict:
     ms = cuda_ms(lambda: ops.coded_decode(sh, dec, m))
     plain_ms = cuda_ms(lambda: ops.coded_decode_ref(sh, dec, m))
     library_ms = cuda_ms(lambda: torch.einsum("bkr,brf->bkf", w, sh))
+    dev_t = device_pair(lambda: ops.coded_decode(sh, dec, m),
+                        lambda: torch.einsum("bkr,brf->bkf", w, sh))
     bound_ms, bound_by = cd_bound(B, R, K, F, m.cpu().numpy(), False, False)
     print(f"decode timing at B={B} R={R} K={K} F={F} fp32, all shares "
           f"arrived: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, einsum "
-          f"{library_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+          f"{library_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}); "
+          f"device: kernel {dev_t['device_ms']:.5f} ms, einsum "
+          f"{dev_t['library_device_ms']:.5f} ms")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
@@ -999,7 +1023,9 @@ def phase_lm_kernels(dev) -> dict:
         ms=cuda_ms(lambda: ops.rmsnorm(x, sc)),
         plain_ms=cuda_ms(lambda: ops.rmsnorm_ref(x, sc)),
         library_ms=cuda_ms(lambda: F.rms_norm(x, (d,), sc, 1e-6)),
-        shape=f"x ({B}, {S}, {d}) bf16")
+        shape=f"x ({B}, {S}, {d}) bf16",
+        **device_pair(lambda: ops.rmsnorm(x, sc),
+                      lambda: F.rms_norm(x, (d,), sc, 1e-6)))
     timing["rmsnorm"]["bound_ms"], timing["rmsnorm"]["bound_by"] = \
         rmsnorm_bound(B * S, d, bf)
     # llama3.2-1b's shape (D 64), then moonshot's and jamba's (D 128); each
@@ -1057,9 +1083,7 @@ def attention_timing(kernel, library, shape: str, bound: tuple) -> dict:
     host's launch work is out of the time) of an attention kernel and of
     its SDPA yardstick."""
     t = dict(ms=cuda_ms(kernel), library_ms=cuda_ms(library), shape=shape,
-             device_ms=MB.time_callable(kernel, repeats=200, warmup=3) * 1e3,
-             library_device_ms=MB.time_callable(library, repeats=200,
-                                                warmup=3) * 1e3)
+             **device_pair(kernel, library))
     t["bound_ms"], t["bound_by"] = bound
     return t
 
@@ -1140,13 +1164,14 @@ def lm_profile(label: str, fn, calls: int) -> dict:
         print(f"profile: {label}: wall {wall:.3f} ms; device time not "
               f"measured (the profiler saw no kernels)")
         return dict(wall_ms=wall)
-    share = {k: sum(t for n, t in per_name.items() if pat in n
-                    and "coded_decode" not in n)
-             for k, pat in (("rmsnorm", "rmsnorm_kernel"),
-                            ("flash_attention", "flash_kernel"),
-                            ("decode_attention", "decode_kernel"),
-                            ("ssd_scan", "ssd_kernel"),
-                            ("topk_gating", "topk_gating_kernel"))}
+    share = {k: sum(t for n, t in per_name.items()
+                    if any(p in n for p in pats) and "coded_decode" not in n)
+             for k, pats in (("rmsnorm", ("rmsnorm_kernel",)),
+                             ("flash_attention", ("flash_kernel",)),
+                             ("decode_attention", ("decode_kernel",)),
+                             # the CUDA-core kernel, the tensor-core pair
+                             ("ssd_scan", ("ssd_kernel", "ssd_chunk_")),
+                             ("topk_gating", ("topk_gating_kernel",)))}
     top = "; ".join(f"{k[:70]} {t:.4f} ms" for k, t in
                     sorted(per_name.items(), key=lambda kv: -kv[1])[:5])
     print(f"profile: {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
@@ -1293,6 +1318,24 @@ def gating_bound(N, E, k) -> tuple:
     return roofline(N * E * 4 + N * k * 8, N * E * (4 + k), torch.float32)
 
 
+# SMs the scan's plan is told the card has, so that it picks each head
+# group: with none every grid has blocks to spare, with a million none does
+GROUP_SMS = {1: 10 ** 6, 4: 0}
+
+
+@contextlib.contextmanager
+def scan_head_group(group: int):
+    """``ssd_scan`` planned as if the card had ``GROUP_SMS[group]`` SMs, so
+    that its tensor-core kernel runs heads in groups of ``group`` where it
+    can take them."""
+    real = SS.num_sms
+    SS.num_sms = lambda index: GROUP_SMS[group]
+    try:
+        yield
+    finally:
+        SS.num_sms = real
+
+
 def phase_ssm_moe_kernels(dev) -> dict:
     """ssd_scan and topk_gating vs their plain versions over sweeps; each
     timed at its serving shape."""
@@ -1300,9 +1343,12 @@ def phase_ssm_moe_kernels(dev) -> dict:
     worst = {k: 0.0 for k in SSM_MOE_SOURCES}
     cases = {k: 0 for k in SSM_MOE_SOURCES}
     for dtype in (torch.float32, torch.bfloat16):
-        for P, N, Q in ((64, 128, 256), (64, 16, 256), (32, 16, 32)):
+        # bf16 at N 8 takes the CUDA-core kernel, as fp32 does everywhere
+        for P, N, Q in ((64, 128, 256), (64, 16, 256), (32, 16, 32),
+                        (32, 8, 32)):
             errs = []
-            for L in (2 * Q, Q // 2 + 4):          # two chunks; L < chunk
+            # 2, 4 and 16 chunks; L < chunk (one ragged chunk of Q = L)
+            for L in (2 * Q, 4 * Q, 16 * Q, Q // 2 + 4):
                 for strided in (False, True):
                     args = ssd_operands(2, 3, L, P, N, dtype, strided, gen,
                                         dev)
@@ -1324,6 +1370,28 @@ def phase_ssm_moe_kernels(dev) -> dict:
                                 f":{e:.1e}")
             print(f"ssd_scan {str(dtype)[6:]} (P,N,Q)=({P},{N},{Q}): "
                   + " ".join(errs))
+    # the tensor-core kernel's head groups: four heads sharing B and C
+    for P, N, Q in ((64, 128, 256), (64, 16, 256), (32, 16, 32)):
+        errs = []
+        for L in (2 * Q, 4 * Q, Q // 2 + 4):
+            args = ssd_operands(2, 4, L, P, N, torch.bfloat16, True, gen, dev)
+            ry32, rh = ops.ssd_scan_ref(*args, chunk=Q, return_state=True,
+                                        out_dtype=torch.float32)
+            for g in GROUP_SMS:
+                with scan_head_group(g):
+                    y = ops.ssd_scan(*args, chunk=Q)
+                    y32, h = ops.ssd_scan(*args, chunk=Q, return_state=True,
+                                          out_dtype=torch.float32)
+                torch.cuda.synchronize()
+                f32 = SSD_TOL[torch.float32]
+                e = max(max_err(y.float(), ry32.to(y.dtype).float(),
+                                **SSD_TOL[torch.bfloat16]),
+                        max_err(y32, ry32, **f32), max_err(h, rh, **f32))
+                worst["ssd_scan"] = max(worst["ssd_scan"], e)
+                cases["ssd_scan"] += 2
+                errs.append(f"L{L}/group{g}:{e:.1e}")
+        print(f"ssd_scan bf16 (P,N,Q)=({P},{N},{Q}), 4 heads, strided, by "
+              f"head group: " + " ".join(errs))
     for E, ks in ((4, (1, 2)), (16, (1, 2, 6, 8)), (64, (1, 2, 6, 8))):
         errs = []
         for k in ks:
@@ -1352,22 +1420,42 @@ def phase_ssm_moe_kernels(dev) -> dict:
     bf = torch.bfloat16
     timing = {}
     B, L = LM_BATCH, LM_PROMPT
-    for arch in ("jamba-v0.1-52b", "mamba2-130m"):    # the JSON keeps mamba2
+    for arch in ("mamba2-130m", "jamba-v0.1-52b"):    # the JSON keeps mamba2
         cfg = get_config(arch)
         H, P, N, Q = (cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
                       cfg.ssm_chunk)
         args = ssd_operands(B, H, L, P, N, bf, True, gen, dev)
         kw = dict(chunk=Q, return_state=True, out_dtype=torch.float32)
-        timing["ssd_scan"] = t = dict(
+        # the timed shape's output, held to the plain version
+        (y, h), (ry, rh) = (ops.ssd_scan(*args, **kw),
+                            ops.ssd_scan_ref(*args, **kw))
+        f32 = SSD_TOL[torch.float32]
+        e = max(max_err(y, ry, **f32), max_err(h, rh, **f32))
+        worst["ssd_scan"] = max(worst["ssd_scan"], e)
+        t = dict(
             ms=cuda_ms(lambda: ops.ssd_scan(*args, **kw)),
+            device_ms=MB.time_callable(lambda: ops.ssd_scan(*args, **kw),
+                                       repeats=200, warmup=3) * 1e3,
             plain_ms=cuda_ms(lambda: ops.ssd_scan_ref(*args, **kw), iters=20,
                              warm=3),
             library_ms=None, bound=ssd_bound(B, H, L, P, N, Q, bf,
                                              torch.float32))
+        timing.setdefault("ssd_scan", t)
+        plan = SS.mma_plan(B, H, L, P, N, Q, True,
+                           torch.cuda.get_device_properties(dev)
+                           .multi_processor_count)
+        groups = {}
+        for g in GROUP_SMS:
+            with scan_head_group(g):
+                groups[g] = MB.time_callable(lambda: ops.ssd_scan(*args, **kw),
+                                             repeats=200, warmup=3) * 1e3
         print(f"ssd_scan timing at {arch}'s (B,L,H,P,N,Q)=({B},{L},{H},{P},"
-              f"{N},{Q}), bf16 x/B/C strided views, y and state fp32: "
-              f"kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, bound "
-              f"{t['bound'][0]:.6f} ms ({t['bound'][1]})")
+              f"{N},{Q}), bf16 x/B/C strided views, y and state fp32 (vs "
+              f"plain {e:.1e}): kernel {t['ms']:.5f} ms, device "
+              f"{t['device_ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, bound "
+              f"{t['bound'][0]:.6f} ms ({t['bound'][1]}); tensor-core path, 2 "
+              f"CUDA launches per call, plan {plan}; device ms by head group "
+              + ", ".join(f"{g}: {v:.5f}" for g, v in groups.items()))
     cfg = get_config(MOE_ARCH)
     N, E, k = LM_BATCH * LM_PROMPT, cfg.n_experts, cfg.top_k
     logits = torch.randn((N, E), generator=gen, device=dev)
@@ -1378,11 +1466,13 @@ def phase_ssm_moe_kernels(dev) -> dict:
     timing["topk_gating"] = t = dict(
         ms=cuda_ms(lambda: ops.topk_gating(logits, k)),
         plain_ms=cuda_ms(lambda: ops.topk_gating_ref(logits, k)),
-        library_ms=cuda_ms(library), bound=gating_bound(N, E, k))
+        library_ms=cuda_ms(library), bound=gating_bound(N, E, k),
+        **device_pair(lambda: ops.topk_gating(logits, k), library))
     print(f"topk_gating timing at N={N} E={E} k={k} fp32: kernel "
           f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, softmax→topk→"
           f"renormalise {t['library_ms']:.5f} ms, bound {t['bound'][0]:.6f} "
-          f"ms ({t['bound'][1]})")
+          f"ms ({t['bound'][1]}); device: kernel {t['device_ms']:.5f} ms, "
+          f"softmax→topk→renormalise {t.pop('library_device_ms'):.5f} ms")
     for name, t in timing.items():
         t["bound_ms"], t["bound_by"] = t.pop("bound")
         t["max_abs_err"] = worst[name]

@@ -1,11 +1,14 @@
-"""Operand layouts for the kernels that read 16 bytes at a time.
+"""Operand layouts for the kernels that read 16 bytes at a time, and the
+card's size for their launch plans.
 
 :func:`strides` gives a tensor's element strides as the kernels take them,
 :func:`aligned` passes a view on unchanged when the kernel can address it
-and otherwise makes a contiguous copy (a layout copy, not another kernel).
+and otherwise makes a contiguous copy (a layout copy, not another kernel),
+:func:`num_sms` gives the SMs a plan spreads its blocks over.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -28,3 +31,9 @@ def aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
     if bits % nbytes == 0:
         return t
     return t.clone(memory_format=torch.contiguous_format)
+
+
+@functools.cache
+def num_sms(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

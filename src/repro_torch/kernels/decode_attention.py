@@ -38,7 +38,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._layout import aligned
+from repro_torch.kernels._layout import aligned, num_sms
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 96, 128)        # the kernel's instantiated D
@@ -72,14 +72,14 @@ def head_chunk(G: int) -> int:
     return G if G <= 2 else 4 if G <= 4 else 8
 
 
-def split_plan(B: int, KV: int, G: int, S: int, num_sms: int) -> int:
+def split_plan(B: int, KV: int, G: int, S: int, sms: int) -> int:
     """Blocks that share one (b, kv head, chunk of query heads): enough
-    for about ``BLOCKS_PER_SM`` blocks per SM over the whole grid, at most
+    for about ``BLOCKS_PER_SM`` blocks on each of ``sms`` SMs, at most
     one per ``MIN_SPLIT_ROWS`` rows of the cache's capacity S and at most
     ``MAX_SPLITS``, at least one. A function of the shapes alone, never of
     ``length``."""
     groups = B * KV * -(-G // head_chunk(G))
-    want = -(-BLOCKS_PER_SM * num_sms // max(groups, 1))
+    want = -(-BLOCKS_PER_SM * sms // max(groups, 1))
     return max(1, min(want, S // MIN_SPLIT_ROWS, MAX_SPLITS))
 
 
@@ -168,7 +168,7 @@ def _launch_plan(index: int, B: int, KV: int, G: int, S: int, D: int
     counters (zeroed here, left zeroed by every call), and the two tensors
     that own them. Kept across calls (calls on one stream run in order),
     so a call does no planning or allocation of its own."""
-    nsplit = split_plan(B, KV, G, S, _num_sms(index))
+    nsplit = split_plan(B, KV, G, S, num_sms(index))
     if nsplit == 1:
         return 1, None, None, ()
     dev = torch.device("cuda", index)
@@ -177,11 +177,6 @@ def _launch_plan(index: int, B: int, KV: int, G: int, S: int, D: int
     ws = torch.empty(B * KV * G * nsplit * (D + 2), dtype=torch.float32,
                      device=dev)
     return nsplit, ws.data_ptr(), counters.data_ptr(), (ws, counters)
-
-
-@functools.cache
-def _num_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.cache

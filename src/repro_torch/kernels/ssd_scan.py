@@ -14,32 +14,54 @@ the recurrence of the JAX package's ``kernels/ssd_scan.py`` and
 (in x's dtype, or ``out_dtype``) the scan can return the final fp32 state
 h (..., P, N), which the TPU kernel keeps in scratch and a prefill caches.
 
-:func:`ssd_scan` launches the hand-written CUDA kernel ``csrc/ssd_scan.cu``
-on CUDA tensors and takes the plain version :func:`ssd_scan_ref` only for
-tensors that lie on the CPU. A failed build or launch raises; nothing
-falls back. ``ssd_scan.launches`` counts kernel launches (plain-version
-calls do not count).
+On CUDA tensors :func:`ssd_scan` launches the hand-written kernels of
+``csrc/ssd_scan.cu`` and takes the plain version :func:`ssd_scan_ref`
+only for tensors that lie on the CPU. A failed build or launch raises;
+nothing falls back. Two kernels, chosen by dtype and shape:
+
+- bf16 x, B and C with P and N multiples of 16 (P <= 128, P·N <= 8192),
+  serving's path: the tensor-core kernel (``mma.sync``, fp32 factors as
+  TERMS bf16 terms each), two CUDA launches per call in stream order
+  (:func:`mma_plan`): (a) each chunk's own state, and in the last block of
+  each (batch row, head) the states passed between chunks; (b) the outputs
+  per (batch row, chunk, 64-row t-tile, group of heads), C·Bᵀ computed
+  once for the group when the heads share B and C (stride 0 over heads);
+- fp32 operands, and bf16 shapes outside that range: the CUDA-core
+  kernel, one launch per call.
+
+``ssd_scan.launches`` counts wrapper calls that launched a kernel
+(plain-version calls do not count). The tensor-core path's ticket counters
+(int32, zeroed once and left zeroed by every call) are kept per device and
+number of rows, so calls on one device must not overlap on two streams.
 
 On the card the operands may be strided views with unit stride on their
 last axis (dt and A any strides, stride 0 included), so the model passes
 its (B, L, H, P) projection permuted to (B, H, L, P) and its head-shared
-B/C expanded over H without a copy. For (B, H) leading axes, y is laid out
-(B, L, H, P) in memory and returned as the (B, H, L, P) view, so the
-model's reshape back is free.
+B/C expanded over H without a copy; the tensor-core kernel reads x, B and
+C 16 bytes at a time and takes a contiguous copy of one whose base or
+strides are not 16-byte aligned (the model's are). For (B, H) leading
+axes, y is laid out (B, L, H, P) in memory and returned as the (B, H, L,
+P) view, so the model's reshape back is free.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels._layout import aligned, num_sms
 
 _DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232448                    # bytes a block may use on Hopper
+TILE = 64                              # t and s rows of the tensor-core tiles
+PAD = 8                                # bf16 padding of a shared-memory row
+HEAD_GROUPS = (4, 1)                   # the tensor-core kernel's head groups
+BLOCKS_PER_SM = 4                      # launch (b)'s blocks per SM, at least
+TERMS = 3                              # bf16 terms an fp32 factor enters as
 
 
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -100,6 +122,59 @@ def _check(x, dt, A, Bm, Cm) -> None:
                              f"{tuple(x.shape)}: expected {want[name]}")
 
 
+class MmaPlan(NamedTuple):
+    """The tensor-core kernel's launch plan for one call: the head group,
+    the blocks of launches (a) and (b) and their shared-memory bytes."""
+
+    head_group: int
+    blocks_a: int
+    blocks_b: int
+    smem_a: int
+    smem_b: int
+
+
+def mma_takes(P: int, N: int) -> bool:
+    """P and N that the tensor-core kernel's tiles take."""
+    return (P % 16 == 0 and 16 <= P <= 128 and N % 16 == 0 and N >= 16
+            and P * N <= 8192)
+
+
+def mma_smem_bytes(P: int, N: int, Q: int, head_group: int
+                   ) -> Tuple[int, int]:
+    """Shared-memory bytes of launches (a) and (b), as the kernel lays it
+    out: (a) the chunk's x and B rows, its cumsum (fp64) and weights;
+    (b) the C tile, a ring of two stages of a B tile and the group's x
+    tiles (which holds h_c as TERMS bf16 terms after the last s-tile), for
+    a group of more than one head the shared fp32 C·Bᵀ tile (rows of TILE
+    + 8), each head's cumsum, dt and row factors. Rows of bf16 carry PAD
+    more elements. The kernel takes these sizes from here."""
+    Qp = -(-Q // TILE) * TILE
+    a = Qp * ((P + PAD) * 2 + (N + PAD) * 2 + 12)
+    stage = TILE * (N + PAD) * 2 + head_group * TILE * (P + PAD) * 2
+    b = (TILE * (N + PAD) * 2 + max(2 * stage, TERMS * P * (N + PAD) * 2)
+         + (TILE * (TILE + 8) * 4 if head_group > 1 else 0)
+         + head_group * (Qp * 12 + TILE * 4))
+    return a, b
+
+
+@functools.lru_cache(maxsize=256)
+def mma_plan(Bsz: int, H: int, L: int, P: int, N: int, Q: int,
+             shared_bc: bool, sms: int) -> MmaPlan:
+    """Launch (a): a block per (b, h, chunk). Launch (b): a block per (b,
+    chunk, 64-row t-tile, group of heads), four warps per head of the
+    group, which share one C·Bᵀ per tile pair. The group is 4 where 4
+    divides H, 4·P is within 256 and launch (b) still has ``BLOCKS_PER_SM``
+    blocks on each of ``sms`` SMs, else 1; 1 when the heads do not share B
+    and C. A function of the shapes alone."""
+    nc, tiles = L // Q, -(-Q // TILE)
+    hg = next((g for g in HEAD_GROUPS if H % g == 0 and g * P <= 256
+               and (g == 1 or shared_bc)
+               and Bsz * nc * tiles * (H // g) >= BLOCKS_PER_SM * sms), 1)
+    smem_a, smem_b = mma_smem_bytes(P, N, Q, hg)
+    return MmaPlan(hg, Bsz * H * nc, Bsz * nc * tiles * (H // hg), smem_a,
+                   smem_b)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128,
              return_state: bool = False,
@@ -134,16 +209,26 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     L, P = x.shape[-2:]
     N = Bm.shape[-1]
     Q = _chunk(L, chunk)
-    if not (4 <= P <= 128 and P & (P - 1) == 0 and N % 4 == 0
-            and 0 < N * P <= 8192 and N * P % 256 == 0):
-        raise ValueError(f"the kernel takes P a power of two in [4, 128] and "
-                         f"N a multiple of 4 with N*P a multiple of 256 up "
-                         f"to 8192; got P={P}, N={N}")
     lib = _library()
-    smem = lib.ssd_scan_smem_bytes(P, N, Q)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"(P, N, Q) = ({P}, {N}, {Q}) needs {smem} bytes of "
-                         f"shared memory, more than {SMEM_LIMIT}")
+    mma = x.dtype == torch.bfloat16 and mma_takes(P, N)
+    if mma:
+        x, Bm, Cm = (aligned(t, 16) for t in (x, Bm, Cm))
+        plan = mma_plan(Bsz, H, L, P, N, Q, H == 1 or (
+            Bm.stride(-3) == 0 and Cm.stride(-3) == 0),
+            num_sms(x.device.index))
+        mma = max(plan.smem_a, plan.smem_b) <= SMEM_LIMIT
+    if not mma:
+        if not (4 <= P <= 128 and P & (P - 1) == 0 and N % 4 == 0
+                and 0 < N * P <= 8192 and N * P % 256 == 0):
+            raise ValueError(f"the kernel takes P a power of two in [4, 128] "
+                             f"and N a multiple of 4 with N*P a multiple of "
+                             f"256 up to 8192 (or, for bfloat16, P and N "
+                             f"multiples of 16 with P <= 128 and N*P <= "
+                             f"8192); got P={P}, N={N}")
+        smem = lib.ssd_scan_smem_bytes(P, N, Q)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"(P, N, Q) = ({P}, {N}, {Q}) needs {smem} bytes "
+                             f"of shared memory, more than {SMEM_LIMIT}")
     if four:
         y = torch.empty((Bsz, L, H, P), dtype=out_dtype,
                         device=x.device).permute(0, 2, 1, 3)
@@ -151,31 +236,61 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         y = torch.empty((H, L, P), dtype=out_dtype, device=x.device)
     state = torch.empty((*x.shape[:-2], P, N), dtype=torch.float32,
                         device=x.device) if return_state else None
-    if Bsz * H:
-        if not four:                   # one (b) of H rows: b strides unused
-            x, dt, A, Bm, Cm, yv = (t.unsqueeze(0)
-                                    for t in (x, dt, A, Bm, Cm, y))
+    if Bsz * H == 0:
+        return (y, state) if return_state else y
+    if not four:                       # one (b) of H rows: b strides unused
+        x, dt, A, Bm, Cm, yv = (t.unsqueeze(0) for t in (x, dt, A, Bm, Cm, y))
+    else:
+        yv = y
+    strides = [*x.stride()[:3], *dt.stride(), *A.stride(), *Bm.stride()[:3],
+               *Cm.stride()[:3], *yv.stride()[:3]]
+    arr = (ctypes.c_longlong * 17)(*strides)
+    stream = torch.cuda.current_stream().cuda_stream
+    st = state.data_ptr() if state is not None else None
+    with torch.cuda.device(x.device):
+        if mma:
+            BH, nc = Bsz * H, L // Q
+            ws = _workspace(x.device, BH, L, P, N, Q).data_ptr()
+            rc = lib.ssd_scan_mma(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                Cm.data_ptr(), y.data_ptr(), st, ws, ws + 4 * BH * nc * P * N,
+                ws + 4 * BH * nc * P * N + 8 * BH * L,
+                _counters(x.device.index, BH).data_ptr(), Bsz, H, L, P, N, Q,
+                plan.head_group, arr, int(out_dtype == torch.bfloat16),
+                plan.smem_a, plan.smem_b, stream)
         else:
-            yv = y
-        strides = [*x.stride()[:3], *dt.stride(), *A.stride(),
-                   *Bm.stride()[:3], *Cm.stride()[:3], *yv.stride()[:3]]
-        arr = (ctypes.c_longlong * 17)(*strides)
-        with torch.cuda.device(x.device):
             rc = lib.ssd_scan(
                 x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-                Cm.data_ptr(), y.data_ptr(),
-                state.data_ptr() if state is not None else None,
-                Bsz, H, L, P, N, Q, arr, int(x.dtype == torch.bfloat16),
-                int(out_dtype == torch.bfloat16),
-                torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            msg = lib.ssd_scan_error_string(rc).decode()
-            raise RuntimeError(f"ssd_scan launch failed: {msg} ({rc})")
-        ssd_scan.launches += 1
+                Cm.data_ptr(), y.data_ptr(), st, Bsz, H, L, P, N, Q, arr,
+                int(x.dtype == torch.bfloat16),
+                int(out_dtype == torch.bfloat16), stream)
+    if rc != 0:
+        msg = lib.ssd_scan_error_string(rc).decode()
+        raise RuntimeError(f"ssd_scan launch failed: {msg} ({rc})")
+    ssd_scan.launches += 1
     return (y, state) if return_state else y
 
 
 ssd_scan.launches = 0
+
+
+def _workspace(dev: torch.device, BH: int, L: int, P: int, N: int, Q: int
+               ) -> torch.Tensor:
+    """The tensor-core path's scratch for one call, one allocation, written
+    by launch (a) and read by launch (b): the chunks' own states, which
+    (a)'s fold turns into the states entering each chunk (fp32 (BH, nc,
+    P, N)), cumsums (fp64 (BH, L)) and decays (fp32 (BH, nc))."""
+    nc = L // Q
+    return torch.empty(4 * BH * nc * P * N + 8 * BH * L + 4 * BH * nc,
+                       dtype=torch.uint8, device=dev)
+
+
+@functools.lru_cache(maxsize=64)
+def _counters(index: int, BH: int) -> torch.Tensor:
+    """Launch (a)'s ticket counters, one per (batch row, head), zeroed here
+    and left zeroed by every call."""
+    return torch.zeros(BH, dtype=torch.int32,
+                       device=torch.device("cuda", index))
 
 
 @functools.cache
@@ -186,6 +301,10 @@ def _library() -> ctypes.CDLL:
                              + [ctypes.POINTER(ctypes.c_longlong)]
                              + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.ssd_scan.restype = ctypes.c_int
+    lib.ssd_scan_mma.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+                                 + [ctypes.POINTER(ctypes.c_longlong)]
+                                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.ssd_scan_mma.restype = ctypes.c_int
     lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
     lib.ssd_scan_error_string.argtypes = [ctypes.c_int]

@@ -19,6 +19,7 @@ from repro_torch.core.plan_ir import (PlanIR, device_matrix,  # noqa: E402
                                       eq1a_latency, student_matrix)
 from repro_torch.core.simulator import FailureModel  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.runtime.engine import build_demo_server  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -467,14 +468,20 @@ def _ssd_operands(Bsz, H, L, P, N, dtype, strided, dev, seed=0):
 
 
 @pytest.mark.parametrize("dtype", LM_DTYPES, ids=["fp32", "bf16"])
-@pytest.mark.parametrize("P,N,Q", [(64, 128, 256), (64, 16, 256), (32, 16, 32)])
-@pytest.mark.parametrize("length", ["chunks", "short"])
+@pytest.mark.parametrize("P,N,Q", [(64, 128, 256), (64, 16, 256), (32, 16, 32),
+                                   (32, 8, 32)])
+@pytest.mark.parametrize("length", ["chunks", "4chunks", "16chunks", "short"])
 @pytest.mark.parametrize("strided", [False, True], ids=["contig", "strided"])
 def test_ssd_scan_matches_plain_version(hopper, dtype, P, N, Q, length,
                                         strided):
-    """L a multiple of Q (two chunks), and L < chunk (one ragged chunk of
-    Q = L rows); y in x's dtype and fp32, and the final state."""
-    L = 2 * Q if length == "chunks" else Q // 2 + 4
+    """L a multiple of Q (2, 4 and 16 chunks: states passed across 1, 3
+    and 15 boundaries), and L < chunk (one ragged chunk of Q = L rows); y
+    in x's dtype and fp32, and the final state. bf16 takes the tensor-core
+    kernel where P and N are multiples of 16 and the CUDA-core one at N 8;
+    fp32 always the CUDA-core one."""
+    assert ss.mma_takes(P, N) == (N % 16 == 0)
+    L = {"chunks": 2 * Q, "4chunks": 4 * Q, "16chunks": 16 * Q,
+         "short": Q // 2 + 4}[length]
     args = _ssd_operands(2, 3, L, P, N, dtype, strided, hopper, seed=P + N + L)
     before = ops.ssd_scan.launches
     y, h = ops.ssd_scan(*args, chunk=Q, return_state=True)
@@ -492,6 +499,81 @@ def test_ssd_scan_matches_plain_version(hopper, dtype, P, N, Q, length,
                      (h, rh)):
         np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
                                    **SSD_TOL)
+
+
+# SMs the plan is told the card has, so that it picks each head group: with
+# none every grid has blocks to spare, with a million none does
+GROUP_SMS = {1: 10 ** 6, 4: 0}
+
+
+@pytest.mark.parametrize("head_group", sorted(GROUP_SMS))
+@pytest.mark.parametrize("P,N,Q,L", [(64, 128, 256, 512), (64, 16, 256, 1024),
+                                     (32, 16, 32, 20), (16, 32, 48, 96),
+                                     (48, 16, 64, 192)])
+@pytest.mark.parametrize("out", ["bf16", "fp32"])
+def test_ssd_scan_head_groups_match_plain_version(hopper, monkeypatch,
+                                                  head_group, P, N, Q, L,
+                                                  out):
+    """The tensor-core kernel with each head group its plan takes over the
+    model's views (four heads sharing B and C), P and N multiples of 16 at
+    and off the serving shapes, ragged chunks (Q 48, 64-row tiles) and L <
+    chunk."""
+    monkeypatch.setattr(ss, "num_sms", lambda index: GROUP_SMS[head_group])
+    assert ss.mma_plan(2, 4, L, P, N, min(Q, L), True,
+                       GROUP_SMS[head_group]).head_group == head_group
+    args = _ssd_operands(2, 4, L, P, N, torch.bfloat16, True, hopper,
+                         seed=P + N + L + head_group)
+    od = torch.bfloat16 if out == "bf16" else torch.float32
+    before = ops.ssd_scan.launches
+    y, h = ops.ssd_scan(*args, chunk=Q, return_state=True, out_dtype=od)
+    torch.cuda.synchronize()
+    assert ops.ssd_scan.launches == before + 1
+    ry, rh = ops.ssd_scan_ref(*args, chunk=Q, return_state=True,
+                              out_dtype=torch.float32)
+    tol = LM_TOL[torch.bfloat16] if out == "bf16" else SSD_TOL
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               ry.to(od).float().cpu().numpy(), **tol)
+    np.testing.assert_allclose(h.cpu().numpy(), rh.cpu().numpy(), **SSD_TOL)
+
+
+def test_ssd_scan_plans_after_copying_views_it_cannot_address(hopper,
+                                                              monkeypatch):
+    """B and C whose base is not 16-byte aligned are copied before the
+    plan is made, so the copies (which no longer share one row over the
+    heads) run in groups of 1 where the views would have run in fours."""
+    monkeypatch.setattr(ss, "num_sms", lambda index: 0)
+    assert ss.mma_plan(2, 4, 128, 32, 16, 32, True, 0).head_group == 4
+    x, dt, A, Bm, Cm = _ssd_operands(2, 4, 128, 32, 16, torch.bfloat16,
+                                     True, hopper, seed=11)
+    flat = torch.empty(Bm[:, 0].numel() + 1, dtype=Bm.dtype, device=hopper)
+    odd = flat[1:].view(Bm[:, 0].shape)
+    odd.copy_(Bm[:, 0])
+    Bo = odd[:, None].expand_as(Bm)
+    assert Bo.data_ptr() % 16 and Bo.stride(1) == 0
+    y, h = ops.ssd_scan(x, dt, A, Bo, Cm, chunk=32, return_state=True,
+                        out_dtype=torch.float32)
+    ry, rh = ops.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=32, return_state=True,
+                              out_dtype=torch.float32)
+    np.testing.assert_allclose(y.cpu().numpy(), ry.cpu().numpy(), **SSD_TOL)
+    np.testing.assert_allclose(h.cpu().numpy(), rh.cpu().numpy(), **SSD_TOL)
+
+
+def test_ssd_scan_leaves_its_counters_zero(hopper):
+    """Launch (a)'s last block of each row resets that row's ticket
+    counter: after calls of other lengths, batch sizes and outputs on the
+    same counters, all are 0 and each call matches its plain version."""
+    for Bsz, L, state in ((2, 512, True), (2, 1024, False), (2, 20, False),
+                          (2, 256, True), (1, 512, False)):
+        args = _ssd_operands(Bsz, 3, L, 64, 16, torch.bfloat16, True, hopper,
+                             seed=L + Bsz)
+        y = ops.ssd_scan(*args, chunk=256, return_state=state,
+                         out_dtype=torch.float32)
+        y = y[0] if state else y
+        ry = ops.ssd_scan_ref(*args, chunk=256, out_dtype=torch.float32)
+        np.testing.assert_allclose(y.cpu().numpy(), ry.cpu().numpy(),
+                                   **SSD_TOL)
+        counters = ss._counters(torch.cuda.current_device(), Bsz * 3)
+        assert int(counters.abs().sum()) == 0
 
 
 @pytest.mark.parametrize("N", [1, 4, 77, 2048, 4096])
