@@ -27,8 +27,14 @@ result line):
 6. int8: phase 4 with ``quantize="int8"``, also held to the fp32 server
    with the JAX package's int8 bounds;
 7. ``coded_decode`` (``src/repro_torch/kernels/csrc/coded_decode.cu``) vs
-   its plain version over a sweep of shapes, masks and decode rows, and
-   timings at the fused output-coded shape;
+   its plain version over a sweep of shapes, masks and decode rows (R at
+   and past the kernel's compile-time bound 16 among them), with NaN and
+   Inf in dead shares' rows (held to the plain version on those rows
+   zeroed), and as views (the recovery path's transposed stack, an
+   unaligned base, an unaligned row stride) bit-equal to the contiguous
+   call; timings at the fused output-coded shape in fp32 and int8 (per
+   call and device ms beside the einsum; device ms per ``block_batch``)
+   and at B = 1;
 8. coded serving, three plans through the engine, each held batch by
    batch to the same server on the CPU (quorum fields and share times
    equal, logits within SERVE_TOL), with ``coded_decode`` launched on the
@@ -47,12 +53,14 @@ greedy decode over a KV cache) runs three more hand-written kernels,
 (``src/repro_torch/kernels/csrc/*.cu``):
 
 10. each held to its plain version over a sweep of shapes in fp32 (rtol/atol
-    3e-5) and bf16 (3e-2), the tile edges of the tensor-core flash kernel
-    and decode lengths below the number of splits among them, and timed at
-    llama3.2-1b's serving shapes (batch 4, prompt 512, bf16) beside its
-    plain version and one PyTorch call; the two attention kernels and SDPA
-    also by device time (``time_callable``), flash also at moonshot's and
-    jamba's D 128 shapes;
+    3e-5) and bf16 (3e-2), the tile edges of the tensor-core flash kernel,
+    decode lengths below the number of splits, and rmsnorm at the LM
+    paths' widths, ragged widths and bases off 16 bytes among them, and
+    timed at llama3.2-1b's serving shapes (batch 4, prompt 512, bf16)
+    beside its plain version and one PyTorch call, also by device time
+    (``time_callable``); flash also at moonshot's and jamba's D 128
+    shapes; rmsnorm and ``F.rms_norm`` also at 2048 rows of each path's
+    width and at the decode shape (4, 2048), warm and cold;
 11. card vs CPU: llama3.2-1b at full width cut to 2 layers, fp32, weights
     drawn once on the CPU; prompt 64 x batch 4 and 8 decode steps through
     the ``greedy_decode`` helper on both; logits within 1e-3, greedy tokens
@@ -190,6 +198,10 @@ RECOVER_TOL = dict(rtol=5e-4, atol=5e-4)
 MAIN_SHAPE = dict(K=8, B=256, Dk=32, C=10)
 # the fused output-coded step's decode: B rows, R = K + P shares, F = Dk
 DECODE_SHAPE = dict(B=256, R=6, K=4, F=64)
+# (R, K, F) of the decode sweeps: the serving codes' (6,4), (8,5) and
+# (5,3), a wide slot, and R at and past the kernel's compile-time bound 16
+CD_SWEEP = ((6, 4, 64), (8, 5, 52), (5, 3, 43), (12, 8, 640), (16, 10, 64),
+            (17, 10, 64))
 N_REQUESTS = 64                 # per serving phase, Poisson at 200/s
 MAX_REQUEST_ROWS = 32           # request sizes uniform in 1..32 images
 PROFILE_ROWS, PROFILE_CALLS = 256, 5
@@ -208,6 +220,13 @@ LM_KERNEL_TOL = {torch.float32: dict(rtol=3e-5, atol=3e-5),
 # a bf16 decode step vs a bf16 prefill of the same tokens: bf16 rounds at
 # other places on the two paths; relative to each row's largest |logit|
 LM_STEP_TOL = 5e-2
+# rmsnorm's sweep: the registry's widths, the paths' (768, 1536, 4096, 8192)
+# and ragged ones (the scalar route); its timed shapes: 2048 rows of a
+# prefill at each path's width, and a decode step's 4 rows
+RMS_SWEEP_D = (128, 768, 1536, 2048, 3072, 4096, 6144, 8192, 100, 1000, 2047)
+RMS_TIMED = ((2048, 768), (2048, 1536), (2048, 2048), (2048, 4096),
+             (2048, 8192), (4, 2048))
+COLD_BYTES = 100 * 2 ** 20      # twice the L2: a rotation's inputs
 # the SSM, MoE and hybrid serving paths
 LM_KERNELS = ("rmsnorm", "flash_attention", "decode_attention", "ssd_scan",
               "topk_gating")
@@ -769,14 +788,43 @@ def cd_bound(B, R, K, F, mask, int8, scales) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def dead_garbage(sh: torch.Tensor, m: torch.Tensor) -> tuple:
+    """(shares with NaN and Inf, or for int8 -128, in every dead share's
+    row; the same shares with those rows zeroed)."""
+    dead = (m == 0)[:, :, None].expand_as(sh)
+    if sh.dtype == torch.int8:
+        garbage = torch.full_like(sh, -128)
+    else:
+        garbage = torch.full_like(sh, float("nan"))
+        garbage[..., ::2] = float("inf")
+    return (torch.where(dead, garbage, sh),
+            torch.where(dead, torch.zeros_like(sh), sh))
+
+
+def share_views(sh: torch.Tensor) -> dict:
+    """The shares as views: an (R, B, F) stack transposed (the recovery
+    path's layout, read in place), a base one element off and a row stride
+    of F + 1 (both off the 4-column access: the scalar route)."""
+    B, R, F = sh.shape
+    off = torch.empty(sh.numel() + 1, dtype=sh.dtype, device=sh.device)
+    off[1:].copy_(sh.reshape(-1))
+    wide = torch.zeros((B, R, F + 1), dtype=sh.dtype, device=sh.device)
+    wide[..., :F] = sh
+    return {"stack": sh.transpose(0, 1).contiguous().transpose(0, 1),
+            "base": off[1:].view(B, R, F), "stride": wide[..., :F]}
+
+
 def phase_decode_kernel(dev, plans: dict) -> dict:
-    """coded_decode vs its plain version over the sweep; timings at the
-    fused output-coded shape."""
+    """coded_decode vs its plain version over the sweep (R at and past the
+    kernel's compile-time bound among it), with NaN and Inf in dead shares'
+    rows, and as the views the recovery path and the scalar route take;
+    timings at the fused output-coded shape (fp32 and int8, each
+    ``block_batch`` candidate, and B = 1)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     rng = np.random.default_rng(1)
-    worst, n_cases = 0.0, 0
+    worst, n_cases, n_dead, n_views = 0.0, 0, 0, 0
     for int8 in (False, True):
-        for R, K, F in ((6, 4, 64), (8, 5, 52), (5, 3, 43), (12, 8, 640)):
+        for R, K, F in CD_SWEEP:
             errs = []
             for B in (0, 1, 7, 256, 1000):
                 e_b = 0.0
@@ -790,30 +838,73 @@ def phase_decode_kernel(dev, plans: dict) -> dict:
                         torch.cuda.synchronize()
                         e_b = max(e_b, max_err(out, ref, **KERNEL_TOL))
                         n_cases += 1
+                        for name, v in share_views(sh).items():
+                            if not same_bits(ops.coded_decode(v, dec, m, s),
+                                             out):
+                                raise AssertionError(
+                                    f"coded_decode {name} view B={B} R={R} "
+                                    f"K={K} F={F}: bits differ")
+                            n_views += 1
+                    # garbage in dead shares never reaches the sum
+                    sh, dec, m, s = cd_operands(B, R, K, F, mname, "pinv",
+                                                int8, gen, dev, rng, plans)
+                    bad, clean = dead_garbage(sh, m)
+                    out = ops.coded_decode(bad, dec, m, s)
+                    torch.cuda.synchronize()
+                    e_b = max(e_b, max_err(out, ops.coded_decode_ref(
+                        clean, dec, m, s), **KERNEL_TOL))
+                    n_dead += 1
                 worst = max(worst, e_b)
                 errs.append(f"B{B}:{e_b:.1e}")
             print(f"decode kernel {'int8' if int8 else 'fp32'} R={R} K={K} "
                   f"F={F}: " + " ".join(errs))
-    print(f"decode kernel vs plain: {n_cases} cases within rtol/atol 1e-5, "
-          f"max abs err {worst:.3e}")
+    print(f"decode kernel vs plain: {n_cases} cases and {n_dead} with NaN/"
+          f"Inf (int8: -128) in dead shares' rows within rtol/atol 1e-5, "
+          f"max abs err {worst:.3e}; {n_views} view launches (stack, base, "
+          f"stride) bit-equal to the contiguous call")
 
     B, R, K, F = (DECODE_SHAPE[k] for k in ("B", "R", "K", "F"))
-    sh, dec, m, _ = cd_operands(B, R, K, F, "ones", "pinv", False, gen, dev,
+    t = {}
+    for int8 in (False, True):
+        sh, dec, m, s = cd_operands(B, R, K, F, "ones", "pinv", int8, gen,
+                                    dev, rng, plans)
+        w = dec * m[:, None, :] * (s if int8 else 1.0)   # dec · mask · s
+        shf = sh.float()
+        kind = "int8" if int8 else "fp32"
+        t[kind] = dict(
+            ms=cuda_ms(lambda: ops.coded_decode(sh, dec, m, s)),
+            plain_ms=cuda_ms(lambda: ops.coded_decode_ref(sh, dec, m, s)),
+            library_ms=cuda_ms(lambda: torch.einsum("bkr,brf->bkf", w, shf)),
+            **device_pair(lambda: ops.coded_decode(sh, dec, m, s),
+                          lambda: torch.einsum("bkr,brf->bkf", w, shf)))
+        t[kind]["bound_ms"], t[kind]["bound_by"] = cd_bound(
+            B, R, K, F, m.cpu().numpy(), int8, int8)
+        print(f"decode timing at B={B} R={R} K={K} F={F} {kind}, all shares "
+              f"arrived: kernel {t[kind]['ms']:.5f} ms, plain "
+              f"{t[kind]['plain_ms']:.5f} ms, einsum "
+              f"{t[kind]['library_ms']:.5f} ms per call, bound "
+              f"{t[kind]['bound_ms']:.6f} ms ({t[kind]['bound_by']}); device: "
+              f"kernel {t[kind]['device_ms']:.5f} ms, einsum "
+              f"{t[kind]['library_device_ms']:.5f} ms")
+        if not int8:
+            per_bb = {c["block_batch"]: MB.time_callable(
+                lambda c=c: ops.coded_decode(sh, dec, m, **c), repeats=200,
+                warmup=3) * 1e3 for c in AT._configs("coded_decode")}
+            print(f"decode device ms by block_batch at B={B} fp32: "
+                  + ", ".join(f"{bb}: {v:.5f}"
+                              for bb, v in sorted(per_bb.items())))
+    sh, dec, m, _ = cd_operands(1, R, K, F, "ones", "pinv", False, gen, dev,
                                 rng, plans)
-    w = dec * m[:, None, :]                     # dec · mask · s, s = 1
-    ms = cuda_ms(lambda: ops.coded_decode(sh, dec, m))
-    plain_ms = cuda_ms(lambda: ops.coded_decode_ref(sh, dec, m))
-    library_ms = cuda_ms(lambda: torch.einsum("bkr,brf->bkf", w, sh))
-    dev_t = device_pair(lambda: ops.coded_decode(sh, dec, m),
+    w = dec * m[:, None, :]
+    floor = device_pair(lambda: ops.coded_decode(sh, dec, m),
                         lambda: torch.einsum("bkr,brf->bkf", w, sh))
-    bound_ms, bound_by = cd_bound(B, R, K, F, m.cpu().numpy(), False, False)
-    print(f"decode timing at B={B} R={R} K={K} F={F} fp32, all shares "
-          f"arrived: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, einsum "
-          f"{library_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}); "
-          f"device: kernel {dev_t['device_ms']:.5f} ms, einsum "
-          f"{dev_t['library_device_ms']:.5f} ms")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    print(f"decode floor at B=1 R={R} K={K} F={F} fp32: device kernel "
+          f"{floor['device_ms']:.5f} ms, einsum "
+          f"{floor['library_device_ms']:.5f} ms; bound "
+          f"{cd_bound(1, R, K, F, m.cpu().numpy(), False, False)[0]:.6f} ms")
+    return dict(max_abs_err=worst, **{k: t["fp32"][k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "device_ms")})
 
 
 def phase_repair(name: str, srv, cpu) -> dict:
@@ -945,14 +1036,19 @@ def phase_lm_kernels(dev) -> dict:
     worst = {k: 0.0 for k in LM_SOURCES}
     cases = {k: 0 for k in LM_SOURCES}
     for dtype in dtypes:
-        for D in (128, 2048, 3072, 6144):
+        for D in RMS_SWEEP_D:
             errs = []
-            for rows in (0, 1, 7, 2048, 4097):
+            for rows in (0, 1, 4, 7, 2048, 4097):
                 x = torch.randn((rows, D), generator=gen, device=dev).to(dtype)
                 sc = torch.randn((D,), generator=gen, device=dev).to(dtype)
                 out = ops.rmsnorm(x, sc)
                 torch.cuda.synchronize()
                 e = lm_check(out, ops.rmsnorm_ref(x, sc), dtype)
+                if rows in (4, 2048):   # a base off 16 bytes: scalar route
+                    xo = unaligned_copy(x)
+                    e = max(e, lm_check(ops.rmsnorm(xo, sc),
+                                        ops.rmsnorm_ref(xo, sc), dtype))
+                    cases["rmsnorm"] += 1
                 worst["rmsnorm"] = max(worst["rmsnorm"], e)
                 cases["rmsnorm"] += 1
                 errs.append(f"rows{rows}:{e:.1e}")
@@ -1028,6 +1124,7 @@ def phase_lm_kernels(dev) -> dict:
                       lambda: F.rms_norm(x, (d,), sc, 1e-6)))
     timing["rmsnorm"]["bound_ms"], timing["rmsnorm"]["bound_by"] = \
         rmsnorm_bound(B * S, d, bf)
+    worst["rmsnorm"] = max(worst["rmsnorm"], rmsnorm_widths(gen, dev))
     # llama3.2-1b's shape (D 64), then moonshot's and jamba's (D 128); each
     # timed shape's output is also held to the plain version
     more = []
@@ -1075,6 +1172,54 @@ def phase_lm_kernels(dev) -> dict:
     for t in more:
         report_timing("flash_attention", t)
     return timing
+
+
+def unaligned_copy(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a contiguous view whose base is one element off 16 bytes."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:].copy_(x.reshape(-1))
+    return buf[1:].view(x.shape)
+
+
+def rotation(rows: int, D: int, dtype, gen, dev):
+    """(one input, a callable returning the next of inputs that together
+    exceed COLD_BYTES, so each call finds its input out of the L2)."""
+    n = max(2, -(-COLD_BYTES // (rows * D * torch.finfo(dtype).bits // 8)))
+    buf = torch.randn((n * rows, D), generator=gen, device=dev).to(dtype)
+    xs = itertools.cycle(buf.view(n, rows, D).unbind(0))
+    return buf[:rows], lambda: next(xs)
+
+
+def rmsnorm_widths(gen, dev) -> float:
+    """rmsnorm and ``F.rms_norm`` in bf16 at the LM paths' widths (2048
+    rows of a prefill) and at the decode shape (4 rows): device ms warm
+    (one input, which the L2 holds) and cold (inputs rotated past the L2),
+    ms per call back to back, each shape held to the plain version.
+    Returns the largest error."""
+    F = torch.nn.functional
+    bf = torch.bfloat16
+    worst = 0.0
+    for rows, D in RMS_TIMED:
+        x, nxt = rotation(rows, D, bf, gen, dev)
+        sc = (1 + 0.1 * torch.randn((D,), generator=gen, device=dev)).to(bf)
+        worst = max(worst, lm_check(ops.rmsnorm(x, sc),
+                                    ops.rmsnorm_ref(x, sc), bf))
+        warm = device_pair(lambda: ops.rmsnorm(x, sc),
+                           lambda: F.rms_norm(x, (D,), sc, 1e-6))
+        cold = device_pair(lambda: ops.rmsnorm(nxt(), sc),
+                           lambda: F.rms_norm(nxt(), (D,), sc, 1e-6))
+        ms = cuda_ms(lambda: ops.rmsnorm(x, sc))
+        lib_ms = cuda_ms(lambda: F.rms_norm(x, (D,), sc, 1e-6))
+        bound_ms, bound_by = rmsnorm_bound(rows, D, bf)
+        print(f"rmsnorm timing at ({rows}, {D}) bf16: device warm "
+              f"{warm['device_ms']:.5f} ms (F.rms_norm "
+              f"{warm['library_device_ms']:.5f}), cold "
+              f"{cold['device_ms']:.5f} ms (F.rms_norm "
+              f"{cold['library_device_ms']:.5f}), bound {bound_ms:.6f} ms "
+              f"({bound_by}), cold at {100 * bound_ms / cold['device_ms']:.1f}"
+              f"% of it; per call back to back {ms:.5f} ms (F.rms_norm "
+              f"{lib_ms:.5f})")
+    return worst
 
 
 def attention_timing(kernel, library, shape: str, bound: tuple) -> dict:
@@ -1780,7 +1925,7 @@ def phase_matmul_kernels(dev, plans: dict) -> dict:
                                     f"quorum_aggregate K={K} B={B} Dk={Dk} "
                                     f"C={C} tile {c}: bits differ")
                             qa_tiles += 1
-        for R, K, F in ((6, 4, 64), (8, 5, 52), (5, 3, 43), (12, 8, 640)):
+        for R, K, F in CD_SWEEP:
             for B in (0, 1, 7, 256, 1000):
                 for mname in ("ones", "mixed", "zeros"):
                     sh, dec, m, s = cd_operands(B, R, K, F, mname, "pinv",
@@ -2092,7 +2237,8 @@ def main() -> int:
                   ms=decode_timing["ms"], plain_ms=decode_timing["plain_ms"],
                   bound_ms=decode_timing["bound_ms"],
                   bound_by=decode_timing["bound_by"],
-                  library_ms=decode_timing["library_ms"])
+                  library_ms=decode_timing["library_ms"],
+                  device_ms=decode_timing["device_ms"])
 
     lm_timing = phase_lm_kernels(dev)
     phase_lm_card_vs_cpu(dev)

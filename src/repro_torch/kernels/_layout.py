@@ -1,13 +1,16 @@
-"""Operand layouts for the kernels that read 16 bytes at a time, and the
-card's size for their launch plans.
+"""Operand layouts for the kernels that read 16 bytes at a time, the
+card's size for their launch plans, and the launch's device and stream.
 
 :func:`strides` gives a tensor's element strides as the kernels take them,
 :func:`aligned` passes a view on unchanged when the kernel can address it
 and otherwise makes a contiguous copy (a layout copy, not another kernel),
-:func:`num_sms` gives the SMs a plan spreads its blocks over.
+:func:`num_sms` gives the SMs a plan spreads its blocks over,
+:func:`on_device` and :func:`stream_handle` give a launch its device and
+stream with as little host work as a call allows.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Tuple
 
@@ -37,3 +40,18 @@ def aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
 def num_sms(index: int) -> int:
     """The streaming multiprocessors of CUDA device ``index``."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def on_device(device: torch.device):
+    """A context that makes ``device`` current for a launch: a null one when
+    it already is (the usual case), since entering ``torch.cuda.device``
+    costs host work on every call even when it changes nothing."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def stream_handle(device: torch.device) -> int:
+    """The raw handle of ``device``'s current stream, without building a
+    ``torch.cuda.Stream`` object per call."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -53,13 +53,14 @@ import torch
 
 # the defaults the wrappers apply on a table miss: the launches the kernels
 # made before they took a tile (256 threads of the merge: 16 rows of 16
-# classes for C <= 16, which :func:`defaults` turns into 8 rows of 32 above;
-# one row per block for the decode), dequant_matmul's largest tile (256
-# threads of 8 x 8 outputs), and the baselines the hysteresis margin
-# protects
+# classes for C <= 16, which :func:`defaults` turns into 8 rows of 32
+# above), two rows per block for the decode (a warp of 16-byte accesses at
+# the fused output-coded F 64, 128 blocks for a batch of 256 on 132 SMs),
+# dequant_matmul's largest tile (256 threads of 8 x 8 outputs), and the
+# baselines the hysteresis margin protects
 DEFAULTS: Dict[str, Dict[str, int]] = {
     "quorum_aggregate": {"block_batch": 16},
-    "coded_decode": {"block_batch": 1},
+    "coded_decode": {"block_batch": 2},
     "dequant_matmul": {"block_batch": 128, "block_n": 128},
 }
 

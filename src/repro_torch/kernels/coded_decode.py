@@ -19,23 +19,42 @@ the kernel scales each share on the way in.
 
 ``block_batch`` (batch rows per block) is resolved through the tuning table
 (:mod:`repro_torch.kernels.autotune`) unless the caller pins it;
-:func:`block_rows` clamps it to a legal launch. Every value gives the same
-bits.
+:func:`decode_plan` turns it into a launch: the vector width (4 columns of
+shares per access, 16 bytes of fp32 or 4 of int8, or the scalar route
+where a view's base or strides are not aligned to 4 elements or F is
+ragged), the compile-time bound on R (a pass of up to 16 shares; more take
+several passes) and the block and grid shapes (:func:`block_rows`). Every
+plan gives the same bits.
+
+On the card ``shares`` may be a view with unit stride along F (the
+recovery path passes its (R, B, F) share stack transposed, without a copy).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import autotune, build
+from repro_torch.kernels._layout import on_device, strides, stream_handle
 
-# the kernel's (K, R) weight tile and mask row live in shared memory, one
-# per row the block decodes at a time
-_MAX_SMEM_BYTES = 48 * 1024
-_MAX_THREADS = 512
+MAX_THREADS = 256                      # the kernel's launch bound
+VEC = 4                                # feature columns per access
+MAX_COLS = 128                         # threads along F in one block
+R_BOUNDS = (4, 8, 16)                  # the kernel's compile-time R bounds
+
+
+class DecodePlan(NamedTuple):
+    """One launch of the kernel."""
+    vec: int                 # feature columns per thread and access
+    r_max: int               # shares per pass, all loaded before use:
+                             # one pass up to R = 16, passes of 16 beyond
+    rows: int                # batch rows per block
+    lanes: int               # rows a block decodes at once
+    cols: int                # threads along F per block
+    grid: Tuple[int, int]    # (row blocks, column blocks)
 
 
 def coded_decode_ref(shares: torch.Tensor, dec: torch.Tensor,
@@ -73,16 +92,34 @@ def _check(shares, dec, mask, scales) -> None:
         raise ValueError(f"scales must be float32 of shape ({R},)")
 
 
-def block_rows(B: int, R: int, K: int, F: int,
-               block_batch: int) -> Tuple[int, int]:
+def block_rows(B: int, F: int, block_batch: int,
+               vec: int) -> Tuple[int, int]:
     """(rows, lanes) of one block: ``block_batch`` clamped into [1, B]
-    rows, decoded ``lanes`` at a time, as many as 512 threads (128 feature
-    columns per lane at most) and 48 KB of weight tiles allow."""
-    threads = 128 if F >= 128 else -(-F // 32) * 32
+    rows, decoded ``lanes`` at a time, as many as ``MAX_THREADS`` threads
+    hold beside the row's ``min(ceil(F / vec), MAX_COLS)`` threads."""
+    cols = min(-(-F // vec), MAX_COLS)
     rows = max(1, min(int(block_batch), B))
-    lanes = min(rows, _MAX_THREADS // max(threads, 1),
-                _MAX_SMEM_BYTES // ((K * R + R) * 4))
-    return rows, max(1, lanes)
+    return rows, max(1, min(rows, MAX_THREADS // cols))
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(B: int, R: int, F: int, elem_bytes: int, stride_b: int,
+                stride_r: int, base_offset: int,
+                block_batch: int) -> DecodePlan:
+    """The launch for B rows of R shares of F elements of ``elem_bytes``
+    bytes at element strides ``stride_b``, ``stride_r`` (0 on an axis of
+    size 1), the base ``base_offset`` bytes past a 16-byte boundary.
+    Accesses of ``VEC`` columns where that width divides F and both
+    strides and the base is aligned to it, else the scalar route."""
+    vec = VEC
+    if (F | stride_b | stride_r) % vec or base_offset % (vec * elem_bytes):
+        vec = 1
+    r_max = next((m for m in R_BOUNDS if R <= m), R_BOUNDS[-1])
+    rows, lanes = block_rows(B, F, block_batch, vec)
+    cpr = -(-F // vec)
+    cols = min(cpr, MAX_COLS)
+    return DecodePlan(vec, r_max, rows, lanes, cols,
+                      (-(-B // rows), -(-cpr // cols)))
 
 
 def coded_decode(shares: torch.Tensor, dec: torch.Tensor, mask: torch.Tensor,
@@ -102,29 +139,33 @@ def coded_decode(shares: torch.Tensor, dec: torch.Tensor, mask: torch.Tensor,
     if shares.device.type != "cuda":
         raise ValueError(f"coded_decode runs on cuda or cpu tensors, not "
                          f"{shares.device}")
-    tensors = [dec, mask] + ([scales] if scales is not None else [])
-    if any(t.device != shares.device for t in tensors):
+    dev = shares.device
+    if dec.device != dev or mask.device != dev or (
+            scales is not None and scales.device != dev):
         raise ValueError("all operands must be on one device")
     if mask.dtype != torch.int32:
         raise TypeError("mask must be int32 on the card")
-    if not all(t.is_contiguous() for t in [shares] + tensors):
-        raise ValueError("coded_decode needs contiguous operands")
     B, R, F = shares.shape
     K = dec.shape[1]
-    if (K * R + R) * 4 > _MAX_SMEM_BYTES:
-        raise ValueError(f"K={K}, R={R}: the (K, R) weight tile does not "
-                         f"fit the kernel's shared memory")
-    out = torch.empty((B, K, F), dtype=torch.float32, device=shares.device)
+    out = torch.empty((B, K, F), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out                     # nothing to decode: (0, K, F)
+    if shares.stride(2) != 1 and F > 1:
+        raise ValueError("coded_decode needs shares with unit stride along F")
+    if not (dec.is_contiguous() and mask.is_contiguous()
+            and (scales is None or scales.is_contiguous())):
+        raise ValueError("coded_decode needs contiguous dec, mask and scales")
+    sb, sr, _ = strides(shares)
+    p = decode_plan(B, R, F, shares.element_size(), sb, sr,
+                    shares.data_ptr() % 16, bb)
     lib = _library()
     fn = (lib.coded_decode_i8 if shares.dtype == torch.int8
           else lib.coded_decode_f32)
-    with torch.cuda.device(shares.device):
-        rc = fn(shares.data_ptr(), dec.data_ptr(), mask.data_ptr(),
+    with on_device(dev):
+        rc = fn(shares.data_ptr(), sb, sr, dec.data_ptr(), mask.data_ptr(),
                 scales.data_ptr() if scales is not None else None,
-                out.data_ptr(), B, R, K, F, *block_rows(B, R, K, F, bb),
-                torch.cuda.current_stream().cuda_stream)
+                out.data_ptr(), B, R, K, F, p.vec, p.r_max, p.rows, p.lanes,
+                p.cols, *p.grid, stream_handle(dev))
     if rc != 0:
         msg = lib.coded_decode_error_string(rc).decode()
         raise RuntimeError(f"coded_decode launch failed: {msg} ({rc})")
@@ -139,7 +180,8 @@ coded_decode.launches = 0
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = build.load("coded_decode")
-    args = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    args = ([ctypes.c_void_p] + [ctypes.c_longlong] * 2
+            + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
     for fn in (lib.coded_decode_f32, lib.coded_decode_i8):
         fn.argtypes = args
         fn.restype = ctypes.c_int

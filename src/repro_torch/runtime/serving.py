@@ -447,8 +447,9 @@ class QuorumServer:
                         else _slot_portions(portion_fns, x_all, Dk))
             parity = torch.einsum("pk,kbf->pbf", rt.enc_device(dev), portions)
             shares = torch.cat([portions, parity], dim=0)   # (K+P, B, F)
-            decoded = K.coded_decode(shares.transpose(0, 1).contiguous(),
-                                     dec, share_mask)       # (B, K, F)
+            # the (B, R, F) view, read in place: unit stride along F
+            decoded = K.coded_decode(shares.transpose(0, 1), dec,
+                                     share_mask)            # (B, K, F)
             portions = decoded.transpose(0, 1)
         else:
             # the legacy loop runs no forward for a slot nobody received

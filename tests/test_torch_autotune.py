@@ -271,13 +271,15 @@ def test_quorum_rows_per_block_clamp(block_batch, C, want):
     assert QA.rows_per_block(C, block_batch) == want
 
 
-@pytest.mark.parametrize("B,R,K,F,block_batch,want", [
-    (256, 6, 4, 64, 1, (1, 1)),       # the default: one row per block
-    (256, 6, 4, 64, 16, (16, 8)),
-    (256, 6, 4, 200, 16, (16, 4)),    # 128 threads per lane, 512 in all
-    (256, 6, 4, 64, 0, (1, 1)),
-    (7, 6, 4, 64, 2 ** 40, (7, 7)),   # a stale entry larger than B
-    (256, 64, 64, 16, 16, (16, 2)),   # two (K, R) tiles fill 48 KB
+@pytest.mark.parametrize("B,R,K,F,block_batch,vec,want", [
+    (256, 6, 4, 64, 1, 4, (1, 1)),     # one row per block
+    (256, 6, 4, 64, 2, 4, (2, 2)),     # the default: a warp, 16 threads a row
+    (256, 6, 4, 64, 16, 1, (16, 4)),   # scalar route: 64 threads a row
+    (256, 6, 4, 64, 16, 4, (16, 16)),
+    (256, 6, 4, 200, 16, 1, (16, 2)),  # 128 threads a row, 256 in all
+    (256, 6, 4, 64, 0, 4, (1, 1)),
+    (7, 6, 4, 64, 2 ** 40, 1, (7, 4)),  # a stale entry larger than B
+    (256, 64, 64, 16, 16, 4, (16, 16)),  # R and K take no shared memory
 ])
-def test_coded_decode_block_rows_clamp(B, R, K, F, block_batch, want):
-    assert CD.block_rows(B, R, K, F, block_batch) == want
+def test_coded_decode_block_rows_clamp(B, R, K, F, block_batch, vec, want):
+    assert CD.block_rows(B, F, block_batch, vec) == want

@@ -144,7 +144,10 @@ def _cd_operands(B, R, K, F, mask, int8, dev, seed=0):
 @pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
 @pytest.mark.parametrize("B,R,K,F", [(256, 6, 4, 64), (7, 8, 5, 52),
                                      (1, 5, 3, 43), (1000, 12, 8, 640),
-                                     (3, 20, 18, 5)])
+                                     (3, 20, 18, 5),
+                                     # the compile-time R bound (16) and past
+                                     (9, 16, 10, 64), (9, 17, 10, 64),
+                                     (5, 33, 12, 48)])
 @pytest.mark.parametrize("mask", ["ones", "mixed", "zeros"])
 def test_coded_decode_matches_plain_version(hopper, int8, B, R, K, F, mask):
     args = _cd_operands(B, R, K, F, mask, int8, hopper, seed=B)
@@ -154,6 +157,50 @@ def test_coded_decode_matches_plain_version(hopper, int8, B, R, K, F, mask):
     assert ops.coded_decode.launches == before + 1
     ref = ops.coded_decode_ref(*args)
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("B,R,K,F", [(256, 6, 4, 64), (7, 8, 5, 52),
+                                     (9, 17, 10, 64)])
+def test_coded_decode_dead_shares_never_reach_the_sum(hopper, int8, B, R, K,
+                                                      F):
+    """NaN and Inf in the rows of dead shares: the output is finite and
+    equals the plain version run on the same shares with those rows
+    zeroed."""
+    sh, dec, m, s = _cd_operands(B, R, K, F, "mixed", int8, hopper, seed=R)
+    dead = (m == 0)[:, :, None].expand_as(sh)
+    if int8:                       # int8 has no NaN: the largest magnitudes
+        garbage = torch.full_like(sh, -128)
+    else:
+        garbage = torch.full_like(sh, float("nan"))
+        garbage[..., ::2] = float("inf")
+    out = ops.coded_decode(torch.where(dead, garbage, sh), dec, m, s)
+    ref = ops.coded_decode_ref(torch.where(dead, torch.zeros_like(sh), sh),
+                               dec, m, s)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("B,R,K,F", [(256, 6, 4, 64), (33, 12, 8, 640),
+                                     (9, 17, 10, 64)])
+def test_coded_decode_share_views_same_bits(hopper, int8, B, R, K, F):
+    """Shares as the recovery path passes them (an (R, B, F) stack
+    transposed: the vector route in place) and as views the scalar route
+    takes (a base one element off; a row stride of F + 1) give the bits of
+    the contiguous call."""
+    sh, dec, m, s = _cd_operands(B, R, K, F, "mixed", int8, hopper, seed=F)
+    base = ops.coded_decode(sh, dec, m, s)
+    stack = sh.transpose(0, 1).contiguous()
+    off = torch.empty(sh.numel() + 1, dtype=sh.dtype, device=hopper)
+    off[1:].copy_(sh.reshape(-1))
+    wide = torch.zeros((B, R, F + 1), dtype=sh.dtype, device=hopper)
+    wide[..., :F] = sh
+    views = {"stack": stack.transpose(0, 1),
+             "base": off[1:].view(B, R, F), "stride": wide[..., :F]}
+    for name, v in views.items():
+        assert _same_bits(ops.coded_decode(v, dec, m, s), base), name
 
 
 def test_coded_decode_empty_batch_launches_nothing(hopper):
@@ -169,14 +216,14 @@ def test_coded_decode_rejects_what_the_kernel_does_not_take(hopper):
         ops.coded_decode(sh.to(torch.int8), dec, m)
     with pytest.raises(TypeError, match="int32"):
         ops.coded_decode(sh, dec, m.to(torch.int64))
-    with pytest.raises(ValueError, match="contiguous"):
-        ops.coded_decode(sh.transpose(0, 1).contiguous().transpose(0, 1),
+    with pytest.raises(ValueError, match="unit stride"):
+        ops.coded_decode(sh.transpose(1, 2).contiguous().transpose(1, 2),
                          dec, m)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.coded_decode(sh, dec.transpose(0, 1).contiguous().transpose(0, 1),
+                         m)
     with pytest.raises(ValueError, match="one device"):
         ops.coded_decode(sh, dec.cpu(), m)
-    big = _cd_operands(1, 128, 128, 4, "ones", False, hopper)
-    with pytest.raises(ValueError, match="shared memory"):
-        ops.coded_decode(*big)
 
 
 def _coded_toy_ir():
@@ -237,7 +284,12 @@ def _close(out, ref, dtype):
 
 @pytest.mark.parametrize("dtype", LM_DTYPES, ids=["fp32", "bf16"])
 @pytest.mark.parametrize("rows,D", [(1, 128), (7, 2048), (2048, 2048),
-                                    (4097, 6144), (5, 3072)])
+                                    (4097, 6144), (5, 3072),
+                                    # the paths' widths, and decode's 4 rows
+                                    (2048, 768), (2048, 1536), (2048, 4096),
+                                    (2048, 8192), (4, 2048),
+                                    # ragged D: the scalar route
+                                    (33, 100), (7, 1000), (2048, 2047)])
 @pytest.mark.parametrize("scale_dtype", ["same", "fp32"])
 def test_rmsnorm_matches_plain_version(hopper, dtype, rows, D, scale_dtype):
     g = torch.Generator(device=hopper).manual_seed(rows + D)
@@ -250,6 +302,24 @@ def test_rmsnorm_matches_plain_version(hopper, dtype, rows, D, scale_dtype):
     assert ops.rmsnorm.launches == before + 1
     assert out.dtype == dtype and out.shape == x.shape
     _close(out, ops.rmsnorm_ref(x, s), dtype)
+
+
+@pytest.mark.parametrize("dtype", LM_DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows,D", [(4, 2048), (2048, 768), (9, 8192)])
+def test_rmsnorm_unaligned_base_matches_plain_version(hopper, dtype, rows,
+                                                      D):
+    """A contiguous view whose base is one element off 16 bytes takes the
+    scalar route; so does an unaligned scale."""
+    g = torch.Generator(device=hopper).manual_seed(D)
+    buf = torch.randn((rows * D + 1,), generator=g, device=hopper).to(dtype)
+    x = buf[1:].view(rows, D)
+    sbuf = torch.randn((D + 1,), generator=g, device=hopper).to(dtype)
+    for s in (sbuf[:D], sbuf[1:]):
+        out = ops.rmsnorm(x, s)
+        torch.cuda.synchronize()
+        _close(out, ops.rmsnorm_ref(x, s), dtype)
+    _close(ops.rmsnorm(x.clone(), sbuf[:D].clone()),
+           ops.rmsnorm_ref(x, sbuf[:D]), dtype)
 
 
 def _flash_operands(B, KV, G, S, D, dtype, strided, dev, seed=0):

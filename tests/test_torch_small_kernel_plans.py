@@ -1,0 +1,205 @@
+"""The launch plans of the port's ``coded_decode`` and ``rmsnorm`` kernels.
+
+Both kernels take their launch from a Python function of the shape
+(:func:`repro_torch.kernels.coded_decode.decode_plan`,
+:func:`repro_torch.kernels.rmsnorm.plan`). The kernels themselves run only
+on the card (``tests/test_torch_hopper.py``); here each plan is held to
+what the kernel needs of it, by a model of the kernel's own index
+arithmetic: every row and column is covered exactly once, the vector width
+divides what it reads (a ragged size or an unaligned base takes the scalar
+route), R passes over the shares cover R with the compile-time bound
+exact at 16, and blocks stay within the kernel's launch bound.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import autotune as AT  # noqa: E402
+from repro_torch.kernels import coded_decode as CD  # noqa: E402
+from repro_torch.kernels import rmsnorm as RN  # noqa: E402
+from repro_torch.kernels._layout import strides  # noqa: E402
+
+
+# -- rmsnorm ---------------------------------------------------------------------
+
+def _norm_cover(rows, D, p):
+    """(times each row is normalised, times each column of a row is read)
+    by the kernel's indexing under plan ``p``: block ``blk`` takes row groups
+    blk·rpb, + blocks·rpb, ...; thread ``tid`` of a group its row slot
+    tid // tpr and the accesses (i·tpr + tid % tpr) for i < nv, each of vec
+    elements, below D / vec."""
+    tpr = 32 * p.warps
+    row_hits = np.zeros(rows, np.int64)
+    for blk in range(p.blocks):
+        for r0 in range(blk * p.rows_per_block, rows,
+                        p.blocks * p.rows_per_block):
+            for slot in range(p.rows_per_block):
+                if r0 + slot < rows:
+                    row_hits[r0 + slot] += 1
+    vi = (np.arange(p.nv)[:, None] * tpr + np.arange(tpr)[None, :]).ravel()
+    vi = vi[vi < D // p.vec]
+    cols = (vi[:, None] * p.vec + np.arange(p.vec)[None, :]).ravel()
+    col_hits = np.bincount(cols, minlength=D)
+    return row_hits, col_hits
+
+
+NORM_WIDTHS = [768, 1536, 2048, 4096, 6144, 8192,      # the paths' widths
+               100, 1000, 2047, 1, 3, 128]             # ragged and tiny
+
+
+@pytest.mark.parametrize("D", NORM_WIDTHS)
+@pytest.mark.parametrize("x_bytes", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+def test_rmsnorm_plan_covers_every_row_and_column_once(D, x_bytes, aligned):
+    for rows, sms in ((2048, 132), (4, 132), (4097, 132), (37, 2), (1, 1)):
+        p = RN.plan(rows, D, x_bytes, aligned, sms)
+        row_hits, col_hits = _norm_cover(rows, D, p)
+        assert (row_hits == 1).all(), (rows, sms, p)
+        assert (col_hits == 1).all(), (rows, sms, p)
+        assert 32 * p.warps * p.rows_per_block <= RN.MAX_THREADS
+        assert p.nv in (RN.VECTOR_NV if p.vec > 1 else RN.SCALAR_NV)
+
+
+@pytest.mark.parametrize("D", NORM_WIDTHS)
+@pytest.mark.parametrize("x_bytes", [2, 4], ids=["bf16", "fp32"])
+def test_rmsnorm_vector_width_divides_the_row(D, x_bytes):
+    """16-byte accesses only where they divide D and both bases are
+    aligned; a ragged D or an offset base takes the scalar route."""
+    p = RN.plan(2048, D, x_bytes, True, 132)
+    if D % (16 // x_bytes) == 0:
+        assert p.vec == 16 // x_bytes
+    else:
+        assert p.vec == 1
+    assert D % p.vec == 0
+    assert RN.plan(2048, D, x_bytes, False, 132).vec == 1
+
+
+@pytest.mark.parametrize("D,warps,nv", [
+    (768, 1, 4), (1536, 1, 8), (2048, 1, 8),   # one warp up to 2048 in bf16
+    (4096, 2, 8), (6144, 3, 8), (8192, 4, 8)])
+def test_rmsnorm_warps_per_row_grow_with_d(D, warps, nv):
+    p = RN.plan(2048, D, 2, True, 132)
+    assert (p.vec, p.warps, p.nv) == (8, warps, nv)
+
+
+@pytest.mark.parametrize("rows,D,warps,nv", [
+    (4, 2048, 4, 2), (4, 4096, 8, 2), (4, 8192, 16, 2), (132, 2048, 4, 2),
+    (133, 2048, 1, 8)])
+def test_rmsnorm_few_rows_spread_over_more_warps(rows, D, warps, nv):
+    """No more rows than SMs (a decode step): a thread holds 16 elements,
+    two 16-byte accesses, so a row spans more warps."""
+    p = RN.plan(rows, D, 2, True, 132)
+    assert (p.warps, p.nv) == (warps, nv)
+
+
+@pytest.mark.parametrize("rows,rpb,blocks", [
+    (2048, 8, 256),       # prefill: 8 one-warp rows a block
+    (4, 1, 4),            # decode: a row per block, spread over 4 SMs
+    (1, 1, 1),
+    (10 ** 6, 8, 132 * 8)])  # grid stops at what the SMs hold; blocks loop
+def test_rmsnorm_rows_per_block_and_grid(rows, rpb, blocks):
+    p = RN.plan(rows, 2048, 2, True, 132)
+    assert (p.rows_per_block, p.blocks) == (rpb, blocks)
+
+
+@pytest.mark.parametrize("x_bytes,aligned,largest", [
+    (2, True, 32768), (4, True, 16384), (2, False, 16384)])
+def test_rmsnorm_plan_refuses_rows_past_its_largest_d(x_bytes, aligned,
+                                                      largest):
+    RN.plan(4, largest, x_bytes, aligned, 132)
+    with pytest.raises(ValueError, match="takes D up to"):
+        RN.plan(4, largest + 16, x_bytes, aligned, 132)
+
+
+# -- coded_decode ------------------------------------------------------------------
+
+def _decode_cover(B, F, p):
+    """Times each (row, column) is written by the kernel's indexing under
+    plan ``p``: block (bx, by), thread (tx, ty) takes columns
+    (by·cols + tx)·vec .. + vec below F, and rows bx·rows + ty, + lanes,
+    ... below min(B, (bx + 1)·rows)."""
+    hits = np.zeros((B, F), np.int64)
+    gx, gy = p.grid
+    for bx in range(gx):
+        b_end = min(B, (bx + 1) * p.rows)
+        for by in range(gy):
+            for tx in range(p.cols):
+                c = (by * p.cols + tx) * p.vec
+                if c >= F:
+                    continue
+                for ty in range(p.lanes):
+                    hits[bx * p.rows + ty:b_end:p.lanes, c:c + p.vec] += 1
+    return hits
+
+
+DECODE_SHAPES = [(256, 64), (7, 52), (1, 43), (33, 640), (3, 5), (1024, 16),
+                 (9, 48)]
+
+
+@pytest.mark.parametrize("B,F", DECODE_SHAPES)
+@pytest.mark.parametrize("elem", [4, 1], ids=["fp32", "int8"])
+@pytest.mark.parametrize("block_batch", [1, 2, 4, 8, 16, 0, 2 ** 40])
+def test_decode_plan_covers_every_row_and_column_once(B, F, elem,
+                                                      block_batch):
+    p = CD.decode_plan(B, 6, F, elem, 6 * F, F, 0, block_batch)
+    assert (_decode_cover(B, F, p) == 1).all(), p
+    assert p.cols * p.lanes <= CD.MAX_THREADS
+    assert 1 <= p.lanes <= p.rows <= max(B, 1)
+
+
+@pytest.mark.parametrize("F", [64, 52, 43, 640, 16, 48, 5])
+@pytest.mark.parametrize("elem", [4, 1], ids=["fp32", "int8"])
+def test_decode_vector_width_divides_what_it_reads(F, elem):
+    """Accesses of 4 columns (16 bytes of fp32, 4 of int8) only where 4
+    divides F and both strides and the base is aligned to the access; any
+    of those off takes the scalar route."""
+    p = CD.decode_plan(256, 6, F, elem, 6 * F, F, 0, 2)
+    assert p.vec == (4 if F % 4 == 0 else 1)
+    for sb, sr in ((6 * F, F), (0, F), (6 * F, 0)):
+        p = CD.decode_plan(256, 6, F, elem, sb, sr, 0, 2)
+        assert all(n % p.vec == 0 for n in (F, sb, sr))
+    assert CD.decode_plan(256, 6, F, elem, 6 * F, F, elem, 2).vec == 1
+    assert CD.decode_plan(256, 6, F, elem, 6 * F + 1, F, 0, 2).vec == 1
+    assert CD.decode_plan(256, 6, F, elem, 6 * F, F + 1, 0, 2).vec == 1
+    # an int8 base 4 bytes past 16 is aligned to its 4-byte access
+    assert CD.decode_plan(256, 6, F, elem, 6 * F, F, 4, 2).vec == \
+        (4 if F % 4 == 0 and elem == 1 else 1)
+
+
+@pytest.mark.parametrize("R,r_max,passes", [
+    (1, 4, 1), (4, 4, 1), (5, 8, 1), (6, 8, 1), (8, 8, 1), (12, 16, 1),
+    (16, 16, 1),                        # the compile-time edge: one pass
+    (17, 16, 2), (20, 16, 2), (32, 16, 2), (33, 16, 3), (128, 16, 8)])
+def test_decode_r_passes_cover_r_once(R, r_max, passes):
+    """The kernel loads ``r_max`` shares a pass (the smallest template
+    bound that holds R, else 16) and loops passes over r0 = 0, r_max, ...
+    below R: each share once, one pass up to R = 16."""
+    p = CD.decode_plan(7, R, 64, 4, R * 64, 64, 0, 2)
+    assert p.r_max == r_max and p.r_max in CD.R_BOUNDS
+    starts = range(0, R, p.r_max)
+    assert len(starts) == passes
+    covered = [r0 + i for r0 in starts for i in range(p.r_max) if r0 + i < R]
+    assert covered == list(range(R))
+
+
+def test_recovery_path_view_takes_the_vector_route():
+    """The recovery path hands the kernel its (R, B, F) share stack
+    transposed, without a copy: at the fused output-coded shape that view
+    still reads 16 bytes at a time."""
+    stack = torch.empty((6, 256, 64))
+    view = stack.transpose(0, 1)
+    sb, sr, sf = strides(view)
+    assert (sb, sr, sf) == (64, 256 * 64, 1)
+    p = CD.decode_plan(256, 6, 64, 4, sb, sr, 0, 2)
+    assert (p.vec, p.r_max, p.grid) == (4, 8, (128, 1))
+
+
+@pytest.mark.parametrize("bb", AT.CANDIDATES["coded_decode"]["block_batch"])
+def test_decode_block_rows_follow_the_tuner_axis(bb):
+    """Every candidate of the tuner's ``block_batch`` axis is the rows a
+    block serves (clamped to B), and the grid covers B with them."""
+    for B in (1, 7, 256, 1000):
+        p = CD.decode_plan(B, 6, 64, 4, 384, 64, 0, bb)
+        assert p.rows == min(bb, B)
+        assert (p.grid[0] - 1) * p.rows < B <= p.grid[0] * p.rows
