@@ -19,7 +19,12 @@ result line):
 1. device: the card's name and power limit, capability (9, 0), TF32 off;
 2. build the kernel from the checkout's source (nvcc, sm_90a);
 3. kernel vs its plain PyTorch version on the card over a sweep of shapes
-   and masks, and timings at the main-path shape;
+   and masks, each case also through three views of its portions (the
+   output-coded path's transposed stack, a base off 16 bytes, a ragged row
+   stride) bit-equal to the contiguous call; timings at the main-path
+   shape (per call, and device ms in fp32 and int8, at B = 1, per
+   ``block_batch`` and at the sweep's widest merge, each beside
+   einsum + bias);
 4. fused serve: the K=8 uniform ensemble through the engine; kernel
    launches == dispatched batches + warm-up calls; every batch's logits vs
    the same server built on the CPU;
@@ -88,7 +93,8 @@ kernels, ``ssd_scan`` (the SSM prefill's chunked scan) and ``topk_gating``
     timed at the serving shapes beside their plain versions (ssd_scan at
     mamba2's and jamba's, also by device time and by head group; the
     gating also beside the PyTorch softmax → topk → renormalise sequence
-    and by device time);
+    and by device time, at moonshot's prefill (2048, 64, 6), jamba's
+    (2048, 16, 2) and the decode steps' (4, 64, 6) and (4, 16, 2));
 14. card vs CPU, fp32, TF32 off: mamba2-130m at all 24 layers, moonshot at
     full width cut to 2 layers, and the tiny jamba; prompt 256 x batch 2
     and 8 decode steps through ``greedy_decode`` on both; launches exact.
@@ -114,7 +120,7 @@ The measured cost model and the autotuner (``repro_torch.launch.microbench``,
     per-channel scales; every candidate tile of ``dequant_matmul``, and
     every ``block_batch`` of ``quorum_aggregate`` and ``coded_decode`` over
     phases 3 and 7's sweeps, bit for bit against the default; both timed
-    beside their plain versions and one PyTorch call;
+    beside their plain versions and one PyTorch call, also by device time;
 17. the measured path: portion forwards timed on the card and fitted into
     a ``DeviceSpec``; the paper's 8-device fleet planned on measured
     latency (``latency_source == "measured"``) beside the declared plan;
@@ -196,6 +202,7 @@ INT8_MIN_AGREEMENT = 0.95
 # (tests/test_coding.py::test_coded_serving_recovers_clean_logits)
 RECOVER_TOL = dict(rtol=5e-4, atol=5e-4)
 MAIN_SHAPE = dict(K=8, B=256, Dk=32, C=10)
+WIDE_SHAPE = dict(K=8, B=1000, Dk=640, C=100)   # the sweep's widest merge
 # the fused output-coded step's decode: B rows, R = K + P shares, F = Dk
 DECODE_SHAPE = dict(B=256, R=6, K=4, F=64)
 # (R, K, F) of the decode sweeps: the serving codes' (6,4), (8,5) and
@@ -341,6 +348,28 @@ def qa_bound(K, B, Dk, C, mask, int8) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def merge_views(p: torch.Tensor) -> dict:
+    """Views holding ``p``'s (K, B, Dk) values with unit stride along Dk:
+    the output-coded path's transposed (B, K, Dk) stack, a base 4 bytes
+    past 16, and a row stride that 4 does not divide."""
+    K, B, Dk = p.shape
+    off = torch.empty(p.numel() + 1, device=p.device)[1:].view(K, B, Dk)
+    wide = torch.empty((K, B, Dk + 1), device=p.device)[..., :Dk]
+    off.copy_(p)
+    wide.copy_(p)
+    return {"transposed": p.transpose(0, 1).contiguous().transpose(0, 1),
+            "base+4": off, "row stride": wide}
+
+
+def merge_device_times(args) -> dict:
+    """Device ms of the merge and of einsum + bias on the same operands
+    (int8 weights expanded by their scales beforehand for the einsum)."""
+    p, w, b, m, s = args
+    wf = w.float() * s[:, None, None] if s is not None else w
+    return device_pair(lambda: ops.quorum_aggregate(p, w, b, m, s),
+                       lambda: torch.einsum("kbd,kdc->bc", p, wf) + b)
+
+
 # -- phases ----------------------------------------------------------------------
 
 def phase_device() -> str:
@@ -378,7 +407,7 @@ def phase_kernel(dev) -> dict:
     """Kernel vs plain version over the sweep; timings at the main shape."""
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = 0.0
-    n_cases = 0
+    n_cases = n_views = 0
     for int8 in (False, True):
         for K in (6, 8):
             masks = {"ones": np.ones(K, np.int32),
@@ -393,6 +422,14 @@ def phase_kernel(dev) -> dict:
                                                         int8, gen, dev)
                             out = ops.quorum_aggregate(p, w, b, m, s)
                             ref = ops.quorum_aggregate_ref(p, w, b, m, s)
+                            for vname, view in merge_views(p).items():
+                                if not same_bits(ops.quorum_aggregate(
+                                        view, w, b, m, s), out):
+                                    raise AssertionError(
+                                        f"quorum_aggregate K={K} B={B} "
+                                        f"Dk={Dk} C={C} {vname} view: bits "
+                                        f"differ from the contiguous call")
+                                n_views += 1
                             torch.cuda.synchronize()
                             e = max_err(out, ref, **KERNEL_TOL)
                             errs.append(f"B{B}/{mname}:{e:.1e}")
@@ -401,7 +438,8 @@ def phase_kernel(dev) -> dict:
                     print(f"kernel {'int8' if int8 else 'fp32'} K={K} "
                           f"Dk={Dk} C={C}: " + " ".join(errs))
     print(f"kernel vs plain: {n_cases} cases within rtol/atol 1e-5, "
-          f"max abs err {worst:.3e}")
+          f"max abs err {worst:.3e}; {n_views} view launches bit-equal to "
+          f"the contiguous call")
 
     K, B, Dk, C = (MAIN_SHAPE[k] for k in ("K", "B", "Dk", "C"))
     mask = np.ones(K, np.int32)
@@ -409,16 +447,30 @@ def phase_kernel(dev) -> dict:
     ms = cuda_ms(lambda: ops.quorum_aggregate(p, w, b, m))
     plain_ms = cuda_ms(lambda: ops.quorum_aggregate_ref(p, w, b, m))
     library_ms = cuda_ms(lambda: torch.einsum("kbd,kdc->bc", p, w) + b)
-    dev_t = device_pair(lambda: ops.quorum_aggregate(p, w, b, m),
-                        lambda: torch.einsum("kbd,kdc->bc", p, w) + b)
     bound_ms, bound_by = qa_bound(K, B, Dk, C, mask, False)
     print(f"timing at K={K} B={B} Dk={Dk} C={C} fp32: kernel {ms:.5f} ms, "
           f"plain {plain_ms:.5f} ms, einsum+bias {library_ms:.5f} ms, "
-          f"bound {bound_ms:.6f} ms ({bound_by}); device: kernel "
-          f"{dev_t['device_ms']:.5f} ms, einsum+bias "
-          f"{dev_t['library_device_ms']:.5f} ms")
+          f"bound {bound_ms:.6f} ms ({bound_by})")
+    device = {}
+    for name, (KBDC, int8) in {
+            "fp32": ((K, B, Dk, C), False), "int8": ((K, B, Dk, C), True),
+            "fp32 B1": ((K, 1, Dk, C), False),
+            "fp32 widest": (tuple(WIDE_SHAPE.values()), False)}.items():
+        mk = np.ones(KBDC[0], np.int32)
+        args = qa_operands(*KBDC, mk, int8, gen, dev)
+        device[name] = t = merge_device_times(args)
+        print(f"device ms at (K,B,Dk,C)={KBDC} {name}: kernel "
+              f"{t['device_ms']:.5f}, einsum+bias "
+              f"{t['library_device_ms']:.5f}, bound "
+              f"{qa_bound(*KBDC, mk, int8)[0]:.6f}")
+    per_bb = {c["block_batch"]: MB.time_callable(
+        lambda c=c: ops.quorum_aggregate(p, w, b, m, **c), repeats=200,
+        warmup=3) * 1e3 for c in AT._configs("quorum_aggregate")}
+    print(f"device ms at the serving shape fp32 by block_batch: "
+          + ", ".join(f"{bb}: {t:.5f}" for bb, t in sorted(per_bb.items())))
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                device_ms=device["fp32"]["device_ms"])
 
 
 def device_breakdown(prof, calls: int) -> tuple:
@@ -1463,6 +1515,12 @@ def gating_bound(N, E, k) -> tuple:
     return roofline(N * E * 4 + N * k * 8, N * E * (4 + k), torch.float32)
 
 
+def gating_chain(logits: torch.Tensor, k: int) -> tuple:
+    """The gating as PyTorch calls: softmax → topk → renormalise."""
+    w, i = torch.softmax(logits, -1).topk(k, dim=-1)
+    return w / w.sum(-1, keepdim=True).clamp_min(1e-9), i
+
+
 # SMs the scan's plan is told the card has, so that it picks each head
 # group: with none every grid has blocks to spare, with a million none does
 GROUP_SMS = {1: 10 ** 6, 4: 0}
@@ -1603,11 +1661,20 @@ def phase_ssm_moe_kernels(dev) -> dict:
               + ", ".join(f"{g}: {v:.5f}" for g, v in groups.items()))
     cfg = get_config(MOE_ARCH)
     N, E, k = LM_BATCH * LM_PROMPT, cfg.n_experts, cfg.top_k
+    jamba = get_config("jamba-v0.1-52b")
+    for shape in ((LM_BATCH, E, k), (LM_BATCH, jamba.n_experts, jamba.top_k),
+                  (N, jamba.n_experts, jamba.top_k)):
+        x = torch.randn(shape[:2], generator=gen, device=dev)
+        t = device_pair(lambda: ops.topk_gating(x, shape[2]),
+                        lambda: gating_chain(x, shape[2]))
+        print(f"topk_gating device ms at (N,E,k)={shape}: kernel "
+              f"{t['device_ms']:.5f}, softmax→topk→renormalise "
+              f"{t['library_device_ms']:.5f}, bound "
+              f"{gating_bound(*shape)[0]:.6f}")
     logits = torch.randn((N, E), generator=gen, device=dev)
 
     def library():
-        w, i = torch.softmax(logits, -1).topk(k, dim=-1)
-        return w / w.sum(-1, keepdim=True).clamp_min(1e-9), i
+        return gating_chain(logits, k)
     timing["topk_gating"] = t = dict(
         ms=cuda_ms(lambda: ops.topk_gating(logits, k)),
         plain_ms=cuda_ms(lambda: ops.topk_gating_ref(logits, k)),
@@ -1951,6 +2018,8 @@ def phase_matmul_kernels(dev, plans: dict) -> dict:
                  plain_ms=cuda_ms(lambda: ops.dequant_matmul_ref(x, q, sc),
                                   **it),
                  library_ms=cuda_ms(lambda: x @ (q.float() * sc), **it))
+        dev_t = device_pair(lambda: ops.dequant_matmul(x, q, sc),
+                            lambda: x @ (q.float() * sc))
         t["bound_ms"], t["bound_by"] = dq_bound(B, D, N, True)
         out = ops.dequant_matmul(x, q, sc)
         ref = ops.dequant_matmul_ref(x, q, sc)
@@ -1974,8 +2043,10 @@ def phase_matmul_kernels(dev, plans: dict) -> dict:
               f"default tile {dq_default}: kernel {t['ms']:.5f} ms, plain "
               f"{t['plain_ms']:.5f} ms, x @ (q.float() * scale) "
               f"{t['library_ms']:.5f} ms, bound {t['bound_ms']:.6f} ms "
-              f"({t['bound_by']}); max abs diff vs plain {e:.3e} of max "
-              f"|y| {float(ref.abs().max()):.3e}, {held}")
+              f"({t['bound_by']}); device: kernel {dev_t['device_ms']:.5f} "
+              f"ms, x @ (q.float() * scale) "
+              f"{dev_t['library_device_ms']:.5f} ms; max abs diff vs plain "
+              f"{e:.3e} of max |y| {float(ref.abs().max()):.3e}, {held}")
         # the kernels line takes the first shape, the tuner's main path's
         timing.setdefault("dequant_matmul", t)
     for B, D, F, n, k in CM_TIMED:
@@ -1987,11 +2058,14 @@ def phase_matmul_kernels(dev, plans: dict) -> dict:
         t = dict(ms=cuda_ms(lambda: ops.coded_matmul(x, sh)),
                  plain_ms=cuda_ms(lambda: ops.coded_matmul_ref(x, sh)),
                  library_ms=cuda_ms(lambda: torch.bmm(xb, sh)))
+        dev_t = device_pair(lambda: ops.coded_matmul(x, sh),
+                            lambda: torch.bmm(xb, sh))
         t["bound_ms"], t["bound_by"] = cm_bound(B, D, sh.shape[2], n)
         print(f"coded_matmul timing at B={B} D={D} ({n},{k}) w={sh.shape[2]}:"
               f" kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, bmm "
               f"{t['library_ms']:.5f} ms, bound {t['bound_ms']:.6f} ms "
-              f"({t['bound_by']})")
+              f"({t['bound_by']}); device: kernel {dev_t['device_ms']:.5f} "
+              f"ms, bmm {dev_t['library_device_ms']:.5f} ms")
         # the kernels line takes the first shape, the round trip's
         timing.setdefault("coded_matmul", t)
     for name, t in timing.items():
@@ -2229,7 +2303,8 @@ def main() -> int:
                   max_abs_err=timing["max_abs_err"], ms=timing["ms"],
                   plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
                   bound_by=timing["bound_by"],
-                  library_ms=timing["library_ms"])
+                  library_ms=timing["library_ms"],
+                  device_ms=timing["device_ms"])
     decode = dict(name="coded_decode", route="cuda", source=DECODE_SOURCE,
                   replaces=DECODE_TPU_KERNEL,
                   launches=sum(p["decodes"] for p in coded_phases),

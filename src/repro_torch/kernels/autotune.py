@@ -18,9 +18,10 @@ keys to block-parameter dicts, e.g.::
 The keys are the JAX package's (``repro.kernels.autotune``) for the same
 shape and dtype; the values are the CUDA kernels' own tiles:
 
-- ``quorum_aggregate`` ``block_batch``: output rows per block (the block
-  has ``block_batch × bn`` threads, bn = 16 classes for C ≤ 16, else 32;
-  the default is 256 threads, see :func:`defaults`);
+- ``quorum_aggregate`` ``block_batch``: output rows per block (one row a
+  block by default on the rows route, so a serving batch spreads over the
+  SMs; 256 threads of ``block_batch × bn`` on the tiles route, bn = 16
+  classes for C ≤ 16, else 32; see :func:`defaults`);
 - ``coded_decode`` ``block_batch``: batch rows per block;
 - ``dequant_matmul`` ``block_batch`` × ``block_n``: the output tile.
 
@@ -51,22 +52,22 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-# the defaults the wrappers apply on a table miss: the launches the kernels
-# made before they took a tile (256 threads of the merge: 16 rows of 16
-# classes for C <= 16, which :func:`defaults` turns into 8 rows of 32
-# above), two rows per block for the decode (a warp of 16-byte accesses at
-# the fused output-coded F 64, 128 blocks for a batch of 256 on 132 SMs),
+# the defaults the wrappers apply on a table miss: one output row a block
+# for the merge's rows route (256 blocks for a batch of 256 on 132 SMs;
+# :func:`defaults` gives its tiles route 256 threads, 16 rows of 16 classes
+# or 8 of 32), two rows per block for the decode (a warp of 16-byte
+# accesses at the fused output-coded F 64, 128 blocks for a batch of 256),
 # dequant_matmul's largest tile (256 threads of 8 x 8 outputs), and the
 # baselines the hysteresis margin protects
 DEFAULTS: Dict[str, Dict[str, int]] = {
-    "quorum_aggregate": {"block_batch": 16},
+    "quorum_aggregate": {"block_batch": 1},
     "coded_decode": {"block_batch": 2},
     "dequant_matmul": {"block_batch": 128, "block_n": 128},
 }
 
 # candidate grids (the default is always a member)
 CANDIDATES: Dict[str, Dict[str, Tuple[int, ...]]] = {
-    "quorum_aggregate": {"block_batch": (4, 8, 16, 32, 64)},
+    "quorum_aggregate": {"block_batch": (1, 2, 4, 8, 16, 32)},
     "coded_decode": {"block_batch": (1, 2, 4, 8, 16)},
     "dequant_matmul": {"block_batch": (16, 32, 64, 128),
                        "block_n": (32, 64, 128)},
@@ -149,11 +150,15 @@ def reset() -> None:
 
 def defaults(kernel: str, shape: Sequence[int]) -> Dict[str, int]:
     """The tile a call at ``shape`` (the ``key_*`` shape) takes on a table
-    miss: ``DEFAULTS``, except that the merge keeps its 256-thread block for
-    C > 16 classes, where a block is 32 classes wide: 8 rows."""
+    miss: ``DEFAULTS``, except that a merge whose shape takes the tiles
+    route keeps a 256-thread block: 16 rows of 16 classes, or 8 rows where
+    C > 16 classes make a tile 32 wide."""
     blocks = dict(DEFAULTS[kernel])
-    if kernel == "quorum_aggregate" and shape[-1] > 16:
-        blocks["block_batch"] = 8
+    if kernel == "quorum_aggregate":
+        from repro_torch.kernels.quorum_aggregate import route
+        K, _, Dk, C = shape
+        if route(K, Dk, C) == "tiles":
+            blocks["block_batch"] = 16 if C <= 16 else 8
     return blocks
 
 

@@ -23,6 +23,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels._layout import on_device, stream_handle
 
 
 def coded_matmul_ref(x: torch.Tensor, shards: torch.Tensor) -> torch.Tensor:
@@ -56,10 +57,10 @@ def coded_matmul(x: torch.Tensor, shards: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out                     # B == 0: (n, 0, w)
     lib = _library()
-    with torch.cuda.device(x.device):
+    with on_device(x.device):
         rc = lib.coded_matmul_f32(x.data_ptr(), shards.data_ptr(),
                                   out.data_ptr(), n, B, D, w,
-                                  torch.cuda.current_stream().cuda_stream)
+                                  stream_handle(x.device))
     if rc != 0:
         msg = lib.coded_matmul_error_string(rc).decode()
         raise RuntimeError(f"coded_matmul launch failed: {msg} ({rc})")

@@ -38,7 +38,8 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._layout import aligned, num_sms
+from repro_torch.kernels._layout import (aligned, num_sms, on_device,
+                                         stream_handle)
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 96, 128)        # the kernel's instantiated D
@@ -141,13 +142,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         ks, vs = k_cache.stride(), v_cache.stride()
     nsplit, ws, counters, _ = _launch_plan(q.device.index, B, KV, G, S, D)
     lib = _library()
-    with torch.cuda.device(q.device):
+    with on_device(q.device):
         rc = lib.decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             out.data_ptr(), *q.stride()[:3], *ks[:3], *vs[:3], B, KV, G, S,
             D, length_ptr, length_val, 1.0 / math.sqrt(D),
             int(q.dtype == torch.bfloat16), nsplit, ws, counters,
-            torch.cuda.current_stream().cuda_stream)
+            stream_handle(q.device))
     if rc != 0:
         msg = lib.decode_attention_error_string(rc).decode()
         raise RuntimeError(f"decode_attention launch failed: {msg} ({rc})")

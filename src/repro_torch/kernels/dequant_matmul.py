@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import autotune, build
+from repro_torch.kernels._layout import on_device, stream_handle
 
 MAX_TILE = 128          # the kernel's largest block_batch and block_n
 
@@ -88,11 +89,11 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
         return out                     # B == 0: (0, N)
     bb, bn = tiles(B, N, blocks["block_batch"], blocks["block_n"])
     lib = _library()
-    with torch.cuda.device(x.device):
+    with on_device(x.device):
         rc = lib.dequant_matmul_f32(
             x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
             B, D, N, bb, bn, int(scale.dim() == 1),
-            torch.cuda.current_stream().cuda_stream)
+            stream_handle(x.device))
     if rc != 0:
         msg = lib.dequant_matmul_error_string(rc).decode()
         raise RuntimeError(f"dequant_matmul launch failed at (B, D, N) = "

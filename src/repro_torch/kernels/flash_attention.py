@@ -34,7 +34,8 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._layout import aligned, strides
+from repro_torch.kernels._layout import (aligned, on_device, stream_handle,
+                                         strides)
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 96, 128)        # the kernel's instantiated D
@@ -101,13 +102,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q = aligned(q, 4)
         k, v = aligned(k, 16), aligned(v, 16)
     lib = _library()
-    with torch.cuda.device(q.device):
+    with on_device(q.device):
         rc = lib.flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             *strides(q)[:4], *strides(k)[:3], *strides(v)[:3],
             *o.stride()[:4], B, KV, G, Sq, Skv, D,
             int(causal), 1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+            stream_handle(q.device))
     if rc != 0:
         msg = lib.flash_attention_error_string(rc).decode()
         raise RuntimeError(f"flash_attention launch failed: {msg} ({rc})")

@@ -53,7 +53,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._layout import aligned, num_sms
+from repro_torch.kernels._layout import (aligned, num_sms, on_device,
+                                         stream_handle)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232448                    # bytes a block may use on Hopper
@@ -245,9 +246,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     strides = [*x.stride()[:3], *dt.stride(), *A.stride(), *Bm.stride()[:3],
                *Cm.stride()[:3], *yv.stride()[:3]]
     arr = (ctypes.c_longlong * 17)(*strides)
-    stream = torch.cuda.current_stream().cuda_stream
+    stream = stream_handle(x.device)
     st = state.data_ptr() if state is not None else None
-    with torch.cuda.device(x.device):
+    with on_device(x.device):
         if mma:
             BH, nc = Bsz * H, L // Q
             ws = _workspace(x.device, BH, L, P, N, Q).data_ptr()

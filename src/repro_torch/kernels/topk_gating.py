@@ -5,25 +5,43 @@ renormalisation.
 
 Ties go to the lowest expert index, as ``argmax`` and ``lax.top_k`` break
 them. :func:`topk_gating` launches the hand-written CUDA kernel
-``csrc/topk_gating.cu`` on a CUDA tensor (one warp per row, the row in
-registers, shuffle reductions) and takes the plain version
+``csrc/topk_gating.cu`` on a CUDA tensor and takes the plain version
 :func:`topk_gating_ref` only for tensors that lie on the CPU. A failed
 build or launch raises; nothing falls back. ``topk_gating.launches`` counts
 kernel launches (plain-version calls do not count). Any N works, N = 0
 included; E up to 256 on the card.
+
+The kernel gives each row a group of lanes, reads the row 16 bytes at a
+time and keeps it, and every round's result, in registers. :func:`plan`
+chooses its launch from the shape: lanes per row from E, the vector width
+(the scalar route where E is not a multiple of 4 or the base is not
+16-byte aligned), the accesses per lane and the rows per block.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels._layout import num_sms, on_device, stream_handle
 
 NEG_INF = -1e30
 MAX_EXPERTS = 256                      # 32 lanes x 8 values in registers
+MAX_THREADS = 256                      # the kernel's launch bound
+VECTOR_NV = (1, 2)                     # 16-byte accesses a lane holds
+SCALAR_NV = (1, 2, 4, 8)               # elements a lane holds (scalar route)
+
+
+class GatingPlan(NamedTuple):
+    """One launch of the kernel."""
+    vec: int             # elements per access: 4 (16 bytes) or 1
+    nv: int              # accesses per lane (compile-time)
+    lanes: int           # lanes per row: a power of two from 2 to 32
+    rows_per_block: int  # rows a block routes: a whole number of warps
+    blocks: int          # the grid: one row group per block
 
 
 def topk_gating_ref(logits: torch.Tensor, k: int
@@ -50,29 +68,56 @@ def _check(logits: torch.Tensor, k: int) -> None:
         raise TypeError(f"logits must be float32, got {logits.dtype}")
 
 
+@functools.lru_cache(maxsize=256)
+def plan(N: int, E: int, k: int, aligned: bool, sms: int) -> GatingPlan:
+    """The launch for N rows of E logits routed to k experts. Lanes per
+    row: one per 16 bytes of the row (E / 4), rounded up to a power of two
+    within [2, 32], so E 64 takes 16 lanes, E 16 four and E 8 two; past 128
+    experts each of the 32 lanes reads two accesses. 16-byte accesses where
+    E is a multiple of 4 and the logits are ``aligned``, else the scalar
+    route (one element an access, up to 8 a lane). A block holds as many
+    warps as spread the rows over the ``sms`` SMs in one wave, up to
+    ``MAX_THREADS`` threads."""
+    if not 0 < k <= E <= MAX_EXPERTS:
+        raise ValueError(f"the kernel takes 0 < k <= E <= {MAX_EXPERTS}, "
+                         f"got k={k}, E={E}")
+    vec = 4 if aligned and E % 4 == 0 else 1
+    lanes = min(32, max(2, 1 << (-(-E // 4) - 1).bit_length()))
+    need = -(-E // (lanes * vec))
+    nv = next(n for n in (VECTOR_NV if vec > 1 else SCALAR_NV) if n >= need)
+    per_warp = 32 // lanes
+    warps = -(-N // per_warp)
+    wpb = max(1, min(MAX_THREADS // 32, -(-warps // sms)))
+    rpb = wpb * per_warp
+    return GatingPlan(vec, nv, lanes, rpb, max(1, -(-N // rpb)))
+
+
 def topk_gating(logits: torch.Tensor, k: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """logits: (N, E) fp32. Returns (weights (N, k) fp32, indices (N, k)
     int32)."""
     _check(logits, k)
-    if logits.device.type == "cpu":
+    dev = logits.device
+    if dev.type == "cpu":
         return topk_gating_ref(logits, k)
-    if logits.device.type != "cuda":
+    if dev.type != "cuda":
         raise ValueError(f"topk_gating runs on cuda or cpu tensors, not "
-                         f"{logits.device}")
+                         f"{dev}")
     N, E = logits.shape
     if E > MAX_EXPERTS:
         raise ValueError(f"the kernel takes E <= {MAX_EXPERTS}, got {E}")
     if not logits.is_contiguous():
         raise ValueError("topk_gating needs contiguous logits")
-    w = torch.empty((N, k), dtype=torch.float32, device=logits.device)
-    idx = torch.empty((N, k), dtype=torch.int32, device=logits.device)
+    w = torch.empty((N, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((N, k), dtype=torch.int32, device=dev)
     if N == 0:
         return w, idx                  # nothing to route
+    p = plan(N, E, k, logits.data_ptr() % 16 == 0, num_sms(dev.index))
     lib = _library()
-    with torch.cuda.device(logits.device):
+    with on_device(dev):
         rc = lib.topk_gating(logits.data_ptr(), w.data_ptr(), idx.data_ptr(),
-                             N, E, k, torch.cuda.current_stream().cuda_stream)
+                             N, E, k, p.vec, p.nv, p.lanes, p.rows_per_block,
+                             p.blocks, stream_handle(dev))
     if rc != 0:
         msg = lib.topk_gating_error_string(rc).decode()
         raise RuntimeError(f"topk_gating launch failed: {msg} ({rc})")
@@ -87,7 +132,7 @@ topk_gating.launches = 0
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = build.load("topk_gating")
-    lib.topk_gating.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    lib.topk_gating.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
                                 + [ctypes.c_void_p])
     lib.topk_gating.restype = ctypes.c_int
     lib.topk_gating_error_string.argtypes = [ctypes.c_int]

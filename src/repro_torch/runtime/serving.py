@@ -468,7 +468,9 @@ class QuorumServer:
                 # quorum (linear merge ⇒ exact per-request masking)
                 portions = portions * _rows(arrived.T, sizes, dev, axis=1)[
                     :, :, None]
-        logits = K.quorum_aggregate(portions.contiguous(), fc_w, fc_bias,
+        # a view (the output-coded path's transposed decode) is read in
+        # place: unit stride along Dk
+        logits = K.quorum_aggregate(portions, fc_w, fc_bias,
                                     any_mask, fc_scales)
         return self._package(R, offs, logits, arrived, latency, alive,
                              arrays, knowledge_gap=knowledge_gap,

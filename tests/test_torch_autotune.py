@@ -241,17 +241,26 @@ def test_table_entry_changes_resolution_not_result(monkeypatch):
 
 @pytest.mark.parametrize("C", [1, 10, 16, 17, 100])
 def test_quorum_default_is_the_256_thread_launch(C):
-    """With an empty table the merge launches as before it took a tile:
-    256 threads a block, 16 rows of 16 classes or 8 rows of 32."""
-    shape = (4, 64, 16, C)
-    bm = AT.resolve("quorum_aggregate", shape, torch.float32)["block_batch"]
-    bn = 16 if C <= 16 else 32
-    assert QA.rows_per_block(C, bm) * bn == 256
-    configs = AT._configs("quorum_aggregate",
-                          AT.defaults("quorum_aggregate", shape))
-    assert configs[0] == {"block_batch": bm}
-    assert len(configs) == len(AT.CANDIDATES["quorum_aggregate"]
-                               ["block_batch"])
+    """With an empty table the merge's tiles route (the wide shapes)
+    launches as before it took a tile: 256 threads a block, 16 rows of 16
+    classes or 8 rows of 32. The rows route (the serving shapes) takes one
+    output row a block, so a batch spreads over the SMs."""
+    wide, narrow = (4, 64, 640, C), (4, 64, 16, C)
+    bm = AT.resolve("quorum_aggregate", wide, torch.float32)["block_batch"]
+    p = QA.merge_plan(4, 64, 640, C, bm)
+    assert p.route == "tiles" and p.threads == 256
+    assert p.lanes == (16 if C <= 16 else 32)
+    bm = AT.resolve("quorum_aggregate", narrow, torch.float32)["block_batch"]
+    p = QA.merge_plan(4, 64, 16, C, bm)
+    assert (p.route, p.rows, p.grid[0]) == (
+        ("rows", 1, 64) if C <= 32 else ("tiles", 16 if C <= 16 else 8,
+                                         -(-64 // (16 if C <= 16 else 8))))
+    for shape in (wide, narrow):
+        configs = AT._configs("quorum_aggregate",
+                              AT.defaults("quorum_aggregate", shape))
+        assert configs[0] == AT.defaults("quorum_aggregate", shape)
+        assert len(configs) == len(AT.CANDIDATES["quorum_aggregate"]
+                                   ["block_batch"])
 
 
 def test_tune_call_holds_a_given_default(monkeypatch):
@@ -266,9 +275,12 @@ def test_tune_call_holds_a_given_default(monkeypatch):
 
 @pytest.mark.parametrize("block_batch,C,want", [
     (16, 10, 16), (16, 100, 16), (64, 100, 32), (0, 10, 1), (-3, 100, 1),
-    (4096, 10, 64)])
+    (4096, 10, 32)])
 def test_quorum_rows_per_block_clamp(block_batch, C, want):
-    assert QA.rows_per_block(C, block_batch) == want
+    """A table's ``block_batch`` is clamped to a legal launch: the rows
+    route (C 10 here) serves 1 to 32 rows a block, the tiles route (C 100)
+    1 to 1024 / 32 rows of 32 classes."""
+    assert QA.merge_plan(8, 256, 32, C, block_batch).rows == want
 
 
 @pytest.mark.parametrize("B,R,K,F,block_batch,vec,want", [

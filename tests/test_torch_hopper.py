@@ -54,7 +54,8 @@ def _operands(K, B, Dk, C, mask, int8, dev, seed=0):
 
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("K,B,Dk,C", [(8, 256, 32, 10), (6, 7, 43, 10),
-                                      (8, 1000, 640, 100), (6, 1, 43, 100)])
+                                      (8, 1000, 640, 100), (6, 1, 43, 100),
+                                      (8, 1, 32, 10), (4, 256, 64, 10)])
 @pytest.mark.parametrize("mask", ["ones", "mixed", "zeros"])
 def test_kernel_matches_plain_version(hopper, int8, K, B, Dk, C, mask):
     m = {"ones": np.ones(K), "mixed": np.arange(K) % 3 != 1,
@@ -85,6 +86,35 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(hopper):
                              w, b, m)
     with pytest.raises(ValueError, match="one device"):
         ops.quorum_aggregate(p, w.cpu(), b, m)
+
+
+def _merge_views(p):
+    """(name, view) pairs holding ``p``'s values: the output-coded path's
+    transposed (B, K, Dk) stack, a base 4 bytes past 16 and a row stride
+    that is not a multiple of 4 elements."""
+    K, B, Dk = p.shape
+    stack = p.transpose(0, 1).contiguous().transpose(0, 1)
+    off = torch.empty(p.numel() + 1, device=p.device)[1:].view(K, B, Dk)
+    off.copy_(p)
+    wide = torch.empty((K, B, Dk + 1), device=p.device)[..., :Dk]
+    wide.copy_(p)
+    return [("transposed", stack), ("base+4", off), ("row stride", wide)]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("K,B,Dk,C", [(8, 256, 32, 10), (6, 7, 43, 10),
+                                      (4, 256, 64, 10), (8, 1, 32, 10),
+                                      (8, 33, 640, 100)])
+def test_quorum_aggregate_views_same_bits(hopper, int8, K, B, Dk, C):
+    """Portions as views with unit stride along Dk are read in place, one
+    launch each, with the contiguous call's bits."""
+    args = _operands(K, B, Dk, C, np.arange(K) % 3 != 1, int8, hopper)
+    base = ops.quorum_aggregate(*args)
+    for name, view in _merge_views(args[0]):
+        before = ops.quorum_aggregate.launches
+        out = ops.quorum_aggregate(view, *args[1:])
+        assert ops.quorum_aggregate.launches == before + 1
+        assert _same_bits(out, base), name
 
 
 def _toy_ir(M=8):
@@ -648,7 +678,8 @@ def test_ssd_scan_leaves_its_counters_zero(hopper):
 
 @pytest.mark.parametrize("N", [1, 4, 77, 2048, 4096])
 @pytest.mark.parametrize("E,k", [(4, 1), (4, 2), (16, 2), (16, 6), (64, 6),
-                                 (64, 8), (8, 8)])
+                                 (64, 8), (8, 8), (8, 2), (256, 6),
+                                 (256, 256), (6, 6), (100, 6), (3, 2)])
 def test_topk_gating_matches_plain_version(hopper, N, E, k):
     g = torch.Generator(device=hopper).manual_seed(N + E + k)
     logits = 3 * torch.randn((N, E), generator=g, device=hopper)
@@ -671,6 +702,32 @@ def test_topk_gating_ties_and_zero_rows(hopper):
     w, i = ops.topk_gating(torch.zeros((0, 8), device=hopper), 2)
     assert w.shape == i.shape == (0, 2)
     assert ops.topk_gating.launches == before
+
+
+@pytest.mark.parametrize("E,k", [(64, 6), (16, 2), (8, 2), (256, 8),
+                                 (100, 5)])
+def test_topk_gating_ties_across_lane_groups(hopper, E, k):
+    """Equal maxima planted in different lanes, in one lane's access and
+    across groups of accesses go to the lowest index, as in the plain
+    version; an unaligned base (the scalar route) routes the same."""
+    N = 6
+    logits = torch.randn((N, E), generator=torch.Generator(
+        device=hopper).manual_seed(E), device=hopper)
+    logits[0] = 0
+    logits[1, [E - 1, 0]] = 4.0
+    logits[2, [1, 2, 3 % E]] = 4.0
+    logits[3, [E // 2, E // 4, E - 2]] = 4.0
+    logits[4] = -3.0
+    logits[4, [E // 3, E - 1]] = 4.0
+    logits[5, ::2] = 4.0
+    rw, ri = ops.topk_gating_ref(logits, k)
+    off = torch.empty(N * E + 1, device=hopper)[1:].view(N, E)
+    off.copy_(logits)
+    for x in (logits, off):
+        w, i = ops.topk_gating(x, k)
+        torch.cuda.synchronize()
+        assert torch.equal(i, ri)
+        np.testing.assert_allclose(w.cpu().numpy(), rw.cpu().numpy(), **TOL)
 
 
 def test_ssm_moe_wrappers_reject_what_the_kernels_do_not_take(hopper):

@@ -1,6 +1,8 @@
-"""Host and device cost of one ``coded_decode`` and one ``rmsnorm`` call on
-the card, for whichever ``repro_torch`` is first on ``PYTHONPATH``, so that
-two checkouts can be compared on one card in one run (A, B, B, A):
+"""Host and device cost of single calls of the port's small kernels
+(``coded_decode``, ``rmsnorm``, ``topk_gating``, ``quorum_aggregate`` and one
+``decode_attention``) on the card, for whichever ``repro_torch`` is first on
+``PYTHONPATH``, so that two checkouts can be compared on one card in one
+run (A, B, B, A):
 
     PYTHONPATH=<checkout>/src python3 tools/small_kernel_wall.py --label B
 
@@ -12,7 +14,20 @@ Cases, operands drawn from seed 0:
   (a checkout whose wrapper refuses that view is timed with the copy it
   needs, and the line says so);
 - ``rmsnorm`` in bf16 at 2048 rows of D 768, 1536, 2048, 4096 and 8192 (the
-  LM prefills' widths) and at the decode shape (4, 2048).
+  LM prefills' widths) and at the decode shape (4, 2048);
+- ``topk_gating`` at moonshot's prefill (2048, 64, 6), jamba's (2048, 16,
+  2) and the decode steps' (4, 64, 6) and (4, 16, 2);
+- ``quorum_aggregate`` at the serving shape (K 8, B 256, Dk 32, C 10) with
+  fp32 and int8 weights, at B = 1 and at the sweep's widest merge (8,
+  1000, 640, 100); ``merge view`` is the output-coded path's call, the
+  portions a transposed (B, K, Dk) stack (a checkout whose wrapper refuses
+  that view is timed with the copy it needs, and the line says so);
+- ``decode_attention`` at llama3.2-1b's decode step (B 4, KV 8, G 4, D 64,
+  bf16, cache 544, length 528), the caches views of (B, S, KV, D) ones;
+- one call each of the other wrappers: ``flash_attention`` at llama3.2-1b's
+  prefill (4, 8, 4, 512, 64) bf16, ``ssd_scan`` at mamba2-130m's (4, 512,
+  24, 64, 128, chunk 256) bf16 with fp32 y and state, ``dequant_matmul`` at
+  (1024, 64, 256) and ``coded_matmul`` at (5, 3), B 256, D 64.
 
 For each: host µs per call over ``--blocks`` loops of ``--calls`` calls
 with no sync inside (least and median block), ms per call back to back
@@ -110,6 +125,89 @@ def decode_cases(g) -> dict:
     return cases
 
 
+def gating_merge_cases(g) -> dict:
+    """The topk_gating, quorum_aggregate and decode_attention calls, by
+    name."""
+    cases = {}
+    for N, E, k in ((2048, 64, 6), (2048, 16, 2), (4, 64, 6), (4, 16, 2)):
+        x = torch.randn((N, E), generator=g, device="cuda")
+        cases[f"topk_gating ({N}, {E}, {k})"] = (
+            lambda x=x, k=k: ops.topk_gating(x, k))
+    for name, (K, B, Dk, C, int8) in {
+            "fp32": (8, 256, 32, 10, False), "int8": (8, 256, 32, 10, True),
+            "fp32 B1": (8, 1, 32, 10, False),
+            "fp32 widest": (8, 1000, 640, 100, False)}.items():
+        p = torch.rand((K, B, Dk), generator=g, device="cuda")
+        b = torch.randn((C,), generator=g, device="cuda")
+        m = torch.ones((K,), dtype=torch.int32, device="cuda")
+        if int8:
+            w = torch.randint(-127, 128, (K, Dk, C), generator=g,
+                              device="cuda", dtype=torch.int8)
+            s = (0.5 + torch.rand((K,), generator=g, device="cuda")) / 127
+        else:
+            w = torch.randn((K, Dk, C), generator=g, device="cuda")
+            s = None
+        cases[f"quorum_aggregate {name}"] = (
+            lambda p=p, w=w, b=b, m=m, s=s: ops.quorum_aggregate(p, w, b, m,
+                                                                 s))
+    stack = torch.rand((256, 4, 64), generator=g, device="cuda")
+    w = torch.randn((4, 64, 10), generator=g, device="cuda")
+    b = torch.randn((10,), generator=g, device="cuda")
+    m = torch.ones((4,), dtype=torch.int32, device="cuda")
+    try:
+        ops.quorum_aggregate(stack.transpose(0, 1), w, b, m)
+        cases["quorum_aggregate merge view"] = lambda: ops.quorum_aggregate(
+            stack.transpose(0, 1), w, b, m)
+    except ValueError:                 # a wrapper that needs a copy
+        cases["quorum_aggregate merge view (copy)"] = \
+            lambda: ops.quorum_aggregate(stack.transpose(0, 1).contiguous(),
+                                         w, b, m)
+    B, KV, G, S, D = 4, 8, 4, 544, 64
+    q = torch.randn((B, 1, KV * G, D), generator=g, device="cuda").to(
+        torch.bfloat16).view(B, KV, G, D)
+    kc, vc = (torch.randn((B, S, KV, D), generator=g, device="cuda").to(
+        torch.bfloat16).permute(0, 2, 1, 3) for _ in range(2))
+    cases["decode_attention (4, 8, 4, 64) length 528"] = \
+        lambda: ops.decode_attention(q, kc, vc, 528)
+    return cases
+
+
+def other_cases(g) -> dict:
+    """One call of each remaining wrapper, by name."""
+    bf = torch.bfloat16
+    B, KV, G, S, D = 4, 8, 4, 512, 64
+    qm = torch.randn((B, S, KV, G, D), generator=g, device="cuda").to(bf)
+    km, vm = (torch.randn((B, S, KV, D), generator=g, device="cuda").to(bf)
+              for _ in range(2))
+    q, k, v = (qm.permute(0, 2, 3, 1, 4), km.permute(0, 2, 1, 3),
+               vm.permute(0, 2, 1, 3))
+    H, L, P, N = 24, 512, 64, 128
+    x = torch.randn((B, L, H, P), generator=g, device="cuda").to(bf)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, L, H), generator=g, device="cuda"))
+    A = -torch.exp(torch.randn((H,), generator=g, device="cuda"))
+    Bm, Cm = (torch.randn((B, L, N), generator=g, device="cuda")
+              .div(N ** 0.5).to(bf) for _ in range(2))
+    scan = (x.permute(0, 2, 1, 3), dt.permute(0, 2, 1), A.expand(B, H),
+            Bm[:, None].expand(B, H, L, N), Cm[:, None].expand(B, H, L, N))
+    xd = torch.randn((1024, 64), generator=g, device="cuda")
+    qd = torch.randint(-127, 128, (64, 256), generator=g, device="cuda",
+                       dtype=torch.int8)
+    sd = torch.tensor(0.01, device="cuda")
+    xc = torch.randn((256, 64), generator=g, device="cuda")
+    sh = torch.randn((5, 64, 22), generator=g, device="cuda")
+    return {
+        "flash_attention (4, 8, 4, 512, 64)":
+            lambda: ops.flash_attention(q, k, v, causal=True),
+        "ssd_scan (4, 512, 24, 64, 128, 256)":
+            lambda: ops.ssd_scan(*scan, chunk=256, return_state=True,
+                                 out_dtype=torch.float32),
+        "dequant_matmul (1024, 64, 256)":
+            lambda: ops.dequant_matmul(xd, qd, sd),
+        "coded_matmul (5, 3) B256 D64": lambda: ops.coded_matmul(xc, sh),
+    }
+
+
 def norm_cases(g) -> dict:
     """The rmsnorm calls, by name: (warm call, cold call)."""
     cases = {}
@@ -157,7 +255,8 @@ def main() -> int:
                          text=True).stdout.strip())
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for name, fn in decode_cases(g).items():
+    for name, fn in {**decode_cases(g), **gating_merge_cases(g),
+                     **other_cases(g)}.items():
         h = host_us(fn, args.blocks, args.calls)
         rows[name] = dict(host_us_min=min(h),
                           host_us_median=statistics.median(h),
