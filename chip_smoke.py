@@ -117,10 +117,14 @@ The measured cost model and the autotuner (``repro_torch.launch.microbench``,
 
 16. both held to their plain versions (rtol/atol 1e-5) over the JAX tests'
     shapes, ragged and degenerate tiles, B = 0, per-tensor and
-    per-channel scales; every candidate tile of ``dequant_matmul``, and
-    every ``block_batch`` of ``quorum_aggregate`` and ``coded_decode`` over
-    phases 3 and 7's sweeps, bit for bit against the default; both timed
-    beside their plain versions and one PyTorch call, also by device time;
+    per-channel scales; ``dequant_matmul``'s tensor route (past D 64) at
+    ragged shapes and D 2048, where kernel and plain version are each held
+    to the fp32 random-walk bound of the fp64 product, each shape's route
+    printed; every candidate tile of ``dequant_matmul`` on both routes,
+    and every ``block_batch`` of ``quorum_aggregate`` and ``coded_decode``
+    over phases 3 and 7's sweeps, bit for bit against the default; both
+    timed beside their plain versions and one PyTorch call, also by device
+    time, with the bound of the route each shape takes;
 17. the measured path: portion forwards timed on the card and fitted into
     a ``DeviceSpec``; the paper's 8-device fleet planned on measured
     latency (``latency_source == "measured"``) beside the declared plan;
@@ -168,6 +172,9 @@ from repro_torch.configs.archs import tiny_version  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels import autotune as AT  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import coded_matmul as ops_cm  # noqa: E402
+from repro_torch.kernels import dequant_matmul as ops_dq  # noqa: E402
+from repro_torch.kernels._layout import num_sms  # noqa: E402
 from repro_torch.kernels import ssd_scan as SS  # noqa: E402
 from repro_torch.launch import microbench as MB  # noqa: E402
 from repro_torch.launch.serve import (generate, greedy_decode,  # noqa: E402
@@ -1872,6 +1879,12 @@ DQ_SHAPES = ((1, 8, 5), (7, 16, 11), (130, 8, 300), (0, 4, 3))
 DQ_TILED = ((7, 16, 13, 4, 8), (33, 8, 257, 32, 64), (1, 8, 1, 128, 256),
             (250, 32, 100, 128, 256), (5, 8, 6, 0, 0), (5, 8, 6, -5, 4),
             (5, 8, 6, 4096, 4096))
+# (B, D, N) whose rows start on 16 bytes: the CUDA-core route's 16-byte
+# staging at D 40, then the tensor route (D > 64) at ragged B and N with D
+# 72 (a zero-padded k-tile), 96, 2048 and 2052, where the fp64 product
+# holds both kernel and plain version
+DQ_ALIGNED = ((100, 40, 144), (100, 72, 144), (65, 96, 272),
+              (300, 2048, 272), (130, 2052, 1040))
 # (B, D, N): bench_roofline's two shapes (benchmarks/bench_roofline.py) and
 # llama3.2-1b's gate projection over 2048 rows, where the kernel sets the time
 DQ_TIMED = ((1024, 64, 256), (64, 64, 512), (2048, 2048, 8192))
@@ -1900,9 +1913,33 @@ def dq_operands(B, D, N, per_channel, gen, dev):
 
 
 def dq_bound(B, D, N, per_channel) -> tuple:
-    """x, q and the scales read once, y written once; 2·B·D·N fp32 flops."""
+    """(bound_ms, bound_by, fp32_ms) of the route the shape takes: x, q and
+    the scales read once, y written once, against its operations: on the
+    tensor route three bf16 products (3 · 2·B·D·N at the bf16 rate), on the
+    CUDA-core route 2·B·D·N fp32 FMAs. ``fp32_ms`` is the CUDA-core bound,
+    printed beside the tensor route's."""
     nbytes = 4 * B * D + D * N + 4 * (N if per_channel else 1) + 4 * B * N
-    return roofline(nbytes, 2 * B * D * N, torch.float32)
+    fp32 = roofline(nbytes, 2 * B * D * N, torch.float32)
+    if ops_dq.route(B, D, N) == "tensor":
+        return (*roofline(nbytes, 3 * 2 * B * D * N, torch.bfloat16), fp32[0])
+    return (*fp32, fp32[0])
+
+
+def dq_fp64_errors(x, q, sc, out) -> tuple:
+    """(kernel, plain, bound): the kernel's and the plain version's largest
+    distance from the fp64 product, and the walk bound they must stay in;
+    raises past it."""
+    exact = x.double() @ (q.double() * sc.double())
+    tol = dq_walk_bound(x.shape[1], exact)
+    errs = tuple(float((y.double() - exact).abs().max())
+                 for y in (out, ops.dequant_matmul_ref(x, q, sc)))
+    for who, err in zip(("kernel", "plain"), errs):
+        if err > tol:
+            raise AssertionError(f"dequant_matmul {tuple(x.shape)} x "
+                                 f"{tuple(q.shape)}: {who} {err:.3e} from "
+                                 f"the fp64 product, beyond the fp32 bound "
+                                 f"{tol:.3e}")
+    return (*errs, tol)
 
 
 def dq_walk_bound(D: int, exact: torch.Tensor) -> float:
@@ -1932,30 +1969,49 @@ def phase_matmul_kernels(dev, plans: dict) -> dict:
     gen = torch.Generator(device=dev).manual_seed(4)
     worst = {"dequant_matmul": 0.0, "coded_matmul": 0.0}
     n_cases, n_tiles = 0, 0
+    routes = {"tensor": 0, "cuda_cores": 0}
     dq_default = AT.DEFAULTS["dequant_matmul"]
+    fp64 = {"kernel": 0.0, "plain": 0.0, "share": 0.0}
     for per_channel in (False, True):
-        cases = [(B, D, N, None, None) for B, D, N in DQ_SHAPES] + \
-            list(DQ_TILED)
+        cases = [(B, D, N, None, None)
+                 for B, D, N in DQ_SHAPES + DQ_ALIGNED] + list(DQ_TILED)
         errs = []
         for B, D, N, bb, bn in cases:
             x, q, sc = dq_operands(B, D, N, per_channel, gen, dev)
             out = ops.dequant_matmul(x, q, sc, block_batch=bb, block_n=bn)
             ref = ops.dequant_matmul_ref(x, q, sc)
             torch.cuda.synchronize()
-            e = max_err(out, ref, **KERNEL_TOL)
+            r = ops_dq.route(B, D, N)
+            if r == "cuda_cores":
+                e = max_err(out, ref, **KERNEL_TOL)
+                tag = f"{e:.1e}"
+            else:                      # the walk bound of the fp64 product
+                e = float((out - ref).abs().max())
+                ek, ep, tol = dq_fp64_errors(x, q, sc, out)
+                fp64["kernel"] = max(fp64["kernel"], ek)
+                fp64["plain"] = max(fp64["plain"], ep)
+                fp64["share"] = max(fp64["share"], ek / tol, ep / tol)
+                tag = f"fp64 {ek:.2e}/{ep:.2e} of {tol:.2e}"
             worst["dequant_matmul"] = max(worst["dequant_matmul"], e)
             n_cases += 1
+            routes[r] += 1
             base = ops.dequant_matmul(x, q, sc, **dq_default)
             for c in AT._configs("dequant_matmul"):
                 if not same_bits(ops.dequant_matmul(x, q, sc, **c), base):
                     raise AssertionError(f"dequant_matmul ({B},{D},{N}) "
-                                         f"tile {c}: bits differ from the "
-                                         f"default")
+                                         f"{r} route tile {c}: bits differ "
+                                         f"from the default")
                 n_tiles += 1
             errs.append(f"({B},{D},{N})" + (f"/{bb}x{bn}" if bb is not None
-                                             else "") + f":{e:.1e}")
+                                             else "") + f" {r}:{tag}")
         kind = "per-channel" if per_channel else "per-tensor"
         print(f"dequant_matmul {kind}: " + " ".join(errs))
+    print(f"dequant_matmul on the tensor route: worst distance from the "
+          f"fp64 product "
+          f"{fp64['kernel']:.3e} (kernel), {fp64['plain']:.3e} (plain), at "
+          f"most {fp64['share']:.3f} of the walk bound; {routes['tensor']} "
+          f"cases on the tensor route, {routes['cuda_cores']} on the CUDA "
+          f"cores")
     errs = []
     for B, D, F, n, k in CM_SHAPES + CM_TIMED:
         W = torch.randn((D, F), generator=gen, device=dev) / D ** 0.5
@@ -1967,9 +2023,13 @@ def phase_matmul_kernels(dev, plans: dict) -> dict:
         e = max_err(out, ops.coded_matmul_ref(x, sh), **KERNEL_TOL)
         worst["coded_matmul"] = max(worst["coded_matmul"], e)
         n_cases += 1
-        errs.append(f"B{B}/D{D}/({n},{k})w{sh.shape[2]}:{e:.1e}")
+        w = sh.shape[2]
+        errs.append(f"B{B}/D{D}/({n},{k})w{w}/plan "
+                    f"{ops_cm.PLANS[ops_cm.plan(n, B, w, num_sms(0))]}:"
+                    f"{e:.1e}")
     print("coded_matmul: " + " ".join(errs))
-    print(f"matmul kernels vs plain: {n_cases} cases within rtol/atol 1e-5; "
+    print(f"matmul kernels vs plain: {n_cases} cases within rtol/atol 1e-5 "
+          f"(on the tensor route, the walk bound of the fp64 product); "
           f"{n_tiles} dequant_matmul tile launches bit-equal to the default "
           f"({len(AT._configs('dequant_matmul'))} candidates)")
 
@@ -2020,31 +2080,28 @@ def phase_matmul_kernels(dev, plans: dict) -> dict:
                  library_ms=cuda_ms(lambda: x @ (q.float() * sc), **it))
         dev_t = device_pair(lambda: ops.dequant_matmul(x, q, sc),
                             lambda: x @ (q.float() * sc))
-        t["bound_ms"], t["bound_by"] = dq_bound(B, D, N, True)
+        t["bound_ms"], t["bound_by"], fp32_ms = dq_bound(B, D, N, True)
         out = ops.dequant_matmul(x, q, sc)
         ref = ops.dequant_matmul_ref(x, q, sc)
         torch.cuda.synchronize()
-        if D <= 64:
+        r = ops_dq.route(B, D, N)
+        if r == "cuda_cores":
             e = max_err(out, ref, **KERNEL_TOL)
             held = "within rtol/atol 1e-5"
         else:
             e = float((out - ref).abs().max())
-            exact = x.double() @ (q.double() * sc.double())
-            tol = dq_walk_bound(D, exact)
-            for y in (out, ref):
-                err = float((y.double() - exact).abs().max())
-                if err > tol:
-                    raise AssertionError(f"dequant_matmul ({B},{D},{N}): "
-                                         f"{err:.3e} from the fp64 product,"
-                                         f" beyond the fp32 bound {tol:.3e}")
-            held = f"both within {tol:.3e} of the fp64 product"
+            ek, ep, tol = dq_fp64_errors(x, q, sc, out)
+            held = (f"kernel {ek:.3e} and plain {ep:.3e} from the fp64 "
+                    f"product, within {tol:.3e}")
         worst["dequant_matmul"] = max(worst["dequant_matmul"], e)
+        tile = AT.defaults("dequant_matmul", (B, D, N))
         print(f"dequant_matmul timing at (B,D,N)=({B},{D},{N}) per-channel, "
-              f"default tile {dq_default}: kernel {t['ms']:.5f} ms, plain "
-              f"{t['plain_ms']:.5f} ms, x @ (q.float() * scale) "
-              f"{t['library_ms']:.5f} ms, bound {t['bound_ms']:.6f} ms "
-              f"({t['bound_by']}); device: kernel {dev_t['device_ms']:.5f} "
-              f"ms, x @ (q.float() * scale) "
+              f"{r} route, default tile {tile}: kernel {t['ms']:.5f} ms, "
+              f"plain {t['plain_ms']:.5f} ms, x @ (q.float() * scale) "
+              f"{t['library_ms']:.5f} ms, bound of the {r} route "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']}; fp32 CUDA-core "
+              f"bound {fp32_ms:.6f} ms); device: kernel "
+              f"{dev_t['device_ms']:.5f} ms, x @ (q.float() * scale) "
               f"{dev_t['library_device_ms']:.5f} ms; max abs diff vs plain "
               f"{e:.3e} of max |y| {float(ref.abs().max()):.3e}, {held}")
         # the kernels line takes the first shape, the tuner's main path's
@@ -2061,7 +2118,9 @@ def phase_matmul_kernels(dev, plans: dict) -> dict:
         dev_t = device_pair(lambda: ops.coded_matmul(x, sh),
                             lambda: torch.bmm(xb, sh))
         t["bound_ms"], t["bound_by"] = cm_bound(B, D, sh.shape[2], n)
-        print(f"coded_matmul timing at B={B} D={D} ({n},{k}) w={sh.shape[2]}:"
+        tiles = ops_cm.PLANS[ops_cm.plan(n, B, sh.shape[2], num_sms(0))]
+        print(f"coded_matmul timing at B={B} D={D} ({n},{k}) w={sh.shape[2]}"
+              f" ({tiles[0]} x {tiles[1]} outputs a thread):"
               f" kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, bmm "
               f"{t['library_ms']:.5f} ms, bound {t['bound_ms']:.6f} ms "
               f"({t['bound_by']}); device: kernel {dev_t['device_ms']:.5f} "

@@ -23,7 +23,9 @@ shape and dtype; the values are the CUDA kernels' own tiles:
   SMs; 256 threads of ``block_batch × bn`` on the tiles route, bn = 16
   classes for C ≤ 16, else 32; see :func:`defaults`);
 - ``coded_decode`` ``block_batch``: batch rows per block;
-- ``dequant_matmul`` ``block_batch`` × ``block_n``: the output tile.
+- ``dequant_matmul`` ``block_batch`` × ``block_n``: the output tile on the
+  CUDA-core route; on the tensor route ``block_batch`` alone, 64 or 128
+  rows (one or two warpgroups) by 128 columns (``dequant_matmul.plan``).
 
 The shape component is the kernel's problem shape (see the ``key_*``
 helpers). Lookup is exact-match: an unknown shape falls back to the
@@ -57,8 +59,10 @@ import torch
 # :func:`defaults` gives its tiles route 256 threads, 16 rows of 16 classes
 # or 8 of 32), two rows per block for the decode (a warp of 16-byte
 # accesses at the fused output-coded F 64, 128 blocks for a batch of 256),
-# dequant_matmul's largest tile (256 threads of 8 x 8 outputs), and the
-# baselines the hysteresis margin protects
+# dequant_matmul's largest tile (two warpgroups on the tensor route, 256
+# threads of 8 x 8 outputs on the CUDA-core one; :func:`defaults` takes
+# smaller tiles where these leave SMs idle), and the baselines the
+# hysteresis margin protects
 DEFAULTS: Dict[str, Dict[str, int]] = {
     "quorum_aggregate": {"block_batch": 1},
     "coded_decode": {"block_batch": 2},
@@ -70,8 +74,12 @@ CANDIDATES: Dict[str, Dict[str, Tuple[int, ...]]] = {
     "quorum_aggregate": {"block_batch": (1, 2, 4, 8, 16, 32)},
     "coded_decode": {"block_batch": (1, 2, 4, 8, 16)},
     "dequant_matmul": {"block_batch": (16, 32, 64, 128),
-                       "block_n": (32, 64, 128)},
+                       "block_n": (16, 32, 64, 128)},
 }
+
+# blocks that fill the H100's 132 SMs once: a default tile leaves none idle
+# where the shape allows
+WAVE = 132
 
 # a non-default config must win by this factor to be recorded
 HYSTERESIS = 1.05
@@ -152,8 +160,22 @@ def defaults(kernel: str, shape: Sequence[int]) -> Dict[str, int]:
     """The tile a call at ``shape`` (the ``key_*`` shape) takes on a table
     miss: ``DEFAULTS``, except that a merge whose shape takes the tiles
     route keeps a 256-thread block: 16 rows of 16 classes, or 8 rows where
-    C > 16 classes make a tile 32 wide."""
+    C > 16 classes make a tile 32 wide; and that ``dequant_matmul`` takes
+    the largest tile that still gives ``WAVE`` blocks (on the tensor route
+    128 or 64 rows; on the CUDA-core route 128, 64, 32 or 16 square, down
+    to 16 where none does)."""
     blocks = dict(DEFAULTS[kernel])
+    if kernel == "dequant_matmul":
+        from repro_torch.kernels.dequant_matmul import TENSOR_COLS, route
+        B, D, N = shape
+        if route(B, D, N) == "tensor":
+            tiles = -(-N // TENSOR_COLS)
+            blocks["block_batch"] = 128 if -(-B // 128) * tiles >= WAVE \
+                else 64
+        else:
+            t = next((t for t in (128, 64, 32) if
+                      -(-B // t) * -(-N // t) >= WAVE), 16)
+            blocks["block_batch"] = blocks["block_n"] = t
     if kernel == "quorum_aggregate":
         from repro_torch.kernels.quorum_aggregate import route
         K, _, Dk, C = shape
@@ -285,6 +307,7 @@ def tune_dequant_matmul(table: TuningTable, x, q, scale, *,
         return lambda: K.dequant_matmul(x, q, scale,
                                         block_batch=blocks["block_batch"],
                                         block_n=blocks["block_n"])
-    blocks, timings = tune_call("dequant_matmul", make, repeats=repeats)
+    blocks, timings = tune_call("dequant_matmul", make, repeats=repeats,
+                                default=defaults("dequant_matmul", shape))
     table.put("dequant_matmul", shape, dtype, blocks)
     return timings

@@ -13,7 +13,8 @@ rebuild ``y``. This is the device-side primitive:
 :func:`coded_matmul_ref` only for tensors that lie on the CPU. A failed
 build or launch raises; nothing falls back. ``coded_matmul.launches``
 counts kernel launches (plain-version calls do not count). It takes no
-tuning, like the JAX package's public wrapper.
+tuning, like the JAX package's public wrapper: :func:`plan` picks the
+outputs a thread holds from the shape, so that the grid fills the card.
 """
 from __future__ import annotations
 
@@ -23,7 +24,29 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._layout import on_device, stream_handle
+from repro_torch.kernels._layout import num_sms, on_device, stream_handle
+
+# the kernel's plans, (rows, columns) of outputs a thread holds; a block is
+# 8 x 8 threads, so its tile is (8 * rows) x 32 of one shard's output
+PLANS = ((8, 4), (4, 4), (2, 4))
+
+
+def blocks(plan_index: int, n: int, B: int, w: int) -> int:
+    """The grid of ``PLANS[plan_index]``: (row tiles, column tiles, n)."""
+    tm, tn = PLANS[plan_index]
+    return -(-B // (8 * tm)) * -(-w // (8 * tn)) * n
+
+
+def plan(n: int, B: int, w: int, sms: int) -> int:
+    """The first plan (most outputs a thread) whose grid gives each of the
+    ``sms`` SMs two blocks, so that each of an SM's four schedulers has a
+    warp, else the last: (8, 5) over B 256 and w 200 takes 4 x 4 (448
+    blocks), (5, 3) over w 43 takes 2 x 4 (160). Every output's sum runs
+    over D in one thread whatever the plan."""
+    for i in range(len(PLANS)):
+        if blocks(i, n, B, w) >= 2 * sms:
+            return i
+    return len(PLANS) - 1
 
 
 def coded_matmul_ref(x: torch.Tensor, shards: torch.Tensor) -> torch.Tensor:
@@ -56,10 +79,13 @@ def coded_matmul(x: torch.Tensor, shards: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, B, w), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out                     # B == 0: (n, 0, w)
+    x, shards = (t if t.data_ptr() % 16 == 0 else t.clone()
+                 for t in (x, shards))           # cp.async from the bases
     lib = _library()
     with on_device(x.device):
         rc = lib.coded_matmul_f32(x.data_ptr(), shards.data_ptr(),
                                   out.data_ptr(), n, B, D, w,
+                                  plan(n, B, w, num_sms(x.device.index)),
                                   stream_handle(x.device))
     if rc != 0:
         msg = lib.coded_matmul_error_string(rc).decode()
@@ -76,7 +102,7 @@ def _library() -> ctypes.CDLL:
     """The built kernel library with its C signature declared."""
     lib = build.load("coded_matmul")
     lib.coded_matmul_f32.argtypes = ([ctypes.c_void_p] * 3
-                                     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                                     + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.coded_matmul_f32.restype = ctypes.c_int
     lib.coded_matmul_error_string.argtypes = [ctypes.c_int]
     lib.coded_matmul_error_string.restype = ctypes.c_char_p

@@ -11,10 +11,23 @@ expansion lives in shared memory.
 build or launch raises; nothing falls back. ``dequant_matmul.launches``
 counts kernel launches (plain-version calls do not count).
 
+The kernel has two routes, picked by :func:`route` from (B, D, N) alone.
+The tensor route (D past one 64-deep k-tile, N a multiple of 16, D of 4)
+runs bf16 ``wgmma`` products with the int8 weight exact in bf16 and x split
+into three bf16 terms (:func:`split_terms`), each k-tile summed on the
+tensor cores and added into an fp32 sum, the scale applied to the finished
+sum. Every other shape takes the CUDA-core route: fp32 FMAs with the weight
+expanded first, as the plain version does (16-byte loads where the rows
+start on 16 bytes). At D <= 64 that keeps the kernel within 1e-5 of the
+plain version, which the tensor cores' own rounding of a sum does not at
+every output near zero.
+
 The output tile ``(block_batch, block_n)`` is resolved through the tuning
 table (:mod:`repro_torch.kernels.autotune`) unless the caller pins it, and
-:func:`tiles` clamps it to a legal launch: a tile changes which block owns
-an output, never the order of its sum, so every tile gives the same bits.
+:func:`plan` turns it into a legal launch of the shape's route: a tile
+changes which block owns an output, never the order of its sum, so every
+tile of a route gives the same bits. :func:`tensor_product_model` is a
+plain-torch model of the tensor route's arithmetic, for the tests.
 """
 from __future__ import annotations
 
@@ -27,7 +40,9 @@ import torch
 from repro_torch.kernels import autotune, build
 from repro_torch.kernels._layout import on_device, stream_handle
 
-MAX_TILE = 128          # the kernel's largest block_batch and block_n
+MAX_TILE = 128          # the CUDA-core route's largest block_batch, block_n
+TENSOR_COLS = 128       # the tensor route's columns a block
+K_TILE = 64             # the tensor route's k-tile: its sum is promoted
 
 
 def dequant_matmul_ref(x: torch.Tensor, q: torch.Tensor,
@@ -44,6 +59,67 @@ def tiles(B: int, N: int, block_batch: int, block_n: int) -> Tuple[int, int]:
     stale table entry for a shape that shrank) is a legal launch."""
     return (max(1, min(int(block_batch), B, MAX_TILE)),
             max(1, min(int(block_n), N, MAX_TILE)))
+
+
+def vector_rows(D: int, N: int) -> bool:
+    """Every row of x and q starts on 16 bytes (N a multiple of 16, D of 4;
+    the wrapper copies an operand whose base does not)."""
+    return N % 16 == 0 and D % 4 == 0
+
+
+def route(B: int, D: int, N: int) -> str:
+    """``"tensor"`` for rows on 16 bytes and D past one k-tile, else
+    ``"cuda_cores"``. The shape alone decides, never the tile."""
+    return "tensor" if D > K_TILE and vector_rows(D, N) else "cuda_cores"
+
+
+def plan(B: int, D: int, N: int, block_batch: int, block_n: int
+         ) -> Tuple[str, int, int]:
+    """(route, rows, columns) of one block. The CUDA-core route takes the
+    clamped :func:`tiles`, its columns rounded down to a multiple of 16
+    (at least 16) where it stages 16-byte rows; the tensor route one or two
+    warpgroups of 64 rows (two where the clamped ``block_batch`` exceeds
+    64) by ``TENSOR_COLS`` columns, whatever ``block_n`` asks."""
+    bb, bn = tiles(max(B, 1), max(N, 1), block_batch, block_n)
+    r = route(B, D, N)
+    if r == "tensor":
+        return r, (128 if bb > 64 else 64), TENSOR_COLS
+    if vector_rows(D, N):
+        bn = max(16, bn - bn % 16)
+    return r, bb, bn
+
+
+def split_terms(x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The tensor route's three bf16 terms of fp32 ``x``: t0 = bf16(x), t1 =
+    bf16(x - t0), t2 = bf16(x - t0 - t1), each difference exact in fp32;
+    where t0 is not finite, t1 = t2 = 0. A model of the kernel's split for
+    the tests: they sum back to x exactly for 2^-110 <= |x| <= 3.38e38."""
+    x = x.to(torch.float32)
+    t0 = x.to(torch.bfloat16)
+    finite = torch.isfinite(t0)
+    zero = torch.zeros_like(x)
+    r = torch.where(finite, x - t0.float(), zero)
+    t1 = r.to(torch.bfloat16)
+    t2 = torch.where(finite, r - t1.float(), zero).to(torch.bfloat16)
+    return t0, t1, t2
+
+
+def tensor_product_model(x: torch.Tensor, q: torch.Tensor,
+                         scale: torch.Tensor) -> torch.Tensor:
+    """A plain-torch model of the tensor route: each 64-deep k-tile's three
+    term products summed exactly (fp64, where the tensor cores round their
+    own way) and rounded to fp32, the k-tiles added in order in fp32, the
+    finished sum times the scale. For the tests; the card holds the kernel
+    itself."""
+    terms = [t.double() for t in split_terms(x)]
+    qd = q.double()
+    B, D = x.shape
+    total = torch.zeros((B, q.shape[1]), dtype=torch.float32)
+    for k0 in range(0, D, K_TILE):
+        part = sum(t[:, k0:k0 + K_TILE] @ qd[k0:k0 + K_TILE]
+                   for t in reversed(terms))
+        total = total + part.to(torch.float32)
+    return total * torch.as_tensor(scale, dtype=torch.float32)
 
 
 def _check(x, q, scale) -> None:
@@ -87,18 +163,23 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
     out = torch.empty((B, N), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out                     # B == 0: (0, N)
-    bb, bn = tiles(B, N, blocks["block_batch"], blocks["block_n"])
+    r, bb, bn = plan(B, D, N, blocks["block_batch"], blocks["block_n"])
+    vec = vector_rows(D, N)
+    if vec:                            # 16-byte cp.async from every base
+        x, q, scale = (t if t.data_ptr() % 16 == 0 else t.clone()
+                       for t in (x, q, scale))
     lib = _library()
     with on_device(x.device):
         rc = lib.dequant_matmul_f32(
             x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            B, D, N, bb, bn, int(scale.dim() == 1),
+            B, D, N, 1 if r == "tensor" else 2 if vec else 0, bb, bn,
+            int(scale.dim() == 1),
             stream_handle(x.device))
     if rc != 0:
         msg = lib.dequant_matmul_error_string(rc).decode()
         raise RuntimeError(f"dequant_matmul launch failed at (B, D, N) = "
-                           f"({B}, {D}, {N}), tile {bb} x {bn}: {msg} "
-                           f"({rc})")
+                           f"({B}, {D}, {N}), {r} route, tile {bb} x {bn}: "
+                           f"{msg} ({rc})")
     dequant_matmul.launches += 1
     return out
 
@@ -111,7 +192,7 @@ def _library() -> ctypes.CDLL:
     """The built kernel library with its C signature declared."""
     lib = build.load("dequant_matmul")
     lib.dequant_matmul_f32.argtypes = ([ctypes.c_void_p] * 4
-                                       + [ctypes.c_int] * 6
+                                       + [ctypes.c_int] * 7
                                        + [ctypes.c_void_p])
     lib.dequant_matmul_f32.restype = ctypes.c_int
     lib.dequant_matmul_error_string.argtypes = [ctypes.c_int]

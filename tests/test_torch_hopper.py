@@ -832,6 +832,75 @@ def test_dequant_matmul_wide_reduction_within_fp32_rounding(hopper,
         assert err <= tol, (err, tol)
 
 
+def _fp64_walk(x, q, s, y):
+    """y's largest distance from the fp64 product, and the fp32 random-walk
+    bound 8 · 2^-24 · √D · max|y| it must stay in."""
+    exact = x.double() @ (q.double() * s.double())
+    return ((y.double() - exact).abs().max().item(),
+            8 * 2.0 ** -24 * x.shape[1] ** 0.5 * exact.abs().max().item())
+
+
+@pytest.mark.parametrize("per_channel", [False, True],
+                         ids=["per_tensor", "per_channel"])
+@pytest.mark.parametrize("B,D,N", [(100, 72, 144), (65, 96, 272),
+                                   (7, 100, 48), (300, 2052, 272),
+                                   (130, 2048, 1040)])
+def test_dequant_matmul_tensor_route_within_fp32_rounding(hopper,
+                                                         per_channel, B, D,
+                                                         N):
+    """The tensor route at ragged B and N (against the 64-row, 128-column
+    block) and D off a multiple of 16 or 64 (a zero-padded k-tile): the
+    kernel and the plain version each within the walk bound of the fp64
+    product."""
+    from repro_torch.kernels import dequant_matmul as DQ
+    assert DQ.route(B, D, N) == "tensor"
+    x, q, s = _dq_operands(B, D, N, per_channel, hopper, seed=B + D)
+    before = ops.dequant_matmul.launches
+    out = ops.dequant_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert ops.dequant_matmul.launches == before + 1
+    for y in (out, ops.dequant_matmul_ref(x, q, s)):
+        err, tol = _fp64_walk(x, q, s, y)
+        assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("B,D,N", [(128, 64, 256), (128, 128, 256),
+                                   (9, 16, 13)])
+def test_dequant_matmul_non_finite_rows(hopper, B, D, N):
+    """inf and NaN in x give inf and NaN where the plain product has them
+    (the tensor route's split never makes NaN of inf - inf); the other rows
+    stay within the route's bound."""
+    x, q, s = _dq_operands(B, D, N, True, hopper, seed=D)
+    q[2, 0] = 0                                       # inf * 0 is NaN
+    x[3, 5], x[7, 9], x[1, 2] = float("inf"), float("nan"), -float("inf")
+    out = ops.dequant_matmul(x, q, s)
+    ref = ops.dequant_matmul_ref(x, q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(out.isnan(), ref.isnan())
+    assert torch.equal(out.isinf(), ref.isinf())
+    assert torch.equal(out[out.isinf()], ref[ref.isinf()])
+    rows = [r for r in range(B) if r not in (1, 3, 7)]
+    if D > 64:
+        err, tol = _fp64_walk(x[rows], q, s, out[rows])
+        assert err <= tol, (err, tol)
+    else:
+        np.testing.assert_allclose(out[rows].cpu().numpy(),
+                                   ref[rows].cpu().numpy(), **TOL)
+
+
+@pytest.mark.parametrize("B,D,N", [(64, 64, 512), (65, 96, 272)])
+def test_dequant_matmul_copies_unaligned_bases(hopper, B, D, N):
+    """Operands whose base is off 16 bytes (views into larger buffers) are
+    copied for the 16-byte loads, and the result is the aligned call's."""
+    x, q, s = _dq_operands(B, D, N, True, hopper, seed=3)
+    xb = torch.empty(B * D + 1, device=hopper)[1:].view(B, D).copy_(x)
+    qb = torch.empty(D * N + 3, dtype=torch.int8,
+                     device=hopper)[3:].view(D, N).copy_(q)
+    assert xb.data_ptr() % 16 and qb.data_ptr() % 16
+    assert _same_bits(ops.dequant_matmul(xb, qb, s),
+                      ops.dequant_matmul(x, q, s))
+
+
 def test_dequant_matmul_empty_batch_launches_nothing(hopper):
     before = ops.dequant_matmul.launches
     out = ops.dequant_matmul(*_dq_operands(0, 4, 3, False, hopper))
@@ -841,7 +910,8 @@ def test_dequant_matmul_empty_batch_launches_nothing(hopper):
 
 @pytest.mark.parametrize("B,D,w,n", [(9, 6, 5, 5), (256, 64, 43, 5),
                                      (256, 1024, 200, 8), (1, 3, 1, 3),
-                                     (130, 17, 70, 4)])
+                                     (130, 17, 70, 4), (64, 128, 32, 4),
+                                     (256, 64, 22, 5), (1000, 64, 128, 3)])
 def test_coded_matmul_matches_plain_version(hopper, B, D, w, n):
     rng = np.random.default_rng(B + w)
     x = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32)
@@ -855,6 +925,17 @@ def test_coded_matmul_matches_plain_version(hopper, B, D, w, n):
     np.testing.assert_allclose(out.cpu().numpy(),
                                ops.coded_matmul_ref(x, sh).cpu().numpy(),
                                **TOL)
+
+
+def test_coded_matmul_copies_unaligned_bases(hopper):
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((64, 128)).astype(np.float32)
+                         ).to(hopper)
+    sh = torch.from_numpy(rng.standard_normal((4, 128, 32)).astype(
+        np.float32)).to(hopper)
+    xb = torch.empty(x.numel() + 1, device=hopper)[1:].view(64, 128).copy_(x)
+    assert xb.data_ptr() % 16
+    assert _same_bits(ops.coded_matmul(xb, sh), ops.coded_matmul(x, sh))
 
 
 def test_coded_matmul_empty_batch_launches_nothing(hopper):
@@ -894,7 +975,8 @@ def test_coded_decode_every_tile_same_bits(hopper, int8, B, R, K, F):
 @pytest.mark.parametrize("per_channel", [False, True],
                          ids=["per_tensor", "per_channel"])
 @pytest.mark.parametrize("B,D,N", [(1024, 64, 256), (64, 64, 512),
-                                   (37, 40, 300)])
+                                   (37, 40, 300), (100, 72, 144),
+                                   (300, 2052, 272)])
 def test_dequant_matmul_every_tile_same_bits(hopper, per_channel, B, D, N):
     from repro_torch.kernels import autotune as AT
     args = _dq_operands(B, D, N, per_channel, hopper, seed=N)

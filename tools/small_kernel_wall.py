@@ -26,8 +26,14 @@ Cases, operands drawn from seed 0:
   bf16, cache 544, length 528), the caches views of (B, S, KV, D) ones;
 - one call each of the other wrappers: ``flash_attention`` at llama3.2-1b's
   prefill (4, 8, 4, 512, 64) bf16, ``ssd_scan`` at mamba2-130m's (4, 512,
-  24, 64, 128, chunk 256) bf16 with fp32 y and state, ``dequant_matmul`` at
-  (1024, 64, 256) and ``coded_matmul`` at (5, 3), B 256, D 64.
+  24, 64, 128, chunk 256) bf16 with fp32 y and state;
+- ``dequant_matmul`` at bench_roofline's (1024, 64, 256) and (64, 64, 512)
+  and at llama3.2-1b's gate projection (2048, 2048, 8192), per-channel
+  scales, and ``coded_matmul`` at (5, 3), B 256, D 64, w 43 and at (8, 5),
+  B 256, D 1024, w 200 (the gate projection with fewer blocks and calls).
+
+``--only`` keeps the cases whose name holds one of its words, e.g.
+``--only dequant_matmul coded_matmul``.
 
 For each: host µs per call over ``--blocks`` loops of ``--calls`` calls
 with no sync inside (least and median block), ms per call back to back
@@ -190,22 +196,31 @@ def other_cases(g) -> dict:
               .div(N ** 0.5).to(bf) for _ in range(2))
     scan = (x.permute(0, 2, 1, 3), dt.permute(0, 2, 1), A.expand(B, H),
             Bm[:, None].expand(B, H, L, N), Cm[:, None].expand(B, H, L, N))
-    xd = torch.randn((1024, 64), generator=g, device="cuda")
-    qd = torch.randint(-127, 128, (64, 256), generator=g, device="cuda",
-                       dtype=torch.int8)
-    sd = torch.tensor(0.01, device="cuda")
-    xc = torch.randn((256, 64), generator=g, device="cuda")
-    sh = torch.randn((5, 64, 22), generator=g, device="cuda")
     return {
         "flash_attention (4, 8, 4, 512, 64)":
             lambda: ops.flash_attention(q, k, v, causal=True),
         "ssd_scan (4, 512, 24, 64, 128, 256)":
             lambda: ops.ssd_scan(*scan, chunk=256, return_state=True,
                                  out_dtype=torch.float32),
-        "dequant_matmul (1024, 64, 256)":
-            lambda: ops.dequant_matmul(xd, qd, sd),
-        "coded_matmul (5, 3) B256 D64": lambda: ops.coded_matmul(xc, sh),
     }
+
+
+def matmul_cases(g) -> dict:
+    """The dequant_matmul and coded_matmul calls, by name."""
+    cases = {}
+    for B, D, N in ((1024, 64, 256), (64, 64, 512), (2048, 2048, 8192)):
+        x = torch.randn((B, D), generator=g, device="cuda")
+        q = torch.randint(-127, 128, (D, N), generator=g, device="cuda",
+                          dtype=torch.int8)
+        s = 0.01 + 0.09 * torch.rand((N,), generator=g, device="cuda")
+        cases[f"dequant_matmul ({B}, {D}, {N})"] = (
+            lambda x=x, q=q, s=s: ops.dequant_matmul(x, q, s))
+    for n, k, D, w in ((5, 3, 64, 43), (8, 5, 1024, 200)):
+        x = torch.randn((256, D), generator=g, device="cuda")
+        sh = torch.randn((n, D, w), generator=g, device="cuda")
+        cases[f"coded_matmul ({n}, {k}) B256 D{D} w{w}"] = (
+            lambda x=x, sh=sh: ops.coded_matmul(x, sh))
+    return cases
 
 
 def norm_cases(g) -> dict:
@@ -249,20 +264,30 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--blocks", type=int, default=30)
     ap.add_argument("--calls", type=int, default=200)
+    ap.add_argument("--only", nargs="*", default=None)
     args = ap.parse_args()
+
+    def wanted(name: str) -> bool:
+        return args.only is None or any(w in name for w in args.only)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
     for name, fn in {**decode_cases(g), **gating_merge_cases(g),
-                     **other_cases(g)}.items():
-        h = host_us(fn, args.blocks, args.calls)
+                     **other_cases(g), **matmul_cases(g)}.items():
+        if not wanted(name):
+            continue
+        heavy = "8192" in name                    # milliseconds a call
+        blocks, calls = (3, 10) if heavy else (args.blocks, args.calls)
+        h = host_us(fn, blocks, calls)
         rows[name] = dict(host_us_min=min(h),
                           host_us_median=statistics.median(h),
-                          ms=per_call_ms(fn, args.calls),
+                          ms=per_call_ms(fn, calls),
                           device_ms=device_ms(fn))
     for name, (warm, cold) in norm_cases(g).items():
+        if not wanted(name):
+            continue
         h = host_us(warm, args.blocks, args.calls)
         rows[name] = dict(host_us_min=min(h),
                           host_us_median=statistics.median(h),
