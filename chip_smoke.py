@@ -120,8 +120,8 @@ The measured cost model and the autotuner (``repro_torch.launch.microbench``,
     per-channel scales; ``dequant_matmul``'s tensor route (past D 64) at
     ragged shapes and D 2048, where kernel and plain version are each held
     to the fp32 random-walk bound of the fp64 product, each shape's route
-    printed; every candidate tile of ``dequant_matmul`` on both routes,
-    and every ``block_batch`` of ``quorum_aggregate`` and ``coded_decode``
+    printed; each distinct launch of ``dequant_matmul``'s candidate tiles
+    on both routes, and every ``block_batch`` of ``quorum_aggregate`` and ``coded_decode``
     over phases 3 and 7's sweeps, bit for bit against the default; both
     timed beside their plain versions and one PyTorch call, also by device
     time, with the bound of the route each shape takes;
@@ -1963,14 +1963,13 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 def phase_matmul_kernels(dev, plans: dict) -> dict:
     """dequant_matmul and coded_matmul vs their plain versions (rtol/atol
     1e-5) over the JAX tests' shapes, ragged and degenerate tiles, B = 0,
-    both scale kinds; every candidate tile of dequant_matmul, and of
-    quorum_aggregate and coded_decode at phases 3 and 7's sweeps, bit for bit
+    both scale kinds; each distinct launch of dequant_matmul's candidate
+    tiles, and every candidate of quorum_aggregate and coded_decode at phases 3 and 7's sweeps, bit for bit
     against the default; then each new kernel timed at its shapes."""
     gen = torch.Generator(device=dev).manual_seed(4)
     worst = {"dequant_matmul": 0.0, "coded_matmul": 0.0}
     n_cases, n_tiles = 0, 0
     routes = {"tensor": 0, "cuda_cores": 0}
-    dq_default = AT.DEFAULTS["dequant_matmul"]
     fp64 = {"kernel": 0.0, "plain": 0.0, "share": 0.0}
     for per_channel in (False, True):
         cases = [(B, D, N, None, None)
@@ -1995,13 +1994,18 @@ def phase_matmul_kernels(dev, plans: dict) -> dict:
             worst["dequant_matmul"] = max(worst["dequant_matmul"], e)
             n_cases += 1
             routes[r] += 1
-            base = ops.dequant_matmul(x, q, sc, **dq_default)
-            for c in AT._configs("dequant_matmul"):
+            tiles = ops_dq.candidates(B, D, N, num_sms(0))
+            base = ops.dequant_matmul(x, q, sc, **tiles[0])
+            for c in tiles[1:]:
                 if not same_bits(ops.dequant_matmul(x, q, sc, **c), base):
                     raise AssertionError(f"dequant_matmul ({B},{D},{N}) "
                                          f"{r} route tile {c}: bits differ "
                                          f"from the default")
                 n_tiles += 1
+            if not same_bits(out, base):
+                raise AssertionError(f"dequant_matmul ({B},{D},{N}) tile "
+                                     f"{bb} x {bn}: bits differ from the "
+                                     f"default")
             errs.append(f"({B},{D},{N})" + (f"/{bb}x{bn}" if bb is not None
                                              else "") + f" {r}:{tag}")
         kind = "per-channel" if per_channel else "per-tensor"
@@ -2031,7 +2035,8 @@ def phase_matmul_kernels(dev, plans: dict) -> dict:
     print(f"matmul kernels vs plain: {n_cases} cases within rtol/atol 1e-5 "
           f"(on the tensor route, the walk bound of the fp64 product); "
           f"{n_tiles} dequant_matmul tile launches bit-equal to the default "
-          f"({len(AT._configs('dequant_matmul'))} candidates)")
+          f"(each distinct launch of {len(AT._configs('dequant_matmul'))} "
+          f"candidates)")
 
     # every candidate block_batch of the two serving kernels, bit for bit
     qa_tiles = cd_tiles = 0
@@ -2094,7 +2099,7 @@ def phase_matmul_kernels(dev, plans: dict) -> dict:
             held = (f"kernel {ek:.3e} and plain {ep:.3e} from the fp64 "
                     f"product, within {tol:.3e}")
         worst["dequant_matmul"] = max(worst["dequant_matmul"], e)
-        tile = AT.defaults("dequant_matmul", (B, D, N))
+        tile = ops_dq.default_tile(B, D, N, num_sms(0))
         print(f"dequant_matmul timing at (B,D,N)=({B},{D},{N}) per-channel, "
               f"{r} route, default tile {tile}: kernel {t['ms']:.5f} ms, "
               f"plain {t['plain_ms']:.5f} ms, x @ (q.float() * scale) "
@@ -2218,13 +2223,16 @@ def phase_measured(dev) -> dict:
     for kernel, args, flops, nbytes, tag in cells:
         fn = getattr(ops, kernel)
         shape, dtype = keys[kernel](args[0], args[1])
-        default = AT.defaults(kernel, shape)
+        default = (ops_dq.default_tile(*shape, num_sms(0))
+                   if kernel == "dequant_matmul" else
+                   AT.defaults(kernel, shape))
         t_default = MB.time_callable(lambda: fn(*args, **default),
                                      repeats=20)
         timings = tuners[kernel](table, *args, repeats=20)
         blocks = table.get(kernel, shape, dtype)
         dkey = ",".join(f"{k}={v}" for k, v in sorted(default.items()))
-        rival = min((k for k in timings if k != dkey), key=timings.get)
+        rival = min((k for k in timings if k != dkey), key=timings.get,
+                    default=dkey)
         t_tuned = t_default if blocks == default else \
             MB.time_callable(lambda: fn(*args), repeats=20)
         # the tuned call against its plain version: a check, not the path

@@ -26,6 +26,8 @@ shape and dtype; the values are the CUDA kernels' own tiles:
 - ``dequant_matmul`` ``block_batch`` × ``block_n``: the output tile on the
   CUDA-core route; on the tensor route ``block_batch`` alone, 64 or 128
   rows (one or two warpgroups) by 128 columns (``dequant_matmul.plan``).
+  On a miss the wrapper takes ``dequant_matmul.default_tile``, which
+  fills the card's SMs.
 
 The shape component is the kernel's problem shape (see the ``key_*``
 helpers). Lookup is exact-match: an unknown shape falls back to the
@@ -54,14 +56,15 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels._layout import num_sms
+
 # the defaults the wrappers apply on a table miss: one output row a block
 # for the merge's rows route (256 blocks for a batch of 256 on 132 SMs;
 # :func:`defaults` gives its tiles route 256 threads, 16 rows of 16 classes
 # or 8 of 32), two rows per block for the decode (a warp of 16-byte
 # accesses at the fused output-coded F 64, 128 blocks for a batch of 256),
 # dequant_matmul's largest tile (two warpgroups on the tensor route, 256
-# threads of 8 x 8 outputs on the CUDA-core one; :func:`defaults` takes
-# smaller tiles where these leave SMs idle), and the baselines the
+# threads of 8 x 8 outputs on the CUDA-core one), and the baselines the
 # hysteresis margin protects
 DEFAULTS: Dict[str, Dict[str, int]] = {
     "quorum_aggregate": {"block_batch": 1},
@@ -76,10 +79,6 @@ CANDIDATES: Dict[str, Dict[str, Tuple[int, ...]]] = {
     "dequant_matmul": {"block_batch": (16, 32, 64, 128),
                        "block_n": (16, 32, 64, 128)},
 }
-
-# blocks that fill the H100's 132 SMs once: a default tile leaves none idle
-# where the shape allows
-WAVE = 132
 
 # a non-default config must win by this factor to be recorded
 HYSTERESIS = 1.05
@@ -160,22 +159,8 @@ def defaults(kernel: str, shape: Sequence[int]) -> Dict[str, int]:
     """The tile a call at ``shape`` (the ``key_*`` shape) takes on a table
     miss: ``DEFAULTS``, except that a merge whose shape takes the tiles
     route keeps a 256-thread block: 16 rows of 16 classes, or 8 rows where
-    C > 16 classes make a tile 32 wide; and that ``dequant_matmul`` takes
-    the largest tile that still gives ``WAVE`` blocks (on the tensor route
-    128 or 64 rows; on the CUDA-core route 128, 64, 32 or 16 square, down
-    to 16 where none does)."""
+    C > 16 classes make a tile 32 wide."""
     blocks = dict(DEFAULTS[kernel])
-    if kernel == "dequant_matmul":
-        from repro_torch.kernels.dequant_matmul import TENSOR_COLS, route
-        B, D, N = shape
-        if route(B, D, N) == "tensor":
-            tiles = -(-N // TENSOR_COLS)
-            blocks["block_batch"] = 128 if -(-B // 128) * tiles >= WAVE \
-                else 64
-        else:
-            t = next((t for t in (128, 64, 32) if
-                      -(-B // t) * -(-N // t) >= WAVE), 16)
-            blocks["block_batch"] = blocks["block_n"] = t
     if kernel == "quorum_aggregate":
         from repro_torch.kernels.quorum_aggregate import route
         K, _, Dk, C = shape
@@ -185,12 +170,12 @@ def defaults(kernel: str, shape: Sequence[int]) -> Dict[str, int]:
 
 
 def resolve(kernel: str, shape: Sequence[int], dtype,
-            overrides: Optional[Dict[str, Optional[int]]] = None
-            ) -> Dict[str, int]:
+            overrides: Optional[Dict[str, Optional[int]]] = None,
+            default: Optional[Dict[str, int]] = None) -> Dict[str, int]:
     """The block sizes a call should use: caller overrides (non-``None``
-    values) beat the tuning table, which beats the built-in defaults. An
-    empty table is not searched."""
-    blocks = defaults(kernel, shape)
+    values) beat the tuning table, which beats ``default`` (the built-in
+    :func:`defaults` unless given). An empty table is not searched."""
+    blocks = dict(default) if default else defaults(kernel, shape)
     table = active_table()
     tuned = table.get(kernel, shape, dtype) if len(table) else None
     if tuned:
@@ -222,17 +207,19 @@ def _configs(kernel: str, default: Optional[Dict[str, int]] = None
 
 
 def tune_call(kernel: str, make_call: Callable[[Dict[str, int]], Callable],
-              *, repeats: int = 5, default: Optional[Dict[str, int]] = None
+              *, repeats: int = 5, default: Optional[Dict[str, int]] = None,
+              configs: Optional[Sequence[Dict[str, int]]] = None
               ) -> Tuple[Dict[str, int], Dict[str, float]]:
-    """Time ``make_call(blocks)()`` for every candidate config and pick the
-    winner under the hysteresis rule: the default (``DEFAULTS`` unless
-    given) keeps its seat unless a challenger is >5% faster. Returns
-    ``(blocks, {config_key: seconds})``."""
+    """Time ``make_call(blocks)()`` for every candidate config
+    (``_configs(kernel, default)`` unless given, the default first) and
+    pick the winner under the hysteresis rule: the default (``DEFAULTS``
+    unless given) keeps its seat unless a challenger is >5% faster.
+    Returns ``(blocks, {config_key: seconds})``."""
     from repro_torch.launch.microbench import time_callable
-    default = dict(default or DEFAULTS[kernel])
+    default = dict(configs[0] if configs else default or DEFAULTS[kernel])
     timings: Dict[str, float] = {}
     best_blocks, best_t, default_t = None, np.inf, np.inf
-    for blocks in _configs(kernel, default):
+    for blocks in configs or _configs(kernel, default):
         fn = make_call(blocks)
         t = time_callable(fn, repeats=repeats)
         key = ",".join(f"{k}={v}" for k, v in sorted(blocks.items()))
@@ -299,15 +286,19 @@ def tune_coded_decode(table: TuningTable, shares, dec, mask, scales=None, *,
 
 def tune_dequant_matmul(table: TuningTable, x, q, scale, *,
                         repeats: int = 5) -> Dict[str, float]:
-    """Search (block_batch, block_n) for one dequant-matmul shape."""
+    """Search (block_batch, block_n) for one dequant-matmul shape: each
+    distinct launch of the grid once (``dequant_matmul.candidates``; a CPU
+    tensor takes the plain version whatever the tile, so one SM there)."""
+    from repro_torch.kernels import dequant_matmul as DQ
     from repro_torch.kernels import ops as K
     shape, dtype = key_dequant_matmul(x, q)
+    sms = num_sms(x.device.index) if x.device.type == "cuda" else 1
 
     def make(blocks):
         return lambda: K.dequant_matmul(x, q, scale,
                                         block_batch=blocks["block_batch"],
                                         block_n=blocks["block_n"])
     blocks, timings = tune_call("dequant_matmul", make, repeats=repeats,
-                                default=defaults("dequant_matmul", shape))
+                                configs=DQ.candidates(*shape, sms))
     table.put("dequant_matmul", shape, dtype, blocks)
     return timings

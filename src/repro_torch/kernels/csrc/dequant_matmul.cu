@@ -39,9 +39,9 @@
 //     steps, not with its square root. So each 64-deep k-tile sums into a
 //     fresh accumulator, the small terms first (t2, then t1, then t0, each
 //     over the k-tile's four k16 steps), and the finished k-tile is added
-//     into an fp32 register sum with an ordinary FADD (promotion every
-//     DQ_PROMOTE_EVERY k-tiles; tools/dq_accumulation.py measures the
-//     choices against the fp64 product).
+//     into an fp32 register sum with an ordinary FADD (on an H100, one
+//     accumulator over D 2048 read 22-32x further from the fp64 product
+//     than this; PERF.md).
 //   * The scale multiplies the finished sum in the epilogue, per column or
 //     per tensor, where the plain version (and the CUDA-core route) expands
 //     the weight first: the two differ in the last bits, inside the
@@ -73,12 +73,6 @@
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-// k-tiles summed on the tensor cores before their sum is added into the
-// fp32 register sum; 0 never promotes (one accumulator over all of D)
-#ifndef DQ_PROMOTE_EVERY
-#define DQ_PROMOTE_EVERY 1
-#endif
 
 namespace {
 
@@ -496,8 +490,6 @@ dq_tensor_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
 
   // this thread's fragment rows within the block (A rows lane/4 and +8)
   const int frow = wg * 64 + warp * 16 + g;
-  constexpr bool kPromote = DQ_PROMOTE_EVERY > 0;
-  constexpr int kEvery = kPromote ? DQ_PROMOTE_EVERY : 1;
   float part[64], sum[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) part[i] = sum[i] = 0.f;
@@ -528,9 +520,8 @@ dq_tensor_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
         for (int k = 0; k < kTerms; ++k) terms[k][kk][j] = tv[k];
       }
 
-    // the small terms first, each over the k-tile's k16 steps; a fresh
-    // accumulator at each promotion
-    const bool fresh = kPromote ? t % kEvery == 0 : t == 0;
+    // the small terms first, each over the k-tile's k16 steps, into a
+    // fresh accumulator
     const uint32_t qtile = qb + (t % 2) * kQbBytes;
     fence_regs(part);
     wgmma_fence();
@@ -540,7 +531,7 @@ dq_tensor_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
       for (int kk = 0; kk < kKT / 16; ++kk)
         wgmma_m64n128k16(part, terms[k][kk],
                          smem_desc(qtile + kk * 16 * 128, kBoxBytes, 1024),
-                         !(fresh && k == kTerms - 1 && kk == 0));
+                         !(k == kTerms - 1 && kk == 0));
     wgmma_commit();
 
     // while they run: the next k-tile's q, converted into the other buffer
@@ -551,20 +542,14 @@ dq_tensor_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
     }
     wgmma_wait_all();
     fence_regs(part);
-    if (kPromote && (t % kEvery == kEvery - 1 || t == ktiles - 1)) {
 #pragma unroll
-      for (int i = 0; i < 64; ++i) sum[i] += part[i];
-    }
+    for (int i = 0; i < 64; ++i) sum[i] += part[i];
     __syncthreads();
   }
 
   // epilogue: element e of n8 group j sits at row frow + 8 * (e / 2),
   // column 8j + 2 * quad + e % 2; the scale multiplies the finished sum
   const float s0 = kPerChannel ? 1.f : scale[0];
-  if constexpr (!kPromote) {
-#pragma unroll
-    for (int i = 0; i < 64; ++i) sum[i] = part[i];
-  }
 #pragma unroll
   for (int j = 0; j < kCols / 8; ++j) {
     const int gc = col0 + 8 * j + 2 * quad;

@@ -23,22 +23,23 @@ plain version, which the tensor cores' own rounding of a sum does not at
 every output near zero.
 
 The output tile ``(block_batch, block_n)`` is resolved through the tuning
-table (:mod:`repro_torch.kernels.autotune`) unless the caller pins it, and
-:func:`plan` turns it into a legal launch of the shape's route: a tile
-changes which block owns an output, never the order of its sum, so every
-tile of a route gives the same bits. :func:`tensor_product_model` is a
-plain-torch model of the tensor route's arithmetic, for the tests.
+table (:mod:`repro_torch.kernels.autotune`) unless the caller pins it; on a
+table miss :func:`default_tile` picks the route's largest tile that still
+fills the card's SMs. :func:`plan` turns a tile into a legal launch of the
+shape's route: a tile changes which block owns an output, never the order
+of its sum, so every tile of a route gives the same bits.
+:func:`candidates` gives the tuner one tile for each distinct launch.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import autotune, build
-from repro_torch.kernels._layout import on_device, stream_handle
+from repro_torch.kernels._layout import num_sms, on_device, stream_handle
 
 MAX_TILE = 128          # the CUDA-core route's largest block_batch, block_n
 TENSOR_COLS = 128       # the tensor route's columns a block
@@ -89,6 +90,34 @@ def plan(B: int, D: int, N: int, block_batch: int, block_n: int
     return r, bb, bn
 
 
+def default_tile(B: int, D: int, N: int, sms: int) -> Dict[str, int]:
+    """The tile a call takes where neither the caller nor the table sets
+    one: the route's largest that still gives each of ``sms`` SMs a block
+    (on the tensor route 128 rows, else 64; on the CUDA-core route a square
+    of 128, 64 or 32, else 16)."""
+    if route(B, D, N) == "tensor":
+        rows = 128 if -(-B // 128) * -(-N // TENSOR_COLS) >= sms else 64
+        return {"block_batch": rows, "block_n": TENSOR_COLS}
+    t = next((t for t in (128, 64, 32) if -(-B // t) * -(-N // t) >= sms),
+             16)
+    return {"block_batch": t, "block_n": t}
+
+
+def candidates(B: int, D: int, N: int, sms: int
+               ) -> Tuple[Dict[str, int], ...]:
+    """The tuner's grid at this shape, :func:`default_tile` first, with one
+    tile for each distinct launch :func:`plan` makes of it (on the tensor
+    route at most two)."""
+    seen, out = set(), []
+    for c in autotune._configs("dequant_matmul",
+                               default_tile(B, D, N, sms)):
+        p = plan(B, D, N, c["block_batch"], c["block_n"])
+        if p not in seen:
+            seen.add(p)
+            out.append(c)
+    return tuple(out)
+
+
 def split_terms(x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """The tensor route's three bf16 terms of fp32 ``x``: t0 = bf16(x), t1 =
     bf16(x - t0), t2 = bf16(x - t0 - t1), each difference exact in fp32;
@@ -102,24 +131,6 @@ def split_terms(x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     t1 = r.to(torch.bfloat16)
     t2 = torch.where(finite, r - t1.float(), zero).to(torch.bfloat16)
     return t0, t1, t2
-
-
-def tensor_product_model(x: torch.Tensor, q: torch.Tensor,
-                         scale: torch.Tensor) -> torch.Tensor:
-    """A plain-torch model of the tensor route: each 64-deep k-tile's three
-    term products summed exactly (fp64, where the tensor cores round their
-    own way) and rounded to fp32, the k-tiles added in order in fp32, the
-    finished sum times the scale. For the tests; the card holds the kernel
-    itself."""
-    terms = [t.double() for t in split_terms(x)]
-    qd = q.double()
-    B, D = x.shape
-    total = torch.zeros((B, q.shape[1]), dtype=torch.float32)
-    for k0 in range(0, D, K_TILE):
-        part = sum(t[:, k0:k0 + K_TILE] @ qd[k0:k0 + K_TILE]
-                   for t in reversed(terms))
-        total = total + part.to(torch.float32)
-    return total * torch.as_tensor(scale, dtype=torch.float32)
 
 
 def _check(x, q, scale) -> None:
@@ -145,9 +156,11 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
     scale = torch.as_tensor(scale, dtype=torch.float32, device=q.device)
     _check(x, q, scale)
     shape, dtype = autotune.key_dequant_matmul(x, q)
-    blocks = autotune.resolve("dequant_matmul", shape, dtype,
-                              {"block_batch": block_batch,
-                               "block_n": block_n})
+    blocks = autotune.resolve(
+        "dequant_matmul", shape, dtype,
+        {"block_batch": block_batch, "block_n": block_n},
+        default_tile(*shape, num_sms(x.device.index))
+        if x.device.type == "cuda" else None)
     if x.device.type == "cpu":
         return dequant_matmul_ref(x, q, scale)
     if x.device.type != "cuda":

@@ -233,7 +233,7 @@ def test_table_entry_changes_resolution_not_result(monkeypatch):
     AT.active_table().put("dequant_matmul", shape, dtype,
                           {"block_batch": 16, "block_n": 32})
     tuned = ops.dequant_matmul(x, q, sc)
-    assert seen == [AT.defaults("dequant_matmul", shape),
+    assert seen == [AT.DEFAULTS["dequant_matmul"],
                     {"block_batch": 16, "block_n": 32}]
     np.testing.assert_array_equal(baseline, want)
     np.testing.assert_array_equal(tuned, want)

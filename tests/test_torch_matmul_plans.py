@@ -4,10 +4,11 @@
 The CUDA kernels run only on the card (``tests/test_torch_hopper.py``,
 ``chip_smoke.py``). What surrounds them is Python and is held here: the
 route ``dequant_matmul`` picks from (B, D, N) alone, the legal launch every
-tile candidate clamps to on each route, the default tiles, a model of the
-tensor route's three-term split of x and of its k-tiled sum
-(``dequant_matmul.split_terms``, ``tensor_product_model``) against the plain
-version and the fp64 product, and ``coded_matmul``'s plan.
+tile candidate clamps to on each route, the default tiles and the distinct
+candidates, the tensor route's three-term split of x
+(``dequant_matmul.split_terms``), a model of its truncating tensor-core sum
+(``_tensor_route``) against the plain version and the fp64 product, and
+``coded_matmul``'s plan.
 """
 import itertools
 
@@ -27,6 +28,7 @@ DQ_SHAPES = [(1, 8, 5), (7, 16, 11), (130, 8, 300), (37, 40, 300),
              (100, 72, 144), (65, 2052, 272), (1, 68, 16), (3, 6, 16),
              (5, 8, 6), (250, 32, 100), (64, 96, 1024), (7, 100, 48)]
 ODD_TILES = [(0, 0), (-5, 4), (4096, 4096), (1, 1)]
+SMS = [132, 114]                  # H100 SXM and PCIe
 
 
 def _walk_bound(D, exact):
@@ -93,6 +95,52 @@ def test_split_terms_above_the_range_and_non_finite():
     assert torch.equal(t2.float(), torch.zeros(5))
 
 
+def _truncate(v, exponent):
+    """v cut toward zero to a multiple of 2^(exponent - 24), exponent as
+    ``torch.frexp`` gives it (|v| < 2^exponent): 24 bits below the top."""
+    ulp = torch.exp2(exponent.to(torch.float64) - 24)
+    return torch.trunc(v / ulp) * ulp
+
+
+def _mma_step(acc, prods):
+    """One k16 step of a tensor-core product into its fp32 accumulator, as
+    modelled here: every addend (the accumulator and the 16 products, exact
+    in fp64) cut toward zero below the 24 bits of the largest one, the
+    exact sum of those cut to fp32 toward zero. Non-finite addends sum as
+    they are. acc (B, N) fp64 holding fp32 values; prods (B, k, N)."""
+    add = torch.cat([acc[:, None], prods], 1)
+    finite = torch.isfinite(add)
+    a = torch.where(finite, add, torch.zeros_like(add))
+    top = torch.frexp(a.abs().amax(1)).exponent[:, None]
+    s = _truncate(a, top).sum(1)                # exact: 24 + 5 bits
+    s = _truncate(s, torch.frexp(s).exponent)
+    return torch.where(finite.all(1), s, add.sum(1))
+
+
+def _tensor_route(x, q, scale, promote=True):
+    """A plain-torch model of the kernel's tensor route: per 64-deep
+    k-tile the t2, t1, t0 products over its k16 steps into one accumulator
+    (``_mma_step``), each k-tile's sum added in fp32 into the total
+    (``promote``; else one accumulator over all of D), the finished sum
+    times the scale."""
+    terms = [t.double() for t in DQ.split_terms(x)]
+    qd = q.double()
+    B, D = x.shape
+    acc = torch.zeros((B, q.shape[1]), dtype=torch.float64)
+    total = torch.zeros((B, q.shape[1]), dtype=torch.float32)
+    for k0 in range(0, D, DQ.K_TILE):
+        if promote:
+            acc = torch.zeros_like(acc)
+        for t in reversed(terms):
+            for k in range(k0, min(k0 + DQ.K_TILE, D), 16):
+                acc = _mma_step(acc, t[:, k:k + 16, None] * qd[None, k:k + 16])
+        if promote:
+            total = total + acc.float()
+    if not promote:
+        total = acc.float()
+    return total * torch.as_tensor(scale, dtype=torch.float32)
+
+
 def _operands(B, D, N, per_channel, seed):
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.normal(size=(B, D)).astype(np.float32))
@@ -103,37 +151,53 @@ def _operands(B, D, N, per_channel, seed):
     return x, q, s
 
 
-@pytest.mark.parametrize("per_channel", [False, True],
-                         ids=["per_tensor", "per_channel"])
-@pytest.mark.parametrize("B,N", [(37, 48), (64, 128), (5, 16)])
-def test_tensor_model_matches_the_plain_version_at_d64(per_channel, B, N):
-    x, q, s = _operands(B, 64, N, per_channel, seed=B + N)
-    np.testing.assert_allclose(DQ.tensor_product_model(x, q, s).numpy(),
-                               DQ.dequant_matmul_ref(x, q, s).numpy(), **TOL)
+@pytest.mark.parametrize("seed", range(6))
+def test_tensor_model_misses_the_plain_version_at_d64(seed):
+    """Why D <= 64 takes the CUDA cores: at bench_roofline's (1024, 64,
+    256), with phase 17's operands (per-channel scales), the modelled
+    tensor route misses rtol/atol 1e-5 of the plain version near zero, as
+    the kernel's tensor route does on an H100 (tools/dq_accumulation.py),
+    while the CUDA-core route repeats the plain version's arithmetic."""
+    B, D, N = 1024, 64, 256
+    assert DQ.route(B, D, N) == "cuda_cores"
+    x, q, s = _operands(B, D, N, True, seed=seed)
+    out, ref = _tensor_route(x, q, s), DQ.dequant_matmul_ref(x, q, s)
+    share = ((out - ref).abs() / (TOL["atol"] + TOL["rtol"] * ref.abs()))
+    assert 1 < float(share.max()) < 4
 
 
 @pytest.mark.parametrize("per_channel", [False, True],
                          ids=["per_tensor", "per_channel"])
 @pytest.mark.parametrize("D", [2048, 2052])
 def test_tensor_model_within_the_walk_bound_at_d2048(per_channel, D):
-    """The model (k-tiles rounded to fp32, promoted in order, the scale on
-    the finished sum) and the plain version are each within the fp32
-    random-walk bound of the fp64 product; D 2052 ends on a zero-padded
-    k-tile."""
+    """The modelled tensor route (each k-tile promoted into an fp32 sum,
+    the scale on the finished sum) and the plain version are each within
+    the fp32 random-walk bound of the fp64 product; D 2052 ends on a
+    zero-padded k-tile."""
     x, q, s = _operands(16, D, 64, per_channel, seed=D)
     exact = x.double() @ (q.double() * s.double())
     bound = _walk_bound(D, exact)
-    for y in (DQ.tensor_product_model(x, q, s), DQ.dequant_matmul_ref(x, q,
-                                                                     s)):
+    for y in (_tensor_route(x, q, s), DQ.dequant_matmul_ref(x, q, s)):
         assert float((y.double() - exact).abs().max()) <= bound
+
+
+def test_tensor_model_drifts_without_promotion():
+    """Why the kernel promotes every k-tile: one accumulator over D 2048
+    (384 truncating steps) lands several times further from the fp64
+    product than a fresh accumulator per k-tile (22-32x on an H100)."""
+    x, q, s = _operands(16, 2048, 256, True, seed=1)
+    exact = x.double() @ (q.double() * s.double())
+    errs = [float((_tensor_route(x, q, s, p).double() - exact).abs().max())
+            for p in (True, False)]
+    assert errs[1] > 5 * errs[0]
+    assert errs[1] <= _walk_bound(2048, exact)
 
 
 def test_tensor_model_non_finite_rows_follow_the_plain_product():
     x, q, s = _operands(6, 64, 32, True, seed=5)
     q[5, 0] = 0                                       # inf * 0 is NaN
     x[1, 5], x[2, 9], x[3, 5] = float("inf"), float("nan"), -float("inf")
-    out, ref = DQ.tensor_product_model(x, q, s), DQ.dequant_matmul_ref(x, q,
-                                                                      s)
+    out, ref = _tensor_route(x, q, s), DQ.dequant_matmul_ref(x, q, s)
     assert torch.equal(out.isnan(), ref.isnan())
     assert torch.equal(out.isinf(), ref.isinf())
     assert torch.equal(out[out.isinf()], ref[ref.isinf()])
@@ -156,9 +220,8 @@ def test_route_depends_on_the_shape_alone(B, D, N):
 def test_every_tile_candidate_is_a_legal_launch_on_its_route(B, D, N):
     grid = AT.CANDIDATES["dequant_matmul"]
     tiles = list(itertools.product(grid["block_batch"], grid["block_n"]))
-    for bb, bn in tiles + ODD_TILES + [tuple(AT.defaults("dequant_matmul",
-                                                          (B, D, N))
-                                             .values())]:
+    for bb, bn in tiles + ODD_TILES + [tuple(DQ.default_tile(B, D, N, sms)
+                                             .values()) for sms in SMS]:
         r, rows, cols = DQ.plan(B, D, N, bb, bn)
         if r == "tensor":
             assert rows in (64, 128) and cols == DQ.TENSOR_COLS
@@ -173,25 +236,47 @@ def test_every_tile_candidate_is_a_legal_launch_on_its_route(B, D, N):
             assert (rows, cols) == (tb, tn)
 
 
+@pytest.mark.parametrize("sms", SMS)
 @pytest.mark.parametrize("B,D,N", DQ_SHAPES)
-def test_default_tile_is_a_candidate_that_fills_the_card(B, D, N):
-    """The default is the route's largest tile that still gives every SM a
-    block (``AT.WAVE``), or its smallest where none does."""
-    d = AT.defaults("dequant_matmul", (B, D, N))
+def test_default_tile_is_a_candidate_that_fills_the_card(B, D, N, sms):
+    """The default is the route's largest tile that still gives each of the
+    card's SMs a block, or its smallest where none does; a table miss
+    resolves to it, a table entry or a pinned tile beats it."""
+    d = DQ.default_tile(B, D, N, sms)
     grid = AT.CANDIDATES["dequant_matmul"]
     assert all(v in grid[k] for k, v in d.items())
-    assert d == AT.resolve("dequant_matmul", (B, D, N), torch.int8)
+    assert d == AT.resolve("dequant_matmul", (B, D, N), torch.int8, {}, d)
+    assert AT.resolve("dequant_matmul", (B, D, N), torch.int8,
+                      {"block_batch": 32, "block_n": None}, d) == \
+        dict(d, block_batch=32)
     r, rows, cols = DQ.plan(B, D, N, d["block_batch"], d["block_n"])
 
     def blocks(rows, cols):
         return -(-B // rows) * -(-N // cols)
     if r == "tensor":
-        assert (rows == 128) == (blocks(128, cols) >= AT.WAVE)
+        assert (rows == 128) == (blocks(128, cols) >= sms)
     else:
         t = d["block_batch"]
         assert d["block_n"] == t
-        assert blocks(t, t) >= AT.WAVE or t == 16
-        assert t == 128 or blocks(2 * t, 2 * t) < AT.WAVE
+        assert blocks(t, t) >= sms or t == 16
+        assert t == 128 or blocks(2 * t, 2 * t) < sms
+
+
+@pytest.mark.parametrize("B,D,N", DQ_SHAPES)
+def test_candidates_launch_each_distinct_tile_once(B, D, N):
+    """The tuner's and the bit-equality check's tiles: the default first,
+    then one tile for each further launch the grid makes at the shape."""
+    grid = AT.CANDIDATES["dequant_matmul"]
+    every = {DQ.plan(B, D, N, bb, bn) for bb, bn in
+             itertools.product(grid["block_batch"], grid["block_n"])}
+    for sms in SMS:
+        c = DQ.candidates(B, D, N, sms)
+        assert c[0] == DQ.default_tile(B, D, N, sms)
+        plans = [DQ.plan(B, D, N, t["block_batch"], t["block_n"]) for t in c]
+        assert len(plans) == len(set(plans))
+        assert set(plans) == every
+        if DQ.route(B, D, N) == "tensor":
+            assert len(c) == (2 if B > 64 else 1)
 
 
 def test_default_tiles_at_the_timed_shapes():
@@ -199,7 +284,7 @@ def test_default_tiles_at_the_timed_shapes():
     bench_roofline's D 64 shapes the CUDA cores, 256 blocks of 32 x 32 and
     128 of 16 x 16."""
     def default_plan(shape):
-        return DQ.plan(*shape, **AT.defaults("dequant_matmul", shape))
+        return DQ.plan(*shape, **DQ.default_tile(*shape, 132))
     assert default_plan((2048, 2048, 8192)) == ("tensor", 128, 128)
     assert default_plan((1024, 64, 256)) == ("cuda_cores", 32, 32)
     assert default_plan((64, 64, 512)) == ("cuda_cores", 16, 16)

@@ -1,69 +1,40 @@
-"""How often ``dequant_matmul``'s tensor route should promote its sum.
+"""Why ``dequant_matmul`` sends D <= 64 to the CUDA cores.
 
 The tensor cores' fp32 accumulation is not IEEE round-to-nearest, so the
-kernel sums each run of ``DQ_PROMOTE_EVERY`` 64-deep k-tiles on the tensor
-cores and adds it into an fp32 register sum (``csrc/dequant_matmul.cu``).
-This builds the kernel once for each choice (1, 2, 4 and 8 k-tiles, and 0:
-one accumulator over all of D) and, on the card, holds each to the fp64
-product at D 2048, per-channel scales, x ~ N(0, 1) and an int8 weight,
-beside the plain version:
+tensor route's sum of a k-tile can miss the plain version's by more than
+rtol/atol 1e-5 near zero (``csrc/dequant_matmul.cu``). At bench_roofline's
+D 64 shapes with phase 17's operands (x ~ N(0, 1), q uniform over the int8
+range, per-channel scales in [0.01, 0.1]) this launches the tensor route
+directly (route 1 of the kernel's C interface; the wrapper takes the CUDA
+cores there) and the wrapper's own call, on the card:
 
     PYTHONPATH=src python3 tools/dq_accumulation.py
 
-For each shape and choice it prints the worst distance from the fp64
-product as a share of the fp32 random-walk bound 8 · 2^-24 · √D · max|y|
-(``chip_smoke.dq_walk_bound``; over 1 fails) and the device ms
-(``time_callable``). Then, at bench_roofline's D 64 shapes with phase 17's
-operands (q uniform over the int8 range, scales in [0.01, 0.1]), the
-tensor route launched directly (the wrapper takes the CUDA cores there)
-and the wrapper's own call, each as the largest share of rtol/atol 1e-5
-of the plain version (over 1 fails that check). Then the card's name and
-power limit, then one JSON line. The libraries go to
-``build/dq_accumulation/``.
+For each shape it prints each call's largest error as a share of rtol/atol
+1e-5 of the plain version (over 1 fails that check), then the card's name
+and power limit, then one JSON line.
 """
 from __future__ import annotations
 
-import ctypes
 import json
 import subprocess
 
 import torch
 
-from repro_torch.kernels import build, ops
-from repro_torch.kernels.dequant_matmul import dequant_matmul_ref
-from repro_torch.launch.microbench import time_callable
+from repro_torch.kernels import ops
+from repro_torch.kernels.dequant_matmul import _library, dequant_matmul_ref
 
-CHOICES = (1, 2, 4, 8, 0)
-SHAPES = ((64, 2048, 1024), (2048, 2048, 1024), (2048, 2048, 8192))
-SHORT = ((1024, 64, 256), (64, 64, 512))        # one k-tile
-OUT = build.BUILD_DIR.parent / "dq_accumulation"
+SHAPES = ((1024, 64, 256), (64, 64, 512))        # one k-tile
 
 
-def library(every: int) -> ctypes.CDLL:
-    """``dequant_matmul.cu`` built with ``DQ_PROMOTE_EVERY = every``."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    so = OUT / f"dq_promote_{every}.so"
-    cmd = [build.nvcc_path(), *build.NVCC_FLAGS, f"-DDQ_PROMOTE_EVERY={every}",
-           "-o", str(so), str(build.CSRC / "dequant_matmul.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(proc.stderr)
-    lib = ctypes.CDLL(str(so))
-    lib.dequant_matmul_f32.argtypes = ([ctypes.c_void_p] * 4
-                                       + [ctypes.c_int] * 7
-                                       + [ctypes.c_void_p])
-    lib.dequant_matmul_f32.restype = ctypes.c_int
-    return lib
-
-
-def call(lib, x, q, s, rows: int) -> torch.Tensor:
-    """One tensor-route launch with ``rows`` (64 or 128) a block."""
+def tensor_route(x, q, s) -> torch.Tensor:
+    """One tensor-route launch, 64 rows a block."""
     B, D = x.shape
     N = q.shape[1]
     y = torch.empty((B, N), device=x.device)
-    rc = lib.dequant_matmul_f32(
+    rc = _library().dequant_matmul_f32(
         x.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(), B, D, N, 1,
-        rows, 128, int(s.dim() == 1),
+        64, 128, int(s.dim() == 1),
         torch._C._cuda_getCurrentRawStream(x.device.index))
     if rc != 0:
         raise RuntimeError(f"launch failed ({rc})")
@@ -74,52 +45,27 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    libs = {k: library(k) for k in CHOICES}
     g = torch.Generator(device="cuda").manual_seed(0)
-    rows_out = []
+    rows = []
     for B, D, N in SHAPES:
-        x = torch.randn((B, D), generator=g, device="cuda")
-        q = torch.randint(-127, 128, (D, N), generator=g, device="cuda",
-                          dtype=torch.int8)
-        s = 0.01 + 0.09 * torch.rand((N,), generator=g, device="cuda")
-        exact = x.double() @ (q.double() * s.double())
-        bound = 8 * 2.0 ** -24 * D ** 0.5 * float(exact.abs().max())
-        plain = float((dequant_matmul_ref(x, q, s).double() - exact).abs()
-                      .max())
-        row = dict(shape=[B, D, N], walk_bound=bound,
-                   plain_share=plain / bound, choices={})
-        for k, lib in libs.items():
-            rows = 128 if B >= 1024 else 64
-            y = call(lib, x, q, s, rows)
-            torch.cuda.synchronize()
-            err = float((y.double() - exact).abs().max())
-            ms = time_callable(lambda: call(lib, x, q, s, rows), repeats=50,
-                               warmup=3) * 1e3
-            row["choices"][str(k)] = dict(share=err / bound, device_ms=ms)
-            print(f"({B}, {D}, {N}) promote every {k or 'never'}: "
-                  f"{err / bound:.4f} of the walk bound {bound:.3e} "
-                  f"(plain {plain / bound:.4f}), device {ms:.5f} ms")
-        rows_out.append(row)
-    short = []
-    for B, D, N in SHORT:
         x = torch.randn((B, D), generator=g, device="cuda")
         q = torch.randint(-127, 128, (D, N), generator=g, device="cuda",
                           dtype=torch.int8)
         s = 0.01 + 0.09 * torch.rand((N,), generator=g, device="cuda")
         ref = dequant_matmul_ref(x, q, s)
         shares = {}
-        for name, y in (("tensor", call(libs[1], x, q, s, 64)),
+        for name, y in (("tensor", tensor_route(x, q, s)),
                         ("wrapper", ops.dequant_matmul(x, q, s))):
             torch.cuda.synchronize()
             shares[name] = float(((y - ref).abs() / (1e-5 + 1e-5 * ref.abs()))
                                  .max())
-        short.append(dict(shape=[B, D, N], **shares))
+        rows.append(dict(shape=[B, D, N], **shares))
         print(f"({B}, {D}, {N}) vs plain, share of rtol/atol 1e-5: tensor "
               f"route {shares['tensor']:.3f}, the wrapper's route "
               f"{shares['wrapper']:.3f}")
     print(smi)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "shapes": rows_out, "d64_vs_plain": short}))
+                      "d64_vs_plain": rows}))
     return 0
 
 
