@@ -135,6 +135,23 @@ The measured cost model and the autotuner (``repro_torch.launch.microbench``,
     for all 10 erasure patterns of a (5, 3) code within 1e-6 × the decode
     gain of ``x @ W``; the table written to a temporary directory.
 
+RoCoIn's offline phase (``repro_torch.core.pipeline``: teacher training,
+activation graph, planning, distillation, the FC head, failout) runs no
+hand-written kernel; what it trains is served through ``quorum_aggregate``:
+
+18. ``build_rocoin`` at the JAX package's defaults (WRN-16-4 teacher, 150
+    teacher and 150 student steps at batch 128, the rocoin planner on
+    ``make_fleet(8, seed=1)``, ``FailoutConfig()``) from seed 0 on the
+    card: each stage's wall time and steps/s, the plan; teacher and
+    all-alive ensemble accuracy within ±0.05 of the JAX package's run at
+    the same budget; the first teacher steps' losses card vs CPU; the
+    failout stage run twice under deterministic cuDNN, bit-equal; the
+    robustness curve into ``thin_replicas``; then the trained ensemble
+    served (all-alive logits vs ``Ensemble.predict`` within 1e-5), through
+    a traced ``ServingEngine`` (launches = batches + warm-up, critical-path
+    segments summing to each latency, ``tracer=None`` giving the same rows)
+    and a two-tenant ``FleetEngine``.
+
 The last two lines of standard output are the ``kernels`` JSON line (nine
 entries) and the ``ok`` JSON line. Exits non-zero without a CUDA device.
 """
@@ -142,6 +159,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import itertools
 import json
 import subprocess
@@ -161,13 +179,18 @@ from repro_torch.coding.compute import (ComputeRuntime,  # noqa: E402
                                         shard_linear_weights)
 from repro_torch.coding.planner import select_redundancy  # noqa: E402
 from repro_torch.coding.runtime import CodedRuntime  # noqa: E402
+from repro_torch.core import pipeline as PP  # noqa: E402
 from repro_torch.core import planner as PL  # noqa: E402
 from repro_torch.core.assignment import StudentArch  # noqa: E402
 from repro_torch.core.grouping import Device  # noqa: E402
 from repro_torch.core.pipeline import Ensemble  # noqa: E402
 from repro_torch.core.plan_ir import (PlanIR, device_matrix,  # noqa: E402
                                       eq1a_latency, student_matrix)
+from repro_torch.core.failout import FailoutConfig  # noqa: E402
+from repro_torch.core.scenarios import PoissonArrivals  # noqa: E402
 from repro_torch.core.simulator import FailureModel, make_fleet  # noqa: E402
+from repro_torch.data.images import (ImageTaskConfig,  # noqa: E402
+                                     SyntheticImages)
 from repro_torch.configs.archs import tiny_version  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels import autotune as AT  # noqa: E402
@@ -180,10 +203,14 @@ from repro_torch.launch import microbench as MB  # noqa: E402
 from repro_torch.launch.serve import (generate, greedy_decode,  # noqa: E402
                                       splice)
 from repro_torch.models import api, cnn, hybrid  # noqa: E402
+from repro_torch.obs import MetricsRegistry, Tracer  # noqa: E402
+from repro_torch.obs.report import critical_path, request_paths  # noqa: E402
 from repro_torch.optim.compression import quantize_weight  # noqa: E402
 from repro_torch.runtime.engine import EngineConfig, ServingEngine  # noqa: E402
+from repro_torch.runtime.fleet import (FleetEngine, FleetRouter,  # noqa: E402
+                                       SLOClass, TenantSpec)
 from repro_torch.runtime.serving import server_from_ensemble  # noqa: E402
-from repro_torch.tree import tree_to  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_to  # noqa: E402
 
 KERNELS = ("quorum_aggregate", "coded_decode", "rmsnorm", "flash_attention",
            "decode_attention", "ssd_scan", "topk_gating", "dequant_matmul",
@@ -2317,6 +2344,272 @@ def phase_measured(dev) -> dict:
     return dict(launches=launches, serve=served, max_abs_err=worst)
 
 
+# -- 18: the offline phase -------------------------------------------------------
+
+# build_rocoin at the JAX package's defaults: the paper's WRN-16-4 teacher,
+# the CIFAR-10 zoo, the rocoin planner on make_fleet(8, seed=1), failout
+OFFLINE = dict(n_classes=10, teacher_depth=16, teacher_widen=4,
+               teacher_steps=150, student_steps=150, batch=128)
+# the JAX package's own run of the same call from jax.random.key(0), on the
+# CPU: PYTHONPATH=src JAX_PLATFORMS=cpu python tests/jax_offline_reference.py
+# (teacher over 5 × 256 held-out images, ensemble all alive over 4 × 256)
+JAX_TEACHER_ACC = 0.996875
+JAX_ENSEMBLE_ACC = 0.998046875
+ACC_BAND = 0.05                 # ~3.5σ of a 1280-image accuracy at p = 0.5
+CARD_CPU_STEPS = 5
+# the first teacher steps' losses, card vs CPU: 2.6e-6 apart at most on
+# the first run (H100 80GB HBM3, 700 W), held at 1e-4
+CARD_CPU_RTOL = 1e-4
+PREDICT_TOL = dict(rtol=1e-5, atol=1e-5)   # served logits vs Ensemble.predict
+N_OFFLINE_REQUESTS = 64
+
+
+def same_trees(a, b) -> bool:
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def flat_images(ens: Ensemble) -> Ensemble:
+    """The ensemble behind a fleet lane, whose requests are flat (rows,
+    3072) vectors: each student forward reads them as 32×32×3 images."""
+    def reshaped(fwd):
+        return lambda p, cfg, x, **kw: fwd(
+            p, cfg, x.reshape(x.shape[0], 32, 32, 3), **kw)
+    return dataclasses.replace(ens, students=[
+        (cfg, p, reshaped(fwd)) for cfg, p, fwd in ens.students])
+
+
+def report_rows(report) -> list:
+    return ([dataclasses.astuple(r) for r in report.records],
+            [dataclasses.astuple(b) for b in report.batches])
+
+
+def phase_offline(dev) -> dict:
+    """RoCoIn's offline phase on the card, then its ensemble served: stage
+    times, accuracy against the JAX package, card vs CPU, a bit-equal
+    failout rerun, the robustness curve into ``thin_replicas``, and the
+    trained ensemble behind the server, a traced engine and a fleet."""
+    data = SyntheticImages(ImageTaskConfig(n_classes=10))
+    t0 = time.perf_counter()
+    for s in range(20):
+        data.batch(OFFLINE["batch"], 900_000 + s)
+    batch_ms = (time.perf_counter() - t0) / 20 * 1e3
+    print(f"offline: SyntheticImages.batch({OFFLINE['batch']}) "
+          f"{batch_ms:.3f} ms on the host")
+
+    # the call build_rocoin(gen, **OFFLINE, failout=FailoutConfig()), in its
+    # three parts: the teacher from the first of gen's three splits, the
+    # plan and students, then failout (tests/test_torch_offline.py holds
+    # the parts to the whole)
+    times: dict = {}
+    t_all = time.perf_counter()
+    teacher = PP.prepare_teacher(
+        PP.split_generator(torch.Generator().manual_seed(0), 3)[0],
+        n_classes=OFFLINE["n_classes"],
+        teacher_depth=OFFLINE["teacher_depth"],
+        teacher_widen=OFFLINE["teacher_widen"],
+        teacher_steps=OFFLINE["teacher_steps"], batch=OFFLINE["batch"],
+        data=data, device=dev, timings=times)
+    base = PP.build_rocoin(torch.Generator().manual_seed(0), **OFFLINE,
+                           planner="rocoin", teacher=teacher, device=dev,
+                           timings=times)
+    fo = FailoutConfig()
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        t0 = time.perf_counter()
+        ens = PP.failout_finetune(base, teacher, fo, batch=OFFLINE["batch"],
+                                  device=dev)
+        torch.cuda.synchronize()
+        times["failout"] = time.perf_counter() - t0
+        wall = time.perf_counter() - t_all
+        again = PP.failout_finetune(base, teacher, fo,
+                                    batch=OFFLINE["batch"], device=dev)
+        torch.cuda.synchronize()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+    if not (same_trees(ens.fc, again.fc) and all(
+            same_trees(a, b) for (_, a, _), (_, b, _) in
+            zip(ens.students, again.students))):
+        raise AssertionError("offline: two failout_finetune runs from one "
+                             "ensemble differ under deterministic cuDNN")
+
+    K = len(ens.students)
+    fc_steps = max(OFFLINE["student_steps"] // 2, 10)
+    steps = {"teacher": OFFLINE["teacher_steps"], "fc": fc_steps,
+             "failout": fo.steps,
+             **{f"student{k}": OFFLINE["student_steps"] for k in range(K)}}
+    print(f"offline: whole phase {wall:.3f} s (wall, card synchronised at "
+          f"each stage's end)")
+    for name, secs in times.items():
+        rate = (f", {steps[name] / secs:.1f} steps/s ({steps[name]} steps)"
+                if name in steps else "")
+        print(f"offline stage {name}: {secs:.3f} s{rate}")
+    print(f"offline: host batches ≈ {batch_ms * sum(steps.values()) / 1e3:.3f}"
+          f" s of the training stages' {sum(times[k] for k in steps):.3f} s")
+    print(f"offline plan: K={K}, widths {ens.part_dims}, students "
+          f"{[c.name for c, _, _ in ens.students]}, replicas per slot "
+          f"{ens.ir.member.sum(1).tolist()}, student_of "
+          f"{ens.ir.student_of.tolist()}, d_th {ens.ir.d_th:.4g}")
+    print(f"offline: the last stage ran twice under cudnn.deterministic: "
+          f"students and head bit-equal")
+
+    acc = ens.accuracy(data)
+    base_acc = base.accuracy(data)
+    print(f"offline accuracy: teacher {teacher.acc:.4f} (JAX package "
+          f"{JAX_TEACHER_ACC:.4f}), ensemble all alive {acc:.4f} (JAX "
+          f"package {JAX_ENSEMBLE_ACC:.4f}; before failout {base_acc:.4f}),"
+          f" band ±{ACC_BAND}")
+    if not (abs(teacher.acc - JAX_TEACHER_ACC) <= ACC_BAND
+            and abs(acc - JAX_ENSEMBLE_ACC) <= ACC_BAND):
+        raise AssertionError("offline: accuracy outside the band around "
+                             "the JAX package's run")
+    curve = ens.robustness_curve(data, max_losses=2)
+    print(f"offline robustness curve: losses {curve.losses.tolist()}, mean "
+          f"{np.round(curve.accuracy, 4).tolist()}, worst "
+          f"{np.round(curve.worst, 4).tolist()}")
+    thin = PL.thin_replicas(ens.ir, curve)
+    print(f"offline thin_replicas: replicas per slot "
+          f"{ens.ir.member.sum(1).tolist()} -> "
+          f"{thin.member.sum(1).tolist()} (tolerated losses at 1%: "
+          f"{curve.tolerated(0.01)})")
+
+    # card vs CPU: the first teacher steps from one CPU draw, TF32 off
+    tcfg = teacher.cfg
+    t0 = time.perf_counter()
+    _, on_card = PP.train_teacher(torch.Generator().manual_seed(1), tcfg,
+                                  data, steps=CARD_CPU_STEPS,
+                                  batch=OFFLINE["batch"], device=dev)
+    t1 = time.perf_counter()
+    _, on_cpu = PP.train_teacher(torch.Generator().manual_seed(1), tcfg,
+                                 data, steps=CARD_CPU_STEPS,
+                                 batch=OFFLINE["batch"], device="cpu")
+    t2 = time.perf_counter()
+    a, b = np.asarray(on_card["losses"]), np.asarray(on_cpu["losses"])
+    rel = np.abs(a - b) / np.abs(b)
+    print(f"offline card vs CPU: {CARD_CPU_STEPS} teacher steps, losses "
+          f"card {a.tolist()} CPU {b.tolist()}, largest relative distance "
+          f"{rel.max():.3e} (bound {CARD_CPU_RTOL}); card {t1 - t0:.3f} s, "
+          f"CPU {t2 - t1:.3f} s")
+    if not rel.max() <= CARD_CPU_RTOL:
+        raise AssertionError("offline: card and CPU teacher losses differ")
+
+    # serving what was trained
+    # every device alive: each slot the planner gave a student arrives (a
+    # slot without one never does, on the server as in Ensemble.predict)
+    ops.quorum_aggregate.launches = 0           # the main path's window
+    srv = server_from_ensemble(ens, failure=FailureModel(outages=False),
+                               device=dev)
+    servable = ens.ir.student_of >= 0
+    worst = 0.0
+    for rows in (1, 7, 64, 256):
+        x = torch.from_numpy(data.batch(rows, 20_000 + rows)[0]).to(dev)
+        (res,) = srv.serve_batch([x])
+        if not np.array_equal(res.arrived, servable):
+            raise AssertionError(f"offline: all devices alive, slots "
+                                 f"{res.arrived.tolist()} arrived")
+        worst = max(worst, max_err(torch.from_numpy(res.logits),
+                                   ens.predict(x, res.arrived).cpu(),
+                                   **PREDICT_TOL))
+    checks = ops.quorum_aggregate.launches
+    print(f"offline serve: {'fused' if srv.fastpath_active else 'legacy'} "
+          f"path, 4 batches with every device alive ({int(servable.sum())} "
+          f"of {len(servable)} slots have a student), logits vs "
+          f"Ensemble.predict max abs err {worst:.3e}")
+
+    failure = FailureModel(crash_prob=0.05, outages=True)
+    rng = np.random.default_rng(7)
+    times_r = np.cumsum(rng.exponential(1 / 200.0, N_OFFLINE_REQUESTS))
+    sizes = rng.integers(1, MAX_REQUEST_ROWS + 1, N_OFFLINE_REQUESTS)
+
+    def images(r, rows):
+        x = r.standard_normal((rows, 32, 32, 3)).astype(np.float32)
+        return torch.from_numpy(x).to(dev)
+
+    cfg = EngineConfig(max_batch=8, max_wait=0.01, slo=1.0, seed=7)
+    srv = server_from_ensemble(ens, failure=failure, seed=7, device=dev)
+    tr, metrics = Tracer(), MetricsRegistry()
+    before = ops.quorum_aggregate.launches
+    report = ServingEngine(srv, cfg, make_input=images, tracer=tr,
+                           metrics=metrics).run(times_r, sizes)
+    torch.cuda.synchronize()
+    traced = ops.quorum_aggregate.launches - before
+    warm = warmup_calls(sizes, cfg, srv)
+    if traced != len(report.batches) + warm:
+        raise AssertionError(f"offline engine: {traced} launches for "
+                             f"{len(report.batches)} batches + {warm} "
+                             f"warm-up calls")
+    latency = {r.rid: r.latency for r in report.records}
+    paths = request_paths(tr.events)
+    seg_err = max(abs(sum(d for _, d in p.segments) - latency[p.rid])
+                  for p in paths)
+    if len(paths) != report.summary()["n"] or seg_err > 1e-9:
+        raise AssertionError(f"offline engine: {len(paths)} traced paths, "
+                             f"segments miss latency by {seg_err:.3e}")
+    if metrics.counter("requests_served").value != report.summary()["n"]:
+        raise AssertionError("offline engine: metrics miscount requests")
+    cp = critical_path(tr.events, q=99.0)
+    print(f"offline engine (traced, wall clock): {report.summary()['n']} "
+          f"requests in {len(report.batches)} batches, launches {traced} "
+          f"(= batches + {warm} warm-up), {len(tr.events)} trace events, "
+          f"segments sum to each latency within {seg_err:.1e} s, p99 "
+          f"critical path rid {cp.path.rid}: "
+          f"{[(n, round(d, 6)) for n, d in cp.path.segments]}")
+
+    # tracing off changes no row (a modelled service time: no host clock)
+    modelled = dataclasses.replace(cfg, service_model=(2e-3, 1e-4), seed=8)
+    rows = []
+    for tracer in (Tracer(), None):
+        s2 = server_from_ensemble(ens, failure=failure, seed=8, device=dev)
+        rows.append(report_rows(ServingEngine(
+            s2, modelled, make_input=images, tracer=tracer).run(
+                times_r, sizes)))
+    for x, y in zip(*rows):
+        np.testing.assert_equal(x, y)
+    print(f"offline engine: tracer=None gives the traced run's "
+          f"{len(rows[0][0])} request rows and {len(rows[0][1])} batch rows")
+
+    # a two-tenant fleet over the trained server
+    flat = flat_images(ens)
+    tenants = [TenantSpec(
+        name, server_from_ensemble(flat, failure=failure, seed=10 + i,
+                                   device=dev),
+        slo=SLOClass(name, 1.0, weight),
+        config=EngineConfig(max_batch=8, max_wait=0.01, slo=1.0,
+                            input_dim=32 * 32 * 3, seed=10 + i))
+        for i, (name, weight) in enumerate((("gold", 4.0), ("bulk", 1.0)))]
+    traces = [PoissonArrivals(200.0, sizes=(1, 4, 16)).generate(
+        np.random.default_rng(20 + i), 0.2) for i in range(2)]
+    ftr = Tracer()
+    before = ops.quorum_aggregate.launches
+    frep = FleetEngine(tenants, router=FleetRouter("predicted"), seed=0,
+                       tracer=ftr, metrics=MetricsRegistry()).run(traces)
+    torch.cuda.synchronize()
+    fleet_launches = ops.quorum_aggregate.launches - before
+    fwarm = sum(warmup_calls(np.asarray(sz), t.config, t.server)
+                for t, (_, sz) in zip(tenants, traces))
+    fbatches = sum(len(r.batches) for r in frep.reports)
+    if fleet_launches != fbatches + fwarm:
+        raise AssertionError(f"offline fleet: {fleet_launches} launches for "
+                             f"{fbatches} batches + {fwarm} warm-up calls")
+    fs = frep.summary()
+    print(f"offline fleet: tenants {list(frep.tenants)}, "
+          f"{[r.summary()['n'] for r in frep.reports]} requests, "
+          f"{fbatches} batches, launches {fleet_launches} (= batches + "
+          f"{fwarm} warm-up), p99 per tenant "
+          f"{[round(p, 6) for p in fs['p99_per_tenant']]} s, "
+          f"{len(request_paths(ftr.events))} traced requests")
+    launches = ops.quorum_aggregate.launches
+    print(f"offline: quorum_aggregate launches {launches} ({checks} checks "
+          f"+ {traced} traced + {launches - checks - traced - fleet_launches}"
+          f" modelled + {fleet_launches} fleet)")
+    return dict(launches=launches, max_abs_err=worst)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2390,10 +2683,12 @@ def main() -> int:
     ssm_moe = phase_ssm_moe_serve(dev)
     matmul_timing = phase_matmul_kernels(dev, plans)
     measured = phase_measured(dev)
+    offline = phase_offline(dev)
     for entry in (kernel, decode):
         entry["launches"] += measured["launches"][entry["name"]]
         entry["max_abs_err"] = max(entry["max_abs_err"],
                                    measured["max_abs_err"][entry["name"]])
+    kernel["launches"] += offline["launches"]
     matmul_timing["dequant_matmul"]["max_abs_err"] = max(
         matmul_timing["dequant_matmul"]["max_abs_err"],
         measured["max_abs_err"]["dequant_matmul"])

@@ -11,11 +11,17 @@ converts an LM parameter tree of any ported family leaf by leaf, with no
 permutation: the dense and MoE ``layers`` and the SSM ``layers`` stacked on
 axis 0, the hybrid's stacked ``periods`` with their ``sub{i}`` dicts; bf16
 leaves bit for bit, fp32 ones (the MoE router, the SSM ``A_log``, ``D``
-and ``dt_bias``) as they are. With converted weights both packages compute
-the same function.
+and ``dt_bias``) as they are. ``teacher_from_jax`` and ``ensemble_from_jax``
+carry a trained ``TeacherBundle`` or ``Ensemble`` of the JAX package across
+whole: configs, weights, plan and head. With converted weights both
+packages compute the same function.
+
+Nothing here imports JAX: leaves are read with ``numpy.asarray``, so they
+may be numpy arrays (what ``jax.device_get`` returns) or JAX arrays.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
@@ -66,3 +72,66 @@ def lm_params_from_jax(tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: lm_params_from_jax(v) for k, v in tree.items()}
     return _lm_tensor(tree)
+
+
+def _cnn_cfg(cfg):
+    """A JAX CNN config → the port's config of the same class name."""
+    from repro_torch.models import cnn
+    return getattr(cnn, type(cfg).__name__)(**dataclasses.asdict(cfg))
+
+
+def _forward(cfg):
+    from repro_torch.models import cnn
+    return (cnn.wrn_forward if isinstance(cfg, cnn.WRNConfig)
+            else cnn.mbv2_forward)
+
+
+def _same_class(obj, cls):
+    return cls(**dataclasses.asdict(obj))
+
+
+def teacher_from_jax(bundle: Any):
+    """A JAX ``TeacherBundle`` → the port's, weights on the CPU."""
+    from repro_torch.core.pipeline import TeacherBundle
+    from repro_torch.data.images import ImageTaskConfig, SyntheticImages
+    return TeacherBundle(
+        cfg=_cnn_cfg(bundle.cfg), params=params_from_jax(bundle.params),
+        acc=float(bundle.acc), A=np.asarray(bundle.A),
+        data=SyntheticImages(_same_class(bundle.data.cfg, ImageTaskConfig)))
+
+
+def _plan_from_jax(plan: Any):
+    from repro_torch.core.assignment import StudentArch
+    from repro_torch.core.grouping import Device
+    from repro_torch.core.planner import GroupPlan, Plan
+    groups = [GroupPlan(
+        g.group_idx, [_same_class(d, Device) for d in g.devices],
+        g.partition_idx, np.asarray(g.filters),
+        None if g.student is None else _same_class(g.student, StudentArch))
+        for g in plan.groups]
+    return Plan(groups, np.asarray(plan.A), plan.d_th, plan.p_th)
+
+
+def _ir_from_jax(ir: Any):
+    """A replicate-only JAX ``PlanIR`` → the port's (every field is numpy,
+    a tuple of names or a float)."""
+    from repro_torch.core.plan_ir import PlanIR
+    fields = {f.name: getattr(ir, f.name) for f in dataclasses.fields(ir)}
+    if any(fields[k] is not None for k in
+           ("coding", "compute_coding", "device_specs")):
+        raise ValueError("only replicate-only plans with declared latency "
+                         "carry across")
+    return PlanIR(**fields)
+
+
+def ensemble_from_jax(ens: Any):
+    """A JAX ``Ensemble`` → the port's: each student's config and forward,
+    its weights (HWIO → OIHW), the head, the plan and its IR."""
+    from repro_torch.core.pipeline import Ensemble
+    students = []
+    for cfg, params, _ in ens.students:
+        tcfg = _cnn_cfg(cfg)
+        students.append((tcfg, params_from_jax(params), _forward(tcfg)))
+    return Ensemble(_plan_from_jax(ens.plan), students, fc_from_jax(ens.fc),
+                    [int(d) for d in ens.part_dims], float(ens.teacher_acc),
+                    ir=None if ens.ir is None else _ir_from_jax(ens.ir))

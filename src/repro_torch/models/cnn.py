@@ -1,16 +1,20 @@
-"""The paper's student CNN zoo at eval: WideResNet-depth-width and
-MobileNetV2 (CIFAR variant), functional PyTorch over parameter dicts.
+"""The paper's teacher/student CNN zoo: WideResNet-depth-width and
+MobileNetV2 (CIFAR variant), functional PyTorch over parameter dicts with
+explicit BN state.
 
+Teachers: WRN-16-4 (CIFAR-10), WRN-28-10 (CIFAR-100).
 Students: WRN-22-1 / WRN-16-1 / MobileNetV2 (CIFAR-10);
           WRN-16-3 / WRN-16-2 / WRN-22-1 (CIFAR-100).
 
 Each student's final conv is sized to its knowledge partition, so its
 pooled final features are its "portion" of the teacher's final conv.
-``forward(p, cfg, x)`` takes NHWC images and returns ``(logits,
-final_features, p)`` like the JAX package's eval forward (whose third
-element is the unchanged BN state at eval). The parameter dicts mirror the
-JAX package's, with OIHW conv kernels and no ``expand`` entry in an
-inverted-residual block that has no expansion.
+``forward(p, cfg, x, train=False)`` takes NHWC images and returns
+``(logits, final_features, new_params)`` like the JAX package's forward:
+at eval the third element is ``p`` itself; with ``train=True`` batch norm
+uses the batch's statistics and the third element is ``p`` with every BN
+``mean``/``var`` moved (the same tree as the JAX package's). The parameter
+dicts mirror the JAX package's, with OIHW conv kernels and no ``expand``
+entry in an inverted-residual block that has no expansion.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.tree import tree_leaves
 
 Params = Dict[str, Any]
 
@@ -67,17 +72,25 @@ def _basic_init(gen, cin, cout):
     return p
 
 
-def _basic_apply(p, x, *, stride):
-    h = torch.relu(L.batchnorm_apply(p["bn1"], x))
+def _bn(p, x, train):
+    """Batch norm and its new state (``p`` itself at eval)."""
+    if train:
+        return L.batchnorm_train(p, x)
+    return L.batchnorm_apply(p, x), p
+
+
+def _basic_apply(p, x, *, stride, train=False):
+    h, bn1 = _bn(p["bn1"], x, train)
+    h = torch.relu(h)
     sc = x
     if "shortcut" in p:
         sc = L.conv2d_apply(p["shortcut"], h, stride=stride)
     elif stride != 1:
         sc = x[:, ::stride, ::stride, :]
     h = L.conv2d_apply(p["conv1"], h, stride=stride)
-    h2 = L.batchnorm_apply(p["bn2"], h)
+    h2, bn2 = _bn(p["bn2"], h, train)
     h = L.conv2d_apply(p["conv2"], torch.relu(h2))
-    return h + sc
+    return h + sc, {**p, "bn1": bn1, "bn2": bn2}
 
 
 def wrn_init(gen: torch.Generator, cfg: WRNConfig) -> Params:
@@ -94,19 +107,23 @@ def wrn_init(gen: torch.Generator, cfg: WRNConfig) -> Params:
     return p
 
 
-def wrn_forward(p: Params, cfg: WRNConfig, x: torch.Tensor
+def wrn_forward(p: Params, cfg: WRNConfig, x: torch.Tensor, *,
+                train: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, Params]:
-    """x: (B,32,32,3) → (logits, final_feats (B, C_final), p)."""
+    """x: (B,32,32,3) → (logits, final_feats (B, C_final), new_params)."""
+    newp = dict(p)
     h = L.conv2d_apply(p["conv0"], x)
     for gi in range(3):
         stride = 1 if gi == 0 else 2
         for bi in range(cfg.n_blocks):
-            h = _basic_apply(p[f"g{gi}b{bi}"], h,
-                             stride=(stride if bi == 0 else 1))
-    h = torch.relu(L.batchnorm_apply(p["bn_out"], h))   # (B,8,8,C)
+            h, newp[f"g{gi}b{bi}"] = _basic_apply(
+                p[f"g{gi}b{bi}"], h, stride=(stride if bi == 0 else 1),
+                train=train)
+    h, newp["bn_out"] = _bn(p["bn_out"], h, train)
+    h = torch.relu(h)                # (B,8,8,C) final conv activations
     feats = h.mean(dim=(1, 2))       # average activity per filter
     logits = L.dense_apply(p["fc"], feats)
-    return logits, feats, p
+    return logits, feats, (newp if train else p)
 
 
 # ---------------------------------------------------------------------------
@@ -143,18 +160,21 @@ def _inv_res_init(gen, cin, cout, exp):
     return p
 
 
-def _inv_res_apply(p, x, *, stride):
+def _inv_res_apply(p, x, *, stride, train=False):
     h = x
+    newp = dict(p)
     if "expand" in p:
         h = L.conv2d_apply(p["expand"], h)
-    h = torch.clamp(L.batchnorm_apply(p["bn0"], h), 0, 6)
+    h, newp["bn0"] = _bn(p["bn0"], h, train)
+    h = torch.clamp(h, 0, 6)
     h = L.conv2d_apply(p["dw"], h, stride=stride, groups=h.shape[-1])
-    h = torch.clamp(L.batchnorm_apply(p["bn1"], h), 0, 6)
+    h, newp["bn1"] = _bn(p["bn1"], h, train)
+    h = torch.clamp(h, 0, 6)
     h = L.conv2d_apply(p["project"], h)
-    h = L.batchnorm_apply(p["bn2"], h)
+    h, newp["bn2"] = _bn(p["bn2"], h, train)
     if stride == 1 and x.shape[-1] == h.shape[-1]:
         h = h + x
-    return h
+    return h, newp
 
 
 def mbv2_init(gen: torch.Generator, cfg: MBV2Config) -> Params:
@@ -176,27 +196,38 @@ def mbv2_init(gen: torch.Generator, cfg: MBV2Config) -> Params:
     return p
 
 
-def mbv2_forward(p: Params, cfg: MBV2Config, x: torch.Tensor
+def mbv2_forward(p: Params, cfg: MBV2Config, x: torch.Tensor, *,
+                 train: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor, Params]:
-    """x: (B,32,32,3) → (logits, final_feats (B, final_channels), p)."""
+    """x: (B,32,32,3) → (logits, final_feats (B, final_channels),
+    new_params)."""
+    newp = dict(p)
     h = L.conv2d_apply(p["conv0"], x)
-    h = torch.clamp(L.batchnorm_apply(p["bn0"], h), 0, 6)
+    h, newp["bn0"] = _bn(p["bn0"], h, train)
+    h = torch.clamp(h, 0, 6)
     idx = 0
     for _, _, n, stride in _MBV2_BLOCKS:
         for i in range(n):
-            h = _inv_res_apply(p[f"b{idx}"], h,
-                               stride=(stride if i == 0 else 1))
+            h, newp[f"b{idx}"] = _inv_res_apply(
+                p[f"b{idx}"], h, stride=(stride if i == 0 else 1),
+                train=train)
             idx += 1
     h = L.conv2d_apply(p["conv_last"], h)
-    h = torch.clamp(L.batchnorm_apply(p["bn_last"], h), 0, 6)
+    h, newp["bn_last"] = _bn(p["bn_last"], h, train)
+    h = torch.clamp(h, 0, 6)
     feats = h.mean(dim=(1, 2))
     logits = L.dense_apply(p["fc"], feats)
-    return logits, feats, p
+    return logits, feats, (newp if train else p)
 
 
 # ---------------------------------------------------------------------------
 # model zoo registry (paper §V-A)
 # ---------------------------------------------------------------------------
+
+def count_params(p: Params) -> int:
+    """Number of scalars in a parameter tree."""
+    return sum(t.numel() for t in tree_leaves(p))
+
 
 def make_student(gen: torch.Generator, name: str, n_classes: int,
                  final_channels: int):

@@ -1,5 +1,6 @@
-"""Layers of the CNN zoo (dense, 2-D convolution, batch norm, eval mode)
-and of the LM stack (embedding, RMSNorm, LayerNorm, RoPE, SwiGLU, GELU).
+"""Layers of the CNN zoo (dense, 2-D convolution, batch norm in eval and
+train mode) and of the LM stack (embedding, RMSNorm, LayerNorm, RoPE,
+SwiGLU, GELU).
 
 Activations are NHWC at every public function, as in the JAX package, so
 the two compare like with like. Convolution kernels are stored OIHW, the
@@ -180,7 +181,7 @@ def conv2d_apply(p: Params, x: torch.Tensor, *, stride: int = 1,
 
 
 # ---------------------------------------------------------------------------
-# batch norm (eval: running statistics)
+# batch norm (eval: running statistics; train: batch statistics)
 # ---------------------------------------------------------------------------
 
 def batchnorm_init(ch: int) -> Params:
@@ -194,6 +195,25 @@ def batchnorm_apply(p: Params, x: torch.Tensor, *, eps: float = 1e-5
     """Normalise the last axis with the running statistics."""
     y = (x - p["mean"]) * torch.rsqrt(p["var"] + eps)
     return y * p["scale"] + p["bias"]
+
+
+def batchnorm_train(p: Params, x: torch.Tensor, *, momentum: float = 0.9,
+                    eps: float = 1e-5) -> Tuple[torch.Tensor, Params]:
+    """Normalise the last axis with the batch's mean and biased variance;
+    return ``(y, new_stats)``, the running statistics moved to
+    ``momentum · old + (1 − momentum) · batch`` (the JAX package's
+    ``batchnorm_apply(train=True)``). ``y`` is one ``F.batch_norm`` over
+    the channels-last view, with no running buffers: its own update would
+    keep the unbiased variance and weigh the batch by ``momentum``. The new
+    statistics carry no gradient."""
+    dims = tuple(range(x.ndim - 1))
+    y = F.batch_norm(x.movedim(-1, 1), None, None, p["scale"], p["bias"],
+                     training=True, eps=eps).movedim(1, -1)
+    with torch.no_grad():
+        var, mean = torch.var_mean(x, dim=dims, correction=0)
+        new = {**p, "mean": momentum * p["mean"] + (1 - momentum) * mean,
+               "var": momentum * p["var"] + (1 - momentum) * var}
+    return y, new
 
 
 # ---------------------------------------------------------------------------

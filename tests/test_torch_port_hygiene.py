@@ -36,7 +36,10 @@ COPIED = ["obs/stats.py", "core/grouping.py", "core/assignment.py",
           "core/ncut.py", "core/hwspec.py", "coding/codes.py",
           "coding/spec.py", "coding/compute.py", "coding/planner.py",
           "core/plan_ir.py", "core/planner.py", "core/simulator.py",
-          "runtime/clock.py", "runtime/failures.py", "runtime/controller.py"]
+          "runtime/clock.py", "runtime/failures.py", "runtime/controller.py",
+          "core/failout.py", "core/scenarios.py", "obs/trace.py",
+          "obs/metrics.py", "obs/report.py", "obs/__init__.py",
+          "runtime/fleet.py", "data/images.py"]
 IMPORT = re.compile(r"^(\s*(?:from|import) )repro\.", re.M)
 
 
@@ -159,6 +162,31 @@ def test_measured_path_modules_import_neither_jax_nor_repro(module):
     """Each module of the measured-cost-model and autotune slice, imported
     alone in a fresh interpreter, loads no ``jax`` and no ``repro``
     module."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('repro_torch.{module}')\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+OFFLINE_SLICE = ["core.failout", "core.scenarios", "core.distill",
+                 "core.activation_graph", "core.pipeline", "obs",
+                 "obs.trace", "obs.metrics", "obs.report", "runtime.fleet",
+                 "data.images", "convert"]
+
+
+@pytest.mark.parametrize("module", OFFLINE_SLICE)
+def test_offline_slice_modules_import_neither_jax_nor_repro(module):
+    """Each module of the offline-phase, fleet and observability slice,
+    imported alone in a fresh interpreter, loads no ``jax`` and no
+    ``repro`` module (``data/`` has no ``__init__.py``, as in the JAX
+    package, so the package walk above does not reach ``data.images``)."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module('repro_torch.{module}')\n"
