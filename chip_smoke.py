@@ -152,8 +152,40 @@ hand-written kernel; what it trains is served through ``quorum_aggregate``:
     segments summing to each latency, ``tracer=None`` giving the same rows)
     and a two-tenant ``FleetEngine``.
 
-The last two lines of standard output are the ``kernels`` JSON line (nine
-entries) and the ``ok`` JSON line. Exits non-zero without a CUDA device.
+Dense-LM training (``repro_torch.launch.train``: AdamW over an fp32 master
+copy, ``SyntheticTokens`` batches, checkpoints) differentiates through
+``rmsnorm`` and ``flash_attention``, whose backwards are two more
+hand-written kernels, ``rmsnorm_bwd`` and ``flash_attention_bwd``
+(``src/repro_torch/kernels/csrc/*_bwd.cu``):
+
+19. both backward kernels held to their plain versions (fp32 3e-5, bf16
+    3e-2) over sweeps (rmsnorm at the LM widths 768-8192, ragged D and
+    bases off 16 bytes; flash at D 32/64/96/128, G 1 and 4, causal and
+    not, Sq != Skv, the 32-row/key tile edges, strided q and dO), each case
+    run twice and bit-equal; timed at llama3.2-1b's training shapes (batch
+    4 x 512, bf16) beside their bounds, their plain versions and one
+    PyTorch call (``F.rms_norm``'s and SDPA's autograd backward); each of
+    the seven wrappers without a backward raises under grad;
+20. card vs CPU training: llama3.2-1b at full width cut to 2 layers, fp32,
+    weights drawn once on the CPU, 3 AdamW steps on the same batches
+    (batch 4 x 64): losses within 1e-3 relative, step-1 gradients within
+    1e-3 leaf by leaf, every gradient finite and nonzero, launches exactly
+    2L+1 / 2L+1 / L / L a step (rmsnorm, rmsnorm_bwd, flash, flash_bwd);
+21. full-width bf16 llama3.2-1b (all 16 layers, 1.50 B parameters)
+    through ``train.run(tiny=False, steps=20, batch=4, seq=512,
+    ckpt_every=10)``: launches exact, loss finite and falling, every
+    layer's step-1 gradient nonzero, the step-10 checkpoint restored and
+    stepped to 20 bit-equal to the run's state; step ms, tokens/s and a
+    profile of one step;
+22. RoCoIn at LM scale: ``plan_lm_rocoin`` on a full-width llama3.2-1b
+    teacher over ``make_fleet(4, seed=1)``, two students distilled (3 steps
+    each at batch 4 x 512) and failout-tuned (2 steps) on the card through
+    the kernels and their backwards; the merged portions through the
+    teacher's head finite with either slot lost.
+
+The last two lines of standard output are the ``kernels`` JSON line
+(eleven entries) and the ``ok`` JSON line. Exits non-zero without a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -174,11 +206,15 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.ckpt.checkpoint import (CheckpointManager,  # noqa: E402
+                                         flatten_with_keys)
 from repro_torch.coding.codes import decode_matrix, make_generator  # noqa: E402
 from repro_torch.coding.compute import (ComputeRuntime,  # noqa: E402
                                         shard_linear_weights)
 from repro_torch.coding.planner import select_redundancy  # noqa: E402
 from repro_torch.coding.runtime import CodedRuntime  # noqa: E402
+from repro_torch.core import lm_students as LMS  # noqa: E402
+from repro_torch.core import ncut as NC  # noqa: E402
 from repro_torch.core import pipeline as PP  # noqa: E402
 from repro_torch.core import planner as PL  # noqa: E402
 from repro_torch.core.assignment import StudentArch  # noqa: E402
@@ -191,6 +227,8 @@ from repro_torch.core.scenarios import PoissonArrivals  # noqa: E402
 from repro_torch.core.simulator import FailureModel, make_fleet  # noqa: E402
 from repro_torch.data.images import (ImageTaskConfig,  # noqa: E402
                                      SyntheticImages)
+from repro_torch.data.tokens import (SyntheticTokens,  # noqa: E402
+                                     TokenTaskConfig)
 from repro_torch.configs.archs import tiny_version  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels import autotune as AT  # noqa: E402
@@ -200,21 +238,25 @@ from repro_torch.kernels import dequant_matmul as ops_dq  # noqa: E402
 from repro_torch.kernels._layout import num_sms  # noqa: E402
 from repro_torch.kernels import ssd_scan as SS  # noqa: E402
 from repro_torch.launch import microbench as MB  # noqa: E402
+from repro_torch.launch import steps as ST  # noqa: E402
+from repro_torch.launch import train as TR  # noqa: E402
 from repro_torch.launch.serve import (generate, greedy_decode,  # noqa: E402
                                       splice)
 from repro_torch.models import api, cnn, hybrid  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.obs import MetricsRegistry, Tracer  # noqa: E402
 from repro_torch.obs.report import critical_path, request_paths  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.optim.compression import quantize_weight  # noqa: E402
 from repro_torch.runtime.engine import EngineConfig, ServingEngine  # noqa: E402
 from repro_torch.runtime.fleet import (FleetEngine, FleetRouter,  # noqa: E402
                                        SLOClass, TenantSpec)
 from repro_torch.runtime.serving import server_from_ensemble  # noqa: E402
-from repro_torch.tree import tree_leaves, tree_to  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map, tree_to  # noqa: E402
 
 KERNELS = ("quorum_aggregate", "coded_decode", "rmsnorm", "flash_attention",
            "decode_attention", "ssd_scan", "topk_gating", "dequant_matmul",
-           "coded_matmul")
+           "coded_matmul", "rmsnorm_bwd", "flash_attention_bwd")
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/quorum_aggregate.cu"
 TPU_KERNEL = "src/repro/kernels/quorum_aggregate.py:33"
 DECODE_SOURCE = "src/repro_torch/kernels/csrc/coded_decode.cu"
@@ -1402,7 +1444,12 @@ def lm_profile(label: str, fn, calls: int) -> dict:
                              ("decode_attention", ("decode_kernel",)),
                              # the CUDA-core kernel, the tensor-core pair
                              ("ssd_scan", ("ssd_kernel", "ssd_chunk_")),
-                             ("topk_gating", ("topk_gating_kernel",)))}
+                             ("topk_gating", ("topk_gating_kernel",)),
+                             ("rmsnorm_bwd", ("rmsnorm_bwd_kernel",
+                                              "rmsnorm_dscale_kernel")),
+                             ("flash_attention_bwd", ("stats_kernel",
+                                                      "dkdv_kernel",
+                                                      "dq_kernel")))}
     top = "; ".join(f"{k[:70]} {t:.4f} ms" for k, t in
                     sorted(per_name.items(), key=lambda kv: -kv[1])[:5])
     print(f"profile: {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
@@ -2610,6 +2657,513 @@ def phase_offline(dev) -> dict:
     return dict(launches=launches, max_abs_err=worst)
 
 
+# -- dense-LM training: rmsnorm_bwd, flash_attention_bwd ---------------------------
+
+TRAIN_SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu"
+                 for k in ("rmsnorm_bwd", "flash_attention_bwd")}
+# no TPU kernel: the JAX package differentiates these plain functions
+TRAIN_REPLACES = {"rmsnorm_bwd": "src/repro/models/layers.py:66",
+                  "flash_attention_bwd": "src/repro/models/transformer.py:85"}
+TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                 "flash_attention_bwd")
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, CKPT_EVERY = 4, 512, 20, 10
+CARD_CPU_TRAIN_STEPS, CARD_CPU_TRAIN_SEQ = 3, 64
+TRAIN_TOL = 1e-3                # card vs CPU: losses and step-1 gradients
+# (B, KV, G, Sq, Skv, D) of the flash backward sweep: every head dim, G 1
+# and 4, Sq != Skv both ways, and the 32-row/key tiles' edges
+FLASH_BWD_SWEEP = ((1, 1, 1, 64, 64, 64), (2, 2, 4, 100, 100, 64),
+                   (1, 4, 2, 128, 128, 128), (1, 2, 4, 33, 33, 96),
+                   (1, 2, 1, 5, 5, 32), (2, 8, 4, 512, 512, 64),
+                   (1, 2, 4, 31, 65, 64), (1, 2, 1, 97, 33, 128),
+                   (1, 1, 4, 1, 40, 32), (1, 2, 1, 129, 1, 96),
+                   (1, 2, 4, 32, 32, 32), (1, 1, 1, 65, 96, 64))
+RMS_BWD_ROWS = (1, 7, 2048, 4097)
+LM_STUDENTS = 2                 # phase 22's K
+DISTILL_STEPS, FAILOUT_STEPS = 3, 2
+
+
+def rmsnorm_bwd_bound(rows, D, dtype) -> tuple:
+    """Read x, g and the scale once, write dx and dscale once; about 10
+    flops per element (two sums, dx, the scale's sum)."""
+    e = torch.finfo(dtype).bits // 8
+    return roofline(3 * rows * D * e + 2 * D * e, 10 * rows * D, dtype)
+
+
+def flash_bwd_bound(B, KV, G, Sq, Skv, D, causal, dtype) -> tuple:
+    """q, o, dO read and dq written (4 of B·KV·G·Sq·D), k, v read and dk,
+    dv written (4 of B·KV·Skv·D); five products of 2·D flops per scored
+    pair (q·k, dO·v, P·dO, dS·q, dS·k)."""
+    e = torch.finfo(dtype).bits // 8
+    nbytes = (4 * B * KV * G * Sq * D + 4 * B * KV * Skv * D) * e
+    flops = 10 * D * B * KV * G * attention_pairs(Sq, Skv, causal)
+    return roofline(nbytes, flops, dtype)
+
+
+def flash_bwd_operands(B, KV, G, Sq, Skv, D, dtype, strided, gen, dev):
+    """q, k, v and dO as the model hands them to the backward (views of
+    (B, S, KV, G, D) and (B, S, KV, D) memory), or contiguous copies."""
+    qm = torch.randn((B, Sq, KV, G, D), generator=gen, device=dev).to(dtype)
+    km = torch.randn((B, Skv, KV, D), generator=gen, device=dev).to(dtype)
+    vm = torch.randn((B, Skv, KV, D), generator=gen, device=dev).to(dtype)
+    dm = torch.randn((B, Sq, KV, G, D), generator=gen, device=dev).to(dtype)
+    ts = (qm.permute(0, 2, 3, 1, 4), km.permute(0, 2, 1, 3),
+          vm.permute(0, 2, 1, 3), dm.permute(0, 2, 3, 1, 4))
+    return ts if strided else tuple(t.contiguous() for t in ts)
+
+
+def bwd_check(got, want, dtype, label: str) -> float:
+    """Each gradient within the LM bounds of its plain version."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{label}: {a.shape}/{a.dtype} vs "
+                                 f"{b.shape}/{b.dtype}")
+        try:
+            e = max_err(a.float(), b.float(), **LM_KERNEL_TOL[b.dtype])
+        except AssertionError as err:
+            raise AssertionError(f"{label}: {err}") from err
+        worst = max(worst, e)
+    return worst
+
+
+def rmsnorm_bwd_exact(x, sc, g) -> tuple:
+    """The plain backward on fp64 copies, rounded to the kernel's dtypes:
+    dscale sums every row, and two fp32 sums of thousands of rows in other
+    orders differ by more than 3e-5 where the terms cancel."""
+    dx, ds = ops.rmsnorm_bwd_ref(x.double(), sc.double(), g.double())
+    return dx.to(x.dtype), ds.to(sc.dtype)
+
+
+def same_twice(fn, label: str):
+    """``fn()`` twice: every output bit-equal (no atomics in the sums)."""
+    a, b = fn(), fn()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{label}: a second run differs")
+    return a
+
+
+def guarded_calls(dev) -> dict:
+    """One call of each kernel that has no backward, its first float
+    operand passed through ``t`` (which makes it need a gradient)."""
+    r = lambda *s: torch.rand(s, device=dev)  # noqa: E731
+    x, dt, A, Bm, Cm = ssd_operands(1, 2, 64, 64, 16, torch.float32, False,
+                                    torch.Generator(device=dev).manual_seed(0),
+                                    dev)
+    q, kc, vc = decode_operands(1, 2, 2, 8, 64, torch.float32,
+                                torch.Generator(device=dev).manual_seed(0),
+                                dev)
+    ones = lambda *s: torch.ones(s, dtype=torch.int32, device=dev)  # noqa
+    return {
+        "topk_gating": lambda t: ops.topk_gating(t(r(8, 16)), 2),
+        "ssd_scan": lambda t: ops.ssd_scan(t(x), dt, A, Bm, Cm),
+        "decode_attention": lambda t: ops.decode_attention(t(q), kc, vc, 3),
+        "quorum_aggregate": lambda t: ops.quorum_aggregate(
+            t(r(2, 4, 8)), r(2, 8, 3), r(3), ones(2)),
+        "coded_decode": lambda t: ops.coded_decode(t(r(4, 3, 8)),
+                                                   r(4, 2, 3), ones(4, 3)),
+        "dequant_matmul": lambda t: ops.dequant_matmul(
+            t(r(4, 8)), torch.ones((8, 5), dtype=torch.int8, device=dev),
+            torch.tensor(0.1, device=dev)),
+        "coded_matmul": lambda t: ops.coded_matmul(t(r(4, 8)), r(3, 8, 5)),
+    }
+
+
+def backward_timing(fwd, inputs, grad_out) -> callable:
+    """A callable running only the autograd backward of ``fwd(*inputs)``
+    for ``grad_out`` (the forward taped once, its graph kept)."""
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    out = fwd(*leaves)
+    return lambda: torch.autograd.grad(out, leaves, grad_out,
+                                       retain_graph=True)
+
+
+def phase_train_kernels(dev) -> dict:
+    """rmsnorm_bwd and flash_attention_bwd vs their plain versions over
+    sweeps, each case twice and bit-equal; timed at llama3.2-1b's training
+    shapes; the seven wrappers without a backward raise under grad."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    dtypes = (torch.float32, torch.bfloat16)
+    worst = {k: 0.0 for k in TRAIN_SOURCES}
+    cases = {k: 0 for k in TRAIN_SOURCES}
+    launches = ops.rmsnorm_bwd.launches
+    for dtype in dtypes:
+        for D in RMS_SWEEP_D:
+            errs = []
+            for rows in RMS_BWD_ROWS:
+                x = torch.randn((rows, D), generator=gen, device=dev).to(dtype)
+                sc = (1 + 0.1 * torch.randn((D,), generator=gen,
+                                            device=dev)).to(dtype)
+                g = torch.randn((rows, D), generator=gen, device=dev).to(dtype)
+                views = [(x, g)]
+                if rows in (7, 2048):   # bases off 16 bytes: scalar route
+                    views.append((unaligned_copy(x), unaligned_copy(g)))
+                for xv, gv in views:
+                    got = same_twice(lambda: ops.rmsnorm_bwd(xv, sc, gv),
+                                     f"rmsnorm_bwd D={D} rows={rows}")
+                    torch.cuda.synchronize()
+                    e = bwd_check(got, rmsnorm_bwd_exact(xv, sc, gv), dtype,
+                                  f"rmsnorm_bwd {dtype} D={D} rows={rows}")
+                    worst["rmsnorm_bwd"] = max(worst["rmsnorm_bwd"], e)
+                    cases["rmsnorm_bwd"] += 1
+                errs.append(f"rows{rows}:{e:.1e}")
+            print(f"rmsnorm_bwd {str(dtype)[6:]} D={D}: " + " ".join(errs))
+    if ops.rmsnorm_bwd.launches - launches != 2 * cases["rmsnorm_bwd"]:
+        raise AssertionError("rmsnorm_bwd: launches do not match the calls")
+    copies = ops.flash_attention_bwd.copies
+    for dtype in dtypes:
+        for B, KV, G, Sq, Skv, D in FLASH_BWD_SWEEP:
+            errs = []
+            for causal in (True, False):
+                for strided in (False, True):
+                    q, k, v, do = flash_bwd_operands(B, KV, G, Sq, Skv, D,
+                                                     dtype, strided, gen, dev)
+                    o = ops.flash_attention_ref(q, k, v, causal=causal)
+                    got = same_twice(
+                        lambda: ops.flash_attention_bwd(q, k, v, o, do,
+                                                        causal=causal),
+                        f"flash_attention_bwd {(B, KV, G, Sq, Skv, D)}")
+                    torch.cuda.synchronize()
+                    e = bwd_check(got, ops.flash_attention_bwd_ref(
+                        q, k, v, o, do, causal), dtype,
+                        f"flash_attention_bwd {dtype} "
+                        f"{(B, KV, G, Sq, Skv, D)} causal={causal}")
+                    worst["flash_attention_bwd"] = max(
+                        worst["flash_attention_bwd"], e)
+                    cases["flash_attention_bwd"] += 1
+                    errs.append(f"{'causal' if causal else 'full'}/"
+                                f"{'strided' if strided else 'contig'}:"
+                                f"{e:.1e}")
+            print(f"flash_bwd {str(dtype)[6:]} (B,KV,G,Sq,Skv,D)=({B},{KV},"
+                  f"{G},{Sq},{Skv},{D}): " + " ".join(errs))
+    if ops.flash_attention_bwd.copies != copies:
+        raise AssertionError("flash_attention_bwd copied a strided operand")
+    for k in TRAIN_SOURCES:
+        print(f"{k} vs plain: {cases[k]} cases within rtol/atol 3e-5 (fp32) "
+              f"and 3e-2 (bf16), each run twice bit-equal, max abs err "
+              f"{worst[k]:.3e}")
+
+    # timings at llama3.2-1b's training shapes (batch 4 x 512, bf16)
+    cfg = get_config(LM_ARCH)
+    bf = torch.bfloat16
+    B, S, d = TRAIN_BATCH, TRAIN_SEQ, cfg.d_model
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    G = cfg.n_heads // KV
+    F = torch.nn.functional
+    timing = {}
+    x = torch.randn((B * S, d), generator=gen, device=dev).to(bf)
+    sc = (1 + 0.1 * torch.randn((d,), generator=gen, device=dev)).to(bf)
+    g = torch.randn((B * S, d), generator=gen, device=dev).to(bf)
+    e = bwd_check(ops.rmsnorm_bwd(x, sc, g), rmsnorm_bwd_exact(x, sc, g),
+                  bf, "rmsnorm_bwd timed shape")
+    worst["rmsnorm_bwd"] = max(worst["rmsnorm_bwd"], e)
+    lib = backward_timing(lambda a, s: F.rms_norm(a, (d,), s, 1e-6),
+                          (x, sc), g)
+    timing["rmsnorm_bwd"] = dict(
+        ms=cuda_ms(lambda: ops.rmsnorm_bwd(x, sc, g)),
+        plain_ms=cuda_ms(lambda: ops.rmsnorm_bwd_ref(x, sc, g)),
+        library_ms=cuda_ms(lib), shape=f"x, g ({B * S}, {d}) bf16",
+        **device_pair(lambda: ops.rmsnorm_bwd(x, sc, g), lib))
+    timing["rmsnorm_bwd"]["bound_ms"], timing["rmsnorm_bwd"]["bound_by"] = \
+        rmsnorm_bwd_bound(B * S, d, bf)
+    q, k, v, do = flash_bwd_operands(B, KV, G, S, S, hd, bf, True, gen, dev)
+    o = ops.flash_attention(q, k, v, causal=True)
+    e = bwd_check(ops.flash_attention_bwd(q, k, v, o, do, causal=True),
+                  ops.flash_attention_bwd_ref(q, k, v, o, do, True), bf,
+                  "flash_attention_bwd timed shape")
+    worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"], e)
+    qh = q.reshape(B, KV * G, S, hd)
+    kh, vh = k.contiguous(), v.contiguous()
+    lib = backward_timing(
+        lambda a, b_, c: F.scaled_dot_product_attention(
+            a, b_, c, is_causal=True, enable_gqa=G > 1),
+        (qh, kh, vh), do.reshape(B, KV * G, S, hd))
+    t = attention_timing(
+        lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=True), lib,
+        f"(B,KV,G,S,D)=({B},{KV},{G},{S},{hd}) bf16 causal, strided views",
+        flash_bwd_bound(B, KV, G, S, S, hd, True, bf))
+    t["plain_ms"] = cuda_ms(lambda: ops.flash_attention_bwd_ref(
+        q, k, v, o, do, True), iters=10, warm=2)
+    timing["flash_attention_bwd"] = t
+    for name, t in timing.items():
+        t["max_abs_err"] = worst[name]
+        report_timing(name, t)
+
+    calls = guarded_calls(dev)
+    for name, call in calls.items():
+        try:
+            call(lambda t: t.clone().requires_grad_())
+        except RuntimeError as err:
+            if "no backward kernel" not in str(err):
+                raise
+        else:
+            raise AssertionError(f"{name}: launched under grad on an "
+                                 f"operand that needs a gradient")
+        with torch.no_grad():
+            call(lambda t: t.clone().requires_grad_())
+        call(lambda t: t)
+    torch.cuda.synchronize()
+    print(f"guard: {', '.join(calls)} raise under grad on operands that "
+          f"need a gradient and launch under no_grad or on plain operands")
+    return timing
+
+
+def train_launches() -> tuple:
+    """Calls of the training path's four kernels, ``TRAIN_KERNELS``
+    order."""
+    return tuple(getattr(ops, k).launches for k in TRAIN_KERNELS)
+
+
+def zero_train_launches() -> None:
+    for k in TRAIN_KERNELS:
+        getattr(ops, k).launches = 0
+
+
+def layer_slices(tree) -> list:
+    """(key, tensor) for every leaf, the stacked layer leaves cut into one
+    entry per layer."""
+    out = []
+    for key, t in flatten_with_keys(tree):
+        if key.startswith("['layers']"):
+            out += [(f"{key}[{i}]", t[i]) for i in range(t.shape[0])]
+        else:
+            out.append((key, t))
+    return out
+
+
+def check_gradients(grads, label: str) -> None:
+    """Every leaf's (every layer's) gradient finite and nonzero."""
+    for key, g in layer_slices(grads):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label}: gradient of {key} not finite")
+        if not bool(g.abs().sum() > 0):
+            raise AssertionError(f"{label}: gradient of {key} is zero")
+
+
+def token_batches(cfg, batch: int, seq: int, steps: int, dev, seed: int = 0,
+                  start: int = 0) -> list:
+    data = SyntheticTokens(TokenTaskConfig(vocab=cfg.vocab, seq_len=seq,
+                                           seed=seed))
+    return [{"tokens": torch.from_numpy(t).to(dev),
+             "labels": torch.from_numpy(lb).to(dev)}
+            for t, lb in data.epoch(batch, steps, start=start)]
+
+
+def phase_train_card_vs_cpu(dev) -> None:
+    """llama3.2-1b at full width cut to 2 layers, fp32: the same weights
+    (drawn once on the CPU) and batches through 3 AdamW steps on the CPU
+    and on the card; losses within 1e-3 relative, step-1 gradients within
+    1e-3, every gradient finite and nonzero, launches exact per step."""
+    cfg = get_config(LM_ARCH).with_(n_layers=2, param_dtype=torch.float32,
+                                    compute_dtype=torch.float32)
+    L = cfg.n_layers
+    opt = adamw.AdamWConfig(warmup_steps=1, total_steps=CARD_CPU_TRAIN_STEPS)
+    params = api.init(torch.Generator().manual_seed(5), cfg)
+    cpu_b = token_batches(cfg, TRAIN_BATCH, CARD_CPU_TRAIN_SEQ,
+                          CARD_CPU_TRAIN_STEPS, torch.device("cpu"), seed=5)
+
+    def train(p, batches):
+        st = ST.TrainState(p, adamw.init(opt, p))
+        losses, first, counts = [], None, []
+        for b in batches:
+            zero_train_launches()
+            loss, grads = ST.loss_and_grads(st.params, cfg, b)
+            counts.append(train_launches())
+            first = grads if first is None else first
+            st = ST.TrainState(*adamw.apply_updates(opt, st.params, grads,
+                                                    st.opt)[:2])
+            losses.append(float(loss))
+        return losses, first, counts
+
+    t0 = time.perf_counter()
+    cpu_losses, cpu_g, _ = train(tree_map(torch.clone, params), cpu_b)
+    cpu_s = time.perf_counter() - t0
+    card_losses, card_g, counts = train(
+        tree_to(params, dev), [tree_to(b, dev) for b in cpu_b])
+    want = (2 * L + 1, 2 * L + 1, L, L)
+    if any(c != want for c in counts):
+        raise AssertionError(f"train card-vs-cpu: launches {TRAIN_KERNELS} "
+                             f"per step {counts}, expected {want}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    if not rel <= TRAIN_TOL:
+        raise AssertionError(f"train card-vs-cpu: losses {card_losses} vs "
+                             f"{cpu_losses} (rel {rel:.2e})")
+    check_gradients(card_g, "train card-vs-cpu")
+    worst = 0.0
+    for (key, a), (_, b) in zip(flatten_with_keys(card_g),
+                                flatten_with_keys(cpu_g)):
+        scale = float(b.abs().max())
+        err = float((a.cpu() - b).abs().max()) / scale
+        if not err <= TRAIN_TOL:
+            raise AssertionError(f"train card-vs-cpu: step-1 gradient of "
+                                 f"{key} differs by {err:.2e} of its largest")
+        worst = max(worst, err)
+    print(f"train card-vs-cpu: {LM_ARCH} full width, {L} layers, fp32, "
+          f"batch {TRAIN_BATCH} x {CARD_CPU_TRAIN_SEQ}, "
+          f"{CARD_CPU_TRAIN_STEPS} AdamW steps: losses {[round(v, 6) for v in card_losses]} (CPU "
+          f"{[round(v, 6) for v in cpu_losses]}, max rel {rel:.2e}); step-1 "
+          f"gradients within {worst:.2e} of each leaf's largest, all finite "
+          f"and nonzero; launches {want} a step; CPU run {cpu_s:.1f} s")
+
+
+def train_profile(step, state, batch) -> dict:
+    """``lm_profile`` of one train step, with the backward kernels'
+    shares."""
+    box = {"state": state}
+
+    def one():
+        box["state"], _ = step(box["state"], batch)
+    return lm_profile(f"train step {TRAIN_BATCH} x {TRAIN_SEQ}", one, 1)
+
+
+def phase_train_full(dev) -> dict:
+    """The slice's main path: full-width bf16 llama3.2-1b trained through
+    ``train.run`` for 20 steps with checkpoints every 10; launches exact,
+    the loss falling, every layer's step-1 gradient nonzero, the step-10
+    checkpoint stepped to 20 bit-equal; step time and a profile."""
+    cfg = get_config(LM_ARCH)
+    L, n = cfg.n_layers, TRAIN_STEPS
+    # step 1's gradient, from run's own weights (seed 0) and first batch
+    params = api.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    first = token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 1, dev)[0]
+    _, grads = ST.loss_and_grads(params, cfg, first)
+    check_gradients(grads, "train step 1")
+    print(f"train: {api.param_count(params):,} parameters; step-1 gradient "
+          f"finite and nonzero in every leaf of all {L} layers")
+    del params, grads
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_train_launches()
+        t0 = time.perf_counter()
+        state, losses = TR.run(LM_ARCH, tiny=False, steps=n,
+                               batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                               ckpt_dir=tmp, ckpt_every=CKPT_EVERY,
+                               verbose=False, device=dev)
+        run_s = time.perf_counter() - t0
+        launches = train_launches()
+        ckpt_gb = sum(f.stat().st_size for f in Path(tmp).rglob("*")
+                      if f.is_file()) / 1e9
+        want = ((2 * L + 1) * n, (2 * L + 1) * n, L * n, L * n)
+        if launches != want:
+            raise AssertionError(f"train: launches {TRAIN_KERNELS} "
+                                 f"{launches}, expected {want}")
+        head, tail = np.mean(losses[:5]), np.mean(losses[-5:])
+        if not (np.isfinite(losses).all() and tail < head):
+            raise AssertionError(f"train: losses {losses} not falling")
+        print(f"train: {LM_ARCH} full width ({L} layers, "
+              f"{str(cfg.param_dtype)[6:]}), batch {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ}, {n} steps through train.run in {run_s:.1f} s "
+              f"(checkpoints every {CKPT_EVERY} included, {ckpt_gb:.2f} GB "
+              f"on disk): loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of first 5 "
+              f"{head:.4f}, last 5 {tail:.4f}); launches {launches}; peak "
+              f"device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        mgr = CheckpointManager(tmp)
+        t0 = time.perf_counter()
+        resumed = mgr.restore(CKPT_EVERY, state)
+        restore_s = time.perf_counter() - t0
+    opt = adamw.AdamWConfig(lr=3e-4, total_steps=n,
+                            warmup_steps=max(n // 10, 1))
+    step = ST.make_train_step(cfg, opt)
+    if int(resumed.opt.step) != CKPT_EVERY:
+        raise AssertionError(f"train: restored step {int(resumed.opt.step)}")
+    for b in token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, n - CKPT_EVERY, dev,
+                           start=CKPT_EVERY):
+        resumed, _ = step(resumed, b)
+    for (key, a), (_, b) in zip(flatten_with_keys(resumed),
+                                flatten_with_keys(state)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"train: resumed {key} differs at step {n}")
+    print(f"train: step-{CKPT_EVERY} checkpoint restored in {restore_s:.1f} "
+          f"s (params, master, m, v, step) and stepped to {n}: bit-equal to "
+          f"the run's state")
+    del state
+    batch = token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 1, dev, start=n)[0]
+    resumed, _ = step(resumed, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reps = 3
+    for _ in range(reps):
+        resumed, m = step(resumed, batch)
+    float(m["loss"])
+    step_ms = (time.perf_counter() - t0) * 1e3 / reps
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    print(f"train: step {step_ms:.3f} ms ({tok_s:,.0f} tokens/s) at batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, {str(cfg.param_dtype)[6:]}, mean "
+          f"of {reps} steps")
+    prof = train_profile(step, resumed, batch)
+    return dict(launches=dict(zip(TRAIN_KERNELS, launches)), step_ms=step_ms,
+                tokens_per_s=tok_s, profile=prof)
+
+
+def phase_lm_rocoin(dev) -> dict:
+    """RoCoIn at LM scale on the card: the plan on a full-width llama3.2-1b
+    teacher's 2048 final channels, two students distilled and failout-tuned
+    through the training kernels, the merged portions through the
+    teacher's head finite with either slot lost."""
+    cfg = get_config(LM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    teacher = api.init(gen, cfg)
+    val = token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 1, dev, seed=22)[0]
+    zero_train_launches()
+    t0 = time.perf_counter()
+    plan, A = LMS.plan_lm_rocoin(make_fleet(4, seed=1), teacher, cfg,
+                                 val["tokens"])
+    plan_s = time.perf_counter() - t0
+    parts = [g.filters for g in plan.groups]
+    source = "the plan's groups"
+    if len(parts) != LM_STUDENTS:
+        parts = NC.ncut_partition(A, K=LM_STUDENTS)
+        source = f"Ncut of the graph (the plan has {len(plan.groups)} groups)"
+    print(f"lm-rocoin: graph {A.shape} over {cfg.name}'s final channels, "
+          f"plan d_th {plan.d_th:.4g}, {len(plan.groups)} groups of "
+          f"{[len(g.devices) for g in plan.groups]} devices in {plan_s:.1f} "
+          f"s; students on {source}: partitions of "
+          f"{[len(p) for p in parts]} channels")
+
+    def batches(seed):
+        def it():
+            data = SyntheticTokens(TokenTaskConfig(
+                vocab=cfg.vocab, seq_len=TRAIN_SEQ, seed=seed))
+            for t, _ in data.epoch(TRAIN_BATCH, 10 ** 6):
+                yield t
+        return it
+
+    t0 = time.perf_counter()
+    students = LMS.distill_lm_students(gen, teacher, cfg, parts,
+                                       batches(23), steps=DISTILL_STEPS)
+    distill_s = time.perf_counter() - t0
+    fcfg = FailoutConfig(max_losses=1, seed=9, steps=FAILOUT_STEPS)
+    t0 = time.perf_counter()
+    tuned = LMS.failout_finetune_lm(students, teacher, cfg, batches(24), fcfg)
+    failout_s = time.perf_counter() - t0
+    launches = train_launches()
+    if not all(launches):
+        raise AssertionError(f"lm-rocoin: launches {TRAIN_KERNELS} "
+                             f"{launches}: a kernel did not run")
+    toks = val["tokens"]
+    inv = torch.as_tensor(LMS.merge_order(tuned, cfg.d_model), device=dev)
+    with torch.no_grad():
+        merged = torch.cat([LMS.student_portion(st, toks) for st in tuned],
+                           -1)[..., inv]
+        for lost in range(LM_STUDENTS):
+            mask = torch.ones(cfg.d_model, device=dev)
+            mask[torch.as_tensor(tuned[lost].partition, device=dev)] = 0.0
+            logits = T._lm_head(teacher, cfg,
+                                    (merged * mask).to(cfg.compute_dtype))
+            if logits.shape != (*toks.shape, cfg.vocab) or \
+                    not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"lm-rocoin: logits with slot {lost} "
+                                     f"lost malformed")
+    st = tuned[0].cfg
+    print(f"lm-rocoin: {LM_STUDENTS} students ({st.n_layers} layers, d_model "
+          f"{st.d_model}, {api.param_count(tuned[0].params):,} parameters "
+          f"each) distilled {DISTILL_STEPS} steps each in {distill_s:.1f} s "
+          f"and failout-tuned {FAILOUT_STEPS} steps in {failout_s:.1f} s at "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}; launches {launches}; merged "
+          f"logits finite with either slot lost")
+    return dict(launches=dict(zip(TRAIN_KERNELS, launches)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2684,6 +3238,12 @@ def main() -> int:
     matmul_timing = phase_matmul_kernels(dev, plans)
     measured = phase_measured(dev)
     offline = phase_offline(dev)
+    train_timing = phase_train_kernels(dev)
+    phase_train_card_vs_cpu(dev)
+    train = phase_train_full(dev)
+    rocoin = phase_lm_rocoin(dev)
+    train_launch = {k: train["launches"][k] + rocoin["launches"][k]
+                    for k in TRAIN_KERNELS}
     for entry in (kernel, decode):
         entry["launches"] += measured["launches"][entry["name"]]
         entry["max_abs_err"] = max(entry["max_abs_err"],
@@ -2712,9 +3272,19 @@ def main() -> int:
                            "bound_by", "library_ms", "device_ms")
                           if k in lm_timing[name]})
                   for name in LM_KERNELS]
+    for entry in lm_kernels:
+        entry["launches"] += train_launch.get(entry["name"], 0)
+    train_kernels = [dict(name=name, route="cuda",
+                          source=TRAIN_SOURCES[name],
+                          replaces=TRAIN_REPLACES[name],
+                          launches=train_launch[name],
+                          **{k: train_timing[name][k] for k in (
+                              "max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms", "device_ms")})
+                     for name in TRAIN_SOURCES]
     print(smi)
     print(json.dumps({"kernels": [kernel, decode] + lm_kernels
-                      + matmul_kernels}))
+                      + matmul_kernels + train_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,8 +13,11 @@ axis 0, the hybrid's stacked ``periods`` with their ``sub{i}`` dicts; bf16
 leaves bit for bit, fp32 ones (the MoE router, the SSM ``A_log``, ``D``
 and ``dt_bias``) as they are. ``teacher_from_jax`` and ``ensemble_from_jax``
 carry a trained ``TeacherBundle`` or ``Ensemble`` of the JAX package across
-whole: configs, weights, plan and head. With converted weights both
-packages compute the same function.
+whole: configs, weights, plan and head. ``train_state_from_jax`` carries a
+trainer's ``TrainState`` (params, the AdamW master copy and moments, the
+step), and ``lm_students_from_jax`` the LM students of
+``repro.core.lm_students`` (config, weights, feature head, partition).
+With converted weights both packages compute the same function.
 
 Nothing here imports JAX: leaves are read with ``numpy.asarray``, so they
 may be numpy arrays (what ``jax.device_get`` returns) or JAX arrays.
@@ -72,6 +75,41 @@ def lm_params_from_jax(tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: lm_params_from_jax(v) for k, v in tree.items()}
     return _lm_tensor(tree)
+
+
+def train_state_from_jax(state: Any):
+    """A JAX ``TrainState(params, OptState(step, master, m, v))`` (numpy
+    leaves) → the port's, every leaf as it is, the step an int32 scalar."""
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.optim.adamw import OptState
+    opt = state.opt
+    return TrainState(
+        lm_params_from_jax(state.params),
+        OptState(torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32),
+                 lm_params_from_jax(opt.master), lm_params_from_jax(opt.m),
+                 lm_params_from_jax(opt.v)))
+
+
+def lm_config_from_jax(cfg: Any):
+    """A JAX ``ModelConfig`` → the port's: every field as it is, the dtypes
+    by name."""
+    from repro_torch.configs.base import ModelConfig
+    fields = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if f.name.endswith("_dtype"):
+            v = getattr(torch, np.dtype(v).name)
+        fields[f.name] = v
+    return ModelConfig(**fields)
+
+
+def lm_students_from_jax(students: Any) -> list:
+    """JAX ``LMStudent``s → the port's: config, params, feature head
+    ``proj`` and partition."""
+    from repro_torch.core.lm_students import LMStudent
+    return [LMStudent(lm_config_from_jax(st.cfg),
+                      lm_params_from_jax(st.params), _lm_tensor(st.proj),
+                      np.asarray(st.partition)) for st in students]
 
 
 def _cnn_cfg(cfg):

@@ -43,7 +43,8 @@ from repro_torch.core.plan_ir import PlanIR
 from repro_torch.data.images import ImageTaskConfig, SyntheticImages
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import cnn
-from repro_torch.tree import tree_leaves, tree_map, tree_structure, tree_to
+from repro_torch.tree import (trainable, tree_leaves, tree_map,
+                              tree_structure, tree_to)
 
 
 # ---------------------------------------------------------------------------
@@ -85,12 +86,6 @@ def merge_bn_stats(params, newp):
                     else merge_bn_stats(v, newp[k]))
                 for k, v in params.items()}
     return params
-
-
-def _trainable(params):
-    """A copy of ``params`` whose float leaves are autograd leaves."""
-    return tree_map(lambda t: t.detach().requires_grad_(t.is_floating_point()),
-                    params)
 
 
 def _grads(params):
@@ -140,7 +135,7 @@ def train_teacher(gen: torch.Generator, teacher_cfg: cnn.WRNConfig,
     losses = []
     for x, y in data.epoch(batch, steps):
         x, y = _batch(x, y, dev)
-        p = _trainable(params)
+        p = trainable(params)
         logits, _, newp = cnn.wrn_forward(p, teacher_cfg, x, train=True)
         loss = _xent(logits, y)
         loss.backward()
@@ -474,8 +469,8 @@ def failout_finetune(ens: Ensemble, teacher: TeacherBundle,
             sampler.masks(i), ens.part_dims)).to(dev)
         with torch.no_grad():
             t_logits, _, _ = cnn.wrn_forward(tparams, tcfg, x)
-        ps = [_trainable(p) for p in plist]
-        f = _trainable(fc)
+        ps = [trainable(p) for p in plist]
+        f = trainable(fc)
         feats, newps = [], []
         for scfg, sfwd, p in zip(cfgs, fwds, ps):
             _, fk, newp = sfwd(p, scfg, x, train=True)
@@ -508,7 +503,7 @@ def _distill_student(sparams, scfg, sfwd, tparams, tcfg, part, data,
         with torch.no_grad():
             t_logits, t_feats, _ = cnn.wrn_forward(tparams, tcfg, x)
             t_part = t_feats[:, part]
-        p = _trainable(sparams)
+        p = trainable(sparams)
         logits, feats, newp = sfwd(p, scfg, x, train=True)
         loss = DS.distill_loss(logits, feats, t_logits, t_part, y, dcfg)
         loss.backward()
@@ -527,7 +522,7 @@ def _train_fc(fc, students, part_dims, data, steps=80, batch=128):
         with torch.no_grad():
             feats = torch.cat([fwd(params, cfg, x)[1]
                                for cfg, params, fwd in students], dim=-1)
-        f = _trainable(fc)
+        f = trainable(fc)
         _xent(DS.fc_head_apply(f, feats), y).backward()
         fc, m = sgd_update(f, _grads(f), m, lr=0.1, wd=0.0)
     return fc

@@ -24,7 +24,8 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._layout import num_sms, on_device, stream_handle
+from repro_torch.kernels._layout import (no_backward, num_sms, on_device,
+                                         stream_handle)
 
 # the kernel's plans, (rows, columns) of outputs a thread holds; a block is
 # 8 x 8 threads, so its tile is (8 * rows) x 32 of one shard's output
@@ -67,6 +68,7 @@ def coded_matmul(x: torch.Tensor, shards: torch.Tensor) -> torch.Tensor:
                         f"{shards.dtype}")
     if x.device.type == "cpu":
         return coded_matmul_ref(x, shards)
+    no_backward("coded_matmul", x, shards)
     if x.device.type != "cuda":
         raise ValueError(f"coded_matmul runs on cuda or cpu tensors, not "
                          f"{x.device}")

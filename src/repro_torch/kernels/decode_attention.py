@@ -38,8 +38,8 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._layout import (aligned, num_sms, on_device,
-                                         stream_handle)
+from repro_torch.kernels._layout import (aligned, no_backward, num_sms,
+                                         on_device, stream_handle)
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 96, 128)        # the kernel's instantiated D
@@ -113,6 +113,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     _check(q, k_cache, v_cache, length)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, length)
+    no_backward("decode_attention", q, k_cache, v_cache)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu tensors, not "
                          f"{q.device}")

@@ -39,7 +39,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import autotune, build
-from repro_torch.kernels._layout import num_sms, on_device, stream_handle
+from repro_torch.kernels._layout import (no_backward, num_sms, on_device,
+                                         stream_handle)
 
 MAX_TILE = 128          # the CUDA-core route's largest block_batch, block_n
 TENSOR_COLS = 128       # the tensor route's columns a block
@@ -163,6 +164,7 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
         if x.device.type == "cuda" else None)
     if x.device.type == "cpu":
         return dequant_matmul_ref(x, q, scale)
+    no_backward("dequant_matmul", x, scale)
     if x.device.type != "cuda":
         raise ValueError(f"dequant_matmul runs on cuda or cpu tensors, not "
                          f"{x.device}")

@@ -93,8 +93,33 @@ def plan(rows: int, D: int, x_bytes: int, aligned: bool,
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
             eps: float = 1e-6) -> torch.Tensor:
     """x: (..., D) f32/bf16; scale: (D,) f32/bf16. Returns x's shape and
-    dtype."""
+    dtype, differentiable in ``x`` and ``scale``."""
     _check(x, scale)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNorm.apply(x, scale, eps)
+    return _forward(x, scale, eps)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The forward launch, and :func:`rmsnorm_bwd` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _forward(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd(x, scale, g, eps=ctx.eps)
+        return (dx if ctx.needs_input_grad[0] else None,
+                dscale if ctx.needs_input_grad[1] else None, None)
+
+
+def _forward(x: torch.Tensor, scale: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    """The kernel on the card, the plain version on the CPU."""
     dev = x.device
     if dev.type == "cpu":
         return rmsnorm_ref(x, scale, eps=eps)
@@ -127,6 +152,96 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
 rmsnorm.launches = 0
 
 
+def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                    eps: float = 1e-6):
+    """Plain backward, as the formula: with r = rsqrt(mean(x²) + eps),
+    x̂ = x·r and gs = g·scale, dx = r·(gs − x̂·mean(gs·x̂)) and dscale =
+    Σ_rows g·x̂; fp32 inside (fp64 for fp64 operands, which the card's
+    checks use for dscale's long sums), dx in x's dtype and dscale in
+    scale's."""
+    D = x.shape[-1]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf, gf = x.to(acc), g.to(acc)
+    r = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    xh = xf * r
+    gs = gf * scale.to(acc)
+    dx = r * (gs - xh * (gs * xh).mean(-1, keepdim=True))
+    dscale = (gf * xh).reshape(-1, D).sum(0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(rows: int, D: int, x_bytes: int, aligned: bool,
+             sms: int) -> NormPlan:
+    """The backward's launch: one row at a time per block, spread over as
+    many warps (up to 16) as keep a thread at one access where they can;
+    the vector route where x, g, dx and the scale are ``aligned`` to 16
+    bytes and the access width divides D, else the scalar one. Blocks: up
+    to 1024 threads' worth per SM, at most one per row; each block adds
+    one row of D fp32 to the scale gradient's scratch."""
+    vec = 16 // x_bytes
+    if not aligned or D % vec:
+        vec = 1
+    nvs = VECTOR_NV if vec > 1 else SCALAR_NV
+    nvec = D // vec
+    warps = min(max(1, -(-nvec // 32)), MAX_THREADS // 32)
+    need = -(-nvec // (32 * warps))
+    if need > nvs[-1]:
+        raise ValueError(f"rmsnorm_bwd takes D up to "
+                         f"{MAX_THREADS * nvs[-1] * vec} on this route "
+                         f"(16-byte aligned: {vec > 1}), got D={D}")
+    nv = next(n for n in nvs if n >= need)
+    per_sm = max(1, 1024 // (32 * warps))
+    return NormPlan(vec, nv, warps, 1, max(1, min(rows, sms * per_sm)))
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, *,
+                eps: float = 1e-6):
+    """Gradients of :func:`rmsnorm` for the upstream gradient ``g`` (x's
+    shape): (dx in x's dtype, dscale in scale's). The hand-written kernel
+    on the card, :func:`rmsnorm_bwd_ref` on the CPU."""
+    _check(x, scale)
+    if g.shape != x.shape:
+        raise ValueError(f"g {tuple(g.shape)} must have x's shape "
+                         f"{tuple(x.shape)}")
+    dev = x.device
+    if dev.type == "cpu":
+        return rmsnorm_bwd_ref(x, scale, g, eps)
+    if dev.type != "cuda":
+        raise ValueError(f"rmsnorm_bwd runs on cuda or cpu tensors, not "
+                         f"{dev}")
+    if scale.device != dev or g.device != dev:
+        raise ValueError("all operands must be on one device")
+    x, scale = x.contiguous(), scale.contiguous()
+    g = g.to(x.dtype).contiguous()
+    D = x.shape[-1]
+    rows = x.numel() // D if D else 0
+    dx = torch.empty_like(x)
+    if rows == 0:
+        return dx, torch.zeros_like(scale)
+    p = bwd_plan(rows, D, x.element_size(),
+                 (x.data_ptr() | g.data_ptr() | dx.data_ptr()
+                  | scale.data_ptr()) % 16 == 0, num_sms(dev.index))
+    dscale = torch.empty_like(scale)
+    partial = torch.empty((p.blocks, D), dtype=torch.float32, device=dev)
+    lib = _bwd_library()
+    with on_device(dev):
+        rc = lib.rmsnorm_bwd(x.data_ptr(), scale.data_ptr(), g.data_ptr(),
+                             dx.data_ptr(), dscale.data_ptr(),
+                             partial.data_ptr(), rows, D, eps,
+                             x.dtype == torch.bfloat16,
+                             scale.dtype == torch.bfloat16, p.vec, p.nv,
+                             p.warps, p.blocks, stream_handle(dev))
+    if rc != 0:
+        msg = lib.rmsnorm_bwd_error_string(rc).decode()
+        raise RuntimeError(f"rmsnorm_bwd launch failed: {msg} ({rc})")
+    rmsnorm_bwd.launches += 1
+    return dx, dscale
+
+
+rmsnorm_bwd.launches = 0
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
@@ -138,4 +253,18 @@ def _library() -> ctypes.CDLL:
     lib.rmsnorm.restype = ctypes.c_int
     lib.rmsnorm_error_string.argtypes = [ctypes.c_int]
     lib.rmsnorm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    """The built backward library with its C signature declared."""
+    lib = build.load("rmsnorm_bwd")
+    lib.rmsnorm_bwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong,
+                                                         ctypes.c_int,
+                                                         ctypes.c_float]
+                                + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.rmsnorm_bwd.restype = ctypes.c_int
+    lib.rmsnorm_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.rmsnorm_bwd_error_string.restype = ctypes.c_char_p
     return lib

@@ -53,8 +53,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._layout import (aligned, num_sms, on_device,
-                                         stream_handle)
+from repro_torch.kernels._layout import (aligned, no_backward, num_sms,
+                                         on_device, stream_handle)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232448                    # bytes a block may use on Hopper
@@ -188,6 +188,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
                             return_state=return_state, out_dtype=out_dtype)
+    no_backward("ssd_scan", x, dt, A, Bm, Cm)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cuda or cpu tensors, not "
                          f"{x.device}")

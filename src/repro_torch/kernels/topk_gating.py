@@ -26,7 +26,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._layout import num_sms, on_device, stream_handle
+from repro_torch.kernels._layout import (no_backward, num_sms, on_device,
+                                         stream_handle)
 
 NEG_INF = -1e30
 MAX_EXPERTS = 256                      # 32 lanes x 8 values in registers
@@ -100,6 +101,7 @@ def topk_gating(logits: torch.Tensor, k: int
     dev = logits.device
     if dev.type == "cpu":
         return topk_gating_ref(logits, k)
+    no_backward("topk_gating", logits)
     if dev.type != "cuda":
         raise ValueError(f"topk_gating runs on cuda or cpu tensors, not "
                          f"{dev}")

@@ -60,10 +60,12 @@ def splice(dst: torch.Tensor, src: torch.Tensor) -> None:
     dst[tuple(slice(0, n) for n in src.shape)] = src
 
 
+@torch.no_grad()
 def greedy_decode(params, cfg: ModelConfig, tokens: torch.Tensor, gen: int,
                   *, keep_logits: bool = False) -> Generation:
     """Prefill ``tokens`` (B, P), then ``gen - 1`` greedy decode steps, on
-    the tokens' device. Returns ``gen`` tokens per row."""
+    the tokens' device, under ``torch.no_grad()`` (params that need a
+    gradient serve too). Returns ``gen`` tokens per row."""
     dev = tokens.device
     B, P = tokens.shape
     cache = api.init_cache(cfg, B, P + gen, device=dev)

@@ -10,7 +10,7 @@
 ``batch`` keys: tokens (B,S) int | positions (B,S) | labels (B,S). The
 JAX package's ``models/api.py`` dispatches the same way; its vlm and
 encdec families raise ``NotImplementedError`` here, naming ROADMAP Queue 1
-item 9, with no fallback.
+item 2, with no fallback.
 """
 from __future__ import annotations
 

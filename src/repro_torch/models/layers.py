@@ -66,8 +66,11 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int, *, device=None,
 
 
 def embed_apply(p: Params, ids: torch.Tensor) -> torch.Tensor:
-    """Rows of the table for integer ``ids`` (any shape)."""
-    return p["embedding"][ids]
+    """Rows of the table for integer ``ids`` (any shape), through
+    ``F.embedding``: the same rows as indexing, and a backward that sums
+    each row's gradients in a fixed order (indexing's backward accumulates
+    with atomics on the CPU, so two training runs would differ)."""
+    return F.embedding(ids, p["embedding"])
 
 
 def embed_attend(p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -24,11 +24,10 @@ Differences from the reference:
 - one card needs no sharding constraints, so ``constrain`` is dropped, and
   there is no ``train`` flag (it only selects a remat policy there);
 - ``moe_apply`` is the reference's single-device path
-  (``_moe_apply_dense``); its multi-device ``shard_map`` path (ROADMAP
-  Queue 1 item 11) and the training loss ``moe_aux_loss`` (item 7) are not
-  ported;
+  (``_moe_apply_dense``); its multi-device ``shard_map`` path belongs to
+  the multi-device tooling (ROADMAP Queue 1 item 3);
 - M-RoPE and precomputed-embedding inputs raise ``NotImplementedError``
-  (ROADMAP Queue 1 item 9).
+  (ROADMAP Queue 1 item 2).
 """
 from __future__ import annotations
 
@@ -46,7 +45,7 @@ Params = Dict[str, Any]
 Index = Union[int, torch.Tensor]
 Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
-NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 9)"
+NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 2)"
 
 
 # ---------------------------------------------------------------------------
@@ -275,6 +274,19 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     slot_out = out[torch.arange(B, device=x.device)[:, None], dest]
     return torch.einsum("bskd,bsk->bsd", slot_out.reshape(B, S, K, d),
                         top_w.to(x.dtype))
+
+
+def moe_aux_loss(p: Params, cfg: ModelConfig, x: torch.Tensor
+                 ) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch-style): E · Σ_e f_e · p_e,
+    with f_e the share of tokens whose top expert is e and p_e the mean
+    router probability of e; plain torch, the reference's formula."""
+    gates = L.dense_apply(p["router"], x.float())
+    probs = torch.softmax(gates, dim=-1)                       # (B,S,E)
+    top_e = probs.argmax(-1)
+    f = F.one_hot(top_e, cfg.n_experts).float().mean((0, 1))
+    pbar = probs.mean((0, 1))
+    return cfg.n_experts * (f * pbar).sum()
 
 
 def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, moe: bool

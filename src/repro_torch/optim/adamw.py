@@ -1,0 +1,119 @@
+"""AdamW with mixed precision (bf16 params / fp32 master+moments) and
+global-norm clipping.
+
+The torch twin of the JAX package's ``optim/adamw.py``, with the same
+fields, defaults and arithmetic: the schedule and the bias corrections in
+float32 (``b1 ** step`` of a float32 step, as the reference computes it),
+the moments and the master copy in fp32, each param the master cast to
+its dtype. Parameter trees are those of :mod:`repro_torch.tree`.
+
+:func:`apply_updates` works in place, under ``torch.no_grad()``: the
+master copy, the moments and the params are updated in their own
+storage, and the returned ``OptState`` holds the same trees (only
+``step`` is a new tensor). The reference is functional; at 1.5 B
+parameters a second copy of the state (24 GB) is what the in-place update
+saves. Whoever needs the old state keeps a copy of it first
+(``CheckpointManager.save`` does, before it returns).
+ZeRO-1 sharding of the state belongs to the multi-device tooling (ROADMAP
+Queue 1 item 3).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.tree import tree_leaves, tree_map
+
+Params = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_ratio: float = 0.1
+    master_dtype: torch.dtype = torch.float32
+    moment_dtype: torch.dtype = torch.float32
+
+
+class OptState(NamedTuple):
+    step: torch.Tensor   # int32 scalar, on the params' device
+    master: Params       # fp32 master copy of params
+    m: Params
+    v: Params
+
+
+def init(cfg: AdamWConfig, params: Params) -> OptState:
+    """A fresh state: the master a copy of ``params`` (never an alias, even
+    in fp32), zero moments, step 0."""
+    master = tree_map(lambda p: p.detach().to(cfg.master_dtype, copy=True),
+                      params)
+    zeros = lambda p: torch.zeros(p.shape, dtype=cfg.moment_dtype,  # noqa: E731
+                                  device=p.device)
+    dev = tree_leaves(params)[0].device
+    return OptState(torch.zeros((), dtype=torch.int32, device=dev), master,
+                    tree_map(zeros, params), tree_map(zeros, params))
+
+
+def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
+    """Linear warmup + cosine decay to min_lr_ratio, in float32."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = step / max(1.0, cfg.warmup_steps)
+    prog = (step - cfg.warmup_steps) / max(
+        1.0, cfg.total_steps - cfg.warmup_steps)
+    prog = torch.clamp(prog, 0.0, 1.0)
+    cos = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * 0.5 * (
+        1 + torch.cos(math.pi * prog))
+    return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def global_norm(tree: Params) -> torch.Tensor:
+    """sqrt of the sum of every leaf's fp32 sum of squares."""
+    leaves = [x.float().square().sum() for x in tree_leaves(tree)]
+    return torch.sqrt(torch.stack(leaves).sum())
+
+
+def clip_by_global_norm(tree: Params, max_norm: float
+                        ) -> Tuple[Params, torch.Tensor]:
+    """Scale every leaf by min(1, max_norm / norm), each in its dtype."""
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree), norm
+
+
+@torch.no_grad()
+def apply_updates(cfg: AdamWConfig, params: Params, grads: Params,
+                  state: OptState
+                  ) -> Tuple[Params, OptState, Dict[str, torch.Tensor]]:
+    """One AdamW step from ``grads`` (clipped first), in place: returns
+    (params, state, {"grad_norm", "lr"}) with the same trees as given."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    step = state.step + 1
+    lr = schedule(cfg, step)
+    sf = step.to(torch.float32)
+    b1c = 1 - cfg.b1 ** sf
+    b2c = 1 - cfg.b2 ** sf
+
+    def upd(p, master, g, m, v):
+        # the reference's operations in its order, each rounded once as
+        # there; in place where a state array takes the result
+        g = g.float()
+        m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
+        v.mul_(cfg.b2).add_(g.square().mul_(1 - cfg.b2))
+        delta = (m / b1c).div_((v / b2c).sqrt_().add_(cfg.eps))
+        delta.add_(master * cfg.weight_decay)
+        master.sub_(delta.mul_(lr))
+        p.copy_(master)
+
+    tree_map(upd, params, state.master, grads, state.m, state.v)
+    metrics = {"grad_norm": gnorm, "lr": lr}
+    return params, OptState(step, state.master, state.m, state.v), metrics

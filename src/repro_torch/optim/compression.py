@@ -1,19 +1,61 @@
-"""Weight-only int8 deployment (RoCoIn quantized portion forwards).
+"""Gradient compression for the data-parallel all-reduce, and weight-only
+int8 deployment (RoCoIn quantized portion forwards).
 
-The torch twin of ``Int8Weights``/``quantize_weight``/``dequantize_weight``
-/``quantize_tree``/``dequantize_tree`` in the JAX package's
-``optim/compression.py``. Rounding is half to even on both sides
-(``jnp.round``, ``torch.round``) and fp32 division is IEEE on both, so ``q``
-and ``scale`` equal the JAX arrays exactly.
+The torch twin of the JAX package's ``optim/compression.py``. Gradient
+compression has two schemes, both with error feedback (the residual
+re-enters the next step so compression bias does not accumulate):
+
+  - top-k sparsification: keep the k largest-magnitude entries per tensor,
+  - int8 stochastic quantization: per-tensor scale, round-to-nearest with
+    dithering. The dither is uniform in [-0.5, 0.5) from a
+    ``torch.Generator`` seeded by ``(cfg.seed, step)`` (the reference
+    folds the step into a ``jax.random`` key), so its bits differ from the
+    reference's; the invariants (``c + r' = g + r``, values on the scale's
+    grid, ``|c / scale| <= 127``) are the same.
+
+For deployment, ``Int8Weights``/``quantize_weight``/``dequantize_weight``
+/``quantize_tree``/``dequantize_tree``: rounding is half to even on both
+sides (``jnp.round``, ``torch.round``) and fp32 division is IEEE on both,
+so ``q`` and ``scale`` equal the JAX arrays exactly.
 Parameter trees are those of :mod:`repro_torch.tree`.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+import dataclasses
+from typing import Any, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressionConfig:
+    scheme: str = "none"          # none | topk | int8
+    topk_ratio: float = 0.01      # keep 1% of entries
+    seed: int = 0
+
+
+class CompressionState(NamedTuple):
+    residual: Any                 # error-feedback memory (grad-shaped tree)
+    step: torch.Tensor
+
+
+def init_state(cfg: CompressionConfig, grads_like: Any) -> CompressionState:
+    return CompressionState(tree_map(torch.zeros_like, grads_like),
+                            torch.zeros((), dtype=torch.int32))
+
+
+def _topk_compress(g: torch.Tensor, ratio: float) -> torch.Tensor:
+    """Zero all but the top-k |entries| (dense masked representation; the
+    wire format would be (values, indices)); ties at the threshold are all
+    kept, as in the reference."""
+    flat = g.reshape(-1)
+    k = max(1, int(flat.numel() * ratio))
+    thresh = torch.topk(flat.abs(), k).values[-1]
+    mask = flat.abs() >= thresh
+    return (flat * mask).reshape(g.shape)
 
 
 class Int8Weights(NamedTuple):
@@ -36,6 +78,15 @@ def _int8_scale(w: torch.Tensor, axis: Optional[int] = None) -> torch.Tensor:
     else:
         amax = a.movedim(axis, 0).reshape(w.shape[axis], -1).amax(dim=1)
     return torch.clamp(amax, min=1e-12) / 127.0
+
+
+def _int8_compress(g: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    scale = _int8_scale(g)
+    noise = torch.rand(g.shape, generator=gen, dtype=torch.float32,
+                       device=g.device) - 0.5
+    q = torch.clamp(torch.round(g / scale + noise), -127, 127
+                    ).to(torch.int8)
+    return q.to(torch.float32) * scale
 
 
 def _expand(scale: torch.Tensor, ndim: int, axis: int) -> torch.Tensor:
@@ -88,3 +139,50 @@ def dequantize_tree(params: Any) -> Any:
     return tree_map(
         lambda w: dequantize_weight(w) if isinstance(w, Int8Weights) else w,
         params)
+
+
+def dither_generator(cfg: CompressionConfig, step: int,
+                     device: torch.device) -> torch.Generator:
+    """The int8 dither's generator for ``step``: seeded by
+    ``(cfg.seed, step)`` through numpy's ``SeedSequence``."""
+    seed = int(np.random.SeedSequence((cfg.seed, step)).generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def compress_grads(cfg: CompressionConfig, grads: Any,
+                   state: CompressionState) -> Tuple[Any, CompressionState]:
+    """Apply error-feedback compression. Returns (compressed_grads, state');
+    the residual tree is a new one, the input trees are left as they are."""
+    if cfg.scheme == "none":
+        return grads, state
+    step = state.step + 1
+    gen = None
+    if cfg.scheme == "int8":
+        gen = dither_generator(cfg, int(step), tree_leaves(grads)[0].device)
+    resid = []
+
+    def one(g, r):
+        gf = g.to(torch.float32) + r.to(torch.float32)
+        if cfg.scheme == "topk":
+            c = _topk_compress(gf, cfg.topk_ratio)
+        elif cfg.scheme == "int8":
+            c = _int8_compress(gf, gen)
+        else:
+            raise KeyError(cfg.scheme)
+        resid.append((gf - c).to(r.dtype))
+        return c.to(g.dtype)
+
+    comp = tree_map(one, grads, state.residual)
+    rest = iter(resid)                 # tree_map visits in the same order
+    return comp, CompressionState(tree_map(lambda _: next(rest), grads),
+                                  step)
+
+
+def compression_ratio(cfg: CompressionConfig) -> float:
+    """Wire-bytes multiplier vs dense fp32 all-reduce (for the roofline's
+    collective term)."""
+    if cfg.scheme == "topk":
+        return cfg.topk_ratio * 2.0   # values + indices
+    if cfg.scheme == "int8":
+        return 0.25
+    return 1.0

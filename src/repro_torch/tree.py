@@ -64,6 +64,14 @@ def stack_init(n: int, init: Callable[[], Any]) -> Any:
     return out
 
 
+def trainable(tree: Any) -> Any:
+    """A tree of new autograd leaves sharing the storage of ``tree``'s:
+    every float leaf requires a gradient, the given tree is left as it is
+    (a step differentiates these, then updates or replaces the originals)."""
+    return tree_map(lambda t: t.detach().requires_grad_(t.is_floating_point()),
+                    tree)
+
+
 def tree_to(tree: Any, device: torch.device) -> Any:
     """Move every tensor leaf to ``device``."""
     return tree_map(

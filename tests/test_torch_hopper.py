@@ -1016,3 +1016,177 @@ def test_time_callable_times_the_card_not_the_launches(hopper):
     wall = (time.perf_counter() - t0) / 50
     assert 0 < MB.time_callable(lambda: ops.quorum_aggregate(*args),
                                 repeats=50) < wall
+
+
+# -- backward kernels: rmsnorm_bwd, flash_attention_bwd, and the guard --------
+
+def _bwd_close(got, want, dtype):
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        _close(a, b, b.dtype if dtype is None else dtype)
+
+
+def _rmsnorm_bwd_exact(x, s, up):
+    """The plain backward on fp64 copies, rounded to the kernel's dtypes
+    (dscale sums every row: two fp32 sums of thousands of rows in other
+    orders differ by more than 3e-5 where the terms cancel)."""
+    dx, ds = ops.rmsnorm_bwd_ref(x.double(), s.double(), up.double())
+    return dx.to(x.dtype), ds.to(s.dtype)
+
+
+@pytest.mark.parametrize("dtype", LM_DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows,D", [(1, 128), (7, 2048), (2048, 2048),
+                                    (2048, 768), (2048, 1536), (2048, 4096),
+                                    (2048, 8192), (4097, 6144), (4, 2048),
+                                    # ragged D: the scalar route
+                                    (33, 100), (7, 1000), (2048, 2047)])
+@pytest.mark.parametrize("scale_dtype", ["same", "fp32"])
+def test_rmsnorm_bwd_matches_plain_version(hopper, dtype, rows, D,
+                                           scale_dtype):
+    g = torch.Generator(device=hopper).manual_seed(rows + D)
+    x = torch.randn((rows, D), generator=g, device=hopper).to(dtype)
+    s = 1 + 0.1 * torch.randn((D,), generator=g, device=hopper)
+    s = s.to(dtype) if scale_dtype == "same" else s
+    up = torch.randn((rows, D), generator=g, device=hopper).to(dtype)
+    before = ops.rmsnorm_bwd.launches
+    got = ops.rmsnorm_bwd(x, s, up)
+    torch.cuda.synchronize()
+    assert ops.rmsnorm_bwd.launches == before + 1
+    _bwd_close(got, _rmsnorm_bwd_exact(x, s, up), None)
+    again = ops.rmsnorm_bwd(x, s, up)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", LM_DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows,D", [(4, 2048), (2048, 768), (9, 8192)])
+def test_rmsnorm_bwd_unaligned_base_matches_plain_version(hopper, dtype, rows,
+                                                          D):
+    g = torch.Generator(device=hopper).manual_seed(D)
+    buf = torch.randn((rows * D + 1,), generator=g, device=hopper).to(dtype)
+    x = buf[1:].view(rows, D)
+    s = (1 + 0.1 * torch.randn((D,), generator=g, device=hopper)).to(dtype)
+    up = torch.randn((rows, D), generator=g, device=hopper).to(dtype)
+    _bwd_close(ops.rmsnorm_bwd(x, s, up), _rmsnorm_bwd_exact(x, s, up),
+               None)
+
+
+def _bwd_flash_operands(B, KV, G, Sq, Skv, D, dtype, strided, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qm = torch.randn((B, Sq, KV, G, D), generator=g, device=dev).to(dtype)
+    km = torch.randn((B, Skv, KV, D), generator=g, device=dev).to(dtype)
+    vm = torch.randn((B, Skv, KV, D), generator=g, device=dev).to(dtype)
+    dm = torch.randn((B, Sq, KV, G, D), generator=g, device=dev).to(dtype)
+    q, k, v, do = qm.permute(0, 2, 3, 1, 4), km.permute(0, 2, 1, 3), \
+        vm.permute(0, 2, 1, 3), dm.permute(0, 2, 3, 1, 4)
+    if not strided:
+        q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    return q, k, v, do
+
+
+FLASH_BWD_SHAPES = [(1, 1, 1, 64, 64, 64), (2, 2, 4, 100, 100, 64),
+                    (1, 4, 2, 128, 128, 128), (1, 2, 3, 33, 33, 96),
+                    (1, 2, 2, 5, 5, 32), (2, 8, 4, 512, 512, 64),
+                    # Sq != Skv, tile edges (32 rows or keys a tile)
+                    (1, 2, 4, 31, 65, 64), (1, 2, 1, 97, 33, 128),
+                    (1, 1, 4, 1, 40, 32), (1, 2, 2, 129, 1, 96)]
+
+
+@pytest.mark.parametrize("dtype", LM_DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,KV,G,Sq,Skv,D", FLASH_BWD_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("strided", [False, True], ids=["contig", "strided"])
+def test_flash_attention_bwd_matches_plain_version(hopper, dtype, B, KV, G,
+                                                   Sq, Skv, D, causal,
+                                                   strided):
+    q, k, v, do = _bwd_flash_operands(B, KV, G, Sq, Skv, D, dtype, strided,
+                                      hopper, seed=Sq + Skv)
+    o = ops.flash_attention_ref(q, k, v, causal=causal)
+    before = ops.flash_attention_bwd.launches
+    copies = ops.flash_attention_bwd.copies
+    got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.flash_attention_bwd.launches == before + 1
+    assert ops.flash_attention_bwd.copies == copies
+    _bwd_close(got, ops.flash_attention_bwd_ref(q, k, v, o, do, causal),
+               dtype)
+    again = ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", LM_DTYPES, ids=["fp32", "bf16"])
+def test_autograd_through_the_kernels_matches_the_plain_versions(hopper,
+                                                                 dtype):
+    """A norm, attention and a norm again, differentiated on the card
+    (both Functions, each kernel and its backward launched once) and
+    through the plain versions by autograd."""
+    B, KV, G, S, D = 2, 2, 2, 48, 64
+    g = torch.Generator(device=hopper).manual_seed(5)
+    x0 = torch.randn((B, S, KV * G * D), generator=g, device=hopper).to(dtype)
+    s0 = (1 + 0.1 * torch.randn((KV * G * D,), generator=g,
+                                device=hopper)).to(dtype)
+    wk = torch.randn((KV * G * D, KV * D), generator=g,
+                     device=hopper).to(dtype) * 0.05
+
+    def run(norm, attn, x, s, w):
+        h = norm(x, s)
+        q = h.view(B, S, KV, G, D).permute(0, 2, 3, 1, 4)
+        kv = (h @ w).view(B, S, KV, D).permute(0, 2, 1, 3)
+        o = attn(q, kv, kv, causal=True)
+        y = norm(o.permute(0, 3, 1, 2, 4).reshape(B, S, -1), s)
+        return (y.float() ** 2).mean()
+
+    grads = []
+    for norm, attn in ((ops.rmsnorm, ops.flash_attention),
+                       (ops.rmsnorm_ref, ops.flash_attention_ref)):
+        leaves = [t.clone().requires_grad_() for t in (x0, s0, wk)]
+        counts = (ops.rmsnorm_bwd.launches, ops.flash_attention_bwd.launches)
+        run(norm, attn, *leaves).backward()
+        torch.cuda.synchronize()
+        if norm is ops.rmsnorm:
+            assert (ops.rmsnorm_bwd.launches - counts[0],
+                    ops.flash_attention_bwd.launches - counts[1]) == (2, 1)
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert torch.isfinite(a.float()).all() and a.abs().sum() > 0
+        _close(a, b, dtype)
+
+
+def _guarded_calls(dev):
+    """One call of each kernel that has no backward, on operands that
+    need a gradient (the first float operand of each)."""
+    r = lambda *s: torch.rand(s, device=dev)  # noqa: E731
+    x, dt, A, Bm, Cm = _ssd_operands(1, 2, 64, 64, 16, torch.float32, False,
+                                     dev)
+    q, kc, vc = _decode_operands(1, 2, 2, 8, 64, torch.float32, dev)
+    return {
+        "topk_gating": lambda t: ops.topk_gating(t(r(8, 16)), 2),
+        "ssd_scan": lambda t: ops.ssd_scan(t(x), dt, A, Bm, Cm),
+        "decode_attention": lambda t: ops.decode_attention(t(q), kc, vc, 3),
+        "quorum_aggregate": lambda t: ops.quorum_aggregate(
+            t(r(2, 4, 8)), r(2, 8, 3), r(3),
+            torch.ones(2, dtype=torch.int32, device=dev)),
+        "coded_decode": lambda t: ops.coded_decode(
+            t(r(4, 3, 8)), r(4, 2, 3),
+            torch.ones((4, 3), dtype=torch.int32, device=dev)),
+        "dequant_matmul": lambda t: ops.dequant_matmul(
+            t(r(4, 8)), torch.ones((8, 5), dtype=torch.int8, device=dev),
+            torch.tensor(0.1, device=dev)),
+        "coded_matmul": lambda t: ops.coded_matmul(t(r(4, 8)), r(3, 8, 5)),
+    }
+
+
+@pytest.mark.parametrize("name", ["topk_gating", "ssd_scan",
+                                  "decode_attention", "quorum_aggregate",
+                                  "coded_decode", "dequant_matmul",
+                                  "coded_matmul"])
+def test_wrappers_without_backward_raise_under_grad(hopper, name):
+    """Grad mode on and an operand that needs a gradient: the wrapper
+    raises, naming the missing backward; under no_grad, or on operands
+    that need none, it launches."""
+    call = _guarded_calls(hopper)[name]
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        call(lambda t: t.clone().requires_grad_())
+    with torch.no_grad():
+        call(lambda t: t.clone().requires_grad_())
+    call(lambda t: t)
+    torch.cuda.synchronize()

@@ -27,7 +27,7 @@ from repro_torch.core import pipeline as TPP  # noqa: E402
 from repro_torch.data.images import ImageTaskConfig as TImageCfg  # noqa: E402
 from repro_torch.data.images import SyntheticImages as TImages  # noqa: E402
 from repro_torch.models import cnn as tcnn  # noqa: E402
-from repro_torch.tree import tree_leaves  # noqa: E402
+from repro_torch.tree import trainable, tree_leaves  # noqa: E402
 from test_torch_offline import (BATCH, DCFG, TDCFG, _close,  # noqa: E402,F401
                                 _images, _one_torch_thread, _teacher_cfgs,
                                 _tree_close)
@@ -76,7 +76,7 @@ def _teacher_loss_fns(jcfg, tcfg, x, y):
 def _grad_check(jloss, tloss, jparams, tparams):
     """The loss within 1e-5 and every gradient within 1e-4 (HWIO → OIHW)."""
     jv, jg = jax.jit(jax.value_and_grad(jloss))(jparams)
-    tp = TPP._trainable(tparams)
+    tp = trainable(tparams)
     tv = tloss(tp)
     tv.backward()
     _close(tv.detach(), jv, 1e-5, 1e-5)

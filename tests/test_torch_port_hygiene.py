@@ -39,7 +39,7 @@ COPIED = ["obs/stats.py", "core/grouping.py", "core/assignment.py",
           "runtime/clock.py", "runtime/failures.py", "runtime/controller.py",
           "core/failout.py", "core/scenarios.py", "obs/trace.py",
           "obs/metrics.py", "obs/report.py", "obs/__init__.py",
-          "runtime/fleet.py", "data/images.py"]
+          "runtime/fleet.py", "data/images.py", "data/tokens.py"]
 IMPORT = re.compile(r"^(\s*(?:from|import) )repro\.", re.M)
 
 
@@ -187,6 +187,28 @@ def test_offline_slice_modules_import_neither_jax_nor_repro(module):
     imported alone in a fresh interpreter, loads no ``jax`` and no
     ``repro`` module (``data/`` has no ``__init__.py``, as in the JAX
     package, so the package walk above does not reach ``data.images``)."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('repro_torch.{module}')\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+TRAIN_SLICE = ["optim.adamw", "optim.compression", "launch.steps",
+               "launch.train", "ckpt.checkpoint", "core.lm_students",
+               "data.tokens"]
+
+
+@pytest.mark.parametrize("module", TRAIN_SLICE)
+def test_train_slice_modules_import_neither_jax_nor_repro(module):
+    """Each module of the LM-training slice, imported alone in a fresh
+    interpreter, loads no ``jax`` and no ``repro`` module."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module('repro_torch.{module}')\n"
