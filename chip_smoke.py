@@ -160,12 +160,15 @@ hand-written kernels, ``rmsnorm_bwd`` and ``flash_attention_bwd``
 
 19. both backward kernels held to their plain versions (fp32 3e-5, bf16
     3e-2) over sweeps (rmsnorm at the LM widths 768-8192, ragged D and
-    bases off 16 bytes; flash at D 32/64/96/128, G 1 and 4, causal and
-    not, Sq != Skv, the 32-row/key tile edges, strided q and dO), each case
-    run twice and bit-equal; timed at llama3.2-1b's training shapes (batch
-    4 x 512, bf16) beside their bounds, their plain versions and one
-    PyTorch call (``F.rms_norm``'s and SDPA's autograd backward); each of
-    the seven wrappers without a backward raises under grad;
+    bases off 16 bytes; flash at D 32/64/96/128, G 1 to 4, causal and
+    not, Sq != Skv, both routes' tile edges, strided q and dO, each case's
+    route printed: bf16 at D 64/128 on the tensor cores, the rest on the
+    CUDA cores), each case run twice and bit-equal; timed at llama3.2-1b's
+    training shapes (batch 4 x 512, bf16; flash also at its students'
+    G 2, and on the CUDA-core route for the record) beside their bounds,
+    their plain versions and one PyTorch call (``F.rms_norm``'s and SDPA's
+    autograd backward); each of the seven wrappers without a backward
+    raises under grad;
 20. card vs CPU training: llama3.2-1b at full width cut to 2 layers, fp32,
     weights drawn once on the CPU, 3 AdamW steps on the same batches
     (batch 4 x 64): losses within 1e-3 relative, step-1 gradients within
@@ -235,6 +238,7 @@ from repro_torch.kernels import autotune as AT  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import coded_matmul as ops_cm  # noqa: E402
 from repro_torch.kernels import dequant_matmul as ops_dq  # noqa: E402
+from repro_torch.kernels import flash_attention as ops_fa  # noqa: E402
 from repro_torch.kernels._layout import num_sms  # noqa: E402
 from repro_torch.kernels import ssd_scan as SS  # noqa: E402
 from repro_torch.launch import microbench as MB  # noqa: E402
@@ -2669,14 +2673,19 @@ TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, CKPT_EVERY = 4, 512, 20, 10
 CARD_CPU_TRAIN_STEPS, CARD_CPU_TRAIN_SEQ = 3, 64
 TRAIN_TOL = 1e-3                # card vs CPU: losses and step-1 gradients
-# (B, KV, G, Sq, Skv, D) of the flash backward sweep: every head dim, G 1
-# and 4, Sq != Skv both ways, and the 32-row/key tiles' edges
+# (B, KV, G, Sq, Skv, D) of the flash backward sweep: every head dim, G 1,
+# 2, 3 and 4, Sq != Skv both ways, the CUDA-core route's 32-row/key tile
+# edges and the tensor route's 64-row/key ones (bf16 at D 64 and 128: Sq
+# and Skv 1-2 off a multiple of 64, keys past Sq, a 64-row tile of G 3
+# that splits a position's heads), and the students' widths (G 2)
 FLASH_BWD_SWEEP = ((1, 1, 1, 64, 64, 64), (2, 2, 4, 100, 100, 64),
                    (1, 4, 2, 128, 128, 128), (1, 2, 4, 33, 33, 96),
                    (1, 2, 1, 5, 5, 32), (2, 8, 4, 512, 512, 64),
                    (1, 2, 4, 31, 65, 64), (1, 2, 1, 97, 33, 128),
                    (1, 1, 4, 1, 40, 32), (1, 2, 1, 129, 1, 96),
-                   (1, 2, 4, 32, 32, 32), (1, 1, 1, 65, 96, 64))
+                   (1, 2, 4, 32, 32, 32), (1, 1, 1, 65, 96, 64),
+                   (1, 8, 2, 512, 512, 64), (2, 2, 2, 66, 130, 64),
+                   (1, 1, 2, 63, 129, 128), (1, 2, 3, 130, 190, 64))
 RMS_BWD_ROWS = (1, 7, 2048, 4097)
 LM_STUDENTS = 2                 # phase 22's K
 DISTILL_STEPS, FAILOUT_STEPS = 3, 2
@@ -2833,8 +2842,9 @@ def phase_train_kernels(dev) -> dict:
                     errs.append(f"{'causal' if causal else 'full'}/"
                                 f"{'strided' if strided else 'contig'}:"
                                 f"{e:.1e}")
+            route = ops_fa.bwd_route(dtype, D)
             print(f"flash_bwd {str(dtype)[6:]} (B,KV,G,Sq,Skv,D)=({B},{KV},"
-                  f"{G},{Sq},{Skv},{D}): " + " ".join(errs))
+                  f"{G},{Sq},{Skv},{D}) {route}: " + " ".join(errs))
     if ops.flash_attention_bwd.copies != copies:
         raise AssertionError("flash_attention_bwd copied a strided operand")
     for k in TRAIN_SOURCES:
@@ -2884,9 +2894,40 @@ def phase_train_kernels(dev) -> dict:
     t["plain_ms"] = cuda_ms(lambda: ops.flash_attention_bwd_ref(
         q, k, v, o, do, True), iters=10, warm=2)
     timing["flash_attention_bwd"] = t
+    plan = ops_fa.bwd_plan(bf, B, KV, G, S, S, hd, True)
+    # the CUDA-core route at the same shape, for the record
+    cores = MB.time_callable(lambda: ops_fa._bwd(
+        q, k, v, o, do, True, cuda_cores=True), repeats=20, warmup=2) * 1e3
     for name, t in timing.items():
         t["max_abs_err"] = worst[name]
         report_timing(name, t)
+    print(f"flash_attention_bwd route at (B,KV,G,S,D)=({B},{KV},{G},{S},"
+          f"{hd}) bf16: {plan.route} ({plan.launches} launches); the "
+          f"CUDA-core route there: device {cores:.5f} ms")
+    # the students' widths (phase 22): half the query heads, G 2
+    scfg = LMS.student_config(cfg, cfg.d_model // LM_STUDENTS)
+    sG = scfg.n_heads // scfg.n_kv_heads
+    sq, sk, sv, sdo = flash_bwd_operands(B, scfg.n_kv_heads, sG, S, S,
+                                         scfg.head_dim, bf, True, gen, dev)
+    so = ops.flash_attention(sq, sk, sv, causal=True)
+    e = bwd_check(ops.flash_attention_bwd(sq, sk, sv, so, sdo, causal=True),
+                  ops.flash_attention_bwd_ref(sq, sk, sv, so, sdo, True), bf,
+                  "flash_attention_bwd student shape")
+    timing["flash_attention_bwd"]["max_abs_err"] = max(
+        timing["flash_attention_bwd"]["max_abs_err"], e)
+    slib = backward_timing(
+        lambda a, b_, c: F.scaled_dot_product_attention(
+            a, b_, c, is_causal=True, enable_gqa=sG > 1),
+        (sq.reshape(B, scfg.n_heads, S, scfg.head_dim), sk.contiguous(),
+         sv.contiguous()), sdo.reshape(B, scfg.n_heads, S, scfg.head_dim))
+    sroute = ops_fa.bwd_route(bf, scfg.head_dim)
+    st = attention_timing(
+        lambda: ops.flash_attention_bwd(sq, sk, sv, so, sdo, causal=True),
+        slib, f"(B,KV,G,S,D)=({B},{scfg.n_kv_heads},{sG},{S},"
+        f"{scfg.head_dim}) bf16 causal (the students' widths), {sroute}",
+        flash_bwd_bound(B, scfg.n_kv_heads, sG, S, S, scfg.head_dim, True,
+                        bf))
+    report_timing("flash_attention_bwd", st)
 
     calls = guarded_calls(dev)
     for name, call in calls.items():

@@ -29,19 +29,27 @@ Where autograd needs it (grad mode on and q, k or v requiring a
 gradient), :func:`flash_attention` goes through a
 ``torch.autograd.Function`` whose forward is the same launch and whose
 backward is :func:`flash_attention_bwd`: the hand-written
-``csrc/flash_attention_bwd.cu`` on the card (three CUDA launches a call,
-counted once in ``flash_attention_bwd.launches``), the plain formula
-:func:`flash_attention_bwd_ref` on the CPU. dq, dk and dv come back laid
-out as the model's projections are, (B, Sq, KV, G, D) and (B, Skv, KV, D)
-in memory, so the views' backward copies nothing;
-``flash_attention_bwd.copies`` counts operands it had to make contiguous
-(an upstream gradient with a stride on its last axis).
+``csrc/flash_attention_bwd.cu`` on the card (counted once a call in
+``flash_attention_bwd.launches``), the plain formula
+:func:`flash_attention_bwd_ref` on the CPU. Its route follows the
+forward's, by dtype and head dim (:func:`bwd_plan`): bf16 at D = 64 and
+128 runs every product on the tensor cores (``wgmma``) in two launches, a
+warpgroup per 64-row query tile (lse, Δ and dQ) and two per 64-key tile
+(dK and dV), P and dS rounded to bf16 before their products (within the
+bf16 bound); fp32, and bf16 at D = 32 and 96, the CUDA-core kernels in
+three launches. No atomics on either route: reruns give the same bits.
+dq, dk and dv come back laid out as the model's projections are,
+(B, Sq, KV, G, D) and (B, Skv, KV, D) in memory, so the views' backward
+copies nothing; ``flash_attention_bwd.copies`` counts operands it had to
+copy (an upstream gradient with a stride on its last axis, or, on the
+tensor route, an operand whose base or strides are off 16 bytes).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -53,6 +61,7 @@ NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 96, 128)        # the kernel's instantiated D
 WGMMA_HEAD_DIMS = (64, 128)          # bf16 on the tensor cores
 _DTYPES = (torch.float32, torch.bfloat16)
+BWD_TILE = 64                        # tensor-route backward: rows, keys a tile
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -185,14 +194,94 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+class BwdPlan(NamedTuple):
+    """The backward's launches at one shape (:func:`bwd_plan`). On the
+    tensor route each launch runs a block per (slot, b·KV + h), block
+    ``n`` taking slot ``n // heads`` and pair ``n % heads``: every (b, kv
+    head) of a tile side by side, the slots in the order given. The kernels
+    read the slots as they are here; the CUDA-core route plans none."""
+    route: str          # "wgmma" (bf16 at D 64/128) or "cuda_cores"
+    launches: int       # kernels a call runs in stream order (2 or 3)
+    heads: int          # B * KV: the (b, kv head) pairs
+    dq: Tuple[Tuple[int, int, int], ...]
+    # the dq launch, a slot a 64-row query tile (rows r = i*G + g):
+    # (query tile, key tiles 0.. it walks, the first of them that needs an
+    # element mask; the unmasked ones are a prefix)
+    dkdv: Tuple[Tuple[int, int, int, int, int], ...]
+    # the dkdv launch, a slot a 64-key tile: (key tile, first row tile it
+    # walks, row tiles walked, and [lo, hi) the row tiles needing no mask)
+
+
+def bwd_route(dtype: torch.dtype, D: int) -> str:
+    """The backward's route, from dtype and head dim alone, as the
+    forward's: the tensor cores for bf16 at D 64 and 128."""
+    if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "cuda_cores"
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(dtype: torch.dtype, B: int, KV: int, G: int, Sq: int, Skv: int,
+             D: int, causal: bool) -> BwdPlan:
+    """The route of :func:`flash_attention_bwd` at a shape and, on the
+    tensor route, its launches' slots: the last query tiles (the causal
+    triangle's heaviest) first in the dq launch and the first key tiles
+    (seen by the most rows) first in the dkdv launch; each walks only the
+    tiles holding a pair it can see (top-left causal: key j <= position
+    i), and masks element by element only those holding a pair it must
+    not count (above the diagonal, past Sq·G or Skv). Key tiles past Sq
+    walk no rows: their block writes zero gradients."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} is not one of {HEAD_DIMS}")
+    route = bwd_route(dtype, D)
+    if route != "wgmma":
+        return BwdPlan(route, 3, B * KV, (), ())
+    T, R = BWD_TILE, Sq * G
+    dq = []
+    for qt in reversed(range(-(-R // T))):
+        i_lo, i_hi = qt * T // G, (min(qt * T + T, R) - 1) // G
+        n = -(-(min(Skv, i_hi + 1) if causal else Skv) // T)
+        full = [t for t in range(n) if t * T + T <= Skv
+                and not (causal and t * T + T - 1 > i_lo)]
+        assert full == list(range(len(full)))
+        dq.append((qt, n, len(full)))
+    dkdv = []
+    for kt in range(-(-Skv // T)):
+        j0 = kt * T
+        start = min(R, j0 * G) if causal else 0     # a multiple of T below R
+        walk = range(start // T, start // T + -(-(R - start) // T))
+        full = [t for t in walk if j0 + T <= Skv and t * T + T <= R
+                and not (causal and j0 + T - 1 > t * T // G)]
+        lo, hi = (full[0], full[-1] + 1) if full else (0, 0)
+        assert full == list(range(lo, hi))
+        dkdv.append((kt, walk.start, len(walk), lo, hi))
+    return BwdPlan(route, 2, B * KV, tuple(dq), tuple(dkdv))
+
+
+@functools.lru_cache(maxsize=64)
+def _slots(plan: BwdPlan, device: torch.device) -> torch.Tensor:
+    """The plan's slots as the kernels read them: int32 on ``device``, the
+    dq launch's then the dkdv launch's."""
+    flat = [n for slot in plan.dq + plan.dkdv for n in slot]
+    return torch.tensor(flat, dtype=torch.int32, device=device)
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
                         causal: bool = True):
     """Gradients of :func:`flash_attention` for the upstream gradient
     ``do`` (o's shape): (dq, dk, dv) in q's dtype, dq as a (B, KV, G, Sq,
     D) view of (B, Sq, KV, G, D) memory and dk, dv as (B, KV, Skv, D)
-    views of (B, Skv, KV, D). The hand-written kernel on the card,
-    :func:`flash_attention_bwd_ref` on the CPU."""
+    views of (B, Skv, KV, D). The hand-written kernels on the card, on the
+    route and slots of :func:`bwd_plan`; :func:`flash_attention_bwd_ref`
+    on the CPU."""
+    return _bwd(q, k, v, o, do, causal, cuda_cores=False)
+
+
+def _bwd(q, k, v, o, do, causal: bool, cuda_cores: bool):
+    """:func:`flash_attention_bwd`; ``cuda_cores`` runs the CUDA-core
+    kernels whatever the plan's route (``chip_smoke.py`` times them at the
+    tensor route's shapes as its yardstick)."""
     _check(q, k, v)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
@@ -206,13 +295,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("all operands must be on one device")
     B, KV, G, Sq, D = q.shape
     Skv = k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} is not one of {HEAD_DIMS}")
+    plan = bwd_plan(q.dtype, B, KV, G, Sq, Skv, D, bool(causal))
+    tensor_route = plan.route == "wgmma" and not cuda_cores
     ops_in = []
     for t in (q, k, v, o, do.to(q.dtype)):
         if t.stride(-1) != 1:
             t = t.contiguous()
             flash_attention_bwd.copies += 1
+        elif tensor_route:
+            a = aligned(t, 16)          # cp.async reads rows 16 bytes at a time
+            flash_attention_bwd.copies += a is not t
+            t = a
         ops_in.append(t)
     q, k, v, o, do = ops_in
     dq = torch.empty((B, Sq, KV, G, D), dtype=q.dtype,
@@ -229,14 +322,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *strides(q)[:4], *strides(k)[:3], *strides(v)[:3], *strides(o)[:4],
         *strides(do)[:4], *dq.stride()[:4], *dk.stride()[:3],
         *dv.stride()[:3])
+    slots = _slots(plan, q.device).data_ptr() if tensor_route else None
     lib = _bwd_library()
     with on_device(q.device):
         rc = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            stats[0].data_ptr(), stats[1].data_ptr(), st, B, KV, G, Sq, Skv,
-            D, int(causal), 1.0 / math.sqrt(D),
-            int(q.dtype == torch.bfloat16), stream_handle(q.device))
+            stats[0].data_ptr(), stats[1].data_ptr(), st, slots,
+            len(plan.dq), len(plan.dkdv), B, KV, G, Sq, Skv, D, int(causal),
+            1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16),
+            stream_handle(q.device))
     if rc != 0:
         msg = lib.flash_attention_bwd_error_string(rc).decode()
         raise RuntimeError(f"flash_attention_bwd launch failed: {msg} ({rc})")
@@ -266,8 +361,9 @@ def _bwd_library() -> ctypes.CDLL:
     """The built backward library with its C signature declared."""
     lib = build.load("flash_attention_bwd")
     lib.flash_attention_bwd.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.POINTER(ctypes.c_longlong)]
-        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
+        [ctypes.c_void_p] * 10 + [ctypes.POINTER(ctypes.c_longlong),
+                                  ctypes.c_void_p]
+        + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int,
                                 ctypes.c_void_p])
     lib.flash_attention_bwd.restype = ctypes.c_int
     lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]

@@ -30,6 +30,9 @@ ROWS_THREADS = 256                     # threads a block of several rows takes
 VECTOR_NV = (1, 2, 4, 8)               # 16-byte accesses a thread holds
 SCALAR_NV = (1, 2, 4, 8, 16, 32)       # elements a thread holds (scalar route)
 FEW_ROWS_ELEMS = 16                    # elements a thread holds at few rows
+BWD_ACCESSES = 2                       # the backward's accesses a thread a row
+BWD_BLOCKS_PER_SM = 1                  # the backward's grid: one wave
+BWD_REDUCE_RANGES = 32                 # scratch-row ranges its column sum takes
 
 
 class NormPlan(NamedTuple):
@@ -173,26 +176,32 @@ def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
 @functools.lru_cache(maxsize=256)
 def bwd_plan(rows: int, D: int, x_bytes: int, aligned: bool,
              sms: int) -> NormPlan:
-    """The backward's launch: one row at a time per block, spread over as
-    many warps (up to 16) as keep a thread at one access where they can;
-    the vector route where x, g, dx and the scale are ``aligned`` to 16
-    bytes and the access width divides D, else the scalar one. Blocks: up
-    to 1024 threads' worth per SM, at most one per row; each block adds
-    one row of D fp32 to the scale gradient's scratch."""
+    """The backward's launch: a row spread over as few warps (up to 16)
+    as keep a thread at ``BWD_ACCESSES`` accesses where they can (fewer
+    warps a row exchange their sums faster); the vector route where
+    x, g, dx and the scale are ``aligned`` to 16 bytes and the access
+    width divides D, else the scalar one. A block holds as many such row
+    groups (``rows_per_block``) as fit ``MAX_THREADS``, each walking rows
+    with a grid-wide stride; the grid is one wave, ``BWD_BLOCKS_PER_SM``
+    block an SM, at most one per row group. Each block adds one row of D
+    fp32 to the scale gradient's scratch, which a second launch sums down
+    in ``BWD_REDUCE_RANGES`` ranges, each in order, then the ranges in
+    order."""
     vec = 16 // x_bytes
     if not aligned or D % vec:
         vec = 1
     nvs = VECTOR_NV if vec > 1 else SCALAR_NV
     nvec = D // vec
-    warps = min(max(1, -(-nvec // 32)), MAX_THREADS // 32)
+    warps = min(max(1, -(-nvec // (32 * BWD_ACCESSES))), MAX_THREADS // 32)
     need = -(-nvec // (32 * warps))
     if need > nvs[-1]:
         raise ValueError(f"rmsnorm_bwd takes D up to "
                          f"{MAX_THREADS * nvs[-1] * vec} on this route "
                          f"(16-byte aligned: {vec > 1}), got D={D}")
     nv = next(n for n in nvs if n >= need)
-    per_sm = max(1, 1024 // (32 * warps))
-    return NormPlan(vec, nv, warps, 1, max(1, min(rows, sms * per_sm)))
+    groups = max(1, (MAX_THREADS // 32) // warps)
+    return NormPlan(vec, nv, warps, groups,
+                    max(1, min(-(-rows // groups), sms * BWD_BLOCKS_PER_SM)))
 
 
 def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, *,
@@ -231,7 +240,8 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, *,
                              partial.data_ptr(), rows, D, eps,
                              x.dtype == torch.bfloat16,
                              scale.dtype == torch.bfloat16, p.vec, p.nv,
-                             p.warps, p.blocks, stream_handle(dev))
+                             p.warps, p.rows_per_block, p.blocks,
+                             BWD_REDUCE_RANGES, stream_handle(dev))
     if rc != 0:
         msg = lib.rmsnorm_bwd_error_string(rc).decode()
         raise RuntimeError(f"rmsnorm_bwd launch failed: {msg} ({rc})")
@@ -263,7 +273,7 @@ def _bwd_library() -> ctypes.CDLL:
     lib.rmsnorm_bwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong,
                                                          ctypes.c_int,
                                                          ctypes.c_float]
-                                + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                                + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.rmsnorm_bwd.restype = ctypes.c_int
     lib.rmsnorm_bwd_error_string.argtypes = [ctypes.c_int]
     lib.rmsnorm_bwd_error_string.restype = ctypes.c_char_p

@@ -19,6 +19,7 @@ from repro_torch.core.plan_ir import (PlanIR, device_matrix,  # noqa: E402
                                       eq1a_latency, student_matrix)
 from repro_torch.core.simulator import FailureModel  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.runtime.engine import build_demo_server  # noqa: E402
 
@@ -1088,7 +1089,11 @@ FLASH_BWD_SHAPES = [(1, 1, 1, 64, 64, 64), (2, 2, 4, 100, 100, 64),
                     (1, 2, 2, 5, 5, 32), (2, 8, 4, 512, 512, 64),
                     # Sq != Skv, tile edges (32 rows or keys a tile)
                     (1, 2, 4, 31, 65, 64), (1, 2, 1, 97, 33, 128),
-                    (1, 1, 4, 1, 40, 32), (1, 2, 2, 129, 1, 96)]
+                    (1, 1, 4, 1, 40, 32), (1, 2, 2, 129, 1, 96),
+                    # the tensor route (bf16, D 64/128): the students' G 2,
+                    # 64-row/key tile edges, keys past Sq, G 3
+                    (1, 8, 2, 512, 512, 64), (2, 2, 2, 66, 130, 64),
+                    (1, 1, 2, 63, 129, 128), (1, 2, 3, 130, 190, 64)]
 
 
 @pytest.mark.parametrize("dtype", LM_DTYPES, ids=["fp32", "bf16"])
@@ -1110,6 +1115,24 @@ def test_flash_attention_bwd_matches_plain_version(hopper, dtype, B, KV, G,
     _bwd_close(got, ops.flash_attention_bwd_ref(q, k, v, o, do, causal),
                dtype)
     again = ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("B,KV,G,Sq,Skv,D", [(2, 8, 4, 512, 512, 64),
+                                            (1, 2, 3, 130, 190, 128)])
+def test_flash_attention_bwd_cuda_core_route_at_tensor_shapes(hopper, B, KV,
+                                                              G, Sq, Skv, D):
+    """The CUDA-core kernels on bf16 at D 64 and 128 (the tensor route's
+    yardstick that ``chip_smoke.py`` times) are within the bound and
+    bit-equal on a rerun."""
+    q, k, v, do = _bwd_flash_operands(B, KV, G, Sq, Skv, D, torch.bfloat16,
+                                      True, hopper, seed=3)
+    o = ops.flash_attention_ref(q, k, v, causal=True)
+    got = FA._bwd(q, k, v, o, do, True, cuda_cores=True)
+    torch.cuda.synchronize()
+    _bwd_close(got, ops.flash_attention_bwd_ref(q, k, v, o, do, True),
+               torch.bfloat16)
+    again = FA._bwd(q, k, v, o, do, True, cuda_cores=True)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 

@@ -1,14 +1,17 @@
 """The launch plans of the port's ``coded_decode`` and ``rmsnorm`` kernels.
 
-Both kernels take their launch from a Python function of the shape
+The kernels take their launch from a Python function of the shape
 (:func:`repro_torch.kernels.coded_decode.decode_plan`,
-:func:`repro_torch.kernels.rmsnorm.plan`). The kernels themselves run only
-on the card (``tests/test_torch_hopper.py``); here each plan is held to
-what the kernel needs of it, by a model of the kernel's own index
-arithmetic: every row and column is covered exactly once, the vector width
-divides what it reads (a ragged size or an unaligned base takes the scalar
-route), R passes over the shares cover R with the compile-time bound
-exact at 16, and blocks stay within the kernel's launch bound.
+:func:`repro_torch.kernels.rmsnorm.plan` and ``bwd_plan``). The kernels
+themselves run only on the card (``tests/test_torch_hopper.py``); here
+each plan is held to what the kernel needs of it, by a model of the
+kernel's own index arithmetic: every row and column is covered exactly
+once, the vector width divides what it reads (a ragged size or an
+unaligned base takes the scalar route), R passes over the shares cover R
+with the compile-time bound exact at 16, and blocks stay within the
+kernel's launch bound. The norm backward's grid is one wave, and a model
+of its fixed-order, compensated sum of the scale gradient holds the fp32
+bound at 4097 rows.
 """
 import numpy as np
 import pytest
@@ -110,6 +113,102 @@ def test_rmsnorm_plan_refuses_rows_past_its_largest_d(x_bytes, aligned,
     RN.plan(4, largest, x_bytes, aligned, 132)
     with pytest.raises(ValueError, match="takes D up to"):
         RN.plan(4, largest + 16, x_bytes, aligned, 132)
+
+
+# -- rmsnorm backward ---------------------------------------------------------
+
+@pytest.mark.parametrize("D", NORM_WIDTHS)
+@pytest.mark.parametrize("x_bytes", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+def test_rmsnorm_bwd_plan_covers_every_row_and_column_once(D, x_bytes,
+                                                           aligned):
+    """The backward's groups walk rows as the forward's slots do (group
+    ``grp`` of block ``blk`` takes blk·groups + grp, + blocks·groups, ...),
+    so the forward's model of the indexing covers it; a block holds as
+    many groups as fit, and a block of several holds a row's columns in its
+    fold buffer."""
+    for rows, sms in ((2048, 132), (4, 132), (4097, 132), (37, 2), (1, 1)):
+        p = RN.bwd_plan(rows, D, x_bytes, aligned, sms)
+        row_hits, col_hits = _norm_cover(rows, D, p)
+        assert (row_hits == 1).all(), (rows, sms, p)
+        assert (col_hits == 1).all(), (rows, sms, p)
+        assert 32 * p.warps * p.rows_per_block <= RN.MAX_THREADS
+        assert 32 * p.warps * (p.rows_per_block + 1) > RN.MAX_THREADS
+        if p.rows_per_block > 1:                  # the groups' fold
+            assert 32 * p.warps * p.nv * p.vec <= 4096
+
+
+@pytest.mark.parametrize("D", [768, 1536, 2048, 4096, 6144, 8192])
+@pytest.mark.parametrize("x_bytes", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_rmsnorm_bwd_grid_is_one_or_two_blocks_an_sm(D, x_bytes, sms):
+    """At the training rows (2048) the grid fills the card once,
+    and the scale gradient's scratch, a row of D fp32 a block, stays
+    under a tenth of the bytes the call must move."""
+    p = RN.bwd_plan(2048, D, x_bytes, True, sms)
+    assert sms <= p.blocks <= 2 * sms
+    scratch = p.blocks * D * 4
+    assert scratch < 0.1 * 3 * 2048 * D * x_bytes
+
+
+def _kahan(s, c, v):
+    y = v - c
+    t = s + y
+    return t, (t - s) - y
+
+
+def _dscale_in_kernel_order(terms, p):
+    """The scale gradient as ``csrc/rmsnorm_bwd.cu`` sums it, in fp32:
+    each group of each block a compensated sum over its rows in order,
+    the groups folded into group 0 in order, a scratch row a block; then
+    ``BWD_REDUCE_RANGES`` ranges of the scratch rows each summed in order
+    and the ranges in order, every sum compensated."""
+    rows, D = terms.shape
+    f32 = np.float32
+    zero = lambda: np.zeros(D, f32)  # noqa: E731
+    groups = p.rows_per_block
+    partial = np.zeros((p.blocks, D), f32)
+    for blk in range(p.blocks):
+        sums = []
+        for grp in range(groups):
+            s, c = zero(), zero()
+            for r in range(blk * groups + grp, rows, p.blocks * groups):
+                s, c = _kahan(s, c, terms[r])
+            sums.append((s, c))
+        s, c = sums[0]
+        for sg, cg in sums[1:]:
+            s, c = _kahan(s, c, sg - cg)
+        partial[blk] = s - c
+    n = RN.BWD_REDUCE_RANGES
+    per = -(-p.blocks // n)
+    total, comp = zero(), zero()
+    for k in range(n):
+        b0 = min(p.blocks, k * per)
+        s, c = zero(), zero()
+        for b in range(b0, min(p.blocks, b0 + per)):
+            s, c = _kahan(s, c, partial[b])
+        total, comp = _kahan(total, comp, s - c)
+    return total - comp
+
+
+@pytest.mark.parametrize("D,x_bytes", [(2048, 2), (6144, 2), (768, 2),
+                                       (1000, 4), (100, 2)])
+def test_rmsnorm_bwd_scale_sum_holds_the_fp32_bound_at_4097_rows(D,
+                                                                 x_bytes):
+    """4097 rows of g·x̂ whose column sums cancel, summed in the kernels'
+    order in fp32, land within 3e-5 of the fp64 sum (the card's check of
+    the 4097-row case, chip_smoke.py phase 19)."""
+    rng = np.random.default_rng(D)
+    x = rng.standard_normal((4097, D)).astype(np.float32)
+    g = rng.standard_normal((4097, D)).astype(np.float32)
+    r = (1 / np.sqrt((x * x).mean(1, keepdims=True) + 1e-6)).astype(
+        np.float32)
+    terms = (g * (x * r)).astype(np.float32)
+    p = RN.bwd_plan(4097, D, x_bytes, True, 132)
+    got = _dscale_in_kernel_order(terms, p)
+    want = terms.astype(np.float64).sum(0)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=3e-5, atol=3e-5)
 
 
 # -- coded_decode ------------------------------------------------------------------
