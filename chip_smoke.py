@@ -167,8 +167,8 @@ hand-written kernels, ``rmsnorm_bwd`` and ``flash_attention_bwd``
     training shapes (batch 4 x 512, bf16; flash also at its students'
     G 2, and on the CUDA-core route for the record) beside their bounds,
     their plain versions and one PyTorch call (``F.rms_norm``'s and SDPA's
-    autograd backward); each of the seven wrappers without a backward
-    raises under grad;
+    autograd backward); each of the five serving-only wrappers (no
+    backward) raises under grad;
 20. card vs CPU training: llama3.2-1b at full width cut to 2 layers, fp32,
     weights drawn once on the CPU, 3 AdamW steps on the same batches
     (batch 4 x 64): losses within 1e-3 relative, step-1 gradients within
@@ -186,9 +186,38 @@ hand-written kernels, ``rmsnorm_bwd`` and ``flash_attention_bwd``
     the kernels and their backwards; the merged portions through the
     teacher's head finite with either slot lost.
 
+Training the SSM, MoE and hybrid families differentiates through
+``ssd_scan`` and ``topk_gating`` too, whose backwards are the last two
+hand-written kernels, ``ssd_scan_bwd`` and ``topk_gating_bwd``:
+
+23. both held to their plain backward versions: the scan at mamba2-130m's
+    and jamba's training shapes (batch 4 x 512, chunk 256) and small ones
+    (a ragged chunk count, L below the chunk), fp32 and bf16, the final
+    state's gradient zero and not, B and C head-shared (B, L, N), expanded
+    over the heads with stride 0, and per head; every fp32 gradient within
+    2e-3 of its largest entry (the forward's bound), a bf16 one also within
+    one bf16 step of each value; the gating at moonshot's (2048, 64, 6),
+    jamba's (2048, 16, 2), a decode step's (4, 64, 6), N = 0, tied rows
+    and near-zero weights, within 1e-5; every case run twice and
+    bit-equal; both timed at the training shapes by device time beside
+    their bounds, their plain versions and autograd of their plain
+    forwards (no one PyTorch call computes either backward);
+24. card vs CPU training, tiny fp32 mamba2-130m, moonshot-v1-16b-a3b and
+    jamba-v0.1-52b (TF32 off): one step's loss and every gradient leaf
+    within 1e-3, the eight training kernels' launches exact;
+25. full width: mamba2-130m uncut, bf16, through ``train.run(tiny=False,
+    steps=20, batch=4, seq=512, ckpt_every=10)`` (loss falling, every
+    layer's step-1 gradient finite and nonzero, the step-10 checkpoint
+    stepped to 20 bit-equal, step ms, tokens/s, a profile);
+    moonshot-v1-16b-a3b cut to 2 layers through ``train.run`` for 10 steps
+    without checkpoints (loss falling, every leaf's step-1 gradient finite
+    and nonzero); one period (8 layers) of jamba-v0.1-52b through one
+    ``loss_and_grads`` at batch 4 x 512 (every leaf finite and nonzero,
+    peak memory); each with the eight kernels' launches exact.
+
 The last two lines of standard output are the ``kernels`` JSON line
-(eleven entries) and the ``ok`` JSON line. Exits non-zero without a CUDA
-device.
+(thirteen entries) and the ``ok`` JSON line. Exits non-zero without a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -260,7 +289,8 @@ from repro_torch.tree import tree_leaves, tree_map, tree_to  # noqa: E402
 
 KERNELS = ("quorum_aggregate", "coded_decode", "rmsnorm", "flash_attention",
            "decode_attention", "ssd_scan", "topk_gating", "dequant_matmul",
-           "coded_matmul", "rmsnorm_bwd", "flash_attention_bwd")
+           "coded_matmul", "rmsnorm_bwd", "flash_attention_bwd",
+           "ssd_scan_bwd", "topk_gating_bwd")
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/quorum_aggregate.cu"
 TPU_KERNEL = "src/repro/kernels/quorum_aggregate.py:33"
 DECODE_SOURCE = "src/repro_torch/kernels/csrc/coded_decode.cu"
@@ -1453,7 +1483,10 @@ def lm_profile(label: str, fn, calls: int) -> dict:
                                               "rmsnorm_dscale_kernel")),
                              ("flash_attention_bwd", ("stats_kernel",
                                                       "dkdv_kernel",
-                                                      "dq_kernel")))}
+                                                      "dq_kernel")),
+                             ("ssd_scan_bwd", ("ssd_bwd_",)),
+                             ("topk_gating_bwd", ("topk_gating_bwd_kernel",
+                                                  )))}
     top = "; ".join(f"{k[:70]} {t:.4f} ms" for k, t in
                     sorted(per_name.items(), key=lambda kv: -kv[1])[:5])
     print(f"profile: {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
@@ -2752,19 +2785,14 @@ def same_twice(fn, label: str):
 
 
 def guarded_calls(dev) -> dict:
-    """One call of each kernel that has no backward, its first float
+    """One call of each serving-only kernel (no backward), its first float
     operand passed through ``t`` (which makes it need a gradient)."""
     r = lambda *s: torch.rand(s, device=dev)  # noqa: E731
-    x, dt, A, Bm, Cm = ssd_operands(1, 2, 64, 64, 16, torch.float32, False,
-                                    torch.Generator(device=dev).manual_seed(0),
-                                    dev)
     q, kc, vc = decode_operands(1, 2, 2, 8, 64, torch.float32,
                                 torch.Generator(device=dev).manual_seed(0),
                                 dev)
     ones = lambda *s: torch.ones(s, dtype=torch.int32, device=dev)  # noqa
     return {
-        "topk_gating": lambda t: ops.topk_gating(t(r(8, 16)), 2),
-        "ssd_scan": lambda t: ops.ssd_scan(t(x), dt, A, Bm, Cm),
         "decode_attention": lambda t: ops.decode_attention(t(q), kc, vc, 3),
         "quorum_aggregate": lambda t: ops.quorum_aggregate(
             t(r(2, 4, 8)), r(2, 8, 3), r(3), ones(2)),
@@ -2789,7 +2817,7 @@ def backward_timing(fwd, inputs, grad_out) -> callable:
 def phase_train_kernels(dev) -> dict:
     """rmsnorm_bwd and flash_attention_bwd vs their plain versions over
     sweeps, each case twice and bit-equal; timed at llama3.2-1b's training
-    shapes; the seven wrappers without a backward raise under grad."""
+    shapes; the five serving-only wrappers raise under grad."""
     gen = torch.Generator(device=dev).manual_seed(19)
     dtypes = (torch.float32, torch.bfloat16)
     worst = {k: 0.0 for k in TRAIN_SOURCES}
@@ -3046,94 +3074,118 @@ def phase_train_card_vs_cpu(dev) -> None:
           f"and nonzero; launches {want} a step; CPU run {cpu_s:.1f} s")
 
 
-def train_profile(step, state, batch) -> dict:
+def train_profile(step, state, batch, arch: str) -> dict:
     """``lm_profile`` of one train step, with the backward kernels'
     shares."""
     box = {"state": state}
 
     def one():
         box["state"], _ = step(box["state"], batch)
-    return lm_profile(f"train step {TRAIN_BATCH} x {TRAIN_SEQ}", one, 1)
+    return lm_profile(f"{arch} train step {TRAIN_BATCH} x {TRAIN_SEQ}", one,
+                      1)
 
 
 def phase_train_full(dev) -> dict:
-    """The slice's main path: full-width bf16 llama3.2-1b trained through
-    ``train.run`` for 20 steps with checkpoints every 10; launches exact,
-    the loss falling, every layer's step-1 gradient nonzero, the step-10
-    checkpoint stepped to 20 bit-equal; step time and a profile."""
-    cfg = get_config(LM_ARCH)
-    L, n = cfg.n_layers, TRAIN_STEPS
+    """The dense slice's main path: full-width bf16 llama3.2-1b trained
+    through ``train.run`` for 20 steps with checkpoints every 10
+    (``train_full``)."""
+    return train_full(LM_ARCH, None, TRAIN_STEPS, CKPT_EVERY, dev)
+
+
+def train_full(arch: str, layers, n: int, ckpt, dev) -> dict:
+    """``arch`` at full width (cut to ``layers`` layers, or uncut) trained
+    through ``train.run`` for ``n`` steps, with checkpoints every ``ckpt``
+    (or none): every leaf's (every layer's) step-1 gradient finite and
+    nonzero, the eight training kernels' launches exact, the loss falling;
+    with checkpoints the step-``ckpt`` one restored and stepped to ``n``
+    bit-equal to the run's state, and a profile of one step; step ms and
+    tokens/s over 3 steps."""
+    cfg = get_config(arch)
+    cfg = cfg.with_(n_layers=layers) if layers else cfg
+    torch.cuda.reset_peak_memory_stats(dev)
     # step 1's gradient, from run's own weights (seed 0) and first batch
     params = api.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    n_params = api.param_count(params)
     first = token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 1, dev)[0]
     _, grads = ST.loss_and_grads(params, cfg, first)
-    check_gradients(grads, "train step 1")
-    print(f"train: {api.param_count(params):,} parameters; step-1 gradient "
-          f"finite and nonzero in every leaf of all {L} layers")
+    check_gradients(grads, f"train {arch} step 1")
     del params, grads
-    with tempfile.TemporaryDirectory() as tmp:
-        zero_train_launches()
+    torch.cuda.empty_cache()
+    dtype = str(cfg.param_dtype)[6:]
+    with depth_cut(arch, layers), tempfile.TemporaryDirectory() as tmp:
+        zero_ssm_train_launches()
         t0 = time.perf_counter()
-        state, losses = TR.run(LM_ARCH, tiny=False, steps=n,
-                               batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                               ckpt_dir=tmp, ckpt_every=CKPT_EVERY,
-                               verbose=False, device=dev)
+        state, losses = TR.run(arch, tiny=False, steps=n, batch=TRAIN_BATCH,
+                               seq=TRAIN_SEQ, ckpt_dir=tmp if ckpt else None,
+                               ckpt_every=ckpt or n, verbose=False,
+                               device=dev)
         run_s = time.perf_counter() - t0
-        launches = train_launches()
+        launches, want = ssm_train_launches(), train_expected(cfg, n)
+        if launches != want:
+            raise AssertionError(f"train {arch}: launches "
+                                 f"{SSM_TRAIN_KERNELS} {launches}, expected "
+                                 f"{want}")
+        q = max(1, n // 4)
+        head, tail = np.mean(losses[:q]), np.mean(losses[-q:])
+        if not (np.isfinite(losses).all() and tail < head):
+            raise AssertionError(f"train {arch}: losses {losses} not falling")
         ckpt_gb = sum(f.stat().st_size for f in Path(tmp).rglob("*")
                       if f.is_file()) / 1e9
-        want = ((2 * L + 1) * n, (2 * L + 1) * n, L * n, L * n)
-        if launches != want:
-            raise AssertionError(f"train: launches {TRAIN_KERNELS} "
-                                 f"{launches}, expected {want}")
-        head, tail = np.mean(losses[:5]), np.mean(losses[-5:])
-        if not (np.isfinite(losses).all() and tail < head):
-            raise AssertionError(f"train: losses {losses} not falling")
-        print(f"train: {LM_ARCH} full width ({L} layers, "
-              f"{str(cfg.param_dtype)[6:]}), batch {TRAIN_BATCH} x "
+        saves = (f"checkpoints every {ckpt} included, {ckpt_gb:.2f} GB on "
+                 f"disk" if ckpt else "no checkpoints")
+        print(f"train: {arch} full width ({cfg.n_layers} layers"
+              f"{'' if layers is None else ' after a depth cut'}, "
+              f"{n_params:,} parameters, {dtype}), batch {TRAIN_BATCH} x "
               f"{TRAIN_SEQ}, {n} steps through train.run in {run_s:.1f} s "
-              f"(checkpoints every {CKPT_EVERY} included, {ckpt_gb:.2f} GB "
-              f"on disk): loss "
-              f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of first 5 "
-              f"{head:.4f}, last 5 {tail:.4f}); launches {launches}; peak "
-              f"device memory "
-              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-        mgr = CheckpointManager(tmp)
-        t0 = time.perf_counter()
-        resumed = mgr.restore(CKPT_EVERY, state)
-        restore_s = time.perf_counter() - t0
-    opt = adamw.AdamWConfig(lr=3e-4, total_steps=n,
-                            warmup_steps=max(n // 10, 1))
-    step = ST.make_train_step(cfg, opt)
-    if int(resumed.opt.step) != CKPT_EVERY:
-        raise AssertionError(f"train: restored step {int(resumed.opt.step)}")
-    for b in token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, n - CKPT_EVERY, dev,
-                           start=CKPT_EVERY):
-        resumed, _ = step(resumed, b)
-    for (key, a), (_, b) in zip(flatten_with_keys(resumed),
-                                flatten_with_keys(state)):
-        if not torch.equal(a, b):
-            raise AssertionError(f"train: resumed {key} differs at step {n}")
-    print(f"train: step-{CKPT_EVERY} checkpoint restored in {restore_s:.1f} "
-          f"s (params, master, m, v, step) and stepped to {n}: bit-equal to "
-          f"the run's state")
-    del state
+              f"({saves}): loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean "
+              f"of first {q} {head:.4f}, last {q} {tail:.4f}); step-1 "
+              f"gradient finite and nonzero in every leaf of all "
+              f"{cfg.n_layers} layers; launches "
+              f"{dict(zip(SSM_TRAIN_KERNELS, launches))}; peak device "
+              f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
+              f"GiB")
+        opt = adamw.AdamWConfig(lr=3e-4, total_steps=n,
+                                warmup_steps=max(n // 10, 1))
+        step = ST.make_train_step(cfg, opt)
+        if ckpt:
+            t0 = time.perf_counter()
+            resumed = CheckpointManager(tmp).restore(ckpt, state)
+            restore_s = time.perf_counter() - t0
+            if int(resumed.opt.step) != ckpt:
+                raise AssertionError(f"train {arch}: restored step "
+                                     f"{int(resumed.opt.step)}")
+            for b in token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, n - ckpt, dev,
+                                   start=ckpt):
+                resumed, _ = step(resumed, b)
+            for (key, a), (_, b) in zip(flatten_with_keys(resumed),
+                                        flatten_with_keys(state)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"train {arch}: resumed {key} "
+                                         f"differs at step {n}")
+            print(f"train: {arch} step-{ckpt} checkpoint restored in "
+                  f"{restore_s:.1f} s (params, master, m, v, step) and "
+                  f"stepped to {n}: bit-equal to the run's state")
+            del state
+            state = resumed
     batch = token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 1, dev, start=n)[0]
-    resumed, _ = step(resumed, batch)
+    state, _ = step(state, batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     reps = 3
     for _ in range(reps):
-        resumed, m = step(resumed, batch)
+        state, m = step(state, batch)
     float(m["loss"])
     step_ms = (time.perf_counter() - t0) * 1e3 / reps
     tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
-    print(f"train: step {step_ms:.3f} ms ({tok_s:,.0f} tokens/s) at batch "
-          f"{TRAIN_BATCH} x {TRAIN_SEQ}, {str(cfg.param_dtype)[6:]}, mean "
-          f"of {reps} steps")
-    prof = train_profile(step, resumed, batch)
-    return dict(launches=dict(zip(TRAIN_KERNELS, launches)), step_ms=step_ms,
-                tokens_per_s=tok_s, profile=prof)
+    print(f"train: {arch} step {step_ms:.3f} ms ({tok_s:,.0f} tokens/s) at "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, {dtype}, mean of {reps} steps")
+    out = dict(launches=dict(zip(SSM_TRAIN_KERNELS, launches)),
+               step_ms=step_ms, tokens_per_s=tok_s)
+    if ckpt:
+        out["profile"] = train_profile(step, state, batch, arch)
+    del state, m
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_lm_rocoin(dev) -> dict:
@@ -3203,6 +3255,376 @@ def phase_lm_rocoin(dev) -> dict:
           f"batch {TRAIN_BATCH} x {TRAIN_SEQ}; launches {launches}; merged "
           f"logits finite with either slot lost")
     return dict(launches=dict(zip(TRAIN_KERNELS, launches)))
+
+
+# -- SSM, MoE and hybrid training: ssd_scan_bwd, topk_gating_bwd -------------------
+
+SSM_TRAIN_SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu"
+                     for k in ("ssd_scan_bwd", "topk_gating_bwd")}
+# no TPU kernel: the JAX package differentiates these plain functions
+SSM_TRAIN_REPLACES = {"ssd_scan_bwd": "src/repro/models/ssm.py:76",
+                      "topk_gating_bwd": "src/repro/models/transformer.py:230"}
+SSM_TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                     "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd",
+                     "topk_gating", "topk_gating_bwd")
+# (B, H, L, P, N, Q) of the scan backward's sweep: mamba2-130m's and
+# jamba's training shapes, the tiny configs', L below the chunk, a ragged
+# chunk count (64-row tiles of a 48-step chunk), N 8 and a 100-step chunk
+SCAN_BWD_SWEEP = ((4, 24, 512, 64, 128, 256), (4, 128, 512, 64, 16, 256),
+                  (2, 8, 64, 32, 16, 32), (2, 3, 20, 32, 16, 32),
+                  (1, 4, 96, 16, 32, 48), (2, 2, 200, 32, 8, 100))
+# (N, E, k) of the gating backward's sweep: moonshot's and jamba's
+# training rows, decode steps' rows, N = 0, ragged E, E 256 and k = E
+GATE_BWD_SWEEP = ((2048, 64, 6), (2048, 16, 2), (4, 64, 6), (4, 16, 2),
+                  (0, 64, 6), (77, 100, 5), (33, 256, 8), (6, 3, 3))
+# the scan backward in fp32: the forward's bound (SSD_TOL), relative to
+# each gradient's largest entry, since its sums of thousands of products
+# cancel; a bf16 gradient may also sit one bf16 step (2^-7 of its value)
+# away, the kernel and the plain version each rounding an fp32 sum
+SCAN_BWD_TOL = 2e-3
+BF16_STEP = 2.0 ** -7
+# phase 25's runs: (arch, depth cut or None, steps, checkpoint interval)
+# moonshot at 4 layers (2.95 B parameters) ran out of an H100's 80 GB in
+# AdamW's per-leaf temporaries (5.5 GiB a temporary of the stacked expert
+# leaf, over 47 GB of state): cut to 2
+SSM_TRAIN_RUNS = (("mamba2-130m", None, TRAIN_STEPS, CKPT_EVERY),
+                  (MOE_ARCH, 2, 10, None))
+JAMBA_TRAIN_LAYERS = 8           # one period
+
+
+def scan_bwd_operands(Bsz, H, L, P, N, dtype, layout, gen, dev):
+    """The scan's operands as the model gives them, with B and C (B, L, N)
+    shared by the heads ("shared"), expanded over the heads with stride 0
+    ("stride0"), or per head ("per_head")."""
+    x, dt, A, Bm, Cm = ssd_operands(Bsz, H, L, P, N, dtype, True, gen, dev)
+    if layout == "shared":
+        Bm, Cm = Bm[:, 0], Cm[:, 0]
+    elif layout == "per_head":
+        Bm, Cm = ((t.float() + 0.1 * torch.randn(t.shape, generator=gen,
+                                                 device=dev)).to(dtype)
+                  for t in (Bm, Cm))
+    return x, dt, A, Bm, Cm
+
+
+def scan_bwd_check(got, want, label: str) -> tuple:
+    """(max abs err, max err over the largest entry): every gradient in its
+    operand's shape and dtype within SCAN_BWD_TOL of its largest entry,
+    plus one bf16 step of each value for bf16 gradients."""
+    worst = rel = 0.0
+    for name, a, b in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{label} {name}: {a.shape}/{a.dtype} vs "
+                                 f"{b.shape}/{b.dtype}")
+        a, b = a.double(), b.double()
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{label} {name}: not finite")
+        top = float(b.abs().max())
+        step = BF16_STEP if got[0].dtype == torch.bfloat16 and name in (
+            "dx", "dB", "dC") else 0.0
+        diff = (a - b).abs()
+        if bool((diff > SCAN_BWD_TOL * top + step * b.abs()).any()):
+            raise AssertionError(f"{label} {name}: max abs err "
+                                 f"{float(diff.max()):.3e} of largest "
+                                 f"{top:.3e}")
+        worst = max(worst, float(diff.max()))
+        rel = max(rel, float(diff.max()) / max(top, 1e-30))
+    return worst, rel
+
+
+def ssd_bwd_bound(Bsz, H, L, P, N, Q, dtype, shared) -> tuple:
+    """x, dt, A, B, C and dy (fp32) read once, dx, ddt, dA, dB and dC
+    written once (B, C and their gradients once per batch row where the
+    heads share them); the chunked backward's operations, at the fp32
+    rate (dy and every factor are fp32): per chunk the causal (t, s)
+    pairs' C·B and the products of their summed weights with B and C
+    (6·N flops a pair, once per batch row where B and C are shared), dy·xb
+    and the x gradient (4·P a pair a head), and five (Q, P, N) products a
+    head (the chunk's state and its gradient, and their three terms)."""
+    e = torch.finfo(dtype).bits // 8
+    bc = Bsz * L * N * (1 if shared else H)
+    nbytes = (2 * Bsz * L * H * P * e + 2 * Bsz * L * H * 4 + H * 4
+              + Bsz * H * 4 + 4 * bc * e + Bsz * L * H * P * 4)
+    pairs = Q * (Q + 1) // 2
+    flops = (L // Q) * (bc // L * pairs * 6 + Bsz * H * (
+        pairs * 4 * P + 10 * Q * P * N))
+    return roofline(nbytes, flops, torch.float32)
+
+
+def gating_bwd_bound(N, E, k) -> tuple:
+    """The logits read and dlogits written once, the k indices, weights and
+    their gradients read once; per element the softmax again (max, exp,
+    sum, division), k compares and the two products."""
+    return roofline(2 * N * E * 4 + 3 * N * k * 4, N * E * (7 + k),
+                    torch.float32)
+
+
+def phase_ssm_train_kernels(dev) -> dict:
+    """ssd_scan_bwd and topk_gating_bwd vs their plain backward versions
+    over sweeps, each case twice and bit-equal; timed at the training
+    shapes beside their bounds, their plain versions and autograd of the
+    plain forwards."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    worst = {k: 0.0 for k in SSM_TRAIN_SOURCES}
+    cases = {k: 0 for k in SSM_TRAIN_SOURCES}
+    launches = ops.ssd_scan_bwd.launches
+    for B, H, L, P, N, Q in SCAN_BWD_SWEEP:
+        errs = []
+        for dtype in (torch.float32, torch.bfloat16):
+            rel = 0.0
+            for layout in ("shared", "stride0", "per_head"):
+                for with_dh in (False, True):
+                    args = scan_bwd_operands(B, H, L, P, N, dtype, layout,
+                                             gen, dev)
+                    dy = torch.randn(args[0].shape, generator=gen,
+                                     device=dev)
+                    dh = (torch.randn((B, H, P, N), generator=gen, device=dev)
+                          if with_dh else None)
+                    label = (f"ssd_scan_bwd {(B, H, L, P, N, Q)} "
+                             f"{str(dtype)[6:]} {layout} dh={with_dh}")
+                    got = same_twice(lambda: ops.ssd_scan_bwd(
+                        *args, dy, dh, chunk=Q), label)
+                    torch.cuda.synchronize()
+                    e, r = scan_bwd_check(got, ops.ssd_scan_bwd_ref(
+                        *args, dy, dh, chunk=Q), label)
+                    worst["ssd_scan_bwd"] = max(worst["ssd_scan_bwd"], e)
+                    rel = max(rel, r)
+                    cases["ssd_scan_bwd"] += 1
+            errs.append(f"{str(dtype)[6:]}:{rel:.1e}")
+        print(f"ssd_scan_bwd (B,H,L,P,N,Q)=({B},{H},{L},{P},{N},{Q}), "
+              f"shared/stride-0/per-head B and C, dh zero and not, largest "
+              f"error over largest entry: " + " ".join(errs))
+    if ops.ssd_scan_bwd.launches - launches != 2 * cases["ssd_scan_bwd"]:
+        raise AssertionError("ssd_scan_bwd: launches do not match the calls")
+    launches = ops.topk_gating_bwd.launches
+    launched = 0
+    for N, E, k in GATE_BWD_SWEEP:
+        e = 0.0
+        for aligned in (True, False):
+            logits = 2 * torch.randn((N, E), generator=gen, device=dev)
+            if N > 2:
+                logits[0] = 0.0                     # a row of ties
+                logits[1, [E - 1, 0]] = 3.0         # tied maxima
+                logits[2] = -20.0                   # near-zero weights
+                logits[2, 0] = 20.0
+            if not aligned:                         # the scalar route
+                logits = unaligned_copy(logits)
+            w, idx = ops.topk_gating(logits, k)
+            dw = torch.randn((N, k), generator=gen, device=dev)
+            got = same_twice(lambda: (ops.topk_gating_bwd(logits, idx, w,
+                                                          dw),),
+                             f"topk_gating_bwd {(N, E, k)}")[0]
+            torch.cuda.synchronize()
+            e = max(e, max_err(got, ops.topk_gating_bwd_ref(logits, idx, w,
+                                                            dw), **GATE_TOL))
+            cases["topk_gating_bwd"] += 1
+            launched += 2 if N else 0
+        worst["topk_gating_bwd"] = max(worst["topk_gating_bwd"], e)
+        print(f"topk_gating_bwd (N,E,k)=({N},{E},{k}), 16-byte and scalar "
+              f"route, tied rows and near-zero weights: max abs err {e:.1e}")
+    if ops.topk_gating_bwd.launches - launches != launched:
+        raise AssertionError("topk_gating_bwd: launches do not match the "
+                             "calls")
+    print(f"ssd_scan_bwd vs plain: {cases['ssd_scan_bwd']} cases, every "
+          f"gradient within {SCAN_BWD_TOL} of its largest entry (bf16 ones "
+          f"also one bf16 step), max abs err {worst['ssd_scan_bwd']:.3e}; "
+          f"topk_gating_bwd vs plain: {cases['topk_gating_bwd']} cases "
+          f"within 1e-5, max abs err {worst['topk_gating_bwd']:.3e}; each "
+          f"run twice bit-equal")
+
+    timing = {}
+    f32 = torch.float32
+    for arch in ("mamba2-130m", "jamba-v0.1-52b"):   # the JSON keeps mamba2
+        cfg = get_config(arch)
+        H, P, N, Q = (cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                      cfg.ssm_chunk)
+        B, L = TRAIN_BATCH, TRAIN_SEQ
+        args = scan_bwd_operands(B, H, L, P, N, torch.bfloat16, "shared",
+                                 gen, dev)
+        dy = torch.randn(args[0].shape, generator=gen, device=dev)
+        e, _ = scan_bwd_check(ops.ssd_scan_bwd(*args, dy, chunk=Q),
+                              ops.ssd_scan_bwd_ref(*args, dy, chunk=Q),
+                              f"ssd_scan_bwd timed at {arch}'s shape")
+        worst["ssd_scan_bwd"] = max(worst["ssd_scan_bwd"], e)
+
+        def kernel():
+            return ops.ssd_scan_bwd(*args, dy, chunk=Q)
+        auto = backward_timing(lambda *a: ops.ssd_scan_ref(
+            *a, chunk=Q, out_dtype=f32), args, dy)
+        t = dict(ms=cuda_ms(kernel, iters=20, warm=3),
+                 device_ms=MB.time_callable(kernel, repeats=20,
+                                            warmup=2) * 1e3,
+                 plain_ms=cuda_ms(lambda: ops.ssd_scan_bwd_ref(
+                     *args, dy, chunk=Q), iters=5, warm=1),
+                 autograd_ms=MB.time_callable(auto, repeats=5,
+                                              warmup=1) * 1e3,
+                 library_ms=None,
+                 bound=ssd_bwd_bound(B, H, L, P, N, Q, torch.bfloat16, True))
+        timing.setdefault("ssd_scan_bwd", t)
+        plan = SS.bwd_plan(B, H, L, P, N, Q, True, num_sms(dev.index or 0))
+        print(f"ssd_scan_bwd timing at {arch}'s (B,L,H,P,N,Q)=({B},{L},{H},"
+              f"{P},{N},{Q}), bf16 x/B/C as the model's views, dy fp32: "
+              f"kernel {t['ms']:.5f} ms, device {t['device_ms']:.5f} ms, "
+              f"plain {t['plain_ms']:.5f} ms, autograd of the plain forward "
+              f"device {t['autograd_ms']:.5f} ms, bound {t['bound'][0]:.6f} "
+              f"ms ({t['bound'][1]}); no one PyTorch call computes it; plan "
+              f"{plan}")
+    for N, E, k in ((TRAIN_BATCH * TRAIN_SEQ, get_config(MOE_ARCH).n_experts,
+                     get_config(MOE_ARCH).top_k),
+                    (TRAIN_BATCH * TRAIN_SEQ, 16, 2), (LM_BATCH, 64, 6)):
+        logits = torch.randn((N, E), generator=gen, device=dev)
+        w, idx = ops.topk_gating(logits, k)
+        dw = torch.randn((N, k), generator=gen, device=dev)
+
+        def kernel():
+            return ops.topk_gating_bwd(logits, idx, w, dw)
+        auto = backward_timing(lambda a: ops.topk_gating_ref(a, k)[0],
+                               (logits,), dw)
+        t = dict(ms=cuda_ms(kernel),
+                 device_ms=MB.time_callable(kernel, repeats=200,
+                                            warmup=3) * 1e3,
+                 plain_ms=cuda_ms(lambda: ops.topk_gating_bwd_ref(
+                     logits, idx, w, dw)),
+                 autograd_ms=MB.time_callable(auto, repeats=200,
+                                              warmup=3) * 1e3,
+                 library_ms=None, bound=gating_bwd_bound(N, E, k))
+        timing.setdefault("topk_gating_bwd", t)
+        print(f"topk_gating_bwd timing at (N,E,k)=({N},{E},{k}): kernel "
+              f"{t['ms']:.5f} ms, device {t['device_ms']:.5f} ms, plain "
+              f"{t['plain_ms']:.5f} ms, autograd of the plain forward device "
+              f"{t['autograd_ms']:.5f} ms, bound {t['bound'][0]:.7f} ms "
+              f"({t['bound'][1]}); no one PyTorch call computes it")
+    for name, t in timing.items():
+        t["bound_ms"], t["bound_by"] = t.pop("bound")
+        t["max_abs_err"] = worst[name]
+    return timing
+
+
+def ssm_train_launches() -> tuple:
+    """Calls of the eight training kernels, ``SSM_TRAIN_KERNELS`` order."""
+    return tuple(getattr(ops, k).launches for k in SSM_TRAIN_KERNELS)
+
+
+def zero_ssm_train_launches() -> None:
+    for k in SSM_TRAIN_KERNELS:
+        getattr(ops, k).launches = 0
+
+
+def train_expected(cfg, steps: int = 1) -> tuple:
+    """``SSM_TRAIN_KERNELS`` launches of ``steps`` train steps: each norm,
+    attention layer, mamba mixer and router of the forward
+    (``expected_launches`` of one call) once forward and once backward."""
+    norms, attn, _, mamba, moe = expected_launches(cfg, 0)
+    return tuple(v * steps for v in (norms, norms, attn, attn, mamba, mamba,
+                                     moe, moe))
+
+
+def phase_ssm_train_card_vs_cpu(dev) -> None:
+    """The tiny fp32 mamba2-130m, moonshot-v1-16b-a3b and jamba-v0.1-52b
+    (weights drawn once on the CPU): one step's loss and every gradient
+    leaf on the card within TRAIN_TOL of the CPU's, launches exact."""
+    cpu = torch.device("cpu")
+    for arch in ("mamba2-130m", MOE_ARCH, "jamba-v0.1-52b"):
+        cfg = tiny_version(get_config(arch))
+        params = api.init(torch.Generator().manual_seed(24), cfg)
+        batch = token_batches(cfg, TRAIN_BATCH, CARD_CPU_TRAIN_SEQ, 1, cpu,
+                              seed=24)[0]
+        t0 = time.perf_counter()
+        cpu_loss, cpu_g = ST.loss_and_grads(params, cfg, batch)
+        cpu_s = time.perf_counter() - t0
+        zero_ssm_train_launches()
+        loss, grads = ST.loss_and_grads(tree_to(params, dev), cfg,
+                                        tree_to(batch, dev))
+        launches, want = ssm_train_launches(), train_expected(cfg)
+        if launches != want:
+            raise AssertionError(f"train card-vs-cpu {arch}: launches "
+                                 f"{SSM_TRAIN_KERNELS} {launches}, expected "
+                                 f"{want}")
+        rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+        if not rel <= TRAIN_TOL:
+            raise AssertionError(f"train card-vs-cpu {arch}: loss "
+                                 f"{float(loss)} vs {float(cpu_loss)}")
+        check_gradients(grads, f"train card-vs-cpu {arch}")
+        err = 0.0
+        for (key, a), (_, b) in zip(flatten_with_keys(grads),
+                                    flatten_with_keys(cpu_g)):
+            e = float((a.cpu() - b).abs().max()) / float(b.abs().max())
+            if not e <= TRAIN_TOL:
+                raise AssertionError(f"train card-vs-cpu {arch}: gradient "
+                                     f"of {key} differs by {e:.2e} of its "
+                                     f"largest")
+            err = max(err, e)
+        print(f"train card-vs-cpu: {arch} tiny ({cfg.n_layers} layers, "
+              f"d_model {cfg.d_model}), fp32, batch {TRAIN_BATCH} x "
+              f"{CARD_CPU_TRAIN_SEQ}: loss {float(loss):.6f} (CPU "
+              f"{float(cpu_loss):.6f}, rel {rel:.2e}); {len(tree_leaves(grads))}"
+              f" gradient leaves within {err:.2e} of each leaf's largest, all "
+              f"finite and nonzero; launches "
+              f"{dict(zip(SSM_TRAIN_KERNELS, launches))}; CPU step "
+              f"{cpu_s:.1f} s")
+
+
+@contextlib.contextmanager
+def depth_cut(arch: str, layers):
+    """``train.run`` builds its config from the name: while the block runs,
+    ``arch`` comes full width with ``layers`` layers (None: uncut)."""
+    real = TR.get_config
+
+    def cut(name):
+        cfg = real(name)
+        return cfg.with_(n_layers=layers) if name == arch and layers else cfg
+    TR.get_config = cut
+    try:
+        yield
+    finally:
+        TR.get_config = real
+
+
+def phase_ssm_train_full(dev) -> dict:
+    """The slice's main path at full width, bf16: mamba2-130m uncut through
+    ``train.run`` with checkpoints (the step-10 checkpoint stepped to 20
+    bit-equal), moonshot cut to 2 layers through ``train.run`` without
+    checkpoints, one jamba period through one ``loss_and_grads``; each
+    with its step-1 gradient finite and nonzero in every leaf (every
+    layer) and the eight kernels' launches exact."""
+    totals = dict.fromkeys(SSM_TRAIN_KERNELS, 0)
+    out = {}
+    for arch, layers, n, ckpt in SSM_TRAIN_RUNS:
+        out[arch] = train_full(arch, layers, n, ckpt, dev)
+        for k, v in out[arch].pop("launches").items():
+            totals[k] += v
+
+    arch = "jamba-v0.1-52b"
+    cfg = get_config(arch).with_(n_layers=JAMBA_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = api.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    batch = token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 1, dev)[0]
+    zero_ssm_train_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = ST.loss_and_grads(params, cfg, batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, want = ssm_train_launches(), train_expected(cfg)
+    if launches != want:
+        raise AssertionError(f"train {arch}: launches {SSM_TRAIN_KERNELS} "
+                             f"{launches}, expected {want}")
+    if not np.isfinite(float(loss)):
+        raise AssertionError(f"train {arch}: loss {float(loss)}")
+    check_gradients(grads, f"train {arch}")
+    for k, v in zip(SSM_TRAIN_KERNELS, launches):
+        totals[k] += v
+    print(f"train: {arch} full width, one period ({cfg.n_layers} layers, "
+          f"{api.param_count(params):,} parameters, "
+          f"{str(cfg.param_dtype)[6:]}): one "
+          f"loss_and_grads at batch {TRAIN_BATCH} x {TRAIN_SEQ} in "
+          f"{secs:.2f} s, loss {float(loss):.4f}, every leaf's gradient "
+          f"finite and nonzero; launches "
+          f"{dict(zip(SSM_TRAIN_KERNELS, launches))}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB (AdamW's "
+          f"fp32 master and moments, ~160 GB, fit no card)")
+    del params, grads
+    torch.cuda.empty_cache()
+    return dict(launches=totals, **out)
 
 
 def main() -> int:
@@ -3283,8 +3705,12 @@ def main() -> int:
     phase_train_card_vs_cpu(dev)
     train = phase_train_full(dev)
     rocoin = phase_lm_rocoin(dev)
-    train_launch = {k: train["launches"][k] + rocoin["launches"][k]
-                    for k in TRAIN_KERNELS}
+    ssm_train_timing = phase_ssm_train_kernels(dev)
+    phase_ssm_train_card_vs_cpu(dev)
+    ssm_train = phase_ssm_train_full(dev)
+    train_launch = {k: train["launches"].get(k, 0)
+                    + rocoin["launches"].get(k, 0)
+                    + ssm_train["launches"][k] for k in SSM_TRAIN_KERNELS}
     for entry in (kernel, decode):
         entry["launches"] += measured["launches"][entry["name"]]
         entry["max_abs_err"] = max(entry["max_abs_err"],
@@ -3323,9 +3749,19 @@ def main() -> int:
                               "max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms", "device_ms")})
                      for name in TRAIN_SOURCES]
+    ssm_train_kernels = [dict(name=name, route="cuda",
+                              source=SSM_TRAIN_SOURCES[name],
+                              replaces=SSM_TRAIN_REPLACES[name],
+                              launches=train_launch[name],
+                              **{k: ssm_train_timing[name][k] for k in (
+                                  "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms", "device_ms",
+                                  "autograd_ms")})
+                         for name in SSM_TRAIN_SOURCES]
     print(smi)
     print(json.dumps({"kernels": [kernel, decode] + lm_kernels
-                      + matmul_kernels + train_kernels}))
+                      + matmul_kernels + train_kernels
+                      + ssm_train_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,8 +14,8 @@ hidden feature channels feeding the LM head. The same pipeline applies:
 
 The torch twin of the JAX package's ``core/lm_students.py``, for the dense
 and MoE families. Every teacher forward runs under ``torch.no_grad()`` (an
-MoE teacher's router then reaches ``topk_gating``, which has no backward,
-without needing one). The students are dense (``n_experts=0``), so on the
+MoE teacher's router then reaches ``topk_gating`` forward only). The
+students are dense (``n_experts=0``), so on the
 card their training runs the hand-written ``rmsnorm`` and
 ``flash_attention`` kernels forward and their backward kernels.
 :func:`distill_lm_step` and :func:`failout_lm_step` are one step each of

@@ -7,8 +7,8 @@ and otherwise makes a contiguous copy (a layout copy, not another kernel),
 :func:`num_sms` gives the SMs a plan spreads its blocks over,
 :func:`on_device` and :func:`stream_handle` give a launch its device and
 stream with as little host work as a call allows, and :func:`no_backward`
-stops a kernel that has no backward from handing autograd a result it
-cannot differentiate.
+stops a serving-only kernel, which has no backward, from handing autograd
+a result it cannot differentiate.
 """
 from __future__ import annotations
 
@@ -40,16 +40,18 @@ def aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
 
 def no_backward(name: str, *tensors) -> None:
     """Raise where grad mode is on and an operand needs a gradient: the
-    kernel ``name`` has no backward yet (ROADMAP Queue 1 item 1), and its
+    kernel ``name`` is one of the five that only serve (``quorum_aggregate``,
+    ``coded_decode``, ``dequant_matmul``, ``coded_matmul``,
+    ``decode_attention``), which no training path differentiates, and its
     output, filled through ctypes, would carry no ``grad_fn`` — a silent
     cut of the autograd graph. Serving runs under ``torch.no_grad()`` or
     on leaves that need no gradient, and is untouched."""
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name} has no backward kernel yet (ROADMAP Queue 1 item 1): "
-            f"on the card its output would carry no gradient. Call it "
-            f"under torch.no_grad() or on tensors that need none")
+            f"{name} has no backward kernel: it only serves, and on the "
+            f"card its output would carry no gradient. Call it under "
+            f"torch.no_grad() or on tensors that need none")
 
 
 @functools.cache

@@ -34,6 +34,17 @@ nothing falls back. Two kernels, chosen by dtype and shape:
 (int32, zeroed once and left zeroed by every call) are kept per device and
 number of rows, so calls on one device must not overlap on two streams.
 
+Where grad mode is on and an operand needs a gradient, :func:`ssd_scan` is
+a ``torch.autograd.Function`` (the ssm and hybrid families train through
+it) whose backward :func:`ssd_scan_bwd` launches the hand-written
+``csrc/ssd_scan_bwd.cu`` on the card (four launches in stream order, fp32
+on the CUDA cores, no atomics; :func:`bwd_plan`) and takes the plain
+chunk-by-chunk backward :func:`ssd_scan_bwd_ref` on the CPU;
+``ssd_scan_bwd.launches`` counts its calls. B and C may be given once as
+(B, L, N) for the heads of x (B, H, L, P), as the model does: the scan
+repeats them over H with stride 0, and the backward returns their
+gradients summed over the heads in that shape.
+
 On the card the operands may be strided views with unit stride on their
 last axis (dt and A any strides, stride 0 included), so the model passes
 its (B, L, H, P) projection permuted to (B, H, L, P) and its head-shared
@@ -53,8 +64,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._layout import (aligned, no_backward, num_sms,
-                                         on_device, stream_handle)
+from repro_torch.kernels._layout import (aligned, num_sms, on_device,
+                                         stream_handle)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232448                    # bytes a block may use on Hopper
@@ -63,6 +74,9 @@ PAD = 8                                # bf16 padding of a shared-memory row
 HEAD_GROUPS = (4, 1)                   # the tensor-core kernel's head groups
 BLOCKS_PER_SM = 4                      # launch (b)'s blocks per SM, at least
 TERMS = 3                              # bf16 terms an fp32 factor enters as
+BWD_THREADS = 256                      # the backward's launches (1), (2), (4)
+BWD_CHUNK_THREADS = 512                # the backward's chunk launch (3)
+BWD_TILE = 64                          # t and s rows of the backward's tiles
 
 
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -70,11 +84,13 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  return_state: bool = False,
                  out_dtype: Optional[torch.dtype] = None):
     """Plain version: the chunked form, all chunks' quadratic parts at once
-    and the state carried over the chunks in a loop."""
+    and the state carried over the chunks in a loop; fp32 inside (fp64
+    for fp64 operands, which the backward's checks use)."""
+    Bm, Cm = _heads(x, Bm), _heads(x, Cm)
     lead, (L, P), N = x.shape[:-2], x.shape[-2:], Bm.shape[-1]
     Q = _chunk(L, chunk)
     BH, nc = math.prod(lead), L // Q
-    f32 = torch.float32
+    f32 = torch.promote_types(x.dtype, torch.float32)   # fp64 stays fp64
     xf = x.to(f32).reshape(BH, nc, Q, P)
     dtf = dt.to(f32).reshape(BH, nc, Q)
     Bf = Bm.to(f32).reshape(BH, nc, Q, N)
@@ -101,6 +117,19 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y
 
 
+def shared_bc(x: torch.Tensor, Bm: torch.Tensor) -> bool:
+    """B and C given once for all heads: x (B, H, L, P) with Bm (B, L, N)."""
+    return x.dim() == 4 and Bm.dim() == 3
+
+
+def _heads(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A head-shared (B, L, N) operand as the (B, H, L, N) view that
+    repeats it over x's heads with stride 0 (no copy); else ``t``."""
+    if not shared_bc(x, t):
+        return t
+    return t[:, None].expand(x.shape[0], x.shape[1], *t.shape[1:])
+
+
 def _chunk(L: int, chunk: int) -> int:
     """Q = min(chunk, L); the reference requires L % Q == 0."""
     Q = min(chunk, L)
@@ -115,12 +144,33 @@ def _check(x, dt, A, Bm, Cm) -> None:
         raise ValueError(f"x (BH, L, P) or (B, H, L, P) expected, got "
                          f"{tuple(x.shape)}")
     lead, L = x.shape[:-2], x.shape[-2]
+    bc = (x.shape[0], L) if shared_bc(x, Bm) else (*lead, L)
     want = {"dt": (*lead, L), "A": tuple(lead),
-            "Bm": (*lead, L, Bm.shape[-1]), "Cm": (*lead, L, Bm.shape[-1])}
+            "Bm": (*bc, Bm.shape[-1]), "Cm": (*bc, Bm.shape[-1])}
     for name, t in (("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} {tuple(t.shape)} does not match x "
                              f"{tuple(x.shape)}: expected {want[name]}")
+
+
+def _check_card(name: str, x, dt, A, Bm, Cm, *grads) -> None:
+    """What the card's kernels take of the operands (and of the
+    gradients ``grads`` beside them): one CUDA device, x, B and C of one
+    dtype (fp32 or bf16), dt and A fp32, unit stride on x's, B's and C's
+    last axes."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not "
+                         f"{x.device}")
+    if any(t.device != x.device for t in (dt, A, Bm, Cm, *grads)):
+        raise ValueError("all operands must be on one device")
+    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise TypeError(f"x, Bm and Cm must share one dtype, float32 or "
+                        f"bfloat16; got {x.dtype}, {Bm.dtype}, {Cm.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise TypeError(f"dt and A must be float32, got {dt.dtype} and "
+                        f"{A.dtype}")
+    if any(t.stride(-1) != 1 for t in (x, Bm, Cm) if t.numel()):
+        raise ValueError("x, Bm and Cm need unit stride on their last axis")
 
 
 class MmaPlan(NamedTuple):
@@ -181,31 +231,55 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              return_state: bool = False,
              out_dtype: Optional[torch.dtype] = None):
     """x: (..., L, P); dt: (..., L); A: (...) negative; Bm/Cm: (..., L, N),
-    ``...`` = (BH,) or (B, H). Returns y (..., L, P) in ``out_dtype``
-    (default x's), and with ``return_state`` also the final state
-    (..., P, N) fp32."""
+    ``...`` = (BH,) or (B, H), or (B, L, N) shared by the H heads of x (B,
+    H, L, P). Returns y (..., L, P) in ``out_dtype`` (default x's), and
+    with ``return_state`` also the final state (..., P, N) fp32;
+    differentiable in x, dt, A, Bm and Cm."""
     _check(x, dt, A, Bm, Cm)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, Bm, Cm)):
+        return _SSDScan.apply(x, dt, A, Bm, Cm, chunk, return_state,
+                              out_dtype)
+    return _forward(x, dt, A, Bm, Cm, chunk, return_state, out_dtype)
+
+
+class _SSDScan(torch.autograd.Function):
+    """The forward launch, and :func:`ssd_scan_bwd` as its backward. The
+    final state's gradient is ``None`` where the caller drops the state
+    (training through ``mamba_apply``): the backward then takes it as
+    zero without a zero tensor."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk, return_state, out_dtype):
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return _forward(x, dt, A, Bm, Cm, chunk, return_state, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy, dh=None):
+        x, dt, A, Bm, Cm = ctx.saved_tensors
+        if dy is None and dh is None:
+            return (None,) * 8
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        grads = ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dh, chunk=ctx.chunk)
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad[:5])) + (None,) * 3
+
+
+def _forward(x, dt, A, Bm, Cm, chunk: int, return_state: bool,
+             out_dtype: Optional[torch.dtype]):
+    """The kernels on the card, the plain version on the CPU."""
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
                             return_state=return_state, out_dtype=out_dtype)
-    no_backward("ssd_scan", x, dt, A, Bm, Cm)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan runs on cuda or cpu tensors, not "
-                         f"{x.device}")
-    if any(t.device != x.device for t in (dt, A, Bm, Cm)):
-        raise ValueError("all operands must be on one device")
-    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
-        raise TypeError(f"x, Bm and Cm must share one dtype, float32 or "
-                        f"bfloat16; got {x.dtype}, {Bm.dtype}, {Cm.dtype}")
-    if dt.dtype != torch.float32 or A.dtype != torch.float32:
-        raise TypeError(f"dt and A must be float32, got {dt.dtype} and "
-                        f"{A.dtype}")
+    Bm, Cm = _heads(x, Bm), _heads(x, Cm)
+    _check_card("ssd_scan", x, dt, A, Bm, Cm)
     out_dtype = out_dtype or x.dtype
     if out_dtype not in _DTYPES:
         raise TypeError(f"out_dtype must be float32 or bfloat16, got "
                         f"{out_dtype}")
-    if any(t.stride(-1) != 1 for t in (x, Bm, Cm) if t.numel()):
-        raise ValueError("x, Bm and Cm need unit stride on their last axis")
     four = x.dim() == 4
     Bsz, H = (x.shape[0], x.shape[1]) if four else (1, x.shape[0])
     L, P = x.shape[-2:]
@@ -276,6 +350,209 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 ssd_scan.launches = 0
 
 
+def ssd_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                     Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor,
+                     dh: Optional[torch.Tensor] = None, *, chunk: int):
+    """Plain backward of :func:`ssd_scan` for the gradients ``dy`` of y
+    and ``dh`` of the final state (``None``: zero). Returns (dx, ddt, dA,
+    dB, dC) in the operands' shapes and dtypes (dB and dC (B, L, N),
+    summed over the heads, where B and C are head-shared), computed in
+    fp32 (fp64 for fp64 operands) chunk by chunk, as the kernel does:
+
+    - the states entering each chunk, h_0 = 0, h_{c+1} = exp(cum_Q) h_c
+      + Σ_s exp(cum_Q − cum_s) xb_s ⊗ B_s;
+    - the state's gradient backward over the chunks: with Hn_c that of the
+      state leaving chunk c (Hn_last = dh), Hn_{c−1} = exp(cum_Q) Hn_c +
+      Σ_t exp(cum_t) dy_t ⊗ C_t;
+    - per chunk, with L_ts = exp(cum_t − cum_s) for s ≤ t (masked before
+      the exp: no exponent is positive), S = C·Bᵀ, D_ts = dy_t·xb_s,
+      W = L·D and M = S·W: dxb_s = Σ_t S_ts L_ts dy_t + exp(cum_Q −
+      cum_s) Hn B_s, dC_t = Σ_s W_ts B_s + exp(cum_t) dy_t h_c, dB_s =
+      Σ_t W_ts C_t + exp(cum_Q − cum_s) xb_s Hn;
+    - dcum_t = Σ_s M_ts − Σ_t' M_t't + exp(cum_t) dy_t·(h_c C_t) − U_t,
+      U_s = xb_s·exp(cum_Q − cum_s) Hn B_s, and at the chunk's last step
+      also exp(cum_Q)⟨Hn, h_c⟩ + Σ_s U_s; dla its reverse cumsum;
+    - ddt = dla·A + dxb·x, dA = Σ dla·dt, dx = dxb·dt."""
+    shared = shared_bc(x, Bm)
+    Bh, Ch = _heads(x, Bm), _heads(x, Cm)
+    lead, (L, P), N = x.shape[:-2], x.shape[-2:], Bm.shape[-1]
+    Q = _chunk(L, chunk)
+    BH, nc = math.prod(lead), L // Q
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(acc).reshape(BH, nc, Q, P)
+    dtf = dt.to(acc).reshape(BH, nc, Q)
+    Af = A.to(acc).reshape(BH, 1, 1)
+    Bf = Bh.to(acc).reshape(BH, nc, Q, N)
+    Cf = Ch.to(acc).reshape(BH, nc, Q, N)
+    dyf = dy.to(acc).reshape(BH, nc, Q, P)
+    cum = torch.cumsum(dtf * Af, dim=-1)                   # (BH, nc, Q)
+    last = cum[..., -1:]
+    decay = torch.exp(last)[..., 0]                        # (BH, nc)
+    e = torch.exp(cum)                                     # exp(cum_t)
+    w = torch.exp(last - cum)                              # exp(cum_Q − cum_s)
+    xb = xf * dtf[..., None]
+    own = (xb * w[..., None]).transpose(-1, -2) @ Bf       # (BH, nc, P, N)
+    down = (dyf * e[..., None]).transpose(-1, -2) @ Cf
+    h = torch.zeros((BH, P, N), dtype=acc, device=x.device)
+    hs = []
+    for c in range(nc):
+        hs.append(h)
+        h = h * decay[:, c, None, None] + own[:, c]
+    g = (dh.to(acc).reshape(BH, P, N) if dh is not None
+         else torch.zeros((BH, P, N), dtype=acc, device=x.device))
+    hn = [None] * nc
+    for c in reversed(range(nc)):
+        hn[c] = g
+        g = g * decay[:, c, None, None] + down[:, c]
+    hc, Hn = torch.stack(hs, 1), torch.stack(hn, 1)        # (BH, nc, P, N)
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    Lm = torch.exp((cum[..., :, None] - cum[..., None, :]).masked_fill(
+        ~causal, float("-inf")))                           # (t, s)
+    S = Cf @ Bf.transpose(-1, -2)
+    D = dyf @ xb.transpose(-1, -2)
+    G, W = S * Lm, Lm * D
+    M = S * W
+    hnb = w[..., None] * (Bf @ Hn.transpose(-1, -2))       # (BH, nc, Q, P)
+    dxb = G.transpose(-1, -2) @ dyf + hnb
+    dC_state = e[..., None] * (dyf @ hc)
+    dC = W @ Bf + dC_state
+    dB = W.transpose(-1, -2) @ Cf + w[..., None] * (xb @ Hn)
+    U = (xb * hnb).sum(-1)
+    dcum = M.sum(-1) - M.sum(-2) + (dC_state * Cf).sum(-1) - U
+    dcum[..., -1] += decay * (Hn * hc).sum((-1, -2)) + U.sum(-1)
+    dla = dcum.flip(-1).cumsum(-1).flip(-1)
+    ddt = dla * Af + (dxb * xf).sum(-1)
+    dA = (dla * dtf).sum((-1, -2))
+    dx = dxb * dtf[..., None]
+    bc = (x.shape[0], x.shape[1], L, N) if shared else (*lead, L, N)
+    dB, dC = dB.reshape(bc), dC.reshape(bc)
+    if shared:
+        dB, dC = dB.sum(1), dC.sum(1)
+    return (dx.reshape(x.shape).to(x.dtype), ddt.reshape(dt.shape).to(
+        dt.dtype), dA.reshape(A.shape).to(A.dtype), dB.to(Bm.dtype),
+        dC.to(Cm.dtype))
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor,
+                 dh: Optional[torch.Tensor] = None, *, chunk: int):
+    """Gradients of :func:`ssd_scan` (see :func:`ssd_scan_bwd_ref`)."""
+    _check(x, dt, A, Bm, Cm)
+    if dy.shape != x.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} must have x's shape "
+                         f"{tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dh, chunk=chunk)
+    _check_card("ssd_scan_bwd", x, dt, A, Bm, Cm, dy,
+                *(() if dh is None else (dh,)))
+    L, P = x.shape[-2:]
+    N = Bm.shape[-1]
+    Q = _chunk(L, chunk)
+    shared = shared_bc(x, Bm)
+    four = x.dim() == 4
+    Bsz, H = (x.shape[0], x.shape[1]) if four else (1, x.shape[0])
+    plan = bwd_plan(Bsz, H, L, P, N, Q, shared, num_sms(x.device.index))
+    dy = dy.float()
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    if dh is not None:
+        dh = dh.float().contiguous()
+    if four:                           # dx laid out as the model's x
+        dx = torch.empty((Bsz, L, H, P), dtype=x.dtype,
+                         device=x.device).permute(0, 2, 1, 3)
+    else:
+        dx = torch.empty_like(x, memory_format=torch.contiguous_format)
+    ddt = torch.empty_like(dt)
+    dA = torch.empty(A.shape, dtype=torch.float32, device=x.device)
+    dB = torch.empty(Bm.shape, dtype=x.dtype, device=x.device)
+    dC = torch.empty(Cm.shape, dtype=x.dtype, device=x.device)
+    if Bsz * H == 0:
+        return dx, ddt, dA.zero_(), dB.zero_(), dC.zero_()
+    ops4 = [x, dt, A, _heads(x, Bm), _heads(x, Cm), dy, dx, ddt]
+    if not four:                       # one (b) of H rows: b strides unused
+        ops4 = [t.unsqueeze(0) for t in ops4]
+    xv, dtv, Av, Bv, Cv, dyv, dxv, ddtv = ops4
+    strides = [*xv.stride()[:3], *dtv.stride(), *Av.stride(),
+               *Bv.stride()[:3], *Cv.stride()[:3], *dyv.stride()[:3],
+               *dxv.stride()[:3], *ddtv.stride()]
+    arr = (ctypes.c_longlong * 23)(*strides)
+    BH, nc = Bsz * H, L // Q
+    ws = torch.empty(2 * BH * nc * (P * N + 1) + 2 * BH * L * N,
+                     dtype=torch.float32, device=x.device)
+    lib = _bwd_library()
+    with on_device(x.device):
+        rc = lib.ssd_scan_bwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), dy.data_ptr(),
+            dh.data_ptr() if dh is not None else None, dx.data_ptr(),
+            ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            ws.data_ptr(), Bsz, H, L, P, N, Q, int(shared), arr,
+            int(x.dtype == torch.bfloat16), plan.smem_state,
+            plan.smem_chunk, plan.reduce_blocks, stream_handle(x.device))
+    if rc != 0:
+        msg = lib.ssd_scan_bwd_error_string(rc).decode()
+        raise RuntimeError(f"ssd_scan_bwd launch failed: {msg} ({rc})")
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, dA, dB, dC
+
+
+ssd_scan_bwd.launches = 0
+
+
+class BwdPlan(NamedTuple):
+    """The backward's four launches for one call: blocks of (1) the chunk
+    states, (2) the fold (a (rows, entry groups) grid), (3) the chunks and
+    (4) the head sum; the shared-memory bytes of (1) and (3)."""
+
+    state_blocks: int
+    fold_grid: Tuple[int, int]
+    chunk_blocks: int
+    reduce_blocks: int
+    smem_state: int
+    smem_chunk: int
+
+
+def bwd_smem_bytes(P: int, N: int, Q: int) -> Tuple[int, int]:
+    """Shared-memory bytes of launches (1) and (3), as the kernel lays them
+    out. (1): the chunk's cumsum (fp64), dt and two row factors, a 64-row
+    tile each of x, B, dy and C. (3): the cumsum, six per-step arrays, a
+    block's partial sums and an s-tile's U, the entering state and its
+    gradient (rows of N + 1), 64-row tiles of B and C (N + 1) and of x·dt
+    and dy (P + 1), and the (t, s) tiles G, W and M (rows of 65)."""
+    state = 8 * Q + 12 * Q + 4 * BWD_TILE * (2 * P + 2 * N)
+    chunk = (8 * Q + 4 * (6 * Q + BWD_CHUNK_THREADS + BWD_TILE + 2)
+             + 4 * 2 * P * (N + 1) + 4 * 2 * BWD_TILE * (N + 1)
+             + 4 * 2 * BWD_TILE * (P + 1) + 4 * 3 * BWD_TILE * (BWD_TILE + 1))
+    return state, chunk
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(Bsz: int, H: int, L: int, P: int, N: int, Q: int,
+             shared: bool, sms: int) -> BwdPlan:
+    """The backward's launches: a block per (batch row, head, chunk) in
+    (1) and (3), a thread per state entry of each (batch row, head) in (2),
+    and in (4) a grid-stride loop over the dB and dC outputs ((B, L, N)
+    where the heads share B and C, else (B, H, L, N)) of at most 8 blocks
+    an SM. Raises for P and N the kernel does not take or a chunk whose
+    shared memory is past ``SMEM_LIMIT``. The kernel takes P and N powers
+    of two in [4, 128] with P·N <= 8192 (the models' (64, 128), (64, 16)
+    and (32, 16))."""
+    if not all(4 <= v <= 128 and v & (v - 1) == 0 for v in (P, N)) \
+            or P * N > 8192:
+        raise ValueError(f"ssd_scan_bwd takes P and N powers of two in [4, "
+                         f"128] with P*N <= 8192; got P={P}, N={N}")
+    smem_state, smem_chunk = bwd_smem_bytes(P, N, Q)
+    if smem_chunk > SMEM_LIMIT:
+        raise ValueError(f"(P, N, Q) = ({P}, {N}, {Q}) needs {smem_chunk} "
+                         f"bytes of shared memory in the backward, more than "
+                         f"{SMEM_LIMIT}")
+    BH, nc = Bsz * H, L // Q
+    outs = Bsz * (1 if shared else H) * L * N
+    return BwdPlan(BH * nc, (BH, -(-P * N // BWD_THREADS)), BH * nc,
+                   max(1, min(-(-outs // BWD_THREADS), 8 * sms)),
+                   smem_state, smem_chunk)
+
+
 def _workspace(dev: torch.device, BH: int, L: int, P: int, N: int, Q: int
                ) -> torch.Tensor:
     """The tensor-core path's scratch for one call, one allocation, written
@@ -311,4 +588,19 @@ def _library() -> ctypes.CDLL:
     lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
     lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    """The built backward library with its C signatures declared."""
+    lib = build.load("ssd_scan_bwd")
+    lib.ssd_scan_bwd.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
+                                 + [ctypes.POINTER(ctypes.c_longlong)]
+                                 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.ssd_scan_bwd.restype = ctypes.c_int
+    lib.ssd_scan_bwd_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.ssd_scan_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.ssd_scan_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.ssd_scan_bwd_error_string.restype = ctypes.c_char_p
     return lib

@@ -16,6 +16,14 @@ time and keeps it, and every round's result, in registers. :func:`plan`
 chooses its launch from the shape: lanes per row from E, the vector width
 (the scalar route where E is not a multiple of 4 or the base is not
 16-byte aligned), the accesses per lane and the rows per block.
+
+Where grad mode is on and the logits need a gradient, :func:`topk_gating`
+is a ``torch.autograd.Function`` (the moe and hybrid families' routers
+train through it) whose backward :func:`topk_gating_bwd` launches the
+hand-written ``csrc/topk_gating_bwd.cu`` on the card (the forward's row
+layout, :func:`bwd_plan`) and takes :func:`topk_gating_bwd_ref` on the
+CPU; the indices carry no gradient. ``topk_gating_bwd.launches`` counts
+its launches.
 """
 from __future__ import annotations
 
@@ -26,8 +34,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._layout import (no_backward, num_sms, on_device,
-                                         stream_handle)
+from repro_torch.kernels._layout import num_sms, on_device, stream_handle
 
 NEG_INF = -1e30
 MAX_EXPERTS = 256                      # 32 lanes x 8 values in registers
@@ -96,12 +103,39 @@ def plan(N: int, E: int, k: int, aligned: bool, sms: int) -> GatingPlan:
 def topk_gating(logits: torch.Tensor, k: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """logits: (N, E) fp32. Returns (weights (N, k) fp32, indices (N, k)
-    int32)."""
+    int32); the weights differentiable in the logits."""
     _check(logits, k)
+    if torch.is_grad_enabled() and logits.requires_grad:
+        return _TopkGating.apply(logits, k)
+    return _forward(logits, k)
+
+
+class _TopkGating(torch.autograd.Function):
+    """The forward launch, and :func:`topk_gating_bwd` as its backward;
+    the indices carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, k):
+        w, idx = _forward(logits, k)
+        ctx.save_for_backward(logits, idx, w)
+        ctx.mark_non_differentiable(idx)
+        ctx.set_materialize_grads(False)
+        return w, idx
+
+    @staticmethod
+    def backward(ctx, dw, didx=None):
+        if dw is None:
+            return None, None
+        logits, idx, w = ctx.saved_tensors
+        return topk_gating_bwd(logits, idx, w, dw), None
+
+
+def _forward(logits: torch.Tensor, k: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on the card, the plain version on the CPU."""
     dev = logits.device
     if dev.type == "cpu":
         return topk_gating_ref(logits, k)
-    no_backward("topk_gating", logits)
     if dev.type != "cuda":
         raise ValueError(f"topk_gating runs on cuda or cpu tensors, not "
                          f"{dev}")
@@ -130,6 +164,80 @@ def topk_gating(logits: torch.Tensor, k: int
 topk_gating.launches = 0
 
 
+def topk_gating_bwd_ref(logits: torch.Tensor, idx: torch.Tensor,
+                        w: torch.Tensor, dw: torch.Tensor) -> torch.Tensor:
+    """Plain backward: dlogits (N, E) fp32 for the gradient ``dw`` of the
+    weights ``w`` routed to ``idx``. With p = softmax(logits), t_j =
+    p[idx_j] and s = Σ_j t_j: dt_j = (dw_j − Σ_i dw_i·w_i)/s where s >
+    1e-9, else dw_j/1e-9 (the clamp's branch); dlogits = p ⊙ scatter(dt)
+    − p·Σ_j dt_j·t_j. fp32 inside (fp64 for fp64 operands)."""
+    acc = torch.promote_types(logits.dtype, torch.float32)
+    p = torch.softmax(logits.to(acc), dim=-1)
+    ix = idx.long()
+    t = p.gather(-1, ix)
+    s = t.sum(-1, keepdim=True)
+    wf, dwf = w.to(acc), dw.to(acc)
+    dt = torch.where(s > 1e-9, (dwf - (dwf * wf).sum(-1, keepdim=True)) / s,
+                     dwf / 1e-9)
+    dp = torch.zeros_like(p).scatter_(-1, ix, dt)     # indices are distinct
+    return p * dp - p * (dt * t).sum(-1, keepdim=True)
+
+
+def bwd_plan(N: int, E: int, k: int, aligned: bool, sms: int) -> GatingPlan:
+    """The backward's launch: the forward's row layout (:func:`plan`), with
+    ``aligned`` true where both the logits and dlogits start on 16 bytes."""
+    return plan(N, E, k, aligned, sms)
+
+
+def topk_gating_bwd(logits: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                    dw: torch.Tensor) -> torch.Tensor:
+    """Gradient of :func:`topk_gating`'s weights in the logits, (N, E)
+    fp32: the hand-written kernel ``csrc/topk_gating_bwd.cu`` on the card
+    (each row's softmax recomputed in registers, dlogits written once),
+    :func:`topk_gating_bwd_ref` on the CPU."""
+    if logits.dim() != 2 or idx.shape != w.shape or dw.shape != w.shape \
+            or idx.dim() != 2 or idx.shape[0] != logits.shape[0]:
+        raise ValueError(f"logits (N, E) and idx, w, dw (N, k) expected, got "
+                         f"{tuple(logits.shape)}, {tuple(idx.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(dw.shape)}")
+    _check(logits, idx.shape[1])
+    dev = logits.device
+    if dev.type == "cpu":
+        return topk_gating_bwd_ref(logits, idx, w, dw)
+    if dev.type != "cuda":
+        raise ValueError(f"topk_gating_bwd runs on cuda or cpu tensors, not "
+                         f"{dev}")
+    if any(t.device != dev for t in (idx, w, dw)):
+        raise ValueError("all operands must be on one device")
+    N, E = logits.shape
+    k = idx.shape[1]
+    if E > MAX_EXPERTS:
+        raise ValueError(f"the kernel takes E <= {MAX_EXPERTS}, got {E}")
+    logits = logits.contiguous()
+    idx = idx.to(torch.int32).contiguous()
+    w, dw = w.float().contiguous(), dw.float().contiguous()
+    dl = torch.empty((N, E), dtype=torch.float32, device=dev)
+    if N == 0:
+        return dl                      # nothing to route
+    p = bwd_plan(N, E, k, (logits.data_ptr() | dl.data_ptr()) % 16 == 0,
+                 num_sms(dev.index))
+    lib = _bwd_library()
+    with on_device(dev):
+        rc = lib.topk_gating_bwd(logits.data_ptr(), idx.data_ptr(),
+                                 w.data_ptr(), dw.data_ptr(), dl.data_ptr(),
+                                 N, E, k, p.vec, p.nv, p.lanes,
+                                 p.rows_per_block, p.blocks,
+                                 stream_handle(dev))
+    if rc != 0:
+        msg = lib.topk_gating_bwd_error_string(rc).decode()
+        raise RuntimeError(f"topk_gating_bwd launch failed: {msg} ({rc})")
+    topk_gating_bwd.launches += 1
+    return dl
+
+
+topk_gating_bwd.launches = 0
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
@@ -139,4 +247,16 @@ def _library() -> ctypes.CDLL:
     lib.topk_gating.restype = ctypes.c_int
     lib.topk_gating_error_string.argtypes = [ctypes.c_int]
     lib.topk_gating_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    """The built backward library with its C signature declared."""
+    lib = build.load("topk_gating_bwd")
+    lib.topk_gating_bwd.argtypes = ([ctypes.c_void_p] * 5
+                                    + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    lib.topk_gating_bwd.restype = ctypes.c_int
+    lib.topk_gating_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.topk_gating_bwd_error_string.restype = ctypes.c_char_p
     return lib

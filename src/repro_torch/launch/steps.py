@@ -2,9 +2,11 @@
 server share.
 
 The torch twin of the JAX package's ``launch/steps.py`` on one card. The
-train step differentiates ``api.loss`` with ``loss.backward()`` (through
-the hand-written ``rmsnorm`` and ``flash_attention`` kernels and their
-backward kernels on the card), then hands the gradients to
+train step differentiates ``api.loss`` with ``loss.backward()`` for the
+dense, moe, ssm and hybrid families (on the card through the hand-written
+``rmsnorm``, ``flash_attention``, ``ssd_scan`` and ``topk_gating`` kernels,
+as the family has the layers, and their backward kernels), then hands the
+gradients to
 :func:`repro_torch.optim.adamw.apply_updates`, which updates the state in
 place. The params a caller holds never need a gradient: each step
 differentiates detached leaves that share their storage.

@@ -4,12 +4,16 @@ pipeline → train step → checkpoint/restart → optional grad compression.
 The torch twin of the JAX package's ``launch/train.py`` on one card (the
 CUDA device unless ``device="cpu"``). Weights are drawn from ``seed`` on
 the device, batches come from the copied ``SyntheticTokens``, and each
-step is ``loss.backward()`` (through the hand-written ``rmsnorm`` and
-``flash_attention`` kernels and their backward kernels on the card), then
+step is ``loss.backward()`` (on the card through the hand-written forward
+and backward kernels of the family's layers: ``rmsnorm`` and
+``flash_attention`` in every family, ``ssd_scan`` in the ssm and hybrid
+families, ``topk_gating`` in the moe and hybrid families' routers), then
 :func:`repro_torch.optim.compression.compress_grads`, then
 :func:`repro_torch.optim.adamw.apply_updates` (in place).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+      --full --steps 20 --batch 4 --seq 512
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
       --full --steps 20 --batch 4 --seq 512
 
 Where the last step is a multiple of ``ckpt_every``, its save in the loop
@@ -18,10 +22,12 @@ the same state; at 1.5 B parameters that is 21 GB more of disk writes).
 As in the reference, the ``AdamWConfig`` comes from this call's ``steps``
 (so a resumed run's schedule is not the uninterrupted one), and the
 schedule, the optimiser state and the data position resume from the
-checkpoint. Families that take precomputed embeddings (``embed_inputs``)
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 2); the ssm, hybrid
-and moe families raise on the card, where ``ssd_scan`` and
-``topk_gating`` have no backward kernel yet (ROADMAP Queue 1 item 1).
+checkpoint. The dense, moe, ssm and hybrid families train here
+(``device="cpu"``, the kernels' plain versions forward and backward) and
+on the card; families that take precomputed embeddings (``embed_inputs``)
+raise ``NotImplementedError`` (ROADMAP Queue 1 item 2). As in the
+reference, the loss is the cross-entropy alone: the MoE's load-balancing
+``moe_aux_loss`` joins no loss in either package.
 """
 from __future__ import annotations
 

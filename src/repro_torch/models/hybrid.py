@@ -8,8 +8,10 @@ layout: {"k", "v"} (NP, B, S, KV, hd) and {"conv", "state"}
 (NP, n_mamba, B, …). Attention, MoE and FFN come from ``transformer.py``,
 the mamba mixer from ``ssm.py``, so a period runs ``rmsnorm``,
 ``ssd_scan`` (prefill), ``flash_attention`` (prefill),
-``decode_attention`` (decode) and ``topk_gating``. Jamba has
-``pos="none"``: attention is unrotated. A decode step updates the cache
+``decode_attention`` (decode) and ``topk_gating``; training
+differentiates a period through the backward kernels of the four it runs
+forward (``rmsnorm_bwd``, ``ssd_scan_bwd``, ``flash_attention_bwd``,
+``topk_gating_bwd``). Jamba has ``pos="none"``: attention is unrotated. A decode step updates the cache
 in place, and there is no ``train`` flag, as in ``transformer.py``.
 """
 from __future__ import annotations

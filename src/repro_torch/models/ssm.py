@@ -15,7 +15,11 @@ Differences from the reference:
   reference passes them);
 - ``ssd_chunked`` runs the plain version of the scan on any device (the
   reference function, used by the tests and as the model's yardstick);
-  ``mamba_apply`` runs ``ops.ssd_scan``, the kernel on the card;
+  ``mamba_apply`` runs ``ops.ssd_scan``, the kernel on the card, which
+  training differentiates through its backward kernel ``ssd_scan_bwd``
+  (the reference leaves the backward to jax's autodiff of
+  ``ssd_chunked``, whose dt and A gradients are NaN at chunk 256 near
+  dt = softplus(0); the port's are finite);
 - a decode step writes the new conv window and state into the cache in
   place and returns the same dict (the reference donates it);
 - no ``train`` flag and no sharding constraints, as in ``transformer.py``.
@@ -85,12 +89,12 @@ def _gated_norm(p: Params, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 
 def _scan_operands(xh, dt, A, Bm, Cm):
     """Model layout (B, Len, H, P), (B, Len, H), (H,), (B, Len, N) → the
-    (B, H, Len, ·) views the scan takes, with B/C shared by every head
-    (stride 0 over H): no copies."""
-    Bsz, Ln, H, _ = xh.shape
-    N = Bm.shape[-1]
-    return (xh.permute(0, 2, 1, 3), dt.permute(0, 2, 1), A.expand(Bsz, H),
-            Bm[:, None].expand(Bsz, H, Ln, N), Cm[:, None].expand(Bsz, H, Ln, N))
+    (B, H, Len, ·) views the scan takes, with B/C passed once as (B, Len,
+    N) for every head (the scan repeats them over H with stride 0, and its
+    backward sums their gradients over the heads): no copies."""
+    Bsz, _, H, _ = xh.shape
+    return xh.permute(0, 2, 1, 3), dt.permute(0, 2, 1), A.expand(Bsz, H), \
+        Bm, Cm
 
 
 def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -11,7 +11,11 @@ through the hand-written ``flash_attention`` kernel (the reference's
 kernel serves both), decode attention through ``decode_attention``, every
 RMSNorm through ``rmsnorm`` and the MoE router's softmax and top-k through
 ``topk_gating``. The hybrid family (``models/hybrid.py``) reuses the
-attention, FFN and MoE pieces.
+attention, FFN and MoE pieces. Training differentiates the same forward:
+the kernels' autograd Functions carry the gradient (the router's weights
+through ``topk_gating_bwd``), the MoE's gather dispatch and weighted
+combine are differentiable indexing, and the routes and capacity positions
+carry none, as ``lax.top_k``'s indices carry none in the reference.
 
 Differences from the reference:
 

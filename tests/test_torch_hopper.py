@@ -1136,12 +1136,64 @@ def test_flash_attention_bwd_cuda_core_route_at_tensor_shapes(hopper, B, KV,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+def _autograd_scan(dtype, dev):
+    """The model's scan (x a view of (B, L, H, P), B and C (B, L, N) shared
+    by the heads, the state asked for and used) differentiated on the card
+    (one ``ssd_scan_bwd``) and by autograd of the plain version."""
+    x, dt, A, Bm, Cm = _ssd_operands(2, 4, 128, 32, 16, dtype, True, dev,
+                                     seed=8)
+    Bm, Cm = Bm[:, 0], Cm[:, 0]
+    grads = []
+    for scan in (ops.ssd_scan, ops.ssd_scan_ref):
+        leaves = [t.detach().clone().requires_grad_() for t in
+                  (x, dt, A, Bm, Cm)]
+        count = ops.ssd_scan_bwd.launches
+        y, h = scan(*leaves, chunk=32, return_state=True,
+                    out_dtype=torch.float32)
+        ((y ** 2).mean() + (h ** 2).mean()).backward()
+        torch.cuda.synchronize()
+        if scan is ops.ssd_scan:
+            assert ops.ssd_scan_bwd.launches - count == 1
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert torch.isfinite(a.float()).all() and a.abs().sum() > 0
+        _scan_bwd_close(a, b)
+
+
+def _autograd_gating(dev):
+    """The router's weights, differentiated on the card (one
+    ``topk_gating_bwd``) and by autograd of the plain version."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    logits = 2 * torch.randn((300, 16), generator=g, device=dev)
+    c = torch.randn((300, 2), generator=g, device=dev)
+    grads = []
+    for gate in (ops.topk_gating, ops.topk_gating_ref):
+        leaf = logits.clone().requires_grad_()
+        count = ops.topk_gating_bwd.launches
+        w, _ = gate(leaf, 2)
+        (w * c).sum().backward()
+        torch.cuda.synchronize()
+        if gate is ops.topk_gating:
+            assert ops.topk_gating_bwd.launches - count == 1
+        grads.append(leaf.grad)
+    np.testing.assert_allclose(grads[0].cpu().numpy(), grads[1].cpu().numpy(),
+                               **TOL)
+
+
+@pytest.mark.parametrize("path", ["norm_attention", "ssd_scan",
+                                  "topk_gating"])
 @pytest.mark.parametrize("dtype", LM_DTYPES, ids=["fp32", "bf16"])
 def test_autograd_through_the_kernels_matches_the_plain_versions(hopper,
+                                                                 path,
                                                                  dtype):
     """A norm, attention and a norm again, differentiated on the card
     (both Functions, each kernel and its backward launched once) and
-    through the plain versions by autograd."""
+    through the plain versions by autograd; likewise the scan and the
+    router (fp32 logits in both dtypes' cases)."""
+    if path == "ssd_scan":
+        return _autograd_scan(dtype, hopper)
+    if path == "topk_gating":
+        return _autograd_gating(hopper)
     B, KV, G, S, D = 2, 2, 2, 48, 64
     g = torch.Generator(device=hopper).manual_seed(5)
     x0 = torch.randn((B, S, KV * G * D), generator=g, device=hopper).to(dtype)
@@ -1175,15 +1227,11 @@ def test_autograd_through_the_kernels_matches_the_plain_versions(hopper,
 
 
 def _guarded_calls(dev):
-    """One call of each kernel that has no backward, on operands that
-    need a gradient (the first float operand of each)."""
+    """One call of each serving-only kernel, which has no backward, on
+    operands that need a gradient (the first float operand of each)."""
     r = lambda *s: torch.rand(s, device=dev)  # noqa: E731
-    x, dt, A, Bm, Cm = _ssd_operands(1, 2, 64, 64, 16, torch.float32, False,
-                                     dev)
     q, kc, vc = _decode_operands(1, 2, 2, 8, 64, torch.float32, dev)
     return {
-        "topk_gating": lambda t: ops.topk_gating(t(r(8, 16)), 2),
-        "ssd_scan": lambda t: ops.ssd_scan(t(x), dt, A, Bm, Cm),
         "decode_attention": lambda t: ops.decode_attention(t(q), kc, vc, 3),
         "quorum_aggregate": lambda t: ops.quorum_aggregate(
             t(r(2, 4, 8)), r(2, 8, 3), r(3),
@@ -1198,8 +1246,7 @@ def _guarded_calls(dev):
     }
 
 
-@pytest.mark.parametrize("name", ["topk_gating", "ssd_scan",
-                                  "decode_attention", "quorum_aggregate",
+@pytest.mark.parametrize("name", ["decode_attention", "quorum_aggregate",
                                   "coded_decode", "dequant_matmul",
                                   "coded_matmul"])
 def test_wrappers_without_backward_raise_under_grad(hopper, name):
@@ -1213,3 +1260,169 @@ def test_wrappers_without_backward_raise_under_grad(hopper, name):
         call(lambda t: t.clone().requires_grad_())
     call(lambda t: t)
     torch.cuda.synchronize()
+
+
+# -- SSM, MoE and hybrid training: ssd_scan_bwd, topk_gating_bwd
+
+def _scan_bwd_close(got, want):
+    """fp32 gradients within 2e-3 of the largest entry (the forward's bound:
+    the kernel sums its fp32 products in other orders, its cumsum in fp64);
+    bf16 ones (dx, dB, dC for bf16 operands) also within one bf16 rounding
+    of each value (2^-7 relative), since the two round fp32 sums that may
+    straddle a bf16 step."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    a, b = got.double().cpu(), want.double().cpu()
+    assert torch.isfinite(a).all()
+    ulp = 2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0
+    bound = 2e-3 * b.abs().max() + ulp * b.abs()
+    worst = (a - b).abs() - bound
+    assert float(worst.max()) <= 0, float(((a - b).abs()).max())
+
+
+SCAN_BWD_SHAPES = [(4, 24, 512, 64, 128, 256),     # mamba2-130m's training
+                   (4, 128, 512, 64, 16, 256),     # jamba's
+                   (2, 8, 64, 32, 16, 32),         # the tiny configs'
+                   (2, 3, 20, 32, 16, 32),         # L below the chunk
+                   (1, 4, 96, 16, 32, 48),         # a ragged chunk count
+                   (2, 2, 200, 32, 8, 100)]
+
+
+def _scan_bwd_operands(Bsz, H, L, P, N, dtype, layout, dev, seed):
+    """The model's (B, H) views with B and C (B, L, N) shared ("shared"),
+    the same views with B and C expanded over the heads with stride 0
+    ("stride0"), or per-head B and C ("per_head")."""
+    x, dt, A, Bm, Cm = _ssd_operands(Bsz, H, L, P, N, dtype, True, dev,
+                                     seed=seed)
+    if layout == "shared":
+        Bm, Cm = Bm[:, 0], Cm[:, 0]
+    elif layout == "per_head":
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+        Bm, Cm = ((t.float() + 0.1 * torch.randn(t.shape, generator=g,
+                                                 device=dev)).to(dtype)
+                  for t in (Bm, Cm))
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("shape", SCAN_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", LM_DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("layout", ["shared", "stride0", "per_head"])
+@pytest.mark.parametrize("with_dh", [False, True], ids=["dh0", "dh"])
+def test_ssd_scan_bwd_matches_plain_version(hopper, shape, dtype, layout,
+                                            with_dh):
+    """One launch sequence per call, every gradient in its operand's shape
+    and dtype within its bound of the plain backward, a rerun bit-equal
+    (no atomics)."""
+    Bsz, H, L, P, N, Q = shape
+    args = _scan_bwd_operands(Bsz, H, L, P, N, dtype, layout, hopper,
+                              seed=sum(shape))
+    g = torch.Generator(device=hopper).manual_seed(3)
+    dy = torch.randn(args[0].shape, generator=g, device=hopper)
+    dh = (torch.randn((Bsz, H, P, N), generator=g, device=hopper)
+          if with_dh else None)
+    before = ops.ssd_scan_bwd.launches
+    got = ops.ssd_scan_bwd(*args, dy, dh, chunk=Q)
+    again = ops.ssd_scan_bwd(*args, dy, dh, chunk=Q)
+    torch.cuda.synchronize()
+    assert ops.ssd_scan_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ops.ssd_scan_bwd_ref(*args, dy, dh, chunk=Q)
+    for a, b, t in zip(got, want, args):
+        assert a.shape == t.shape
+        _scan_bwd_close(a, b)
+
+
+@pytest.mark.parametrize("P,N,Q", [(64, 128, 256), (64, 16, 256),
+                                   (32, 16, 32), (16, 32, 48), (4, 4, 1),
+                                   (128, 64, 256), (8, 128, 512)])
+def test_ssd_scan_bwd_plan_sizes_the_kernels_shared_memory(hopper, P, N, Q):
+    """The plan's shared-memory bytes are the kernel's own count for both
+    launches that use it."""
+    lib = ss._bwd_library()
+    state, chunk = ss.bwd_smem_bytes(P, N, Q)
+    assert lib.ssd_scan_bwd_smem_bytes(P, N, Q, 0) == state
+    assert lib.ssd_scan_bwd_smem_bytes(P, N, Q, 1) == chunk
+
+
+def test_ssd_scan_bwd_rejects_what_the_kernel_does_not_take(hopper):
+    x, dt, A, Bm, Cm = _ssd_operands(1, 2, 64, 48, 16, torch.float32, True,
+                                     hopper)
+    dy = torch.zeros(x.shape, device=hopper)
+    with pytest.raises(ValueError, match="powers of two"):
+        ops.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, chunk=32)
+    with pytest.raises(TypeError, match="float32"):
+        ops.ssd_scan_bwd(x[..., :32], dt.double(), A, Bm, Cm, dy[..., :32],
+                         chunk=32)
+
+
+GATE_BWD_SHAPES = [(2048, 64, 6), (2048, 16, 2), (4, 64, 6), (4, 16, 2),
+                   (77, 100, 5), (33, 256, 8), (9, 8, 8), (6, 3, 3),
+                   (5, 256, 256)]
+
+
+@pytest.mark.parametrize("N,E,k", GATE_BWD_SHAPES)
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+def test_topk_gating_bwd_matches_plain_version(hopper, N, E, k, aligned):
+    """Random rows, planted ties and near-zero weights (a routed expert far
+    below the row's top), on the 16-byte and the scalar route (a base off
+    16 bytes): within 1e-5 of the plain backward, a rerun bit-equal."""
+    g = torch.Generator(device=hopper).manual_seed(N + E + k)
+    logits = 2 * torch.randn((N, E), generator=g, device=hopper)
+    logits[0] = 0.0
+    if N > 2:
+        logits[1, [E - 1, 0]] = 3.0
+        logits[2] = -20.0
+        logits[2, 0] = 20.0
+    if not aligned:
+        off = torch.empty(N * E + 1, device=hopper)[1:].view(N, E)
+        off.copy_(logits)
+        logits = off
+    w, idx = ops.topk_gating(logits, k)
+    dw = torch.randn((N, k), generator=g, device=hopper)
+    before = ops.topk_gating_bwd.launches
+    got = ops.topk_gating_bwd(logits, idx, w, dw)
+    again = ops.topk_gating_bwd(logits, idx, w, dw)
+    torch.cuda.synchronize()
+    assert ops.topk_gating_bwd.launches == before + 2
+    assert torch.equal(got, again)
+    want = ops.topk_gating_bwd_ref(logits, idx, w, dw)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+def test_topk_gating_bwd_empty_batch_launches_nothing(hopper):
+    z = torch.zeros((0, 8), device=hopper)
+    before = ops.topk_gating_bwd.launches
+    out = ops.topk_gating_bwd(z, torch.zeros((0, 2), dtype=torch.int32,
+                                             device=hopper),
+                              torch.zeros((0, 2), device=hopper),
+                              torch.zeros((0, 2), device=hopper))
+    assert out.shape == (0, 8) and ops.topk_gating_bwd.launches == before
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "moonshot-v1-16b-a3b",
+                                  "jamba-v0.1-52b"])
+def test_ssm_moe_hybrid_train_step_on_the_card_matches_the_cpu(hopper, arch):
+    """One tiny fp32 step's loss and every gradient leaf within 1e-3 of the
+    CPU's, each backward kernel launched once per layer that has it."""
+    from repro_torch.configs.archs import tiny_version
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import api
+    from repro_torch.tree import tree_leaves, tree_to
+    cfg = tiny_version(get_config(arch))
+    params = api.init(torch.Generator().manual_seed(5), cfg)
+    toks = torch.randint(0, cfg.vocab, (4, 64),
+                         generator=torch.Generator().manual_seed(6))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    cpu_loss, cpu_g = ST.loss_and_grads(params, cfg, batch)
+    counts = (ops.ssd_scan_bwd.launches, ops.topk_gating_bwd.launches)
+    loss, grads = ST.loss_and_grads(tree_to(params, hopper), cfg,
+                                    tree_to(batch, hopper))
+    mamba = {"ssm": cfg.n_layers, "moe": 0}.get(cfg.family, 7)
+    moe = {"ssm": 0, "moe": cfg.n_layers}.get(cfg.family, 4)
+    assert (ops.ssd_scan_bwd.launches - counts[0],
+            ops.topk_gating_bwd.launches - counts[1]) == (mamba, moe)
+    assert abs(float(loss) - float(cpu_loss)) <= 1e-3 * abs(float(cpu_loss))
+    for a, b in zip(tree_leaves(grads), tree_leaves(cpu_g)):
+        assert float(b.abs().sum()) > 0
+        err = float((a.cpu() - b).abs().max()) / float(b.abs().max())
+        assert err <= 1e-3

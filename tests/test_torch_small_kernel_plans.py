@@ -11,7 +11,11 @@ unaligned base takes the scalar route), R passes over the shares cover R
 with the compile-time bound exact at 16, and blocks stay within the
 kernel's launch bound. The norm backward's grid is one wave, and a model
 of its fixed-order, compensated sum of the scale gradient holds the fp32
-bound at 4097 rows.
+bound at 4097 rows. The two training backwards of the SSM and MoE layers
+take theirs from ``topk_gating.bwd_plan`` (every row's experts read and
+written once) and ``ssd_scan.bwd_plan`` (the models' shapes within the
+shared memory, every state entry and output once, what the kernel does
+not take refused).
 """
 import numpy as np
 import pytest
@@ -21,6 +25,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import autotune as AT  # noqa: E402
 from repro_torch.kernels import coded_decode as CD  # noqa: E402
 from repro_torch.kernels import rmsnorm as RN  # noqa: E402
+from repro_torch.kernels import ssd_scan as SS  # noqa: E402
+from repro_torch.kernels import topk_gating as TG  # noqa: E402
 from repro_torch.kernels._layout import strides  # noqa: E402
 
 
@@ -302,3 +308,78 @@ def test_decode_block_rows_follow_the_tuner_axis(bb):
         p = CD.decode_plan(B, 6, 64, 4, 384, 64, 0, bb)
         assert p.rows == min(bb, B)
         assert (p.grid[0] - 1) * p.rows < B <= p.grid[0] * p.rows
+
+
+# -- topk_gating_bwd and ssd_scan_bwd -------------------------------------------------
+
+@pytest.mark.parametrize("N,E,k", [(2048, 64, 6), (2048, 16, 2), (4, 64, 6),
+                                   (4, 16, 2), (77, 100, 5), (33, 256, 8),
+                                   (7, 6, 6), (1, 3, 2), (5, 256, 256)])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+def test_gating_bwd_plan_reads_and_writes_every_logit_once(N, E, k, aligned):
+    """Block ``bx``, thread ``tid`` takes row (bx·threads + tid) // G and
+    lane tid % G, which reads and writes the elements of its accesses (j·G
+    + t)·vec .. + vec below E: over the grid each (row, expert) once."""
+    for sms in (132, 3, 1):
+        p = TG.bwd_plan(N, E, k, aligned, sms)
+        threads = p.rows_per_block * p.lanes
+        assert threads % 32 == 0 and threads <= TG.MAX_THREADS
+        assert p.vec == (4 if aligned and E % 4 == 0 else 1)
+        touched = np.zeros((N, E), np.int64)
+        for bx in range(p.blocks):
+            for tid in range(threads):
+                r = (bx * threads + tid) // p.lanes
+                if r >= N:
+                    continue
+                t = tid % p.lanes
+                for j in range(p.nv):
+                    e0 = (j * p.lanes + t) * p.vec
+                    if e0 < E:
+                        touched[r, e0:e0 + p.vec] += 1
+        assert (touched == 1).all(), (sms, p)
+
+
+# (B, H, L, P, N, Q): mamba2-130m's and jamba's training shapes, the tiny
+# configs', a ragged chunk and L below the chunk
+SCAN_BWD = [(4, 24, 512, 64, 128, 256), (4, 128, 512, 64, 16, 256),
+            (4, 8, 64, 32, 16, 32), (1, 4, 96, 16, 32, 48),
+            (2, 3, 20, 32, 16, 20)]
+
+
+@pytest.mark.parametrize("Bsz,H,L,P,N,Q", SCAN_BWD)
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_head"])
+def test_scan_bwd_plan_covers_rows_entries_and_outputs(Bsz, H, L, P, N, Q,
+                                                       shared):
+    """A block per (batch row, head, chunk) in the states and chunk
+    launches, a thread per state entry in the fold, and the head sum's
+    grid-stride loop over (B, L, N) or (B, H, L, N) outputs within 8
+    blocks an SM; both shared-memory sizes within the card's 227 KB."""
+    for sms in (132, 1):
+        p = SS.bwd_plan(Bsz, H, L, P, N, Q, shared, sms)
+        assert p.state_blocks == p.chunk_blocks == Bsz * H * (L // Q)
+        rows, groups = p.fold_grid
+        assert rows == Bsz * H
+        assert (groups - 1) * SS.BWD_THREADS < P * N <= groups * \
+            SS.BWD_THREADS
+        outs = Bsz * (1 if shared else H) * L * N
+        assert 1 <= p.reduce_blocks <= 8 * sms
+        assert p.reduce_blocks == min(-(-outs // SS.BWD_THREADS), 8 * sms)
+        assert max(p.smem_state, p.smem_chunk) <= SS.SMEM_LIMIT
+
+
+def test_scan_bwd_shared_memory_at_the_models_shapes():
+    """mamba2's (64, 128, 256) is the largest the models take: its chunk
+    launch holds 225,800 bytes of the 232,448 a block may use."""
+    assert SS.bwd_smem_bytes(64, 128, 256) == (103424, 225800)
+    assert SS.bwd_smem_bytes(64, 16, 256)[1] == 111112
+    assert SS.bwd_smem_bytes(32, 16, 32)[1] < 96 * 1024
+
+
+@pytest.mark.parametrize("P,N,Q,match", [(48, 16, 32, "powers of two"),
+                                         (64, 256, 32, "powers of two"),
+                                         (2, 16, 32, "powers of two"),
+                                         (128, 128, 32, "powers of two"),
+                                         (128, 64, 1024, "shared memory")])
+def test_scan_bwd_plan_refuses_what_the_kernel_does_not_take(P, N, Q, match):
+    with pytest.raises(ValueError, match=match):
+        SS.bwd_plan(1, 2, Q, P, N, Q, True, 132)
