@@ -215,6 +215,40 @@ hand-written kernels, ``ssd_scan_bwd`` and ``topk_gating_bwd``:
     ``loss_and_grads`` at batch 4 x 512 (every leaf finite and nonzero,
     peak memory); each with the eight kernels' launches exact.
 
+The VLM (qwen2-vl-7b: precomputed patch embeddings, M-RoPE, 28 heads
+padded to 32 over 4 kv heads) and the enc-dec (whisper-medium: 1500
+encoder frames, LayerNorm, sinusoidal positions) reach ``flash_attention``,
+its backward and ``decode_attention`` at routes no earlier phase runs from
+a model: a group of 8 at D 128, non-causal self-attention over 1500 keys,
+cross-attention of Sq decoder rows over Skv encoder rows, a decode step
+over a fixed-length cross cache:
+
+26. those kernels at those shapes against their plain versions, each
+    case twice and bit-equal (qwen2-vl causal (4, 4, 8, 512, 128);
+    whisper's encoder (4, 16, 1, 1500, 64) and its cross-attention, Sq 64
+    and 512 over Skv 1500 and 512, non-causal; decode at G 8 / D 128 over
+    a 544-row cache and over the 1500-row cross cache; the tiny configs'
+    fp32 D 32 at G 16 and G 2), the bf16 ones timed by device time beside
+    their bounds, their plain versions and SDPA (forward and autograd
+    backward);
+27. card vs CPU, tiny fp32 qwen2-vl-7b (M-RoPE over three distinct
+    streams) and whisper-medium (24 frames, a 15-token prompt), TF32 off:
+    a prefill and 8 greedy decode steps within 1e-3 of the CPU's, tokens
+    equal; one ``loss_and_grads`` within 1e-3 leaf by leaf; launches of
+    rmsnorm, rmsnorm_bwd, flash, flash_bwd and decode exact;
+28. full width, bf16: qwen2-vl-7b uncut (7.72 B parameters) through
+    ``generate(tiny=False, prompt_len=512, gen=32, batch=4)`` and one
+    ``loss_and_grads`` on 4 x 512 patch embeddings (every layer's gradient
+    finite and nonzero, the unused token embedding's zero; peak memory),
+    then cut to 4 layers through ``train.run`` for 10 steps without
+    checkpoints (loss falling); whisper-medium uncut through
+    ``generate(tiny=False, prompt_len=64, gen=32, batch=4, frames=1500)``
+    and ``train.run(tiny=False, steps=20, batch=4, seq=512)`` (loss
+    falling, every layer's step-1 gradient finite and nonzero, a rerun
+    bit-equal; no checkpoint: phase 21's use most of a call's disk
+    writes); launches exact throughout, prefill ms, decode ms/token, step
+    ms and tokens/s, each with a profile.
+
 The last two lines of standard output are the ``kernels`` JSON line
 (thirteen entries) and the ``ok`` JSON line. Exits non-zero without a
 CUDA device.
@@ -266,6 +300,7 @@ from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels import autotune as AT  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import coded_matmul as ops_cm  # noqa: E402
+from repro_torch.kernels import decode_attention as ops_da  # noqa: E402
 from repro_torch.kernels import dequant_matmul as ops_dq  # noqa: E402
 from repro_torch.kernels import flash_attention as ops_fa  # noqa: E402
 from repro_torch.kernels._layout import num_sms  # noqa: E402
@@ -274,7 +309,7 @@ from repro_torch.launch import microbench as MB  # noqa: E402
 from repro_torch.launch import steps as ST  # noqa: E402
 from repro_torch.launch import train as TR  # noqa: E402
 from repro_torch.launch.serve import (generate, greedy_decode,  # noqa: E402
-                                      splice)
+                                      random_prompt, splice)
 from repro_torch.models import api, cnn, hybrid  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.obs import MetricsRegistry, Tracer  # noqa: E402
@@ -1563,16 +1598,21 @@ def step_vs_prefill(params, cfg, toks: torch.Tensor, label: str) -> None:
           f"{LM_STEP_TOL})")
 
 
-def profile_serving(params, cfg, toks: torch.Tensor, label: str) -> tuple:
-    """``lm_profile`` of one prefill of ``toks`` (B, P) and of 8 decode
-    steps after it."""
+def profile_serving(params, cfg, toks: torch.Tensor, label: str,
+                    extra: dict = None) -> tuple:
+    """``lm_profile`` of one prefill of ``toks`` (B, P) (with the
+    ``embeds`` and ``positions`` in ``extra``) and of 8 decode steps
+    after it."""
     B, P = toks.shape
+    prompt = {"tokens": toks, **(extra or {})}
     prefill = lm_profile(
         f"{label}prefill of {P} x batch {B}",
-        lambda: api.prefill(params, cfg, {"tokens": toks}), 1)
+        lambda: api.prefill(params, cfg, prompt), 1)
     steps = 8
-    cache = api.init_cache(cfg, B, P + steps, device=toks.device)
-    logits, pcache = api.prefill(params, cfg, {"tokens": toks})
+    enc_len = prompt["embeds"].shape[1] if cfg.family == "encdec" else None
+    cache = api.init_cache(cfg, B, P + steps, enc_len=enc_len,
+                           device=toks.device)
+    logits, pcache = api.prefill(params, cfg, prompt)
     for name, c in cache.items():
         splice(c, pcache[name])
     state = {"t": 0, "cur": logits[:, -1:].argmax(-1)}
@@ -1819,13 +1859,19 @@ def expected_launches(cfg, steps: int) -> tuple:
     (a decode step runs the recurrence in PyTorch); one topk_gating per MoE
     layer per call."""
     calls, L = steps + 1, cfg.n_layers
+    if cfg.family == "encdec":
+        # LayerNorm (no rmsnorm); the encoder's self-attention and the
+        # decoder's self and cross attention in a prefill, the decoder's
+        # two in a step
+        dec = 2 * cfg.n_dec_layers
+        return 0, cfg.n_enc_layers + dec, dec * steps, 0, 0
     if cfg.family == "hybrid":
         kinds = hybrid._layer_kinds(cfg)
         attn = hybrid.n_periods(cfg) * sum(a for a, _ in kinds)
         moe = hybrid.n_periods(cfg) * sum(m for _, m in kinds)
         mamba = L - attn
     else:
-        attn = L if cfg.family in ("dense", "moe") else 0
+        attn = L if cfg.family in ("dense", "moe", "vlm") else 0
         mamba = L if cfg.family == "ssm" else 0
         moe = L if cfg.family == "moe" else 0
     norms = (L if cfg.family == "ssm" else 2 * L) + mamba + 1
@@ -2988,33 +3034,53 @@ def zero_train_launches() -> None:
 
 
 def layer_slices(tree) -> list:
-    """(key, tensor) for every leaf, the stacked layer leaves cut into one
-    entry per layer."""
+    """(key, tensor) for every leaf, the stacked layer leaves (an
+    enc-dec's encoder and decoder layers too) cut into one entry per
+    layer."""
     out = []
     for key, t in flatten_with_keys(tree):
-        if key.startswith("['layers']"):
+        if key.startswith(("['layers']", "['enc_layers']", "['dec_layers']")):
             out += [(f"{key}[{i}]", t[i]) for i in range(t.shape[0])]
         else:
             out.append((key, t))
     return out
 
 
-def check_gradients(grads, label: str) -> None:
-    """Every leaf's (every layer's) gradient finite and nonzero."""
+def unused_leaves(cfg) -> tuple:
+    """Keys of the leaves the loss does not reach: the VLM's token
+    embedding, which its patch embeddings replace."""
+    if cfg.embed_inputs and cfg.family != "encdec":
+        return ("['embed']['embedding']",)
+    return ()
+
+
+def check_gradients(grads, label: str, zero: tuple = ()) -> None:
+    """Every leaf's (every layer's) gradient finite and nonzero, except
+    the leaves in ``zero``, whose gradients are all zero."""
     for key, g in layer_slices(grads):
         if not bool(torch.isfinite(g).all()):
             raise AssertionError(f"{label}: gradient of {key} not finite")
-        if not bool(g.abs().sum() > 0):
-            raise AssertionError(f"{label}: gradient of {key} is zero")
+        if bool(g.abs().sum() > 0) == (key in zero):
+            raise AssertionError(f"{label}: gradient of {key} is "
+                                 f"{'non' if key in zero else ''}zero")
 
 
 def token_batches(cfg, batch: int, seq: int, steps: int, dev, seed: int = 0,
                   start: int = 0) -> list:
+    """``train.run``'s batches for global steps ``start`` … ``start +
+    steps - 1``: the token data's, and for an ``embed_inputs`` config its
+    embeddings (``train.embed_batch``)."""
     data = SyntheticTokens(TokenTaskConfig(vocab=cfg.vocab, seq_len=seq,
                                            seed=seed))
-    return [{"tokens": torch.from_numpy(t).to(dev),
+    out = []
+    for i, (t, lb) in enumerate(data.epoch(batch, steps, start=start)):
+        b = {"tokens": torch.from_numpy(t).to(dev),
              "labels": torch.from_numpy(lb).to(dev)}
-            for t, lb in data.epoch(batch, steps, start=start)]
+        if cfg.embed_inputs:
+            b["embeds"] = TR.embed_batch(cfg, batch, seq, seed, start + i,
+                                         torch.device(dev))
+        out.append(b)
+    return out
 
 
 def phase_train_card_vs_cpu(dev) -> None:
@@ -3092,14 +3158,17 @@ def phase_train_full(dev) -> dict:
     return train_full(LM_ARCH, None, TRAIN_STEPS, CKPT_EVERY, dev)
 
 
-def train_full(arch: str, layers, n: int, ckpt, dev) -> dict:
+def train_full(arch: str, layers, n: int, ckpt, dev, rerun: bool = False
+               ) -> dict:
     """``arch`` at full width (cut to ``layers`` layers, or uncut) trained
     through ``train.run`` for ``n`` steps, with checkpoints every ``ckpt``
     (or none): every leaf's (every layer's) step-1 gradient finite and
-    nonzero, the eight training kernels' launches exact, the loss falling;
-    with checkpoints the step-``ckpt`` one restored and stepped to ``n``
-    bit-equal to the run's state, and a profile of one step; step ms and
-    tokens/s over 3 steps."""
+    nonzero (the VLM's unused token embedding zero), the eight training
+    kernels' launches exact, the loss falling; with checkpoints the
+    step-``ckpt`` one restored and stepped to ``n`` bit-equal to the run's
+    state; with ``rerun`` a second run's losses and state bit-equal to the
+    first's; step ms and tokens/s over 3 steps, and a profile of one
+    step."""
     cfg = get_config(arch)
     cfg = cfg.with_(n_layers=layers) if layers else cfg
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3108,7 +3177,7 @@ def train_full(arch: str, layers, n: int, ckpt, dev) -> dict:
     n_params = api.param_count(params)
     first = token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 1, dev)[0]
     _, grads = ST.loss_and_grads(params, cfg, first)
-    check_gradients(grads, f"train {arch} step 1")
+    check_gradients(grads, f"train {arch} step 1", unused_leaves(cfg))
     del params, grads
     torch.cuda.empty_cache()
     dtype = str(cfg.param_dtype)[6:]
@@ -3144,6 +3213,21 @@ def train_full(arch: str, layers, n: int, ckpt, dev) -> dict:
               f"{dict(zip(SSM_TRAIN_KERNELS, launches))}; peak device "
               f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
               f"GiB")
+        if rerun:
+            again, losses2 = TR.run(arch, tiny=False, steps=n,
+                                    batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                    verbose=False, device=dev)
+            for (key, a), (_, b) in zip(flatten_with_keys(again),
+                                        flatten_with_keys(state)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"train {arch}: a rerun's {key} "
+                                         f"differs at step {n}")
+            if losses2 != losses:
+                raise AssertionError(f"train {arch}: a rerun's losses "
+                                     f"{losses2} differ from {losses}")
+            print(f"train: {arch} rerun of the {n} steps: losses and state "
+                  f"(params, master, m, v, step) bit-equal")
+            del again
         opt = adamw.AdamWConfig(lr=3e-4, total_steps=n,
                                 warmup_steps=max(n // 10, 1))
         step = ST.make_train_step(cfg, opt)
@@ -3180,9 +3264,8 @@ def train_full(arch: str, layers, n: int, ckpt, dev) -> dict:
     print(f"train: {arch} step {step_ms:.3f} ms ({tok_s:,.0f} tokens/s) at "
           f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, {dtype}, mean of {reps} steps")
     out = dict(launches=dict(zip(SSM_TRAIN_KERNELS, launches)),
-               step_ms=step_ms, tokens_per_s=tok_s)
-    if ckpt:
-        out["profile"] = train_profile(step, state, batch, arch)
+               step_ms=step_ms, tokens_per_s=tok_s,
+               profile=train_profile(step, state, batch, arch))
     del state, m
     torch.cuda.empty_cache()
     return out
@@ -3627,6 +3710,354 @@ def phase_ssm_train_full(dev) -> dict:
     return dict(launches=totals, **out)
 
 
+# -- the VLM and enc-dec families: M-RoPE, embedding inputs, non-causal and
+# -- cross attention, the fixed-length cross cache -------------------------------
+
+VLM_ARCH, ENCDEC_ARCH = "qwen2-vl-7b", "whisper-medium"
+WHISPER_FRAMES, WHISPER_PROMPT = 1500, 64   # its 30-second window; a prompt
+VLM_TRAIN_LAYERS, VLM_TRAIN_STEPS = 4, 10
+# (B, KV, G, Sq, Skv, D, causal, what): phase 26's timed flash shapes, bf16
+NEW_FLASH = ((4, 4, 8, 512, 512, 128, True, "qwen2-vl-7b self"),
+             (4, 16, 1, 1500, 1500, 64, False, "whisper-medium encoder"),
+             (4, 16, 1, 64, 1500, 64, False, "whisper-medium cross, "
+              "prompt 64"),
+             (4, 16, 1, 512, 512, 64, False, "whisper-medium cross, 512 "
+              "over 512"))
+# the tiny configs' fp32 routes (D 32): qwen2-vl's G 16, whisper's cross
+NEW_FLASH_FP32 = ((2, 2, 16, 16, 16, 32, True), (2, 2, 2, 16, 24, 32, False))
+# (B, KV, G, S, D, length, what): the decode shapes, bf16 then the tiny fp32
+NEW_DECODE = ((4, 4, 8, 544, 128, 528, "qwen2-vl-7b self cache"),
+              (4, 16, 1, WHISPER_FRAMES, 64, WHISPER_FRAMES,
+               "whisper-medium cross cache"))
+NEW_DECODE_FP32 = ((2, 2, 16, 25, 32, 17), (2, 2, 2, 24, 32, 24))
+SERVE_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
+VLM_TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                     "flash_attention_bwd", "decode_attention")
+
+
+def phase_vlm_encdec_kernels(dev) -> dict:
+    """flash_attention forward and backward and decode_attention at the
+    new routes and shapes against their plain versions, each case twice
+    bit-equal: qwen2-vl-7b's causal G 8 at D 128, whisper-medium's
+    non-causal encoder over 1500 frames and its cross-attention (Sq 64
+    and 512 over Skv 1500 and 512), decode at G 8 / D 128 over a 544-row
+    cache and over whisper's 1500-row cross cache, and the tiny configs'
+    fp32 D 32; the bf16 shapes timed beside their bounds, their plain
+    versions and SDPA (forward, autograd backward)."""
+    gen = torch.Generator(device=dev).manual_seed(26)
+    F = torch.nn.functional
+    bf = torch.bfloat16
+    worst = dict.fromkeys(("flash_attention", "flash_attention_bwd",
+                           "decode_attention"), 0.0)
+    timings = []
+    flash = [(*s[:7], bf, s[7]) for s in NEW_FLASH] + \
+        [(*s, torch.float32, "tiny fp32") for s in NEW_FLASH_FP32]
+    for B, KV, G, Sq, Skv, D, causal, dtype, what in flash:
+        q, k, v, do = flash_bwd_operands(B, KV, G, Sq, Skv, D, dtype, True,
+                                         gen, dev)
+        o = same_twice(lambda: (ops.flash_attention(q, k, v, causal=causal),),
+                       f"flash {what}")[0]
+        ef = lm_check(o, ops.flash_attention_ref(q, k, v, causal=causal),
+                      dtype)
+        got = same_twice(lambda: ops.flash_attention_bwd(q, k, v, o, do,
+                                                         causal=causal),
+                         f"flash_attention_bwd {what}")
+        eb = bwd_check(got, ops.flash_attention_bwd_ref(q, k, v, o, do,
+                                                        causal),
+                       dtype, f"flash_attention_bwd {what}")
+        worst["flash_attention"] = max(worst["flash_attention"], ef)
+        worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"], eb)
+        shape = (f"(B,KV,G,Sq,Skv,D)=({B},{KV},{G},{Sq},{Skv},{D}) "
+                 f"{str(dtype)[6:]} {'causal' if causal else 'full'}")
+        print(f"flash {what} {shape}: forward vs plain {ef:.1e}, backward "
+              f"({ops_fa.bwd_route(dtype, D)}) {eb:.1e}, reruns bit-equal")
+        if dtype != bf:
+            continue
+        H = KV * G
+        qh = q.reshape(B, H, Sq, D)
+        kh, vh = k.contiguous(), v.contiguous()
+
+        def sdpa(a, b_, c):
+            return F.scaled_dot_product_attention(a, b_, c, is_causal=causal,
+                                                  enable_gqa=G > 1)
+        t = attention_timing(
+            lambda: ops.flash_attention(q, k, v, causal=causal),
+            lambda: sdpa(qh, kh, vh), f"{what} {shape}",
+            flash_bound(B, KV, G, Sq, Skv, D, causal, bf))
+        t["plain_ms"] = cuda_ms(lambda: ops.flash_attention_ref(
+            q, k, v, causal=causal), iters=10, warm=2)
+        timings.append(("flash_attention", t))
+        lib = backward_timing(sdpa, (qh, kh, vh), do.reshape(B, H, Sq, D))
+        t = attention_timing(
+            lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=causal),
+            lib, f"{what} {shape}",
+            flash_bwd_bound(B, KV, G, Sq, Skv, D, causal, bf))
+        t["plain_ms"] = cuda_ms(lambda: ops.flash_attention_bwd_ref(
+            q, k, v, o, do, causal), iters=10, warm=2)
+        timings.append(("flash_attention_bwd", t))
+        del q, k, v, do, o, got, qh, kh, vh, lib
+    decode = [(*s[:6], bf, s[6]) for s in NEW_DECODE] + \
+        [(*s, torch.float32, "tiny fp32") for s in NEW_DECODE_FP32]
+    for B, KV, G, S, D, n, dtype, what in decode:
+        q, kc, vc = decode_operands(B, KV, G, S, D, dtype, gen, dev)
+        out = same_twice(lambda: (ops.decode_attention(q, kc, vc, n),),
+                         f"decode {what}")[0]
+        e = lm_check(out, ops.decode_attention_ref(q, kc, vc, n), dtype)
+        worst["decode_attention"] = max(worst["decode_attention"], e)
+        shape = (f"(B,KV,G,D)=({B},{KV},{G},{D}) {str(dtype)[6:]}, cache "
+                 f"{S}, length {n}")
+        print(f"decode {what} {shape} vs plain: {e:.1e}, rerun bit-equal "
+              f"({ops_da.split_plan(B, KV, G, S, num_sms(dev.index or 0))} "
+              f"splits)")
+        if dtype != bf:
+            continue
+        qd = q.reshape(B, KV * G, 1, D)
+        kd, vd = kc[:, :, :n].contiguous(), vc[:, :, :n].contiguous()
+        t = attention_timing(
+            lambda: ops.decode_attention(q, kc, vc, n),
+            lambda: F.scaled_dot_product_attention(qd, kd, vd,
+                                                   enable_gqa=G > 1),
+            f"{what} {shape}", decode_bound(B, KV, G, n, D, bf))
+        t["plain_ms"] = cuda_ms(lambda: ops.decode_attention_ref(q, kc, vc,
+                                                                 n))
+        timings.append(("decode_attention", t))
+    for name, t in timings:
+        report_timing(name, t)
+    for k, e in worst.items():
+        print(f"{k} at the VLM and enc-dec shapes vs plain: within rtol/atol "
+              f"3e-5 (fp32) and 3e-2 (bf16), max abs err {e:.3e}")
+    return worst
+
+
+def grid_prompt(cfg, batch: int, seq: int, gen: torch.Generator) -> dict:
+    """A prompt of ``seq`` patch embeddings (× 0.02) with M-RoPE positions
+    over a grid, three distinct streams (temporal fixed, height and width
+    8 patches wide); for the enc-dec ``seq`` frames beside ``seq // 2 + 3``
+    decoder tokens."""
+    emb = torch.randn((batch, seq, cfg.d_model), generator=gen) * 0.02
+    if cfg.family == "encdec":
+        toks = torch.randint(0, cfg.vocab, (batch, seq // 2 + 3),
+                             generator=gen)
+        return {"tokens": toks, "embeds": emb}
+    i = torch.arange(seq)
+    pos = torch.stack([torch.full_like(i, 2), i // 8, i % 8])
+    return {"tokens": torch.randint(0, cfg.vocab, (batch, seq),
+                                    generator=gen),
+            "embeds": emb, "positions": pos[:, None].expand(3, batch, seq)}
+
+
+def vlm_encdec_launches() -> tuple:
+    return tuple(getattr(ops, k).launches for k in VLM_TRAIN_KERNELS)
+
+
+def zero_vlm_encdec_launches() -> None:
+    for k in VLM_TRAIN_KERNELS:
+        getattr(ops, k).launches = 0
+
+
+def serve_expected(cfg, steps: int) -> tuple:
+    """``VLM_TRAIN_KERNELS`` launches of a prefill and ``steps`` decode
+    steps (``expected_launches``; no backward)."""
+    norms, flash, dec, _, _ = expected_launches(cfg, steps)
+    return norms, 0, flash, 0, dec
+
+
+def phase_vlm_encdec_card_vs_cpu(dev) -> None:
+    """Tiny fp32 qwen2-vl-7b (M-RoPE over distinct streams, 4 heads padded
+    to 32) and whisper-medium (24 frames, a 15-token decoder prompt), the
+    same weights (drawn once on the CPU) and prompt: a prefill and 8
+    greedy decode steps on the card within SERVE_TOL of the CPU's (TF32
+    off), tokens equal; one ``loss_and_grads`` within TRAIN_TOL, leaf by
+    leaf; the five kernels' launches exact."""
+    cpu = torch.device("cpu")
+    steps = 8
+    for arch in (VLM_ARCH, ENCDEC_ARCH):
+        cfg = tiny_version(get_config(arch))
+        params = api.init(torch.Generator().manual_seed(27), cfg)
+        prompt = grid_prompt(cfg, LM_BATCH, 24,
+                             torch.Generator().manual_seed(28))
+        t0 = time.perf_counter()
+        ref = greedy_decode(params, cfg, prompt["tokens"], steps + 1,
+                            embeds=prompt["embeds"],
+                            positions=prompt.get("positions"),
+                            keep_logits=True)
+        gparams, gprompt = tree_to(params, dev), tree_to(prompt, dev)
+        zero_vlm_encdec_launches()
+        card = greedy_decode(gparams, cfg, gprompt["tokens"], steps + 1,
+                             embeds=gprompt["embeds"],
+                             positions=gprompt.get("positions"),
+                             keep_logits=True)
+        launches, want = vlm_encdec_launches(), serve_expected(cfg, steps)
+        if launches != want:
+            raise AssertionError(f"vlm/encdec card-vs-cpu {arch}: launches "
+                                 f"{VLM_TRAIN_KERNELS} {launches}, expected "
+                                 f"{want}")
+        if not np.array_equal(card.tokens, ref.tokens):
+            raise AssertionError(f"vlm/encdec card-vs-cpu {arch}: tokens "
+                                 f"differ:\n{card.tokens}\n{ref.tokens}")
+        err = max(max_err(a.cpu(), b, **SERVE_TOL)
+                  for a, b in zip(card.logits, ref.logits))
+        labels = torch.randint(0, cfg.vocab, prompt["tokens"].shape,
+                               generator=torch.Generator().manual_seed(29))
+        batch = {**prompt, "labels": labels}
+        cpu_loss, cpu_g = ST.loss_and_grads(params, cfg, batch)
+        cpu_s = time.perf_counter() - t0
+        zero_vlm_encdec_launches()
+        loss, grads = ST.loss_and_grads(gparams, cfg, tree_to(batch, dev))
+        tl, tw = vlm_encdec_launches(), train_expected(cfg)[:4] + (0,)
+        if tl != tw:
+            raise AssertionError(f"vlm/encdec card-vs-cpu {arch}: train "
+                                 f"launches {VLM_TRAIN_KERNELS} {tl}, "
+                                 f"expected {tw}")
+        rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+        if not rel <= TRAIN_TOL:
+            raise AssertionError(f"vlm/encdec card-vs-cpu {arch}: loss "
+                                 f"{float(loss)} vs {float(cpu_loss)}")
+        check_gradients(grads, f"vlm/encdec card-vs-cpu {arch}",
+                        unused_leaves(cfg))
+        gerr = 0.0
+        for (key, a), (_, b) in zip(flatten_with_keys(grads),
+                                    flatten_with_keys(cpu_g)):
+            scale = float(b.abs().max())
+            e = float((a.cpu() - b).abs().max()) / scale if scale else \
+                float(a.abs().max())
+            if not e <= TRAIN_TOL:
+                raise AssertionError(f"vlm/encdec card-vs-cpu {arch}: "
+                                     f"gradient of {key} differs by {e:.2e} "
+                                     f"of its largest")
+            gerr = max(gerr, e)
+        print(f"vlm/encdec card-vs-cpu: {arch} tiny ({cfg.n_layers} layers, "
+              f"d_model {cfg.d_model}, {cfg.heads_padded} query heads over "
+              f"{cfg.n_kv_heads}), fp32, batch {LM_BATCH}, a prompt of "
+              f"{prompt['embeds'].shape[1]} embeddings and "
+              f"{prompt['tokens'].shape[1]} tokens: prefill and {steps} "
+              f"decode steps' logits within {err:.3e} of the CPU's, tokens "
+              f"equal; launches {dict(zip(VLM_TRAIN_KERNELS, launches))}; "
+              f"loss_and_grads loss {float(loss):.6f} (CPU "
+              f"{float(cpu_loss):.6f}, rel {rel:.2e}), "
+              f"{len(tree_leaves(grads))} gradient leaves within {gerr:.2e} "
+              f"of each leaf's largest; launches "
+              f"{dict(zip(VLM_TRAIN_KERNELS, tl))}; CPU {cpu_s:.1f} s")
+
+
+def serve_full(arch: str, dev, prompt_len: int, frames=None) -> dict:
+    """``generate(arch, tiny=False)`` at batch 4 and 32 tokens, launches
+    exact and logits finite; then, on its weights and prompt, a warm
+    second run and a profile of one prefill and of 8 decode steps.
+    Returns the launches and the profiles."""
+    cfg = get_config(arch)
+    B, n = LM_BATCH, LM_GEN
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_vlm_encdec_launches()                  # the main path's window
+    res = generate(arch, tiny=False, prompt_len=prompt_len, gen=n, batch=B,
+                   seed=0, verbose=False, device=dev, keep_logits=True,
+                   frames=frames)
+    launches, want = vlm_encdec_launches(), serve_expected(cfg, n - 1)
+    if launches != want:
+        raise AssertionError(f"serve {arch}: launches {VLM_TRAIN_KERNELS} "
+                             f"{launches}, expected {want}")
+    if res.tokens.shape != (B, n) or not all(
+            bool(torch.isfinite(x).all()) and x.shape == (B, cfg.vocab)
+            for x in res.logits):
+        raise AssertionError(f"serve {arch}: tokens or logits malformed")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    g = torch.Generator(device=dev).manual_seed(0)    # generate's draws
+    params = api.init(g, cfg)
+    prompt = random_prompt(cfg, B, prompt_len, g, frames=frames)
+    enc = (f"{prompt['embeds'].shape[1]} encoder frames and a "
+           f"{prompt_len}-token decoder prompt" if cfg.family == "encdec"
+           else f"a {prompt_len}-patch embedding prompt, M-RoPE")
+    print(f"serve: {arch} full width ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.heads_padded} query heads over "
+          f"{cfg.n_kv_heads}, vocab {cfg.vocab}), "
+          f"{str(cfg.compute_dtype)[6:]}, {api.param_count(params):,} "
+          f"parameters, batch {B}, {enc}, {n} tokens: prefill "
+          f"{res.prefill_ms:.3f} ms, decode {res.decode_ms_per_token:.3f} "
+          f"ms/token; launches {dict(zip(SERVE_KERNELS, launches[::2]))}; "
+          f"all logits finite; peak device memory {peak:.2f} GiB")
+    warm = greedy_decode(params, cfg, prompt["tokens"], n,
+                         embeds=prompt.get("embeds"),
+                         positions=prompt.get("positions"))
+    print(f"serve {arch} (warm, same weights and prompt): prefill "
+          f"{warm.prefill_ms:.3f} ms, decode {warm.decode_ms_per_token:.3f} "
+          f"ms/token; tokens equal to the first run's: "
+          f"{np.array_equal(warm.tokens, res.tokens)}")
+    del res, warm
+    toks = prompt.pop("tokens")
+    prefill, decode = profile_serving(params, cfg, toks, f"{arch} ", prompt)
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches=dict(zip(VLM_TRAIN_KERNELS, launches)),
+                prefill=prefill, decode=decode)
+
+
+def vlm_grads_full(dev) -> dict:
+    """One ``loss_and_grads`` of the uncut qwen2-vl-7b on a batch of 4 x
+    512 patch embeddings: the loss finite, every layer's gradient finite
+    and nonzero (the token embedding's zero), launches exact, peak
+    memory."""
+    cfg = get_config(VLM_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = api.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    batch = token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 1, dev)[0]
+    zero_vlm_encdec_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = ST.loss_and_grads(params, cfg, batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, want = vlm_encdec_launches(), train_expected(cfg)[:4] + (0,)
+    if launches != want:
+        raise AssertionError(f"train {VLM_ARCH}: launches "
+                             f"{VLM_TRAIN_KERNELS} {launches}, expected "
+                             f"{want}")
+    if not np.isfinite(float(loss)):
+        raise AssertionError(f"train {VLM_ARCH}: loss {float(loss)}")
+    check_gradients(grads, f"train {VLM_ARCH}", unused_leaves(cfg))
+    pad = float(grads["layers"]["attn"]["wo"][:, cfg.n_heads:].abs().max())
+    print(f"train: {VLM_ARCH} full width, uncut ({cfg.n_layers} layers, "
+          f"{api.param_count(params):,} parameters, "
+          f"{str(cfg.param_dtype)[6:]}): one loss_and_grads at batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} patch embeddings in {secs:.2f} s, "
+          f"loss {float(loss):.4f}, every layer's gradient finite and "
+          f"nonzero (the token embedding's zero; the padded heads' wo "
+          f"slices up to {pad:.3e}); launches "
+          f"{dict(zip(VLM_TRAIN_KERNELS, launches))}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    del params, grads
+    torch.cuda.empty_cache()
+    return dict(zip(VLM_TRAIN_KERNELS, launches))
+
+
+def phase_vlm_encdec_full(dev) -> dict:
+    """The slice's main paths at full width, bf16: qwen2-vl-7b uncut
+    served (batch 4, a 512-patch prompt, 32 tokens) and through one
+    ``loss_and_grads``, then cut to 4 layers through ``train.run`` (10
+    steps, no checkpoints); whisper-medium uncut served (batch 4, 1500
+    encoder frames, a 64-token prompt, 32 tokens) and through
+    ``train.run`` (20 steps, no checkpoints, rerun bit-equal); launches
+    exact throughout, profiles of prefill, decode and a train step."""
+    totals = dict.fromkeys(VLM_TRAIN_KERNELS, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] += v
+    out = {VLM_ARCH: serve_full(VLM_ARCH, dev, LM_PROMPT)}
+    add(out[VLM_ARCH].pop("launches"))
+    add(vlm_grads_full(dev))
+    out[f"{VLM_ARCH} train"] = train_full(VLM_ARCH, VLM_TRAIN_LAYERS,
+                                          VLM_TRAIN_STEPS, None, dev)
+    out[ENCDEC_ARCH] = serve_full(ENCDEC_ARCH, dev, WHISPER_PROMPT,
+                                  frames=WHISPER_FRAMES)
+    add(out[ENCDEC_ARCH].pop("launches"))
+    out[f"{ENCDEC_ARCH} train"] = train_full(ENCDEC_ARCH, None, TRAIN_STEPS,
+                                             None, dev, rerun=True)
+    for key in (f"{VLM_ARCH} train", f"{ENCDEC_ARCH} train"):
+        add({k: v for k, v in out[key].pop("launches").items()
+             if k in totals})
+    return dict(launches=totals, **out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3708,9 +4139,17 @@ def main() -> int:
     ssm_train_timing = phase_ssm_train_kernels(dev)
     phase_ssm_train_card_vs_cpu(dev)
     ssm_train = phase_ssm_train_full(dev)
+    new_worst = phase_vlm_encdec_kernels(dev)
+    phase_vlm_encdec_card_vs_cpu(dev)
+    vlm_encdec = phase_vlm_encdec_full(dev)["launches"]
     train_launch = {k: train["launches"].get(k, 0)
                     + rocoin["launches"].get(k, 0)
-                    + ssm_train["launches"][k] for k in SSM_TRAIN_KERNELS}
+                    + ssm_train["launches"][k] + vlm_encdec.get(k, 0)
+                    for k in SSM_TRAIN_KERNELS}
+    for name, e in new_worst.items():
+        timing_of = train_timing if name in TRAIN_SOURCES else lm_timing
+        timing_of[name]["max_abs_err"] = max(timing_of[name]["max_abs_err"],
+                                             e)
     for entry in (kernel, decode):
         entry["launches"] += measured["launches"][entry["name"]]
         entry["max_abs_err"] = max(entry["max_abs_err"],
@@ -3740,7 +4179,9 @@ def main() -> int:
                           if k in lm_timing[name]})
                   for name in LM_KERNELS]
     for entry in lm_kernels:
-        entry["launches"] += train_launch.get(entry["name"], 0)
+        entry["launches"] += (train_launch.get(entry["name"], 0)
+                              if entry["name"] in SSM_TRAIN_KERNELS
+                              else vlm_encdec.get(entry["name"], 0))
     train_kernels = [dict(name=name, route="cuda",
                           source=TRAIN_SOURCES[name],
                           replaces=TRAIN_REPLACES[name],

@@ -56,7 +56,7 @@ def lm_final_hidden(params, cfg: ModelConfig, tokens: torch.Tensor
     """Forward to the pre-head hidden states (dense/moe families)."""
     x = T._embed(params, cfg, tokens, None)
     B, S = tokens.shape
-    rope = T.rope_table(cfg, T.default_positions(B, S, device=x.device))
+    rope = T.rope_table(cfg, T.default_positions(cfg, B, S, device=x.device))
     for i in range(cfg.n_layers):
         x = T.block_apply(T._layer(params, i), cfg, x, rope)
     return T.norm_apply(cfg, params["out_norm"], x)

@@ -1,5 +1,4 @@
-"""Serving entry point: prefill + greedy decode loop for an ``--arch`` of
-the dense, moe, ssm or hybrid family.
+"""Serving entry point: prefill + greedy decode loop for any ``--arch``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
       --prompt-len 64 --gen 32 --batch 2
@@ -10,13 +9,23 @@ unless ``device="cpu"``), then :func:`greedy_decode` runs the reference
 loop's steps: prefill, splice the prompt's cache into a ``prompt_len +
 gen`` cache (:func:`splice`), take the argmax of the last logits, then
 ``gen - 1`` decode steps at ``index = prompt_len + t``. The decode steps
-update the cache in place (the reference donates it).
+update the cache in place (the reference donates it). As the reference
+does, :func:`generate` gives an ``embed_inputs`` config a prompt of
+random embeddings (N(0, 1) × 0.02): the VLM's patch embeddings, which
+replace its prompt's tokens, and the enc-dec's encoder frames, beside its
+decoder prompt; an M-RoPE config gets (3, B, P) positions, the three
+streams equal. Decode steps embed the generated tokens.
 
 The CLI keeps the reference's flags as they are, so ``--tiny`` (a
 ``store_true`` flag whose default is True) is always on; call
-``generate(..., tiny=False)`` for the published widths. Only token inputs
-with RoPE (or no) positions are served: precomputed embeddings and M-RoPE
-raise ``NotImplementedError``, as do the vlm and encdec families.
+``generate(..., tiny=False)`` for the published widths.
+
+One difference from the reference: an enc-dec's cross cache holds exactly
+the encoder's rows (``api.init_cache(..., enc_len=...)``). The reference
+zero-pads it to ``prompt_len + gen`` rows and attends to the padding at
+every decode step (``models/encdec.py`` says more). Its encoder also
+reads ``prompt_len`` frames; :func:`generate` takes ``frames`` for another
+length (Whisper's 30-second window is 1500 frames).
 """
 from __future__ import annotations
 
@@ -32,7 +41,6 @@ from repro_torch.configs.archs import tiny_version
 from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import api
-from repro_torch.models.transformer import NOT_PORTED
 
 
 @dataclasses.dataclass
@@ -61,17 +69,27 @@ def splice(dst: torch.Tensor, src: torch.Tensor) -> None:
 
 
 @torch.no_grad()
-def greedy_decode(params, cfg: ModelConfig, tokens: torch.Tensor, gen: int,
-                  *, keep_logits: bool = False) -> Generation:
-    """Prefill ``tokens`` (B, P), then ``gen - 1`` greedy decode steps, on
-    the tokens' device, under ``torch.no_grad()`` (params that need a
-    gradient serve too). Returns ``gen`` tokens per row."""
-    dev = tokens.device
-    B, P = tokens.shape
-    cache = api.init_cache(cfg, B, P + gen, device=dev)
+def greedy_decode(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
+                  gen: int, *, embeds: Optional[torch.Tensor] = None,
+                  positions: Optional[torch.Tensor] = None,
+                  keep_logits: bool = False) -> Generation:
+    """Prefill a prompt, then ``gen - 1`` greedy decode steps, on the
+    prompt's device, under ``torch.no_grad()`` (params that need a
+    gradient serve too). The prompt is ``tokens`` (B, P), or ``embeds``
+    (B, P, d) where they replace the tokens (the VLM); the enc-dec takes
+    both, its encoder frames ``embeds`` (B, S_enc, d) of any length
+    beside the decoder prompt ``tokens``. ``positions`` go to the prefill
+    only. Returns ``gen`` tokens per row."""
+    lead = tokens if tokens is not None else embeds
+    dev = lead.device
+    B, P = lead.shape[:2]
+    enc_len = embeds.shape[1] if cfg.family == "encdec" else None
+    cache = api.init_cache(cfg, B, P + gen, enc_len=enc_len, device=dev)
+    batch = {k: v for k, v in (("tokens", tokens), ("embeds", embeds),
+                               ("positions", positions)) if v is not None}
     _sync(dev)
     t0 = time.perf_counter()
-    logits, pcache = api.prefill(params, cfg, {"tokens": tokens})
+    logits, pcache = api.prefill(params, cfg, batch)
     for name, c in cache.items():
         splice(c, pcache[name])
     _sync(dev)
@@ -94,24 +112,48 @@ def greedy_decode(params, cfg: ModelConfig, tokens: torch.Tensor, gen: int,
                       t_decode * 1e3 / max(gen - 1, 1))
 
 
+def random_prompt(cfg: ModelConfig, batch: int, prompt_len: int,
+                  gen: torch.Generator, *, frames: Optional[int] = None
+                  ) -> dict:
+    """:func:`generate`'s prompt, drawn from ``gen`` on its device: tokens
+    (B, P); for an ``embed_inputs`` config embeddings N(0, 1) × 0.02 in
+    ``compute_dtype``, the VLM's (B, P, d) patch embeddings or the
+    enc-dec's (B, frames, d) encoder frames (``frames`` defaults to P);
+    for M-RoPE (3, B, P) positions, the three streams equal."""
+    dev = gen.device
+    out = {"tokens": torch.randint(0, cfg.vocab, (batch, prompt_len),
+                                   generator=gen, device=dev)}
+    if cfg.embed_inputs:
+        n = frames if frames is not None and cfg.family == "encdec" \
+            else prompt_len
+        out["embeds"] = (torch.randn((batch, n, cfg.d_model), generator=gen,
+                                     device=dev) * 0.02).to(cfg.compute_dtype)
+    if cfg.pos == "mrope":
+        out["positions"] = torch.arange(prompt_len, dtype=torch.int32,
+                                        device=dev).expand(3, batch,
+                                                           prompt_len)
+    return out
+
+
 def generate(arch: str, *, tiny: bool = True, prompt_len: int = 64,
              gen: int = 32, batch: int = 2, seed: int = 0, verbose=True,
-             device: DeviceLike = None, keep_logits: bool = False
-             ) -> Generation:
-    """Random weights and prompt from ``seed`` on ``device`` (the card
-    unless told otherwise), then :func:`greedy_decode`."""
+             device: DeviceLike = None, keep_logits: bool = False,
+             frames: Optional[int] = None) -> Generation:
+    """Random weights and prompt (:func:`random_prompt`) from ``seed`` on
+    ``device`` (the card unless told otherwise), then
+    :func:`greedy_decode`. ``frames`` is the enc-dec's encoder length
+    (``prompt_len`` when not given)."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if tiny:
         cfg = tiny_version(cfg)
-    if cfg.embed_inputs or cfg.pos == "mrope":
-        raise NotImplementedError(f"{cfg.name}: embedding inputs and M-RoPE "
-                                  f"{NOT_PORTED}")
     g = torch.Generator(device=dev).manual_seed(seed)
     params = api.init(g, cfg)
-    toks = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=g,
-                         device=dev)
-    res = greedy_decode(params, cfg, toks, gen, keep_logits=keep_logits)
+    prompt = random_prompt(cfg, batch, prompt_len, g, frames=frames)
+    res = greedy_decode(params, cfg, prompt["tokens"], gen,
+                        embeds=prompt.get("embeds"),
+                        positions=prompt.get("positions"),
+                        keep_logits=keep_logits)
     if verbose:
         print(f"[{cfg.name}] prefill({prompt_len} tok): {res.prefill_ms:.0f} "
               f"ms; decode {gen-1} steps: {res.decode_ms_per_token:.1f} "

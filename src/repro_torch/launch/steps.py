@@ -2,14 +2,16 @@
 server share.
 
 The torch twin of the JAX package's ``launch/steps.py`` on one card. The
-train step differentiates ``api.loss`` with ``loss.backward()`` for the
-dense, moe, ssm and hybrid families (on the card through the hand-written
-``rmsnorm``, ``flash_attention``, ``ssd_scan`` and ``topk_gating`` kernels,
-as the family has the layers, and their backward kernels), then hands the
-gradients to
-:func:`repro_torch.optim.adamw.apply_updates`, which updates the state in
-place. The params a caller holds never need a gradient: each step
-differentiates detached leaves that share their storage.
+train step differentiates ``api.loss`` with ``loss.backward()`` for every
+family (on the card through the hand-written ``rmsnorm``,
+``flash_attention``, ``ssd_scan`` and ``topk_gating`` kernels, as the
+family has the layers, and their backward kernels), then hands the
+gradients to :func:`repro_torch.optim.adamw.apply_updates`, which updates
+the state in place. A leaf the loss does not reach gets a zero gradient,
+as ``jax.grad`` gives it: the VLM's ``embed`` table when ``embeds``
+replace the tokens (AdamW still decays it). The params a caller holds
+never need a gradient: each step differentiates detached leaves that
+share their storage.
 
 The mesh and ``ShapeDtypeStruct`` functions of the reference
 (``make_rules``, ``batch_specs``, ``cache_specs``, ``param_specs``,

@@ -5,8 +5,9 @@ The torch twin of the JAX package's ``launch/train.py`` on one card (the
 CUDA device unless ``device="cpu"``). Weights are drawn from ``seed`` on
 the device, batches come from the copied ``SyntheticTokens``, and each
 step is ``loss.backward()`` (on the card through the hand-written forward
-and backward kernels of the family's layers: ``rmsnorm`` and
-``flash_attention`` in every family, ``ssd_scan`` in the ssm and hybrid
+and backward kernels of the family's layers: ``flash_attention`` in every
+family with attention, ``rmsnorm`` in every family but the enc-dec, which
+normalises with plain LayerNorm, ``ssd_scan`` in the ssm and hybrid
 families, ``topk_gating`` in the moe and hybrid families' routers), then
 :func:`repro_torch.optim.compression.compress_grads`, then
 :func:`repro_torch.optim.adamw.apply_updates` (in place).
@@ -22,12 +23,20 @@ the same state; at 1.5 B parameters that is 21 GB more of disk writes).
 As in the reference, the ``AdamWConfig`` comes from this call's ``steps``
 (so a resumed run's schedule is not the uninterrupted one), and the
 schedule, the optimiser state and the data position resume from the
-checkpoint. The dense, moe, ssm and hybrid families train here
-(``device="cpu"``, the kernels' plain versions forward and backward) and
-on the card; families that take precomputed embeddings (``embed_inputs``)
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 2). As in the
+checkpoint. Every family trains here (``device="cpu"``, the kernels'
+plain versions forward and backward) and on the card. As in the
 reference, the loss is the cross-entropy alone: the MoE's load-balancing
 ``moe_aux_loss`` joins no loss in either package.
+
+A config with ``embed_inputs`` (the VLM, the enc-dec) gets a batch of
+random embeddings each step beside the token batch, N(0, 1) × 0.02 of
+shape (batch, seq, d_model) in ``compute_dtype``, as the reference's
+stub frontend: the VLM's patch embeddings (its labels come from the token
+data) and the enc-dec's encoder frames. They are drawn on the device from
+a generator seeded by ``(seed, global step)`` (:func:`embed_batch`), so a
+resumed run sees the embeddings an uninterrupted one saw. The reference
+folds the loop's index into its key instead, which restarts at 0 on
+resume.
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ import argparse
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.ckpt.checkpoint import CheckpointManager
@@ -44,7 +54,6 @@ from repro_torch.data.tokens import SyntheticTokens, TokenTaskConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch import steps as ST
 from repro_torch.models import api
-from repro_torch.models.transformer import NOT_PORTED
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import (CompressionConfig, compress_grads,
                                            init_state)
@@ -64,6 +73,19 @@ def make_compressed_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     return train_step
 
 
+def embed_batch(cfg: ModelConfig, batch: int, seq: int, seed: int,
+                step: int, device: torch.device) -> torch.Tensor:
+    """The stub frontend's embeddings for global step ``step`` (counted
+    from 0): N(0, 1) × 0.02, (batch, seq, d_model) in ``compute_dtype``,
+    from a generator on ``device`` seeded by ``seed`` and ``step`` (mixed
+    by numpy's ``SeedSequence``: the CPU generator keeps 32 bits of its
+    seed)."""
+    mixed = np.random.SeedSequence([seed, step]).generate_state(1)[0]
+    g = torch.Generator(device=device).manual_seed(int(mixed))
+    return (torch.randn((batch, seq, cfg.d_model), generator=g,
+                        device=device) * 0.02).to(cfg.compute_dtype)
+
+
 def run(arch: str, *, tiny: bool = True, steps: int = 100, batch: int = 8,
         seq: int = 128, lr: float = 3e-4, ckpt_dir: Optional[str] = None,
         ckpt_every: int = 50, resume: bool = False,
@@ -75,9 +97,6 @@ def run(arch: str, *, tiny: bool = True, steps: int = 100, batch: int = 8,
     cfg = get_config(arch)
     if tiny:
         cfg = tiny_version(cfg)
-    if cfg.embed_inputs:
-        raise NotImplementedError(f"{cfg.name}: precomputed-embedding "
-                                  f"inputs {NOT_PORTED}")
     opt_cfg = adamw.AdamWConfig(lr=lr, total_steps=steps,
                                 warmup_steps=max(steps // 10, 1))
     comp_cfg = CompressionConfig(scheme=compression)
@@ -104,6 +123,9 @@ def run(arch: str, *, tiny: bool = True, steps: int = 100, batch: int = 8,
                                                   start=start_step)):
         bd = {"tokens": torch.from_numpy(toks).to(dev),
               "labels": torch.from_numpy(labels).to(dev)}
+        if cfg.embed_inputs:
+            bd["embeds"] = embed_batch(cfg, batch, seq, seed,
+                                       start_step + i, dev)
         state, comp_state, metrics = step_fn(state, comp_state, bd)
         losses.append(metrics["loss"])
         gstep = start_step + i + 1

@@ -84,8 +84,8 @@ def _period(params: Params, i: int) -> Params:
 
 
 def _rope(cfg: ModelConfig, B: int, Sq: int, offset, device) -> T.Rope:
-    return T.rope_table(cfg, T.default_positions(B, Sq, offset,
-                                                 device=device))
+    return T.rope_table(cfg, T.default_positions(cfg, B, Sq, offset,
+                                                  device=device))
 
 
 def _ffn(sp: Params, cfg: ModelConfig, x: torch.Tensor, is_moe: bool

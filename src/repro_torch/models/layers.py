@@ -1,6 +1,6 @@
 """Layers of the CNN zoo (dense, 2-D convolution, batch norm in eval and
-train mode) and of the LM stack (embedding, RMSNorm, LayerNorm, RoPE,
-SwiGLU, GELU).
+train mode) and of the LM stack (embedding, RMSNorm, LayerNorm, RoPE and
+Qwen2-VL's M-RoPE, SwiGLU, GELU).
 
 Activations are NHWC at every public function, as in the JAX package, so
 the two compare like with like. Convolution kernels are stored OIHW, the
@@ -111,7 +111,7 @@ def layernorm_apply(p: Params, x: torch.Tensor, *, eps: float = 1e-5
 
 
 # ---------------------------------------------------------------------------
-# rotary embeddings (RoPE)
+# rotary embeddings (RoPE / M-RoPE)
 # ---------------------------------------------------------------------------
 
 def rope_frequencies(head_dim: int, *, theta: float = 10000.0,
@@ -146,6 +146,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
                theta: float = 10000.0) -> torch.Tensor:
     """x: (..., seq, heads, head_dim); positions: broadcastable to (..., seq)."""
     return rotate(x, rope_table(positions, x.shape[-1], theta=theta))
+
+
+def mrope_table(positions: torch.Tensor, head_dim: int, *,
+                sections=(16, 24, 24), theta: float = 10000.0
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL's M-RoPE as a (cos, sin) table for :func:`rotate`, each
+    (..., seq, 1, head_dim//2) fp32: three position streams (temporal,
+    height, width) in ``positions`` (3, ..., seq) rotate disjoint runs of
+    frequencies, ``sections`` pairs each (summing to head_dim//2), in
+    order. The values are those :func:`apply_mrope` computes."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"head_dim // 2 = {half}")
+    freqs = rope_frequencies(head_dim, theta=theta, device=positions.device)
+    stream = torch.repeat_interleave(
+        torch.arange(len(sections), device=positions.device),
+        torch.tensor(sections, device=positions.device))       # (half,)
+    angles = positions.float()[stream].movedim(0, -1) * freqs  # (.., seq, half)
+    return (torch.cos(angles)[..., :, None, :],
+            torch.sin(angles)[..., :, None, :])
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, *,
+                sections=(16, 24, 24), theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions_3d: (3, ..., seq)."""
+    return rotate(x, mrope_table(positions_3d, x.shape[-1],
+                                 sections=sections, theta=theta))
 
 
 # ---------------------------------------------------------------------------

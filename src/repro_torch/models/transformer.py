@@ -1,17 +1,22 @@
-"""Decoder-only LM, dense and MoE families: GQA attention with RoPE (or no
-positions), SwiGLU (or GELU) FFN or a token-dropping MoE FFN, RMSNorm (or
-LayerNorm), layers stacked on a leading axis.
+"""Decoder-only LM, dense, MoE and VLM families: GQA attention with RoPE,
+M-RoPE (or no positions), SwiGLU (or GELU) FFN or a token-dropping MoE
+FFN, RMSNorm (or LayerNorm), layers stacked on a leading axis.
 
-The JAX package's ``models/transformer.py`` for ``family="dense"`` and
-``"moe"``, with the same parameter tree (layer params stacked on axis 0),
+The JAX package's ``models/transformer.py`` for ``family="dense"``,
+``"moe"`` and ``"vlm"``, with the same parameter tree (layer params stacked on axis 0),
 the same cache layout ``(L, B, Smax, KV, hd)`` and the same head order:
 query head ``h = kv·G + g`` reads kv head ``kv``. Prefill attention goes
 through the hand-written ``flash_attention`` kernel (the reference's
 ``full`` and ``blocked`` paths are both exact causal attention, so one
 kernel serves both), decode attention through ``decode_attention``, every
 RMSNorm through ``rmsnorm`` and the MoE router's softmax and top-k through
-``topk_gating``. The hybrid family (``models/hybrid.py``) reuses the
-attention, FFN and MoE pieces. Training differentiates the same forward:
+``topk_gating``. The VLM (Qwen2-VL's backbone) takes precomputed patch
+embeddings (B, S, d) in place of token ids (``embeds``, the stub
+frontend) and rotates q and k by M-RoPE over three position streams
+(3, B, S); its heads are padded up to ``pad_heads_to`` with zeroed ``wo``
+slices, which nothing masks in training (their gradients are those of the
+reference). The hybrid family (``models/hybrid.py``) and the enc-dec
+(``models/encdec.py``) reuse the attention, FFN and MoE pieces. Training differentiates the same forward:
 the kernels' autograd Functions carry the gradient (the router's weights
 through ``topk_gating_bwd``), the MoE's gather dispatch and weighted
 combine are differentiable indexing, and the routes and capacity positions
@@ -19,9 +24,10 @@ carry none, as ``lax.top_k``'s indices carry none in the reference.
 
 Differences from the reference:
 
-- a forward builds the RoPE (cos, sin) table once from its positions and
-  every layer reuses it (the values are those of ``apply_rope``), so the
-  attention functions take ``rope`` where the reference takes positions;
+- a forward builds the RoPE or M-RoPE (cos, sin) table once from its
+  positions and every layer reuses it (the values are those of
+  ``apply_rope`` and ``apply_mrope``), so the attention functions take
+  ``rope`` where the reference takes positions;
 - a decode step writes the new K/V row into the cache in place and returns
   the same cache dict — the reference's ``generate`` donates the cache to
   its decode step, so its counterpart here is an in-place update;
@@ -29,9 +35,7 @@ Differences from the reference:
   there is no ``train`` flag (it only selects a remat policy there);
 - ``moe_apply`` is the reference's single-device path
   (``_moe_apply_dense``); its multi-device ``shard_map`` path belongs to
-  the multi-device tooling (ROADMAP Queue 1 item 3);
-- M-RoPE and precomputed-embedding inputs raise ``NotImplementedError``
-  (ROADMAP Queue 1 item 2).
+  the multi-device tooling (ROADMAP Queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -48,8 +52,6 @@ from repro_torch.tree import stack_init, tree_map
 Params = Dict[str, Any]
 Index = Union[int, torch.Tensor]
 Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
-
-NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 2)"
 
 
 # ---------------------------------------------------------------------------
@@ -90,12 +92,15 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
             "wo": wo}
 
 
+def _proj(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(..., d) @ w (d, heads, hd) → (..., heads, hd)."""
+    return (x @ w.flatten(1)).unflatten(-1, w.shape[1:])
+
+
 def _project_qkv(p: Params, x: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(..., d) → q (..., Hp, hd), k and v (..., KV, hd)."""
-    def proj(w):
-        return (x @ w.flatten(1)).unflatten(-1, w.shape[1:])
-    return proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+    return _proj(p["wq"], x), _proj(p["wk"], x), _proj(p["wv"], x)
 
 
 def _out_proj(p: Params, out: torch.Tensor) -> torch.Tensor:
@@ -104,12 +109,16 @@ def _out_proj(p: Params, out: torch.Tensor) -> torch.Tensor:
 
 
 def rope_table(cfg: ModelConfig, positions) -> Rope:
-    """The (cos, sin) table of ``positions`` (B, S) for ``pos="rope"``;
-    None where the config rotates nothing."""
+    """The (cos, sin) table of ``positions``: (B, S) for ``pos="rope"``,
+    (3, B, S) for ``pos="mrope"``; None where the config rotates nothing
+    (``"none"``, and ``"sincos"``, which adds its positions to the
+    input)."""
     if cfg.pos == "rope":
         return L.rope_table(positions, cfg.head_dim, theta=cfg.rope_theta)
     if cfg.pos == "mrope":
-        raise NotImplementedError(f"M-RoPE {NOT_PORTED}")
+        return L.mrope_table(positions, cfg.head_dim,
+                             sections=cfg.mrope_sections,
+                             theta=cfg.rope_theta)
     return None
 
 
@@ -126,17 +135,24 @@ def _grouped(q: torch.Tensor, KV: int) -> torch.Tensor:
     return q.view(B, S, KV, H // KV, hd).permute(0, 2, 3, 1, 4)
 
 
+def attend(p: Params, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool) -> torch.Tensor:
+    """q (B, Sq, Hp, hd) over k, v (B, Skv, KV, hd) through
+    ``flash_attention``, then the output projection → (B, Sq, d)."""
+    B, Sq, H, hd = q.shape
+    o = ops.flash_attention(_grouped(q, k.shape[2]), k.permute(0, 2, 1, 3),
+                            v.permute(0, 2, 1, 3), causal=causal)
+    return _out_proj(p, o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd))
+
+
 def attention_apply(p: Params, x: torch.Tensor, rope: Rope, *,
-                    return_kv: bool = False):
-    """Full-sequence (prefill) causal self-attention through
-    ``flash_attention``. x: (B, S, d). With ``return_kv`` also returns k, v
-    (B, S, KV, hd)."""
+                    causal: bool = True, return_kv: bool = False):
+    """Full-sequence (prefill) self-attention through ``flash_attention``,
+    causal unless told otherwise. x: (B, S, d). With ``return_kv`` also
+    returns k, v (B, S, KV, hd)."""
     q, k, v = _project_qkv(p, x)
     q, k = _apply_positions(q, k, rope)
-    B, S, H, hd = q.shape
-    o = ops.flash_attention(_grouped(q, k.shape[2]), k.permute(0, 2, 1, 3),
-                            v.permute(0, 2, 1, 3), causal=True)
-    out = _out_proj(p, o.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd))
+    out = attend(p, q, k, v, causal=causal)
     if return_kv:
         return out, (k, v)
     return out
@@ -164,15 +180,23 @@ def attention_decode(p: Params, x: torch.Tensor, rope: Rope,
     q, k = _apply_positions(q, k, rope)
     _write_row(k_cache, k, index)
     _write_row(v_cache, v, index)
-    B, _, H, hd = q.shape
-    KV = k.shape[2]
     length = index + 1
     if isinstance(length, torch.Tensor):
         length = length.reshape(1).to(torch.int32)
+    return attend_cache(p, q, k_cache, v_cache, length), k_cache, v_cache
+
+
+def attend_cache(p: Params, q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, length) -> torch.Tensor:
+    """One query row q (B, 1, Hp, hd) over the first ``length`` rows of
+    caches (B, Smax, KV, hd) through ``decode_attention``, then the output
+    projection → (B, 1, d)."""
+    B, _, H, hd = q.shape
+    KV = k_cache.shape[2]
     o = ops.decode_attention(q.view(B, KV, H // KV, hd),
                              k_cache.permute(0, 2, 1, 3),
                              v_cache.permute(0, 2, 1, 3), length)
-    return _out_proj(p, o.reshape(B, 1, H, hd)), k_cache, v_cache
+    return _out_proj(p, o.reshape(B, 1, H, hd))
 
 
 # ---------------------------------------------------------------------------
@@ -351,11 +375,16 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return p
 
 
-def default_positions(batch: int, seq: int, offset: Index = 0, *,
-                      device=None) -> torch.Tensor:
-    """(B, S) positions ``offset + arange(S)``."""
-    return (torch.arange(seq, device=device)[None, :] + offset).expand(
+def default_positions(cfg: ModelConfig, batch: int, seq: int,
+                      offset: Index = 0, *, device=None) -> torch.Tensor:
+    """(B, S) positions ``offset + arange(S)``; for M-RoPE (3, B, S), the
+    three streams equal (text only), as the reference's stub positions.
+    ``offset`` is an int or a one-element tensor on ``device``."""
+    pos = (torch.arange(seq, device=device)[None, :] + offset).expand(
         batch, seq)
+    if cfg.pos == "mrope":
+        return pos.expand(3, batch, seq)
+    return pos
 
 
 def _layer(params: Params, i: int) -> Params:
@@ -364,8 +393,11 @@ def _layer(params: Params, i: int) -> Params:
 
 
 def _embed(params: Params, cfg: ModelConfig, tokens, embeds) -> torch.Tensor:
-    if embeds is not None or cfg.embed_inputs:
-        raise NotImplementedError(f"precomputed-embedding inputs {NOT_PORTED}")
+    """The input rows in ``compute_dtype``: ``embeds`` (B, S, d) where
+    given (a stub frontend's patch or frame embeddings), else the token
+    ids' embedding rows (a decode step's new token)."""
+    if embeds is not None:
+        return embeds.to(cfg.compute_dtype)
     return L.embed_apply(params["embed"], tokens).to(cfg.compute_dtype)
 
 
@@ -376,7 +408,7 @@ def lm_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     x = _embed(params, cfg, tokens, embeds)
     B, S = x.shape[:2]
     if positions is None:
-        positions = default_positions(B, S, device=x.device)
+        positions = default_positions(cfg, B, S, device=x.device)
     rope = rope_table(cfg, positions)
     for i in range(cfg.n_layers):
         x = block_apply(_layer(params, i), cfg, x, rope)
@@ -399,7 +431,7 @@ def lm_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     x = _embed(params, cfg, tokens, embeds)
     B, S = x.shape[:2]
     if positions is None:
-        positions = default_positions(B, S, device=x.device)
+        positions = default_positions(cfg, B, S, device=x.device)
     rope = rope_table(cfg, positions)
     ks, vs = [], []
     for i in range(cfg.n_layers):
@@ -431,7 +463,8 @@ def lm_decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """One decode step. tokens: (B, 1); cache from :func:`lm_init_cache`,
     updated in place at ``index``. Returns (logits (B, 1, V), cache)."""
     x = _embed(params, cfg, tokens, embeds)
-    pos = default_positions(x.shape[0], 1, offset=index, device=x.device)
+    pos = default_positions(cfg, x.shape[0], 1, offset=index,
+                            device=x.device)
     rope = rope_table(cfg, pos)
     for i in range(cfg.n_layers):
         x, _, _ = block_decode(_layer(params, i), cfg, x, rope,

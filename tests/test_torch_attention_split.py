@@ -36,7 +36,12 @@ SERVING = {"llama3.2-1b": (4, 8, 4, 544, 64),
            "moonshot-v1-16b-a3b": (4, 16, 1, 544, 128),
            "jamba-v0.1-52b": (4, 8, 4, 544, 128),
            "granite (MQA)": (4, 1, 48, 544, 128),
-           "phi3-mini": (4, 32, 1, 544, 96)}
+           "phi3-mini": (4, 32, 1, 544, 96),
+           "qwen2-vl-7b": (4, 4, 8, 544, 128),
+           # whisper-medium: the self cache (a 64-token prompt, 32 tokens)
+           # and the cross cache of the encoder's 1500 frames
+           "whisper-medium (self)": (4, 16, 1, 96, 64),
+           "whisper-medium (cross)": (4, 16, 1, 1500, 64)}
 
 
 def split_ranges(length: int, nsplit: int):
@@ -92,7 +97,8 @@ def test_head_chunk_is_the_kernels_template_argument():
 
 @pytest.mark.parametrize("B,KV,G,S", [(1, 1, 1, 1), (1, 1, 1, 15),
                                       (1, 1, 48, 40), (4, 8, 4, 544),
-                                      (64, 32, 1, 4096), (1, 1, 1, 32768)])
+                                      (64, 32, 1, 4096), (1, 1, 1, 32768),
+                                      (4, 4, 8, 544), (4, 16, 1, 1500)])
 @pytest.mark.parametrize("num_sms", [1, 8, 132])
 def test_split_plan_bounds(B, KV, G, S, num_sms):
     """At least one split, never more splits than cache rows (nor than one
@@ -120,7 +126,8 @@ def test_split_ranges_read_every_position_once(length, nsplit):
 
 @pytest.mark.parametrize("B,KV,G,S,D", [(4, 8, 4, 256, 64),
                                         (1, 1, 8, 256, 128),
-                                        (2, 2, 1, 64, 32)])
+                                        (2, 2, 1, 64, 32),
+                                        (2, 4, 8, 128, 128)])   # qwen2-vl
 @pytest.mark.parametrize("length", ["1", "2", "3", "100", "S"])
 @pytest.mark.parametrize("num_sms", [8, 132])
 def test_split_and_merge_matches_jax_kernel(B, KV, G, S, D, length, num_sms):

@@ -28,12 +28,18 @@ BF16_TOL = dict(rtol=3e-2, atol=3e-2)        # chip_smoke.LM_KERNEL_TOL[bf16]
 T = FA.BWD_TILE
 
 # (B, KV, G, Sq, Skv, D): llama3.2-1b's and its students' widths at B 1,
-# G 3 (no divisor of 64), ragged Sq and Skv both ways, one query or key
+# G 3 (no divisor of 64), ragged Sq and Skv both ways, one query or key,
 SHAPES = [(1, 8, 4, 512, 512, 64), (1, 8, 2, 512, 512, 64),
           (2, 2, 3, 100, 100, 64), (1, 2, 4, 31, 65, 64),
           (1, 2, 1, 97, 33, 128), (1, 1, 1, 65, 96, 64),
           (1, 2, 4, 1, 40, 128), (1, 2, 1, 129, 1, 64),
-          (1, 1, 2, 130, 190, 128)]
+          (1, 1, 2, 130, 190, 128),
+          # qwen2-vl-7b's G 8 at D 128 (a 64-row tile holds 8 positions'
+          # heads); whisper-medium's encoder over its 1500 frames (not a
+          # multiple of 64) and its cross-attention, 64 decoder rows over
+          # them
+          (1, 4, 8, 512, 512, 128), (1, 16, 1, 1500, 1500, 64),
+          (1, 16, 1, 64, 1500, 64)]
 
 
 def _plan(shape, causal=True):
@@ -213,7 +219,9 @@ def _route_model(q, k, v, o, do, causal):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("shape", [(1, 8, 4, 512, 512, 64),    # llama3.2-1b
                                    (1, 8, 2, 512, 512, 64),    # its student
-                                   (1, 2, 3, 100, 160, 128)])
+                                   (1, 2, 3, 100, 160, 128),
+                                   (1, 1, 8, 128, 128, 128),   # qwen2-vl's G
+                                   (1, 2, 1, 64, 1500, 64)])   # whisper cross
 def test_rounding_p_and_ds_to_bf16_stays_inside_the_bf16_bound(shape,
                                                                causal):
     B, KV, G, Sq, Skv, D = shape

@@ -1426,3 +1426,98 @@ def test_ssm_moe_hybrid_train_step_on_the_card_matches_the_cpu(hopper, arch):
         assert float(b.abs().sum()) > 0
         err = float((a.cpu() - b).abs().max()) / float(b.abs().max())
         assert err <= 1e-3
+
+
+# -- the VLM and enc-dec slice: flash_attention and decode_attention at
+# -- G 8, non-causal, Sq != Skv over 1500 keys, and a fixed cross length
+
+# (B, KV, G, Sq, Skv, D, causal): qwen2-vl-7b (28 heads padded to 32 over 4
+# kv heads), whisper-medium's encoder over its 1500 frames, its
+# cross-attention (a 64-token prompt, and 512 training rows, over them)
+# and its decoder; then the tiny configs' fp32 D 32 (G 16 and G 2)
+VLM_ENCDEC_FLASH = [(2, 4, 8, 512, 512, 128, True),
+                    (1, 16, 1, 1500, 1500, 64, False),
+                    (2, 16, 1, 64, 1500, 64, False),
+                    (2, 16, 1, 512, 512, 64, False),
+                    (2, 16, 1, 512, 1500, 64, False),
+                    (2, 2, 16, 12, 12, 32, True),
+                    (2, 2, 2, 12, 20, 32, False)]
+
+
+@pytest.mark.parametrize("dtype", LM_DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,KV,G,Sq,Skv,D,causal", VLM_ENCDEC_FLASH)
+def test_flash_attention_vlm_encdec_routes_match_plain_version(
+        hopper, dtype, B, KV, G, Sq, Skv, D, causal):
+    """Forward and backward against their plain versions on the views the
+    models pass, one launch each, the backward bit-equal on a rerun."""
+    q, k, v, do = _bwd_flash_operands(B, KV, G, Sq, Skv, D, dtype, True,
+                                      hopper, seed=Sq + Skv + G)
+    before = (ops.flash_attention.launches, ops.flash_attention_bwd.launches)
+    o = ops.flash_attention(q, k, v, causal=causal)
+    got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    torch.cuda.synchronize()
+    assert (ops.flash_attention.launches - before[0],
+            ops.flash_attention_bwd.launches - before[1]) == (1, 1)
+    _close(o, ops.flash_attention_ref(q, k, v, causal=causal), dtype)
+    _bwd_close(got, ops.flash_attention_bwd_ref(q, k, v, o, do, causal),
+               dtype)
+    again = ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", LM_DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,KV,G,S,D,length", [
+    (4, 4, 8, 544, 128, 513), (4, 4, 8, 544, 128, 544),   # qwen2-vl's self
+    (4, 16, 1, 1500, 64, 1500), (4, 16, 1, 96, 64, 65),   # whisper's caches
+    (2, 2, 16, 21, 32, 13), (2, 2, 2, 20, 32, 20)])       # the tiny configs
+def test_decode_attention_vlm_encdec_shapes_match_plain_version(
+        hopper, dtype, B, KV, G, S, D, length):
+    q, kc, vc = _decode_operands(B, KV, G, S, D, dtype, hopper, seed=S + G)
+    before = ops.decode_attention.launches
+    out = ops.decode_attention(q, kc, vc, length)
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches == before + 1
+    _close(out, ops.decode_attention_ref(q, kc, vc, length), dtype)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-medium"])
+def test_vlm_and_encdec_on_the_card_match_the_cpu(hopper, arch):
+    """The tiny fp32 model on the card and on the CPU from the same
+    weights and prompt: greedy tokens equal, logits within 1e-4, one train
+    step's loss and gradients within 1e-3, and the kernels launched as the
+    layers call them."""
+    from repro_torch.configs.archs import tiny_version
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.models import api
+    from repro_torch.tree import tree_leaves, tree_to
+    names = ("rmsnorm", "flash_attention", "decode_attention",
+             "rmsnorm_bwd", "flash_attention_bwd")
+    cfg = tiny_version(get_config(arch))
+    params = api.init(torch.Generator().manual_seed(0), cfg)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 16), generator=g)
+    emb = torch.randn((2, 24 if cfg.family == "encdec" else 16, cfg.d_model),
+                      generator=g) * 0.02
+    cpu = greedy_decode(params, cfg, toks, 6, embeds=emb, keep_logits=True)
+    counts = [getattr(ops, n).launches for n in names]
+    gparams = tree_to(params, hopper)
+    gpu = greedy_decode(gparams, cfg, toks.to(hopper), 6,
+                        embeds=emb.to(hopper), keep_logits=True)
+    L = cfg.n_layers
+    want = ((0, 3 * L, 2 * L * 5, 0, 0) if cfg.family == "encdec"
+            else ((2 * L + 1) * 6, L, L * 5, 0, 0))
+    assert tuple(getattr(ops, n).launches - c for n, c in
+                 zip(names, counts)) == want
+    np.testing.assert_array_equal(gpu.tokens, cpu.tokens)
+    for a, b in zip(gpu.logits, cpu.logits):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+    batch = {"tokens": toks, "embeds": emb, "labels": torch.roll(toks, -1, 1)}
+    cpu_loss, cpu_g = ST.loss_and_grads(params, cfg, batch)
+    loss, grads = ST.loss_and_grads(gparams, cfg, tree_to(batch, hopper))
+    assert abs(float(loss) - float(cpu_loss)) <= 1e-3 * abs(float(cpu_loss))
+    for a, b in zip(tree_leaves(grads), tree_leaves(cpu_g)):
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a.cpu() - b).abs().max()) / scale <= 1e-3

@@ -231,20 +231,6 @@ def test_prefill_then_decode_equals_forward(arch):
                                **TOL)
 
 
-def test_other_families_and_inputs_raise():
-    from repro_torch.launch.serve import generate
-    for arch in ("qwen2-vl-7b", "whisper-medium"):
-        cfg = tiny_version(get_config(arch))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.init(torch.Generator().manual_seed(0), cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            generate(arch, device="cpu", verbose=False)
-    _, tcfg, _, tparams, toks = _model("llama3.2-1b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.forward(tparams, tcfg, {"tokens": None,
-                                    "embeds": torch.zeros(B, P, 128)})
-
-
 def test_generate_runs_on_the_cpu_when_asked():
     from repro_torch.launch.serve import generate
     res = generate("tinyllama-1.1b", prompt_len=8, gen=4, batch=2,

@@ -175,11 +175,6 @@ def test_run_checkpoints_and_resumes(tmp_path):
     assert mgr.all_steps() == [4, 6, 7]
 
 
-def test_run_refuses_embedding_inputs():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run("qwen2-vl-7b", steps=1, verbose=False, device="cpu")
-
-
 # -- checkpoints ---------------------------------------------------------------------
 
 def _state(dtype=torch.bfloat16, seed=0):
