@@ -249,6 +249,26 @@ over a fixed-length cross cache:
     writes); launches exact throughout, prefill ms, decode ms/token, step
     ms and tokens/s, each with a profile.
 
+The multi-device tooling (``repro_torch.launch.{mesh,steps,dryrun,
+roofline}``, ``parallel.*``) on the one card:
+
+29. a one-process NCCL group and a (1, 1) ``DeviceMesh``; full-width
+    llama3.2-1b, batch 4 x 512, bf16 over fp32 master: two ``mesh_step``
+    train steps (ZeRO-1 on) bit-equal to two ``make_train_step`` steps
+    (losses, every param and master leaf), a mesh prefill and 8 mesh
+    serve steps bit-equal to ``greedy_decode`` (tokens and logits), the
+    five LM kernels' launches in that window each above 0; the mesh state
+    snapshotted to host as ``CheckpointManager.save`` snapshots it
+    (``ckpt.checkpoint.snapshot``; no file is written: phase 21's two
+    checkpoints already put 42 GB on disk, and write and read the format
+    at this width), restored from the snapshot onto
+    the mesh with placements (``from_snapshot``, ``restore``'s code after
+    the file read) and stepped bit-equal to the off-mesh third step; then
+    ``dryrun.run_cell`` at one chip on ``H100_SXM`` for the train and prefill cells of llama3.2-1b and
+    mamba2-130m cut to batch 4 x 512, each bound (ms, dominant term)
+    printed beside the step phases 12, 15, 21 and 25 measured there, its
+    share of the measured wall time at most 1.05.
+
 The last two lines of standard output are the ``kernels`` JSON line
 (thirteen entries) and the ``ok`` JSON line. Exits non-zero without a
 CUDA device.
@@ -273,7 +293,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.ckpt.checkpoint import (CheckpointManager,  # noqa: E402
-                                         flatten_with_keys)
+                                         flatten_with_keys, from_snapshot,
+                                         snapshot)
 from repro_torch.coding.codes import decode_matrix, make_generator  # noqa: E402
 from repro_torch.coding.compute import (ComputeRuntime,  # noqa: E402
                                         shard_linear_weights)
@@ -296,7 +317,7 @@ from repro_torch.data.images import (ImageTaskConfig,  # noqa: E402
 from repro_torch.data.tokens import (SyntheticTokens,  # noqa: E402
                                      TokenTaskConfig)
 from repro_torch.configs.archs import tiny_version  # noqa: E402
-from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.configs.base import ShapeConfig, get_config  # noqa: E402
 from repro_torch.kernels import autotune as AT  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import coded_matmul as ops_cm  # noqa: E402
@@ -305,7 +326,11 @@ from repro_torch.kernels import dequant_matmul as ops_dq  # noqa: E402
 from repro_torch.kernels import flash_attention as ops_fa  # noqa: E402
 from repro_torch.kernels._layout import num_sms  # noqa: E402
 from repro_torch.kernels import ssd_scan as SS  # noqa: E402
+from repro_torch.launch import dryrun as DR  # noqa: E402
+from repro_torch.launch import mesh as MESH  # noqa: E402
 from repro_torch.launch import microbench as MB  # noqa: E402
+from repro_torch.launch.roofline import (H100_SXM,  # noqa: E402
+                                         H100_SXM_FP32_FLOPS)
 from repro_torch.launch import steps as ST  # noqa: E402
 from repro_torch.launch import train as TR  # noqa: E402
 from repro_torch.launch.serve import (generate, greedy_decode,  # noqa: E402
@@ -330,9 +355,9 @@ KERNEL_SOURCE = "src/repro_torch/kernels/csrc/quorum_aggregate.cu"
 TPU_KERNEL = "src/repro/kernels/quorum_aggregate.py:33"
 DECODE_SOURCE = "src/repro_torch/kernels/csrc/coded_decode.cu"
 DECODE_TPU_KERNEL = "src/repro/kernels/coded_decode.py:37"
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
-FP32_FLOPS = 67e12              # H100 SXM fp32 outside the tensor cores
-BF16_FLOPS = 989e12             # H100 SXM bf16 tensor cores, dense
+HBM_BYTES_PER_S = H100_SXM.hbm_bw      # device memory
+FP32_FLOPS = H100_SXM_FP32_FLOPS       # fp32 outside the tensor cores
+BF16_FLOPS = H100_SXM.peak_flops       # bf16 tensor cores, dense
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
 # GPU (cuDNN, TF32 off) vs CPU (oneDNN) fp32: the same 16 conv layers summed
 # in other orders, and cuDNN may pick Winograd or FFT algorithms. On the
@@ -4058,6 +4083,167 @@ def phase_vlm_encdec_full(dev) -> dict:
     return dict(launches=totals, **out)
 
 
+# -- the multi-device tooling: a mesh step on one card, the roofline ------------
+
+MESH_STEPS = 2                   # mesh train steps before the checkpoint
+MESH_SERVE = 8                   # mesh serve steps after the prefill
+MESH_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                "flash_attention_bwd", "decode_attention")
+SHARE_LIMIT = 1.05               # bound / measured above this: a wrong count
+# (arch, dry-run shape, kind): the cells timed by phases 12, 15, 21 and 25
+ROOF_CELLS = (("llama3.2-1b", "train_4k", "train"),
+              ("llama3.2-1b", "prefill_32k", "prefill"),
+              ("mamba2-130m", "train_4k", "train"),
+              ("mamba2-130m", "prefill_32k", "prefill"))
+
+
+def same_tree(a, b, label: str) -> None:
+    """Every leaf of ``a`` (DTensors read locally) bit-equal to ``b``'s."""
+    for (key, x), (_, y) in zip(flatten_with_keys(a), flatten_with_keys(b)):
+        x = x.to_local() if hasattr(x, "to_local") else x
+        if not torch.equal(x, y):
+            raise AssertionError(f"{label}: {key} differs")
+
+
+def phase_mesh(dev, measured: dict) -> dict:
+    """29: llama3.2-1b at full width on a one-process NCCL (1, 1) mesh:
+    ``mesh_step`` train steps (ZeRO-1 on) bit-equal to ``make_train_step``
+    steps, a mesh prefill and serve steps bit-equal to ``greedy_decode``,
+    the mesh state snapshotted as a checkpoint saves it and restored from
+    that snapshot onto the mesh with placements
+    and stepped bit-equal to the off-mesh third step; then the dry run's
+    one-chip roofline of the cells that phases 12, 15, 21 and 25 time,
+    each bound beside the measured step, whose share must stay under
+    ``SHARE_LIMIT``."""
+    import torch.distributed as dist
+    MESH.init_group(dev)
+    mesh = MESH.make_mesh((1, 1), ("data", "model"), device=dev)
+    cfg = get_config(LM_ARCH)
+    opt = adamw.AdamWConfig(lr=3e-4, total_steps=100, warmup_steps=1)
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batches = token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, MESH_STEPS + 1, dev,
+                            seed=29)
+
+    def fresh():
+        params = api.init(torch.Generator(device=dev).manual_seed(29), cfg)
+        return ST.TrainState(params, adamw.init(opt, params))
+
+    ref, rstep = fresh(), ST.make_train_step(cfg, opt)
+    ref_losses = []
+    for b in batches[:MESH_STEPS]:
+        ref, m = rstep(ref, b)
+        ref_losses.append(float(m["loss"]))
+    toks = batches[0]["tokens"]
+    B, P = toks.shape
+    want = greedy_decode(ref.params, cfg, toks, MESH_SERVE + 1,
+                         keep_logits=True)
+    plan = ST.mesh_plan(cfg, mesh)
+    state = ST.mesh_state(fresh(), plan)
+    step = ST.mesh_step(cfg, shape, mesh, opt)
+    for k in MESH_KERNELS:
+        getattr(ops, k).launches = 0
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[:MESH_STEPS]:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    step_ms = (time.perf_counter() - t0) * 1e3 / MESH_STEPS
+    if losses != ref_losses:
+        raise AssertionError(f"mesh: losses {losses} vs {ref_losses}")
+    same_tree(state.params, ref.params, "mesh train params")
+    same_tree(state.opt.master, ref.opt.master, "mesh train master")
+
+    # serve on the trained weights: prefill and greedy steps on the mesh
+    prefill = ST.mesh_step(cfg, ShapeConfig("p", P, B, "prefill"), mesh)
+    serve = ST.mesh_step(cfg, ShapeConfig("d", P + MESH_SERVE, B, "decode"),
+                         mesh)
+    logits, pcache = prefill(state.params, {"tokens": toks})
+    cache = ST.mesh_cache(api.init_cache(cfg, B, P + MESH_SERVE, device=dev),
+                          mesh)
+    for name, c in cache.items():
+        splice(c.to_local(), pcache[name].to_local())
+    got = [logits.to_local()[:, -1]]
+    cur = got[0][:, None].argmax(-1)
+    tokens = [cur]
+    for t in range(MESH_SERVE):
+        logits, cache = serve(state.params, cache, {"tokens": cur}, P + t)
+        got.append(logits.to_local()[:, -1])
+        cur = got[-1][:, None].argmax(-1)
+        tokens.append(cur)
+    if not (np.array_equal(torch.cat(tokens, 1).cpu().numpy(), want.tokens)
+            and all(torch.equal(a, b) for a, b in zip(got, want.logits))):
+        raise AssertionError("mesh: prefill/serve differ from greedy_decode")
+    launches = {k: getattr(ops, k).launches for k in MESH_KERNELS}
+    if not all(launches.values()):
+        raise AssertionError(f"mesh: a kernel did not launch: {launches}")
+    print(f"mesh: {LM_ARCH} full width on a (1, 1) NCCL mesh, "
+          f"{str(cfg.param_dtype)[6:]} over fp32 master, batch {B} x {P}: "
+          f"{MESH_STEPS} mesh_step train steps (ZeRO-1) bit-equal to "
+          f"make_train_step's (losses {losses}, every param and master "
+          f"leaf), {step_ms:.3f} ms a step; a mesh prefill and "
+          f"{MESH_SERVE} serve steps bit-equal to greedy_decode (tokens and "
+          f"logits); launches {launches}")
+
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tree_leaves(ref.params) + tree_leaves(
+                     ref.opt.master) * 3)
+    t0 = time.perf_counter()
+    host = snapshot(state)
+    save_s = time.perf_counter() - t0
+    del state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    state = from_snapshot(host, ref, ST.state_shardings(cfg, opt, mesh))
+    restore_s = time.perf_counter() - t0
+    del host
+    ref, rm = rstep(ref, batches[MESH_STEPS])
+    state, m = step(state, batches[MESH_STEPS])
+    if float(m["loss"]) != float(rm["loss"]):
+        raise AssertionError("mesh: the restored third step's loss differs")
+    same_tree(state.params, ref.params, "mesh restored step params")
+    same_tree(state.opt.m, ref.opt.m, "mesh restored step m")
+    print(f"mesh: the mesh state ({nbytes / 1e9:.2f} GB) snapshotted to host "
+          f"as a checkpoint saves it in {save_s:.1f} s (no file: phase 21 "
+          f"writes and reads the format at this width), restored from it "
+          f"onto the mesh with placements in "
+          f"{restore_s:.1f} s, its third step bit-equal to the off-mesh "
+          f"third step (loss {float(m['loss']):.6f}, every param and m "
+          f"leaf)")
+    del state, ref, want, cache, pcache, logits
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    rows = []
+    for arch, name, kind in ROOF_CELLS:
+        cut = ShapeConfig(name, TRAIN_SEQ, TRAIN_BATCH, kind)
+        rec = DR.run_cell(arch, name, False, mesh=(1, 1), shape=cut,
+                          verbose=False)
+        roof = rec["roofline"]
+        bound = rec["bound_s"] * 1e3
+        wall, busy = measured[(arch, kind)]
+        share = bound / wall
+        print(f"roofline: {arch} {kind} at {TRAIN_BATCH} x {TRAIN_SEQ} (the "
+              f"{name} cell cut to the measured batch and length) on "
+              f"{H100_SXM.name} ({smi}): {roof['flops']:.4e} FLOPs, "
+              f"{roof['bytes']:.4e} bytes, bound {bound:.3f} ms "
+              f"({roof['dominant']}: compute {roof['compute_s'] * 1e3:.3f} "
+              f"ms, memory {roof['memory_s'] * 1e3:.3f} ms); measured "
+              f"{wall:.3f} ms wall"
+              + (f", {busy:.3f} ms device busy (share {bound / busy:.3f})"
+                 if busy else "")
+              + f": share of the bound {share:.3f}")
+        if not share <= SHARE_LIMIT:
+            raise AssertionError(f"roofline {arch} {kind}: bound {bound:.3f}"
+                                 f" ms over {wall:.3f} ms measured")
+        rows.append(dict(arch=arch, kind=kind, bound_ms=bound, wall_ms=wall,
+                         busy_ms=busy, share=share))
+    return dict(launches=launches, roofline=rows)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4142,6 +4328,19 @@ def main() -> int:
     new_worst = phase_vlm_encdec_kernels(dev)
     phase_vlm_encdec_card_vs_cpu(dev)
     vlm_encdec = phase_vlm_encdec_full(dev)["launches"]
+    mesh = phase_mesh(dev, {
+        ("llama3.2-1b", "train"): (train["step_ms"],
+                                   train["profile"].get("busy_ms")),
+        ("llama3.2-1b", "prefill"): (lm["prefill"]["wall_ms"],
+                                     lm["prefill"].get("busy_ms")),
+        ("mamba2-130m", "train"): (
+            ssm_train["mamba2-130m"]["step_ms"],
+            ssm_train["mamba2-130m"]["profile"].get("busy_ms")),
+        ("mamba2-130m", "prefill"): (
+            ssm_moe["mamba2-130m"]["prefill"]["wall_ms"],
+            ssm_moe["mamba2-130m"]["prefill"].get("busy_ms"))})["launches"]
+    for k, v in mesh.items():
+        vlm_encdec[k] = vlm_encdec.get(k, 0) + v
     train_launch = {k: train["launches"].get(k, 0)
                     + rocoin["launches"].get(k, 0)
                     + ssm_train["launches"][k] + vlm_encdec.get(k, 0)

@@ -23,9 +23,16 @@ the port, and fp32 ones both ways.)
 
 :meth:`CheckpointManager.save` copies every leaf to host numpy before it
 returns, also with ``blocking=False``: the port's optimiser updates in
-place, and the snapshot must be the state at the call. Restoring onto a
-mesh belongs to the multi-device tooling (ROADMAP Queue 1 item 3);
-:meth:`restore` places leaves on one ``device``.
+place, and the snapshot must be the state at the call. A DTensor leaf
+(a mesh step's state) is gathered whole first, on every rank, and only
+rank 0 of a running process group writes: the file holds whole arrays
+whatever the mesh. :meth:`restore` places leaves on one ``device``, or,
+given ``shardings`` (``NamedSharding`` leaves), onto a mesh as DTensors
+of those placements: the elastic restart of the reference, a checkpoint
+saved at one data-parallel width restored at another.
+:func:`snapshot` is that host copy alone, and :func:`from_snapshot`
+restores from it as :meth:`restore` does from disk (same keys, casts and
+placements), with no file between.
 """
 from __future__ import annotations
 
@@ -38,7 +45,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.compat import DTensor, distribute_tensor
 from repro_torch.device import DeviceLike
 
 
@@ -75,6 +84,8 @@ def _unflatten(tree: Any, leaves: Dict[str, Any], prefix: str = "") -> Any:
 def _to_host(x: Any) -> np.ndarray:
     """A leaf as a numpy array it owns (one copy, also of a CPU tensor):
     bf16 as its bits in ``'V2'``."""
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         t = x.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -108,7 +119,9 @@ class CheckpointManager:
     def save(self, step: int, tree: Any, *, blocking: bool = True) -> None:
         """Snapshot ``tree`` to host memory now, then write it (in a
         background thread unless ``blocking``)."""
-        host = [(k, _to_host(v)) for k, v in flatten_with_keys(tree)]
+        host = list(snapshot(tree).items())
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return                     # rank 0 writes the gathered state
         if blocking:
             self._write(step, host)
         else:
@@ -172,30 +185,76 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int], target: Any, *,
-                device: DeviceLike = None) -> Any:
+    def restore(self, step: Optional[int], target: Any,
+                shardings: Any = None, *, device: DeviceLike = None) -> Any:
         """Restore into the structure of ``target`` (a tree of tensors, or
         of anything with ``.shape`` and ``.dtype``): each leaf by its key,
         its shape checked, cast to the target's dtype, on ``device`` (by
-        default each target leaf's own device, else the CPU)."""
+        default each target leaf's own device, else the CPU). With
+        ``shardings`` (a tree of ``NamedSharding`` on a ``DeviceMesh``, of
+        ``target``'s structure) each leaf becomes a DTensor of its
+        placements on that mesh: every rank reads the whole array and
+        keeps its block."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         d = self.dir / f"step_{step}"
         manifest = json.loads((d / "manifest.json").read_text())
         by_key = {e["key"]: e for e in manifest["paths"]}
-        leaves = {}
-        for key, tgt in flatten_with_keys(target):
+
+        def read(key: str) -> Tuple[np.ndarray, str]:
             if key not in by_key:
                 raise KeyError(f"checkpoint missing leaf {key}")
-            e = by_key[key]
-            arr = np.load(d / e["file"])
-            if tuple(arr.shape) != tuple(tgt.shape):
-                raise ValueError(f"shape mismatch for {key}: "
-                                 f"{arr.shape} vs {tuple(tgt.shape)}")
-            dev = torch.device(device) if device is not None else getattr(
-                tgt, "device", torch.device("cpu"))
-            t = _from_host(arr, e["dtype"], dev)
-            leaves[key] = t.to(tgt.dtype) if isinstance(
-                tgt.dtype, torch.dtype) else t
+            return np.load(d / by_key[key]["file"]), by_key[key]["dtype"]
+
+        return _rebuild(target, read, shardings, device)
+
+
+def snapshot(tree: Any) -> Dict[str, np.ndarray]:
+    """What :meth:`CheckpointManager.save` writes, held in host memory:
+    each leaf of ``tree`` by its key, a DTensor leaf gathered whole, bf16
+    as its bits."""
+    return {k: _to_host(v) for k, v in flatten_with_keys(tree)}
+
+
+def from_snapshot(host: Dict[str, np.ndarray], target: Any,
+                  shardings: Any = None, *, device: DeviceLike = None) -> Any:
+    """:meth:`CheckpointManager.restore` from a :func:`snapshot` in
+    memory: the same keys, shape checks, casts and placements."""
+    def read(key: str) -> Tuple[np.ndarray, str]:
+        if key not in host:
+            raise KeyError(f"snapshot missing leaf {key}")
+        return host[key], _dtype_name(host[key])
+
+    return _rebuild(target, read, shardings, device)
+
+
+def _rebuild(target: Any, read, shardings: Any, device: DeviceLike) -> Any:
+    """``target``'s structure from ``read(key)`` → (host array, dtype
+    name), each leaf on ``device`` (else the target leaf's own device),
+    or placed by ``shardings``."""
+    leaves = {}
+    for key, tgt in flatten_with_keys(target):
+        arr, dtype_name = read(key)
+        if tuple(arr.shape) != tuple(tgt.shape):
+            raise ValueError(f"shape mismatch for {key}: "
+                             f"{arr.shape} vs {tuple(tgt.shape)}")
+        dev = torch.device(device) if device is not None else getattr(
+            tgt, "device", torch.device("cpu"))
+        t = _from_host(arr, dtype_name, dev)
+        leaves[key] = t.to(tgt.dtype) if isinstance(
+            tgt.dtype, torch.dtype) else t
+    if shardings is None:
         return _unflatten(target, leaves)
+    by_leaf = dict(flatten_with_keys(shardings))
+    return _unflatten(target, {k: _place(t, by_leaf[k])
+                               for k, t in leaves.items()})
+
+
+def _place(t: torch.Tensor, sharding) -> Any:
+    """``t`` as a DTensor of ``sharding``'s placements on its mesh (on
+    the mesh's device: the current CUDA device, or the CPU)."""
+    mesh = sharding.mesh
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+    return distribute_tensor(t.to(dev), mesh, sharding.placements)

@@ -17,7 +17,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the port "
             "on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"the port runs on cuda or cpu, not {dev}")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"the port runs on cuda or cpu (meta: shapes "
+                         f"only, for counts and specs), not {dev}")
     return dev
 

@@ -8,15 +8,39 @@ and otherwise makes a contiguous copy (a layout copy, not another kernel),
 :func:`on_device` and :func:`stream_handle` give a launch its device and
 stream with as little host work as a call allows, and :func:`no_backward`
 stops a serving-only kernel, which has no backward, from handing autograd
-a result it cannot differentiate.
+a result it cannot differentiate. :func:`plain_route` and :func:`plain`
+run a kernel's plain version, on CPU tensors and on ``meta`` tensors (which
+compute nothing: ``repro_torch.launch.roofline`` counts a step on them),
+and let a counting mode see each kernel as the one op it is on the card.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
+
+
+# Set by a counting mode (``repro_torch.launch.roofline.count``) while it
+# counts a step: called as ``COUNTER(name, fn, args, kwargs)`` in place of
+# a kernel's plain version ``fn``, so that the kernel counts as one op.
+COUNTER: Optional[Callable] = None
+
+
+def plain_route(device: torch.device) -> bool:
+    """Whether a wrapper takes its kernel's plain version on ``device``:
+    on the CPU (the tests' path) and on ``meta`` (a count, nothing
+    computed); a CUDA tensor launches the kernel."""
+    return device.type in ("cpu", "meta")
+
+
+def plain(name: str, fn: Callable, *args, **kwargs):
+    """``fn(*args, **kwargs)``, the plain version of kernel ``name``; under
+    a counting mode the mode's :data:`COUNTER` runs it instead."""
+    if COUNTER is None:
+        return fn(*args, **kwargs)
+    return COUNTER(name, fn, args, kwargs)
 
 
 def strides(t: torch.Tensor) -> Tuple[int, ...]:

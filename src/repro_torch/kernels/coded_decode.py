@@ -38,8 +38,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import autotune, build
-from repro_torch.kernels._layout import (no_backward, on_device, strides,
-                                         stream_handle)
+from repro_torch.kernels._layout import (no_backward, on_device, plain,
+                                         stream_handle,
+                                         strides)
 
 MAX_THREADS = 256                      # the kernel's launch bound
 VEC = 4                                # feature columns per access
@@ -136,7 +137,8 @@ def coded_decode(shares: torch.Tensor, dec: torch.Tensor, mask: torch.Tensor,
     bb = autotune.resolve("coded_decode", shape, dtype,
                           {"block_batch": block_batch})["block_batch"]
     if shares.device.type == "cpu":
-        return coded_decode_ref(shares, dec, mask, scales)
+        return plain("coded_decode", coded_decode_ref, shares, dec, mask,
+                     scales)
     no_backward("coded_decode", shares, dec, scales)
     if shares.device.type != "cuda":
         raise ValueError(f"coded_decode runs on cuda or cpu tensors, not "

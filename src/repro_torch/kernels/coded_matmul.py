@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels._layout import (no_backward, num_sms, on_device,
-                                         stream_handle)
+                                         plain, stream_handle)
 
 # the kernel's plans, (rows, columns) of outputs a thread holds; a block is
 # 8 x 8 threads, so its tile is (8 * rows) x 32 of one shard's output
@@ -67,7 +67,7 @@ def coded_matmul(x: torch.Tensor, shards: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"x and shards must be float32, got {x.dtype} and "
                         f"{shards.dtype}")
     if x.device.type == "cpu":
-        return coded_matmul_ref(x, shards)
+        return plain("coded_matmul", coded_matmul_ref, x, shards)
     no_backward("coded_matmul", x, shards)
     if x.device.type != "cuda":
         raise ValueError(f"coded_matmul runs on cuda or cpu tensors, not "

@@ -39,7 +39,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels._layout import (aligned, no_backward, num_sms,
-                                         on_device, stream_handle)
+                                         on_device, plain, plain_route,
+                                         stream_handle)
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 96, 128)        # the kernel's instantiated D
@@ -111,12 +112,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     length: the number of valid cache positions. Returns (B, KV, G, D) in
     q's dtype."""
     _check(q, k_cache, v_cache, length)
-    if q.device.type == "cpu":
-        return decode_attention_ref(q, k_cache, v_cache, length)
+    if plain_route(q.device):
+        return plain("decode_attention", decode_attention_ref, q, k_cache,
+                     v_cache, length)
     no_backward("decode_attention", q, k_cache, v_cache)
     if q.device.type != "cuda":
-        raise ValueError(f"decode_attention runs on cuda or cpu tensors, not "
-                         f"{q.device}")
+        raise ValueError(f"decode_attention runs on cuda, cpu or meta "
+                         f"tensors, not {q.device}")
     if k_cache.device != q.device or v_cache.device != q.device:
         raise ValueError("all operands must be on one device")
     if isinstance(length, torch.Tensor):

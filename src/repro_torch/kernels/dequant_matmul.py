@@ -40,7 +40,7 @@ import torch
 
 from repro_torch.kernels import autotune, build
 from repro_torch.kernels._layout import (no_backward, num_sms, on_device,
-                                         stream_handle)
+                                         plain, stream_handle)
 
 MAX_TILE = 128          # the CUDA-core route's largest block_batch, block_n
 TENSOR_COLS = 128       # the tensor route's columns a block
@@ -163,7 +163,7 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
         default_tile(*shape, num_sms(x.device.index))
         if x.device.type == "cuda" else None)
     if x.device.type == "cpu":
-        return dequant_matmul_ref(x, q, scale)
+        return plain("dequant_matmul", dequant_matmul_ref, x, q, scale)
     no_backward("dequant_matmul", x, scale)
     if x.device.type != "cuda":
         raise ValueError(f"dequant_matmul runs on cuda or cpu tensors, not "

@@ -54,8 +54,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._layout import (aligned, on_device, stream_handle,
-                                         strides)
+from repro_torch.kernels._layout import (aligned, on_device, plain,
+                                         plain_route, stream_handle, strides)
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 96, 128)        # the kernel's instantiated D
@@ -128,11 +128,12 @@ class _FlashAttention(torch.autograd.Function):
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              causal: bool) -> torch.Tensor:
     """The kernel on the card, the plain version on the CPU."""
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal)
+    if plain_route(q.device):
+        return plain("flash_attention", flash_attention_ref, q, k, v,
+                     causal=causal)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, not "
-                         f"{q.device}")
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta "
+                         f"tensors, not {q.device}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("all operands must be on one device")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
@@ -286,8 +287,9 @@ def _bwd(q, k, v, o, do, causal: bool, cuda_cores: bool):
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
                          f"have q's shape {tuple(q.shape)}")
-    if q.device.type == "cpu":
-        return flash_attention_bwd_ref(q, k, v, o, do, causal)
+    if plain_route(q.device):
+        return plain("flash_attention_bwd", flash_attention_bwd_ref, q, k,
+                     v, o, do, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, "
                          f"not {q.device}")

@@ -38,8 +38,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import autotune, build
-from repro_torch.kernels._layout import (no_backward, on_device, stream_handle,
-                                         strides)
+from repro_torch.kernels._layout import (no_backward, on_device, plain,
+                                         stream_handle, strides)
 
 ROW_WARPS = 8           # warps of a rows-route block: all stage, each a row
 ROW_NCH = (1, 2, 4, 8)  # chunks of 4 a lane loads per row (compile-time)
@@ -178,7 +178,8 @@ def quorum_aggregate(portions: torch.Tensor, weights: torch.Tensor,
     bm = autotune.resolve("quorum_aggregate", shape, dtype,
                           {"block_batch": block_batch})["block_batch"]
     if portions.device.type == "cpu":
-        return quorum_aggregate_ref(portions, weights, bias, mask, scales)
+        return plain("quorum_aggregate", quorum_aggregate_ref, portions,
+                     weights, bias, mask, scales)
     no_backward("quorum_aggregate", portions, weights, bias, scales)
     if portions.device.type != "cuda":
         raise ValueError(f"quorum_aggregate runs on cuda or cpu tensors, "

@@ -22,7 +22,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._layout import num_sms, on_device, stream_handle
+from repro_torch.kernels._layout import (num_sms, on_device, plain,
+                                         plain_route, stream_handle)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_THREADS = 512                      # the kernel's launch bound
@@ -124,10 +125,11 @@ def _forward(x: torch.Tensor, scale: torch.Tensor, eps: float
              ) -> torch.Tensor:
     """The kernel on the card, the plain version on the CPU."""
     dev = x.device
-    if dev.type == "cpu":
-        return rmsnorm_ref(x, scale, eps=eps)
+    if plain_route(dev):
+        return plain("rmsnorm", rmsnorm_ref, x, scale, eps=eps)
     if dev.type != "cuda":
-        raise ValueError(f"rmsnorm runs on cuda or cpu tensors, not {dev}")
+        raise ValueError(f"rmsnorm runs on cuda, cpu or meta "
+                         f"tensors, not {dev}")
     if scale.device != dev:
         raise ValueError("all operands must be on one device")
     if not (x.is_contiguous() and scale.is_contiguous()):
@@ -214,11 +216,11 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, *,
         raise ValueError(f"g {tuple(g.shape)} must have x's shape "
                          f"{tuple(x.shape)}")
     dev = x.device
-    if dev.type == "cpu":
-        return rmsnorm_bwd_ref(x, scale, g, eps)
+    if plain_route(dev):
+        return plain("rmsnorm_bwd", rmsnorm_bwd_ref, x, scale, g, eps)
     if dev.type != "cuda":
-        raise ValueError(f"rmsnorm_bwd runs on cuda or cpu tensors, not "
-                         f"{dev}")
+        raise ValueError(f"rmsnorm_bwd runs on cuda, cpu or meta "
+                         f"tensors, not {dev}")
     if scale.device != dev or g.device != dev:
         raise ValueError("all operands must be on one device")
     x, scale = x.contiguous(), scale.contiguous()

@@ -65,7 +65,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels._layout import (aligned, num_sms, on_device,
-                                         stream_handle)
+                                         plain, plain_route, stream_handle)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232448                    # bytes a block may use on Hopper
@@ -159,8 +159,8 @@ def _check_card(name: str, x, dt, A, Bm, Cm, *grads) -> None:
     dtype (fp32 or bf16), dt and A fp32, unit stride on x's, B's and C's
     last axes."""
     if x.device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu tensors, not "
-                         f"{x.device}")
+        raise ValueError(f"{name} runs on cuda, cpu or meta "
+                         f"tensors, not {x.device}")
     if any(t.device != x.device for t in (dt, A, Bm, Cm, *grads)):
         raise ValueError("all operands must be on one device")
     if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
@@ -271,9 +271,9 @@ class _SSDScan(torch.autograd.Function):
 def _forward(x, dt, A, Bm, Cm, chunk: int, return_state: bool,
              out_dtype: Optional[torch.dtype]):
     """The kernels on the card, the plain version on the CPU."""
-    if x.device.type == "cpu":
-        return ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
-                            return_state=return_state, out_dtype=out_dtype)
+    if plain_route(x.device):
+        return plain("ssd_scan", ssd_scan_ref, x, dt, A, Bm, Cm, chunk=chunk,
+                     return_state=return_state, out_dtype=out_dtype)
     Bm, Cm = _heads(x, Bm), _heads(x, Cm)
     _check_card("ssd_scan", x, dt, A, Bm, Cm)
     out_dtype = out_dtype or x.dtype
@@ -441,8 +441,9 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if dy.shape != x.shape:
         raise ValueError(f"dy {tuple(dy.shape)} must have x's shape "
                          f"{tuple(x.shape)}")
-    if x.device.type == "cpu":
-        return ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dh, chunk=chunk)
+    if plain_route(x.device):
+        return plain("ssd_scan_bwd", ssd_scan_bwd_ref, x, dt, A, Bm, Cm, dy,
+                     dh, chunk=chunk)
     _check_card("ssd_scan_bwd", x, dt, A, Bm, Cm, dy,
                 *(() if dh is None else (dh,)))
     L, P = x.shape[-2:]

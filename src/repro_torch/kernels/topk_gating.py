@@ -34,7 +34,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._layout import num_sms, on_device, stream_handle
+from repro_torch.kernels._layout import (num_sms, on_device, plain,
+                                         plain_route, stream_handle)
 
 NEG_INF = -1e30
 MAX_EXPERTS = 256                      # 32 lanes x 8 values in registers
@@ -134,11 +135,11 @@ def _forward(logits: torch.Tensor, k: int
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel on the card, the plain version on the CPU."""
     dev = logits.device
-    if dev.type == "cpu":
-        return topk_gating_ref(logits, k)
+    if plain_route(dev):
+        return plain("topk_gating", topk_gating_ref, logits, k)
     if dev.type != "cuda":
-        raise ValueError(f"topk_gating runs on cuda or cpu tensors, not "
-                         f"{dev}")
+        raise ValueError(f"topk_gating runs on cuda, cpu or meta "
+                         f"tensors, not {dev}")
     N, E = logits.shape
     if E > MAX_EXPERTS:
         raise ValueError(f"the kernel takes E <= {MAX_EXPERTS}, got {E}")
@@ -202,11 +203,12 @@ def topk_gating_bwd(logits: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                          f"{tuple(w.shape)}, {tuple(dw.shape)}")
     _check(logits, idx.shape[1])
     dev = logits.device
-    if dev.type == "cpu":
-        return topk_gating_bwd_ref(logits, idx, w, dw)
+    if plain_route(dev):
+        return plain("topk_gating_bwd", topk_gating_bwd_ref, logits, idx,
+                     w, dw)
     if dev.type != "cuda":
-        raise ValueError(f"topk_gating_bwd runs on cuda or cpu tensors, not "
-                         f"{dev}")
+        raise ValueError(f"topk_gating_bwd runs on cuda, cpu or meta "
+                         f"tensors, not {dev}")
     if any(t.device != dev for t in (idx, w, dw)):
         raise ValueError("all operands must be on one device")
     N, E = logits.shape

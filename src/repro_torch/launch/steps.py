@@ -13,20 +13,38 @@ replace the tokens (AdamW still decays it). The params a caller holds
 never need a gradient: each step differentiates detached leaves that
 share their storage.
 
-The mesh and ``ShapeDtypeStruct`` functions of the reference
-(``make_rules``, ``batch_specs``, ``cache_specs``, ``param_specs``,
-``state_specs``, ``input_specs``, ``jit_step``) belong to the multi-device
-tooling (ROADMAP Queue 1 item 3) and are not ported.
+The reference's spec functions (``make_rules``, ``batch_specs``,
+``cache_specs``, ``param_specs``, ``state_specs``, ``input_specs``) return
+``meta`` tensors paired with their specs (:class:`Placed`) where it
+returns ``ShapeDtypeStruct``s with shardings. :func:`mesh_step` stands
+where ``jit_step`` does: the train, prefill or serve step of a
+``DeviceMesh`` with data axes (``data``, and ``pod`` if present) and
+``model`` = 1. Each rank takes its rows of the global batch; the forward
+and backward run on its local tensors through the hand-written kernels
+(a wrapper never sees a DTensor); the gradients are reduce-scattered to
+the ZeRO-1 blocks (``zero1=True``) or all-reduced, to their mean over the
+data ranks. Tensor parallelism (``model`` > 1) is modelled by the dry run
+(``repro_torch.launch.dryrun``), not executed, as the JAX package's tests
+only compile it; the MoE's expert parallelism runs on a ``model`` axis
+through :func:`repro_torch.models.transformer.moe_apply`.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.compat import (AbstractMesh, DTensor, DeviceMesh,
+                                axis_names, local, mesh_shape,
+                                reduce_scatter_single)
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import api
 from repro_torch.optim import adamw
+from repro_torch.parallel import specs as SP
+from repro_torch.parallel.sharding import (DEFAULT_RULES, NamedSharding,
+                                           PartitionSpec, placements,
+                                           resolve_spec)
 from repro_torch.tree import trainable, tree_map
 
 
@@ -87,3 +105,333 @@ def step_fn_for(cfg: ModelConfig, shape: ShapeConfig,
     if shape.kind == "prefill":
         return make_prefill_step(cfg)
     return make_serve_step(cfg)
+
+
+# ---------------------------------------------------------------------------
+# logical-axis rules and spec trees per shape
+# ---------------------------------------------------------------------------
+
+class Placed(NamedTuple):
+    """A ``meta`` tensor (shape and dtype) and its spec on the mesh (None
+    off a mesh): the reference's ``ShapeDtypeStruct`` with a sharding."""
+    tensor: torch.Tensor
+    spec: Optional[PartitionSpec]
+
+
+def _map_placed(fn, tree: Any) -> Any:
+    """``fn`` on every :class:`Placed` of a tree, into the state's
+    NamedTuples too (which the port's trees keep as leaves)."""
+    if isinstance(tree, Placed):
+        return fn(tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_placed(fn, x) for x in tree))
+    return tree_map(lambda x: _map_placed(fn, x), tree)
+
+
+def tensors_of(tree: Any) -> Any:
+    """The meta tensors of a tree of :class:`Placed`."""
+    return _map_placed(lambda x: x.tensor, tree)
+
+
+def specs_of(tree: Any) -> Any:
+    """The specs of a tree of :class:`Placed`."""
+    return _map_placed(lambda x: x.spec, tree)
+
+
+def _dp(mesh) -> int:
+    sizes = mesh_shape(mesh)
+    return sizes.get("data", 1) * sizes.get("pod", 1)
+
+
+def make_rules(cfg: ModelConfig, shape: ShapeConfig, mesh) -> Dict[str, Any]:
+    rules = dict(DEFAULT_RULES)
+    if shape.kind == "decode" and shape.global_batch < _dp(mesh):
+        # long-context / tiny-batch decode: batch can't fill the DP axes.
+        # Reuse the data axis for sequence (cache) sharding (SP).
+        rules["batch"] = None
+        rules["seq_shard"] = "data"
+    return rules
+
+
+def _seq_sharded(shape: ShapeConfig, mesh) -> bool:
+    return shape.kind == "decode" and shape.global_batch < _dp(mesh)
+
+
+def _placed(shape, dtype, mesh, axes) -> Placed:
+    spec = None
+    if mesh is not None:
+        spec = SP.sanitize_spec(resolve_spec(axes, mesh=mesh), shape, mesh)
+    return Placed(torch.empty(shape, dtype=dtype, device="meta"), spec)
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig,
+                mesh=None) -> Dict[str, Placed]:
+    """Meta stand-ins, with their specs, for the data batch of one step."""
+    B, S = shape.global_batch, shape.seq_len
+    out: Dict[str, Placed] = {}
+    if shape.kind in ("train", "prefill"):
+        if cfg.embed_inputs:
+            out["embeds"] = _placed((B, S, cfg.d_model), cfg.compute_dtype,
+                                    mesh, ("batch", "seq", "embed"))
+            if cfg.family == "encdec":  # decoder tokens alongside enc frames
+                out["tokens"] = _placed((B, S), torch.int32, mesh,
+                                        ("batch", "seq"))
+            if cfg.pos == "mrope":
+                out["positions"] = _placed((3, B, S), torch.int32, mesh,
+                                           (None, "batch", "seq"))
+        else:
+            out["tokens"] = _placed((B, S), torch.int32, mesh,
+                                    ("batch", "seq"))
+        if shape.kind == "train":
+            out["labels"] = _placed((B, S), torch.int32, mesh,
+                                    ("batch", "seq"))
+    else:  # decode: one new token
+        out["tokens"] = _placed((B, 1), torch.int32, mesh, ("batch", None))
+    return out
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig, mesh=None) -> Any:
+    """The decode cache of ``shape`` as meta tensors with their specs."""
+    cache = api.init_cache(cfg, shape.global_batch, shape.seq_len,
+                           device="meta")
+    if mesh is None:
+        return tree_map(lambda t: Placed(t, None), cache)
+    spec_tree = SP.cache_specs(cache, mesh,
+                               seq_sharded=_seq_sharded(shape, mesh))
+    return tree_map(Placed, cache, spec_tree)
+
+
+def param_specs(cfg: ModelConfig, mesh=None, seed: int = 0,
+                kind: Optional[str] = None) -> Any:
+    """The params as meta tensors with their sanitized specs (``seed`` is
+    the reference's; a meta draw has no values)."""
+    shapes = api.init_meta(cfg)
+    if mesh is None:
+        return tree_map(lambda t: Placed(t, None), shapes)
+    spec_tree = SP.sanitize_tree(
+        SP.param_specs(shapes, mesh, cfg=cfg, kind=kind), shapes, mesh)
+    return tree_map(Placed, shapes, spec_tree)
+
+
+def state_specs(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
+                mesh=None, *, zero1: bool = True) -> TrainState:
+    """The train state as meta tensors with their specs: the params'
+    own, the master copy's and moments' ZeRO-1 ones (``zero1``)."""
+    p = param_specs(cfg, mesh, kind="train")
+    shapes = tensors_of(p)
+    opt = adamw.init(opt_cfg, shapes)
+    if mesh is None:
+        ospecs = tree_map(lambda _: None, shapes)
+    else:
+        ospecs = specs_of(p)
+        if zero1:
+            ospecs = SP.zero1_specs(ospecs, shapes, mesh, axis="data")
+    return TrainState(p, adamw.OptState(
+        Placed(opt.step, None if mesh is None else PartitionSpec()),
+        tree_map(Placed, opt.master, ospecs), tree_map(Placed, opt.m, ospecs),
+        tree_map(Placed, opt.v, ospecs)))
+
+
+def state_shardings(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
+                    mesh: DeviceMesh, *, zero1: bool = True) -> TrainState:
+    """:func:`state_specs` as ``NamedSharding``s on ``mesh``: the
+    ``shardings`` that restore a checkpoint onto the mesh for
+    :func:`mesh_step` (``CheckpointManager.restore``)."""
+    return _map_placed(lambda x: NamedSharding(mesh, x.spec),
+                       state_specs(cfg, opt_cfg, mesh, zero1=zero1))
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                opt_cfg: Optional[adamw.AdamWConfig] = None) -> Tuple:
+    """Every input of the step of ``shape.kind``, as :class:`Placed`."""
+    if shape.kind == "train":
+        opt_cfg = opt_cfg or adamw.AdamWConfig()
+        return (state_specs(cfg, opt_cfg, mesh), batch_specs(cfg, shape, mesh))
+    if shape.kind == "prefill":
+        return (param_specs(cfg, mesh, kind="prefill"),
+                batch_specs(cfg, shape, mesh))
+    index = Placed(torch.empty((), dtype=torch.int32, device="meta"),
+                   None if mesh is None else PartitionSpec())
+    return (param_specs(cfg, mesh, kind="decode"),
+            cache_specs(cfg, shape, mesh), batch_specs(cfg, shape, mesh),
+            index)
+
+
+# ---------------------------------------------------------------------------
+# steps on a DeviceMesh (data parallel, ZeRO-1)
+# ---------------------------------------------------------------------------
+
+class MeshPlan(NamedTuple):
+    """What a data-parallel step needs of its mesh: the groups of its
+    data axes of size > 1, this rank's index among all data ranks and
+    their number, and the ZeRO-1 layout (None without)."""
+    mesh: Any
+    groups: Tuple
+    index: int
+    count: int
+    zero1: Optional[adamw.Zero1]
+
+
+def _data_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh_shape(mesh))
+
+
+def mesh_plan(cfg: ModelConfig, mesh: DeviceMesh, *,
+              zero1: bool = True) -> MeshPlan:
+    """The data axes of ``mesh`` and, with ``zero1``, each leaf's ZeRO-1
+    dimension (from ``zero1_specs`` of the sanitized train specs)."""
+    sizes = mesh_shape(mesh)
+    if sizes.get("model", 1) > 1:
+        raise NotImplementedError(
+            "a step on a mesh with model > 1 (tensor parallelism) is "
+            "modelled by repro_torch.launch.dryrun, not executed; the MoE's "
+            "expert parallelism runs through models.transformer.moe_apply")
+    axes = _data_axes(mesh)
+    index = 0
+    for a in axes:
+        index = index * sizes[a] + mesh.get_local_rank(a)
+    groups = tuple(mesh.get_group(a) for a in axes if sizes[a] > 1)
+    z = None
+    if zero1 and "data" in sizes:
+        p = param_specs(cfg, mesh, kind="train")
+        shapes = tensors_of(p)
+        specs = SP.zero1_specs(specs_of(p), shapes, mesh, axis="data")
+        dims = tree_map(lambda s: next(
+            (d for d, e in enumerate(s) if e == "data"), None), specs)
+        z = adamw.Zero1(dims, mesh.get_local_rank("data"), sizes["data"],
+                        mesh.get_group("data"))
+    return MeshPlan(mesh, groups, index, _dp(mesh), z)
+
+
+def _dtensor(mesh: DeviceMesh, t: torch.Tensor, spec=(), full=None
+             ) -> DTensor:
+    """``t``, this rank's block of ``full`` (``t`` itself by default),
+    as a DTensor placed by ``spec``."""
+    full = t if full is None else full
+    return DTensor.from_local(t, mesh, placements(mesh, spec),
+                              shape=full.shape, stride=full.stride(),
+                              run_check=False)
+
+
+def mesh_state(state: TrainState, plan: MeshPlan) -> TrainState:
+    """A whole train state (every rank holds the same) laid onto the mesh:
+    the params replicated, the master copy and moments cut to this rank's
+    ZeRO-1 blocks (sharded on ``data``), all as DTensors."""
+    mesh, z = plan.mesh, plan.zero1
+    opt = state.opt if z is None else adamw.shard_state(state.opt, z)
+    dims = z.dims if z is not None else tree_map(lambda _: None,
+                                                 state.params)
+
+    def place(t, full, dim):
+        spec = [None] * t.dim()
+        if dim is not None:
+            spec[dim] = "data"
+        return _dtensor(mesh, t, spec, full)
+
+    lay = lambda tree: tree_map(place, tree, state.params, dims)  # noqa: E731
+    return TrainState(tree_map(lambda t: _dtensor(mesh, t), state.params),
+                      adamw.OptState(_dtensor(mesh, opt.step),
+                                     lay(opt.master), lay(opt.m), lay(opt.v)))
+
+
+def local_rows(batch: Dict[str, Any], plan: MeshPlan) -> Dict[str, Any]:
+    """This rank's rows of a global batch (M-RoPE positions keep their
+    leading stream axis)."""
+    def rows(k, t):
+        ax = 1 if k == "positions" and t.dim() == 3 else 0
+        n = t.shape[ax] // plan.count
+        if n * plan.count != t.shape[ax]:
+            raise ValueError(f"batch {k} of {t.shape[ax]} rows does not "
+                             f"split over {plan.count} data ranks")
+        return t.narrow(ax, plan.index * n, n)
+    return {k: rows(k, v) for k, v in batch.items()}
+
+
+def _mean(t: torch.Tensor, plan: MeshPlan) -> torch.Tensor:
+    """Sum over the data ranks, divided by their number (in place)."""
+    for g in plan.groups:
+        dist.all_reduce(t, group=g)
+    return t.div_(plan.count)
+
+
+def _grad_block(g: torch.Tensor, dim: Optional[int], plan: MeshPlan
+                ) -> torch.Tensor:
+    """The mean gradient over the data ranks: this rank's ZeRO-1 block of
+    it where the leaf is sharded (reduce-scattered on ``data``)."""
+    z = plan.zero1
+    if dim is None or z.size == 1:
+        return _mean(g, plan)
+    moved = g.movedim(dim, 0).contiguous()
+    out = torch.empty((moved.shape[0] // z.size, *moved.shape[1:]),
+                      dtype=g.dtype, device=g.device)
+    reduce_scatter_single(out, moved, group=z.group)
+    for grp in plan.groups:
+        if grp is not z.group:
+            dist.all_reduce(out, group=grp)
+    return out.div_(plan.count).movedim(0, dim)
+
+
+def mesh_step(cfg: ModelConfig, shape: ShapeConfig, mesh: DeviceMesh,
+              opt_cfg: Optional[adamw.AdamWConfig] = None, *,
+              zero1: bool = True):
+    """The step of ``shape.kind`` on ``mesh`` (``jit_step``'s twin):
+
+    - train ``(state, batch) -> (state, metrics)``: ``state`` from
+      :func:`mesh_state` (updated in place), ``batch`` global (each rank
+      takes its rows);
+    - prefill ``(params, batch) -> (logits, cache)``, serve ``(params,
+      cache, batch, index) -> (logits, cache)``: params replicated
+      DTensors or whole tensors; logits and cache come back as DTensors
+      sharded on the batch over the data axes (a serve step updates the
+      cache in place).
+    """
+    plan = mesh_plan(cfg, mesh, zero1=zero1 and shape.kind == "train")
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+    axes = _data_axes(mesh)
+    rows = [axes if len(axes) > 1 else axes[0]]
+
+    def train_step(state: TrainState, batch: Dict[str, Any]):
+        params = tree_map(local, state.params)
+        loss, grads = loss_and_grads(params, cfg, local_rows(batch, plan))
+        with torch.no_grad():
+            dims = plan.zero1.dims if plan.zero1 is not None else \
+                tree_map(lambda _: None, grads)
+            grads = tree_map(lambda g, d: _grad_block(g, d, plan), grads,
+                             dims)
+            opt = adamw.OptState(*(tree_map(local, x) for x in state.opt))
+            _, new_opt, metrics = adamw.apply_updates(
+                opt_cfg, params, grads, opt, zero1=plan.zero1)
+            opt.step.copy_(new_opt.step)
+            metrics["loss"] = _mean(loss.clone(), plan)
+        return state, metrics
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        logits, cache = api.prefill(tree_map(local, params), cfg,
+                                    local_rows(batch, plan))
+        return _dtensor(mesh, logits, rows), mesh_cache(cache, mesh)
+
+    @torch.no_grad()
+    def serve_step(params, cache, batch, index):
+        logits, _ = api.decode_step(tree_map(local, params), cfg,
+                                    local_rows(batch, plan),
+                                    tree_map(local, cache), index)
+        return _dtensor(mesh, logits, rows), cache
+
+    if shape.kind == "train":
+        return train_step
+    if shape.kind == "prefill":
+        return prefill_step
+    return serve_step
+
+
+def mesh_cache(cache: Any, mesh: DeviceMesh) -> Any:
+    """A cache of this rank's rows as DTensors placed by
+    :func:`repro_torch.parallel.specs.cache_specs` (the batch on the data
+    axes): a serving cache for :func:`mesh_step`'s serve step. The specs
+    are read on a mesh of the same axes at size 1, where no axis is
+    dropped for divisibility: the local blocks are exact."""
+    names = axis_names(mesh)
+    specs = SP.cache_specs(cache, AbstractMesh([1] * len(names), names))
+    return tree_map(lambda t, s: DTensor.from_local(
+        t, mesh, placements(mesh, s), run_check=False), cache, specs)

@@ -2,6 +2,7 @@
 encdec.
 
     init(gen, cfg)                          -> params (on gen's device)
+    init_meta(cfg)                          -> params as meta tensors
     forward(params, cfg, batch)             -> logits
     loss(params, cfg, batch)                -> scalar
     prefill(params, cfg, batch)             -> (logits, cache)
@@ -36,6 +37,22 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     fn = {"ssm": SS.ssm_lm_init, "hybrid": HY.hybrid_init,
           "encdec": ED.encdec_init}.get(cfg.family, T.lm_init)
     return fn(gen, cfg)                 # T.lm_init: dense | moe | vlm
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on ``meta``: shapes and dtypes, no
+    storage (the inits place every leaf on ``gen.device``)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def init_meta(cfg: ModelConfig) -> Params:
+    """The params of :func:`init` as ``meta`` tensors, instantly at any
+    width: what the spec functions and the roofline count take, where
+    the JAX package takes ``jax.eval_shape`` of its init."""
+    return init(_MetaGenerator(), cfg)
 
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any]

@@ -163,7 +163,8 @@ def mrope_table(positions: torch.Tensor, head_dim: int, *,
     freqs = rope_frequencies(head_dim, theta=theta, device=positions.device)
     stream = torch.repeat_interleave(
         torch.arange(len(sections), device=positions.device),
-        torch.tensor(sections, device=positions.device))       # (half,)
+        torch.tensor(sections, device=positions.device),
+        output_size=half)                                      # (half,)
     angles = positions.float()[stream].movedim(0, -1) * freqs  # (.., seq, half)
     return (torch.cos(angles)[..., :, None, :],
             torch.sin(angles)[..., :, None, :])

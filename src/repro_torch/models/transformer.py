@@ -34,8 +34,11 @@ Differences from the reference:
 - one card needs no sharding constraints, so ``constrain`` is dropped, and
   there is no ``train`` flag (it only selects a remat policy there);
 - ``moe_apply`` is the reference's single-device path
-  (``_moe_apply_dense``); its multi-device ``shard_map`` path belongs to
-  the multi-device tooling (ROADMAP Queue 1 item 3).
+  (``_moe_apply_dense``) unless a ``DeviceMesh`` with ``model`` > 1 is
+  current (``parallel.sharding.axis_rules``): then the expert-parallel
+  path of the reference's ``shard_map`` (``E % model == 0``), with the
+  tokens sent to the ranks that hold their experts by ``all_to_all`` and
+  the results sent back, in place of the reference's ``psum``.
 """
 from __future__ import annotations
 
@@ -44,9 +47,11 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.compat import DeviceMesh, local, mesh_shape
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.parallel import sharding
 from repro_torch.tree import stack_init, tree_map
 
 Params = Dict[str, Any]
@@ -287,17 +292,69 @@ def _expert_compute(buf: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor
     return torch.einsum("becf,efd->becd", L.swiglu(gate, up), wo)
 
 
+def _expert_mesh() -> Optional[DeviceMesh]:
+    """The current ``DeviceMesh`` when it has a ``model`` axis of size
+    > 1 under installed rules (the reference's ``shard_map`` condition)."""
+    mesh = sharding.current_mesh()
+    if (isinstance(mesh, DeviceMesh) and sharding._state().rules is not None
+            and mesh_shape(mesh).get("model", 1) > 1):
+        return mesh
+    return None
+
+
+def _experts_parallel(buf: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+                      mesh: DeviceMesh) -> torch.Tensor:
+    """buf (B, E, C, d) of this rank's tokens → the experts' outputs
+    (B, E, C, d), each expert computed on the ``model`` rank that holds it.
+    ``wi``/``wo`` are laid out by ``parallel.specs.param_specs`` (expert
+    dim on ``model``): DTensors, or this rank's local blocks of E/m
+    consecutive experts. One ``all_to_all`` sends every rank's slots for an
+    expert block to its rank, one sends the outputs back (both
+    differentiable)."""
+    from torch.distributed.nn.functional import all_to_all_single
+    m = mesh_shape(mesh)["model"]
+    B, E, C, d = buf.shape
+    if E % m:
+        raise NotImplementedError(
+            f"{E} experts over model={m}: the reference's ff-sharded MoE "
+            f"(E % model != 0) is modelled by repro_torch.launch.dryrun, "
+            f"not executed")
+    el = E // m
+    wi, wo = local(wi), local(wo)
+    if wi.shape[0] != el or wo.shape[0] != el:
+        raise ValueError(
+            f"expert weights of {wi.shape[0]}/{wo.shape[0]} experts on a "
+            f"rank of model={m}: expected the local block of {el}, laid out "
+            f"by parallel.specs.param_specs")
+    group = mesh.get_group("model")
+    send = buf.reshape(B, m, el, C, d).transpose(0, 1).contiguous()
+    recv = all_to_all_single(torch.empty_like(send), send, group=group)
+    out = _expert_compute(recv.reshape(m * B, el, C, d), wi, wo)
+    back = all_to_all_single(torch.empty_like(send),
+                             out.reshape(m, B, el, C, d).contiguous(),
+                             group=group)
+    return back.transpose(0, 1).reshape(B, E, C, d)
+
+
 def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """The MoE FFN on one card — the reference's single-device path
+    """The MoE FFN — the reference's single-device path
     (``_moe_apply_dense``): dispatch per batch row with capacity C; a
     dropped slot adds nothing (its token keeps only the residual of that
-    slot)."""
+    slot). Under a mesh with ``model`` > 1 the experts run on the ranks
+    that hold them (:func:`_experts_parallel`); each rank routes and
+    combines its own rows, so the output is the single-device one."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
-    top_w, flat_e, pos, keep, C = _moe_route(p["router"]["kernel"], cfg, x)
+    top_w, flat_e, pos, keep, C = _moe_route(local(p["router"]["kernel"]),
+                                             cfg, x)
     dest = torch.where(keep, flat_e * C + pos, E * C)          # dustbin E·C
     buf = _gather_dispatch(x, dest, E * C, K).reshape(B, E, C, d)
-    out = _expert_compute(buf, p["wi"], p["wo"]).reshape(B, E * C, d)
+    mesh = _expert_mesh()
+    if mesh is None:
+        out = _expert_compute(buf, p["wi"], p["wo"])
+    else:
+        out = _experts_parallel(buf, p["wi"], p["wo"], mesh)
+    out = out.reshape(B, E * C, d)
     out = torch.cat([out, out.new_zeros((B, 1, d))], dim=1)
     slot_out = out[torch.arange(B, device=x.device)[:, None], dest]
     return torch.einsum("bskd,bsk->bsd", slot_out.reshape(B, S, K, d),

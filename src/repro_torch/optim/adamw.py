@@ -14,17 +14,28 @@ storage, and the returned ``OptState`` holds the same trees (only
 parameters a second copy of the state (24 GB) is what the in-place update
 saves. Whoever needs the old state keeps a copy of it first
 (``CheckpointManager.save`` does, before it returns).
-ZeRO-1 sharding of the state belongs to the multi-device tooling (ROADMAP
-Queue 1 item 3).
+
+ZeRO-1 (``apply_updates(..., zero1=Zero1(...))``): each rank of a data
+group holds one block of the master copy and of the moments for every
+leaf whose ``zero1_specs`` entry shards it on the data axis (the block
+along that dimension), and the gradient of that block (reduce-scattered
+by the caller); it updates its block in place, and the bf16 params are
+gathered from every rank's block. The norm for the clip sums each
+sharded leaf's squares over the group before the leaves are summed, so
+the clip is the unsharded one; the arithmetic of each element, and the
+order of the leaves' sum, are the reference's, so a group of one rank is
+bit-equal to the step without ZeRO-1.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.compat import all_gather_single
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Any
@@ -76,34 +87,93 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tree: Params) -> torch.Tensor:
-    """sqrt of the sum of every leaf's fp32 sum of squares."""
+class Zero1(NamedTuple):
+    """Where a rank's ZeRO-1 blocks lie: ``dims`` (the params' tree) holds
+    each leaf's sharded dimension, or None for a leaf every rank holds
+    whole; this rank is ``rank`` of the ``size`` ranks of ``group``."""
+    dims: Any
+    rank: int
+    size: int
+    group: Any = None
+
+
+def block(t: torch.Tensor, dim: Optional[int], zero1: Zero1
+          ) -> torch.Tensor:
+    """This rank's block of a whole leaf ``t`` (``t`` itself where the
+    leaf is not sharded), a view."""
+    if dim is None:
+        return t
+    n = t.shape[dim] // zero1.size
+    return t.narrow(dim, zero1.rank * n, n)
+
+
+def shard_state(state: OptState, zero1: Zero1) -> OptState:
+    """A whole state's master copy and moments cut to this rank's blocks
+    (copies, so that the whole leaves can be freed; a block that is the
+    whole leaf is the leaf itself)."""
+    def cut(t, d):
+        b = block(t, d, zero1)
+        return t if b.shape == t.shape else b.clone()
+    return OptState(state.step, tree_map(cut, state.master, zero1.dims),
+                    tree_map(cut, state.m, zero1.dims),
+                    tree_map(cut, state.v, zero1.dims))
+
+
+def global_norm(tree: Params, zero1: Optional[Zero1] = None
+                ) -> torch.Tensor:
+    """sqrt of the sum of every leaf's fp32 sum of squares; with ``zero1``
+    a sharded leaf's sum is first summed over the group (``tree`` holds
+    its blocks)."""
     leaves = [x.float().square().sum() for x in tree_leaves(tree)]
+    if zero1 is not None:
+        sharded = [i for i, d in enumerate(tree_leaves(zero1.dims))
+                   if d is not None]
+        if sharded and zero1.size > 1:
+            part = torch.stack([leaves[i] for i in sharded])
+            dist.all_reduce(part, group=zero1.group)
+            for j, i in enumerate(sharded):
+                leaves[i] = part[j]
     return torch.sqrt(torch.stack(leaves).sum())
 
 
-def clip_by_global_norm(tree: Params, max_norm: float
+def clip_by_global_norm(tree: Params, max_norm: float,
+                        zero1: Optional[Zero1] = None
                         ) -> Tuple[Params, torch.Tensor]:
     """Scale every leaf by min(1, max_norm / norm), each in its dtype."""
-    norm = global_norm(tree)
+    norm = global_norm(tree, zero1)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree), norm
 
 
+def _gather(p: torch.Tensor, piece: torch.Tensor, dim: int,
+            zero1: Zero1) -> None:
+    """Write every rank's block ``piece`` into the whole leaf ``p``."""
+    if zero1.size == 1:
+        p.copy_(piece)
+        return
+    moved = piece.movedim(dim, 0).contiguous()
+    out = torch.empty((zero1.size * moved.shape[0], *moved.shape[1:]),
+                      dtype=piece.dtype, device=piece.device)
+    all_gather_single(out, moved, group=zero1.group)
+    p.copy_(out.movedim(0, dim))
+
+
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params: Params, grads: Params,
-                  state: OptState
+                  state: OptState, *, zero1: Optional[Zero1] = None
                   ) -> Tuple[Params, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step from ``grads`` (clipped first), in place: returns
-    (params, state, {"grad_norm", "lr"}) with the same trees as given."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    (params, state, {"grad_norm", "lr"}) with the same trees as given.
+    With ``zero1`` the state, and the gradients, of a sharded leaf are
+    this rank's blocks; ``params`` are whole, gathered after the update."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, zero1)
     step = state.step + 1
     lr = schedule(cfg, step)
     sf = step.to(torch.float32)
     b1c = 1 - cfg.b1 ** sf
     b2c = 1 - cfg.b2 ** sf
 
-    def upd(p, master, g, m, v):
+    def upd(p, master, g, m, v, dim):
         # the reference's operations in its order, each rounded once as
         # there; in place where a state array takes the result
         g = g.float()
@@ -112,8 +182,13 @@ def apply_updates(cfg: AdamWConfig, params: Params, grads: Params,
         delta = (m / b1c).div_((v / b2c).sqrt_().add_(cfg.eps))
         delta.add_(master * cfg.weight_decay)
         master.sub_(delta.mul_(lr))
-        p.copy_(master)
+        if dim is None:
+            p.copy_(master)
+        else:
+            _gather(p, master.to(p.dtype), dim, zero1)
 
-    tree_map(upd, params, state.master, grads, state.m, state.v)
+    dims = zero1.dims if zero1 is not None else tree_map(lambda _: None,
+                                                         params)
+    tree_map(upd, params, state.master, grads, state.m, state.v, dims)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, OptState(step, state.master, state.m, state.v), metrics

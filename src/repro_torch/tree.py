@@ -3,7 +3,7 @@ are tensors — the port's stand-in for JAX pytrees. A ``NamedTuple`` such as
 :class:`repro_torch.optim.compression.Int8Weights` is one leaf."""
 from __future__ import annotations
 
-from typing import Any, Callable, List, Sequence
+from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
 
@@ -21,6 +21,20 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if _is_node(tree):
         return type(tree)(tree_map(fn, *vs) for vs in zip(tree, *rest))
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn: Callable, tree: Any, *rest: Any,
+                       path: Tuple = ()) -> Any:
+    """``fn(path, leaf, *rest_leaves)`` leafwise, ``path`` the tuple of
+    dict keys and list indices from the root (a JAX key path's entries)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, *(r[k] for r in rest),
+                                      path=path + (k,))
+                for k, v in tree.items()}
+    if _is_node(tree):
+        return type(tree)(tree_map_with_path(fn, *vs, path=path + (i,))
+                          for i, vs in enumerate(zip(tree, *rest)))
+    return fn(path, tree, *rest)
 
 
 def tree_leaves(tree: Any) -> List[Any]:

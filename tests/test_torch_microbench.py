@@ -4,6 +4,7 @@ own sweep times real forwards on the CPU and counts their FLOPs."""
 import dataclasses
 import importlib.util
 import json
+import types
 from pathlib import Path
 
 import numpy as np
@@ -138,14 +139,21 @@ def test_measure_op_counts_flops_over_the_fallback_and_bytes_default_0():
     assert (s.flops, s.xfer_bytes) == (2.0 * 4 * 8 * 2, 0.0)
 
 
-def test_time_callable_is_the_median_after_warmup():
-    """Calls of 0 (warm-up), 2, 10 and 4 ms: the median of the three timed
-    calls is the 4 ms one."""
-    import time
+def test_time_callable_is_the_median_after_warmup(monkeypatch):
+    """Calls of 0 (warm-up), 2, 10 and 4 ms on a fake clock that each call
+    advances by its nap: the median of the three timed calls is exactly the
+    4 ms one (no host sleep, so no scheduler can stretch a nap)."""
+    clock = [0.0]
     naps = iter([0.0, 0.002, 0.010, 0.004])
-    out = TMB.time_callable(lambda: time.sleep(next(naps)), repeats=3,
-                            warmup=1)
-    assert 0.004 <= out < 0.010
+
+    def nap():
+        clock[0] += next(naps)
+
+    # microbench's own view of the clock: no other code sees the fake
+    monkeypatch.setattr(TMB, "time",
+                        types.SimpleNamespace(perf_counter=lambda: clock[0]))
+    out = TMB.time_callable(nap, repeats=3, warmup=1)
+    assert out == 0.004
 
 
 def test_entry_points_need_a_device_choice_without_a_card():

@@ -222,6 +222,28 @@ def test_train_slice_modules_import_neither_jax_nor_repro(module):
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+MESH_SLICE = ["compat", "launch.mesh", "parallel.sharding",
+              "parallel.specs", "parallel.pipeline", "launch.roofline",
+              "launch.dryrun"]
+
+
+@pytest.mark.parametrize("module", MESH_SLICE)
+def test_mesh_slice_modules_import_neither_jax_nor_repro(module):
+    """Each module of the multi-device slice, imported alone in a fresh
+    interpreter, loads no ``jax`` and no ``repro`` module."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('repro_torch.{module}')\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_source_walk_covers_the_measured_path_modules():
     walked = {p.relative_to(ROOT / "src" / "repro_torch").with_suffix("")
               .as_posix().replace("/", ".")

@@ -34,9 +34,10 @@ import torch
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 from repro_torch.launch.microbench import time_callable
+from repro_torch.launch.roofline import H100_SXM
 
-HBM = 3.35e12                       # H100 SXM bytes/s
-BF16_OPS = 989e12                   # H100 SXM bf16 tensor cores, dense
+HBM = H100_SXM.hbm_bw               # bytes/s
+BF16_OPS = H100_SXM.peak_flops      # bf16 tensor cores, dense
 TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
 FLASH_SHAPES = {"llama3.2-1b": (4, 8, 4, 512, 64),
                 "student": (4, 8, 2, 512, 64),
