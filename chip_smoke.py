@@ -192,23 +192,27 @@ hand-written kernels, ``ssd_scan_bwd`` and ``topk_gating_bwd``:
 
 23. both held to their plain backward versions: the scan at mamba2-130m's
     and jamba's training shapes (batch 4 x 512, chunk 256) and small ones
-    (a ragged chunk count, L below the chunk), fp32 and bf16, the final
+    (a ragged chunk count on each route, L below the chunk), fp32 and
+    bf16 (bf16 at the models' (P, N) on the tensor route), the final
     state's gradient zero and not, B and C head-shared (B, L, N), expanded
-    over the heads with stride 0, and per head; every fp32 gradient within
-    2e-3 of its largest entry (the forward's bound), a bf16 one also within
-    one bf16 step of each value; the gating at moonshot's (2048, 64, 6),
-    jamba's (2048, 16, 2), a decode step's (4, 64, 6), N = 0, tied rows
-    and near-zero weights, within 1e-5; every case run twice and
-    bit-equal; both timed at the training shapes by device time beside
-    their bounds, their plain versions and autograd of their plain
-    forwards (no one PyTorch call computes either backward);
+    over the heads with stride 0, and per head, and the tensor route at
+    chunk 256 with dt = softplus(0) (the reference's NaN); every fp32
+    gradient within 2e-3 of its largest entry (the forward's bound), a
+    bf16 one also within one bf16 step of each value; the gating at
+    moonshot's (2048, 64, 6), jamba's (2048, 16, 2), a decode step's (4,
+    64, 6), N = 0, tied rows and near-zero weights, within 1e-5; every
+    case run twice and bit-equal; both timed at the training shapes by
+    device time beside their bounds, their plain versions and autograd of
+    their plain forwards (no one PyTorch call computes either backward),
+    the scan also beside its tensor route's own bound;
 24. card vs CPU training, tiny fp32 mamba2-130m, moonshot-v1-16b-a3b and
     jamba-v0.1-52b (TF32 off): one step's loss and every gradient leaf
     within 1e-3, the eight training kernels' launches exact;
 25. full width: mamba2-130m uncut, bf16, through ``train.run(tiny=False,
     steps=20, batch=4, seq=512, ckpt_every=10)`` (loss falling, every
     layer's step-1 gradient finite and nonzero, the step-10 checkpoint
-    stepped to 20 bit-equal, step ms, tokens/s, a profile);
+    stepped to 20 bit-equal, step ms, tokens/s, a profile with the scan
+    backward's launches apart);
     moonshot-v1-16b-a3b cut to 2 layers through ``train.run`` for 10 steps
     without checkpoints (loss falling, every leaf's step-1 gradient finite
     and nonzero); one period (8 layers) of jamba-v0.1-52b through one
@@ -280,6 +284,7 @@ import copy
 import dataclasses
 import itertools
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -1513,6 +1518,9 @@ def phase_lm_card_vs_cpu(dev) -> None:
           f"{launches[:3]} = (2L+1, L, L) per call; CPU run {cpu_s:.1f} s")
 
 
+SCAN_LAUNCH = re.compile(r"ssd_bwd_\w+")     # a scan backward launch's name
+
+
 def lm_profile(label: str, fn, calls: int) -> dict:
     """Wall and device-busy ms per call over ``calls`` calls of ``fn``
     under ``torch.profiler``, the five longest kernels and the LM
@@ -1549,10 +1557,14 @@ def lm_profile(label: str, fn, calls: int) -> dict:
                                                   )))}
     top = "; ".join(f"{k[:70]} {t:.4f} ms" for k, t in
                     sorted(per_name.items(), key=lambda kv: -kv[1])[:5])
+    # the scan backward's launches apart (states, fold, tiles, scan, sum)
+    scan = "".join(f"; {SCAN_LAUNCH.search(n).group(0)} {t:.4f} ms"
+                   for n, t in per_name.items() if SCAN_LAUNCH.search(n))
     print(f"profile: {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
           f"({busy / wall:.1%} of wall) over {n_events // calls} launches; "
           + ", ".join(f"{k} {t:.4f} ms ({t / busy:.1%})"
-                      for k, t in share.items() if t) + f"; top: {top}")
+                      for k, t in share.items() if t) + f"; top: {top}"
+          + (f"; ssd_scan_bwd by launch{scan}" if scan else ""))
     return dict(wall_ms=wall, busy_ms=busy, **share)
 
 
@@ -3377,10 +3389,12 @@ SSM_TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
                      "topk_gating", "topk_gating_bwd")
 # (B, H, L, P, N, Q) of the scan backward's sweep: mamba2-130m's and
 # jamba's training shapes, the tiny configs', L below the chunk, a ragged
-# chunk count (64-row tiles of a 48-step chunk), N 8 and a 100-step chunk
+# chunk count (64-row tiles of a 48-step chunk) on each route, N 8 and a
+# 100-step chunk; bf16 at the models' (P, N) takes the tensor route
 SCAN_BWD_SWEEP = ((4, 24, 512, 64, 128, 256), (4, 128, 512, 64, 16, 256),
                   (2, 8, 64, 32, 16, 32), (2, 3, 20, 32, 16, 32),
-                  (1, 4, 96, 16, 32, 48), (2, 2, 200, 32, 8, 100))
+                  (1, 4, 96, 16, 32, 48), (2, 2, 200, 32, 8, 100),
+                  (1, 4, 96, 64, 16, 48))
 # (N, E, k) of the gating backward's sweep: moonshot's and jamba's
 # training rows, decode steps' rows, N = 0, ragged E, E 256 and k = E
 GATE_BWD_SWEEP = ((2048, 64, 6), (2048, 16, 2), (4, 64, 6), (4, 16, 2),
@@ -3468,9 +3482,12 @@ def gating_bwd_bound(N, E, k) -> tuple:
 
 def phase_ssm_train_kernels(dev) -> dict:
     """ssd_scan_bwd and topk_gating_bwd vs their plain backward versions
-    over sweeps, each case twice and bit-equal; timed at the training
-    shapes beside their bounds, their plain versions and autograd of the
-    plain forwards."""
+    over sweeps, each case twice and bit-equal (the scan's route printed
+    per shape; chunk 256 at dt = softplus(0), the reference's NaN, finite
+    on the tensor route); timed at the training shapes beside their
+    bounds, their plain versions and autograd of the plain forwards, the
+    scan's tensor route also beside its own bound (its bf16
+    operations)."""
     gen = torch.Generator(device=dev).manual_seed(23)
     worst = {k: 0.0 for k in SSM_TRAIN_SOURCES}
     cases = {k: 0 for k in SSM_TRAIN_SOURCES}
@@ -3497,10 +3514,27 @@ def phase_ssm_train_kernels(dev) -> dict:
                     worst["ssd_scan_bwd"] = max(worst["ssd_scan_bwd"], e)
                     rel = max(rel, r)
                     cases["ssd_scan_bwd"] += 1
-            errs.append(f"{str(dtype)[6:]}:{rel:.1e}")
+            errs.append(f"{str(dtype)[6:]} ({SS.bwd_route(dtype, P, N)}):"
+                        f"{rel:.1e}")
         print(f"ssd_scan_bwd (B,H,L,P,N,Q)=({B},{H},{L},{P},{N},{Q}), "
               f"shared/stride-0/per-head B and C, dh zero and not, largest "
               f"error over largest entry: " + " ".join(errs))
+    for P, N in SS.BWD_MMA_SHAPES:      # no positive exponent at chunk 256
+        x, dt, A, Bm, Cm = scan_bwd_operands(2, 4, 512, P, N, torch.bfloat16,
+                                             "shared", gen, dev)
+        args = (x, torch.full_like(dt, float(np.log(2.0))),
+                -torch.ones_like(A), Bm, Cm)
+        dy = torch.randn(x.shape, generator=gen, device=dev)
+        label = f"ssd_scan_bwd chunk 256 at dt = softplus(0), (P, N) {P, N}"
+        got = same_twice(lambda: ops.ssd_scan_bwd(*args, dy, chunk=256),
+                         label)
+        torch.cuda.synchronize()
+        e, r = scan_bwd_check(got, ops.ssd_scan_bwd_ref(*args, dy, chunk=256),
+                              label)
+        worst["ssd_scan_bwd"] = max(worst["ssd_scan_bwd"], e)
+        cases["ssd_scan_bwd"] += 1
+        print(f"{label}, A = -1 (the reference's NaN): every gradient "
+              f"finite, largest error over largest entry {r:.1e}")
     if ops.ssd_scan_bwd.launches - launches != 2 * cases["ssd_scan_bwd"]:
         raise AssertionError("ssd_scan_bwd: launches do not match the calls")
     launches = ops.topk_gating_bwd.launches
@@ -3558,6 +3592,8 @@ def phase_ssm_train_kernels(dev) -> dict:
             return ops.ssd_scan_bwd(*args, dy, chunk=Q)
         auto = backward_timing(lambda *a: ops.ssd_scan_ref(
             *a, chunk=Q, out_dtype=f32), args, dy)
+        plan = SS.bwd_plan(torch.bfloat16, B, H, L, P, N, Q, True,
+                           num_sms(dev.index or 0))
         t = dict(ms=cuda_ms(kernel, iters=20, warm=3),
                  device_ms=MB.time_callable(kernel, repeats=20,
                                             warmup=2) * 1e3,
@@ -3566,16 +3602,21 @@ def phase_ssm_train_kernels(dev) -> dict:
                  autograd_ms=MB.time_callable(auto, repeats=5,
                                               warmup=1) * 1e3,
                  library_ms=None,
-                 bound=ssd_bwd_bound(B, H, L, P, N, Q, torch.bfloat16, True))
+                 bound=ssd_bwd_bound(B, H, L, P, N, Q, torch.bfloat16, True),
+                 route_bound_ms=(SS.bwd_mma_flops(B, H, L, P, N, Q)
+                                 / BF16_FLOPS * 1e3
+                                 if plan.route == "mma" else None))
         timing.setdefault("ssd_scan_bwd", t)
-        plan = SS.bwd_plan(B, H, L, P, N, Q, True, num_sms(dev.index or 0))
+        route = ("" if t["route_bound_ms"] is None else
+                 f", the {plan.route} route's own bound (its bf16 "
+                 f"operations) {t['route_bound_ms']:.6f} ms")
         print(f"ssd_scan_bwd timing at {arch}'s (B,L,H,P,N,Q)=({B},{L},{H},"
               f"{P},{N},{Q}), bf16 x/B/C as the model's views, dy fp32: "
               f"kernel {t['ms']:.5f} ms, device {t['device_ms']:.5f} ms, "
               f"plain {t['plain_ms']:.5f} ms, autograd of the plain forward "
               f"device {t['autograd_ms']:.5f} ms, bound {t['bound'][0]:.6f} "
-              f"ms ({t['bound'][1]}); no one PyTorch call computes it; plan "
-              f"{plan}")
+              f"ms ({t['bound'][1]}){route}; no one PyTorch call computes "
+              f"it; plan {plan}")
     for N, E, k in ((TRAIN_BATCH * TRAIN_SEQ, get_config(MOE_ARCH).n_experts,
                      get_config(MOE_ARCH).top_k),
                     (TRAIN_BATCH * TRAIN_SEQ, 16, 2), (LM_BATCH, 64, 6)):
@@ -3594,7 +3635,8 @@ def phase_ssm_train_kernels(dev) -> dict:
                      logits, idx, w, dw)),
                  autograd_ms=MB.time_callable(auto, repeats=200,
                                               warmup=3) * 1e3,
-                 library_ms=None, bound=gating_bwd_bound(N, E, k))
+                 library_ms=None, bound=gating_bwd_bound(N, E, k),
+                 route_bound_ms=None)
         timing.setdefault("topk_gating_bwd", t)
         print(f"topk_gating_bwd timing at (N,E,k)=({N},{E},{k}): kernel "
               f"{t['ms']:.5f} ms, device {t['device_ms']:.5f} ms, plain "
@@ -4396,7 +4438,7 @@ def main() -> int:
                               **{k: ssm_train_timing[name][k] for k in (
                                   "max_abs_err", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms", "device_ms",
-                                  "autograd_ms")})
+                                  "autograd_ms", "route_bound_ms")})
                          for name in SSM_TRAIN_SOURCES]
     print(smi)
     print(json.dumps({"kernels": [kernel, decode] + lm_kernels

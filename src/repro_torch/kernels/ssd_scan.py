@@ -37,9 +37,14 @@ number of rows, so calls on one device must not overlap on two streams.
 Where grad mode is on and an operand needs a gradient, :func:`ssd_scan` is
 a ``torch.autograd.Function`` (the ssm and hybrid families train through
 it) whose backward :func:`ssd_scan_bwd` launches the hand-written
-``csrc/ssd_scan_bwd.cu`` on the card (four launches in stream order, fp32
-on the CUDA cores, no atomics; :func:`bwd_plan`) and takes the plain
-chunk-by-chunk backward :func:`ssd_scan_bwd_ref` on the CPU;
+``csrc/ssd_scan_bwd.cu`` on the card and takes the plain chunk-by-chunk
+backward :func:`ssd_scan_bwd_ref` on the CPU. Two routes, no atomics
+(:func:`bwd_plan`): bf16 x, B and C at the models' (P, N)
+(``BWD_MMA_SHAPES``) take the tensor route, five launches whose products
+are ``mma.sync`` with fp32 factors as ``BWD_TERMS`` bf16 terms, the chunk's
+(t, s) tiles split into row-tile and column-tile blocks of one grid; fp32
+operands and other shapes the CUDA-core route, four launches of fp32
+FMAs;
 ``ssd_scan_bwd.launches`` counts its calls. B and C may be given once as
 (B, L, N) for the heads of x (B, H, L, P), as the model does: the scan
 repeats them over H with stride 0, and the backward returns their
@@ -77,6 +82,9 @@ TERMS = 3                              # bf16 terms an fp32 factor enters as
 BWD_THREADS = 256                      # the backward's launches (1), (2), (4)
 BWD_CHUNK_THREADS = 512                # the backward's chunk launch (3)
 BWD_TILE = 64                          # t and s rows of the backward's tiles
+BWD_TERMS = 2                          # the backward's bf16 terms of a factor
+BWD_MMA_THREADS = 128                  # the tensor route's tile launch (3')
+BWD_MMA_SHAPES = ((64, 128), (64, 16), (32, 16))   # its (P, N): the models'
 
 
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -452,10 +460,14 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     shared = shared_bc(x, Bm)
     four = x.dim() == 4
     Bsz, H = (x.shape[0], x.shape[1]) if four else (1, x.shape[0])
-    plan = bwd_plan(Bsz, H, L, P, N, Q, shared, num_sms(x.device.index))
+    plan = bwd_plan(x.dtype, Bsz, H, L, P, N, Q, shared,
+                    num_sms(x.device.index))
     dy = dy.float()
     if dy.stride(-1) != 1:
         dy = dy.contiguous()
+    mma = plan.route == "mma"
+    if mma:                            # 16-byte rows for cp.async
+        x, Bm, Cm, dy = (aligned(t, 16) for t in (x, Bm, Cm, dy))
     if dh is not None:
         dh = dh.float().contiguous()
     if four:                           # dx laid out as the model's x
@@ -477,9 +489,7 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                *Bv.stride()[:3], *Cv.stride()[:3], *dyv.stride()[:3],
                *dxv.stride()[:3], *ddtv.stride()]
     arr = (ctypes.c_longlong * 23)(*strides)
-    BH, nc = Bsz * H, L // Q
-    ws = torch.empty(2 * BH * nc * (P * N + 1) + 2 * BH * L * N,
-                     dtype=torch.float32, device=x.device)
+    ws = torch.empty(plan.workspace, dtype=torch.uint8, device=x.device)
     lib = _bwd_library()
     with on_device(x.device):
         rc = lib.ssd_scan_bwd(
@@ -487,9 +497,9 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             Cm.data_ptr(), dy.data_ptr(),
             dh.data_ptr() if dh is not None else None, dx.data_ptr(),
             ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-            ws.data_ptr(), Bsz, H, L, P, N, Q, int(shared), arr,
-            int(x.dtype == torch.bfloat16), plan.smem_state,
-            plan.smem_chunk, plan.reduce_blocks, stream_handle(x.device))
+            ws.data_ptr(), plan.workspace, Bsz, H, L, P, N, Q, int(shared),
+            arr, int(x.dtype == torch.bfloat16), int(mma), plan.smem_state,
+            plan.smem_tiles, plan.reduce_blocks, stream_handle(x.device))
     if rc != 0:
         msg = lib.ssd_scan_bwd_error_string(rc).decode()
         raise RuntimeError(f"ssd_scan_bwd launch failed: {msg} ({rc})")
@@ -501,57 +511,148 @@ ssd_scan_bwd.launches = 0
 
 
 class BwdPlan(NamedTuple):
-    """The backward's four launches for one call: blocks of (1) the chunk
-    states, (2) the fold (a (rows, entry groups) grid), (3) the chunks and
-    (4) the head sum; the shared-memory bytes of (1) and (3)."""
+    """The backward's launches for one call. ``route`` "mma" (the tensor
+    route: (1') the chunk states, own and gradient, (2) their fold, (3')
+    the (3s) and (3t) tile blocks, (4') the scan, (5) the head sum) or
+    "cuda_cores" ((1) the chunk states, (2) the fold, (3) the chunks, (4)
+    the head sum); the blocks of each launch (the fold a (rows, entry
+    groups) grid; ``scan_blocks`` 0 on the CUDA-core route, whose chunk
+    launch scans), the shared-memory bytes of the states and tile (or
+    chunk) launches, and the workspace's bytes."""
 
+    route: str
     state_blocks: int
     fold_grid: Tuple[int, int]
-    chunk_blocks: int
+    tile_blocks: int
+    scan_blocks: int
     reduce_blocks: int
     smem_state: int
-    smem_chunk: int
+    smem_tiles: int
+    workspace: int
 
 
-def bwd_smem_bytes(P: int, N: int, Q: int) -> Tuple[int, int]:
-    """Shared-memory bytes of launches (1) and (3), as the kernel lays them
-    out. (1): the chunk's cumsum (fp64), dt and two row factors, a 64-row
-    tile each of x, B, dy and C. (3): the cumsum, six per-step arrays, a
-    block's partial sums and an s-tile's U, the entering state and its
-    gradient (rows of N + 1), 64-row tiles of B and C (N + 1) and of x·dt
-    and dy (P + 1), and the (t, s) tiles G, W and M (rows of 65)."""
-    state = 8 * Q + 12 * Q + 4 * BWD_TILE * (2 * P + 2 * N)
-    chunk = (8 * Q + 4 * (6 * Q + BWD_CHUNK_THREADS + BWD_TILE + 2)
-             + 4 * 2 * P * (N + 1) + 4 * 2 * BWD_TILE * (N + 1)
-             + 4 * 2 * BWD_TILE * (P + 1) + 4 * 3 * BWD_TILE * (BWD_TILE + 1))
+def bwd_route(dtype: torch.dtype, P: int, N: int) -> str:
+    """"mma" for bf16 x, B and C at a (P, N) the tensor route is built for
+    (``BWD_MMA_SHAPES``), else "cuda_cores"."""
+    return ("mma" if dtype == torch.bfloat16 and (P, N) in BWD_MMA_SHAPES
+            else "cuda_cores")
+
+
+def bwd_smem_bytes(P: int, N: int, Q: int, route: str = "cuda_cores"
+                   ) -> Tuple[int, int]:
+    """Shared-memory bytes of the route's states launch and its tile (or
+    chunk) launch, as the kernel lays them out. CUDA-core (1): the chunk's
+    cumsum (fp64), dt and two row factors, a 64-row tile each of x, B, dy
+    and C. (3): the cumsum, six per-step arrays, a block's partial sums
+    and an s-tile's U, the entering state and its gradient (rows of N +
+    1), 64-row tiles of B and C (N + 1) and of x·dt and dy (P + 1), and
+    the (t, s) tiles G, W and M (rows of 65). Tensor (1'): two stages of
+    the larger of 64 rows of x and B (bf16, rows padded by 8) and of dy
+    (fp32, rows of P + 4) and C, then the cumsum (fp64), dt and a factor
+    per step of the 64-row-rounded chunk. (3'): the larger of a (3s)
+    block's x and B rows and two stages of C rows and dy's terms, and a
+    (3t) block's C rows and dy's terms and two stages of B and x rows
+    (bf16, padded by 8); the cumsum, dt and a factor per step, and a
+    block's partial sums."""
+    T = BWD_TILE
+    if route == "mma":
+        Qp = -(-Q // T) * T
+        row_p, row_n = 2 * T * (P + PAD), 2 * T * (N + PAD)
+        state = 2 * max(row_p + row_n, 4 * T * (P + 4) + row_n) + 16 * Qp
+        s_side = row_p + row_n + 2 * (row_n + BWD_TERMS * row_p)
+        t_side = row_n + BWD_TERMS * row_p + 2 * (row_n + row_p)
+        return state, max(s_side, t_side) + 16 * Qp + 4 * BWD_MMA_THREADS
+    state = 8 * Q + 12 * Q + 4 * T * (2 * P + 2 * N)
+    chunk = (8 * Q + 4 * (6 * Q + BWD_CHUNK_THREADS + T + 2)
+             + 4 * 2 * P * (N + 1) + 4 * 2 * T * (N + 1)
+             + 4 * 2 * T * (P + 1) + 4 * 3 * T * (T + 1))
     return state, chunk
 
 
+def bwd_workspace_bytes(Bsz: int, H: int, L: int, P: int, N: int, Q: int,
+                        route: str) -> int:
+    """The backward's workspace, regions of 16-byte multiples in the
+    kernel's order: the chunks' own states and state gradients (fp32 (BH,
+    nc, P, N) each, the fold's entering states and Hn in their place),
+    decays and dA shares ((BH, nc) each), per-head dB and dC ((BH, L, N)
+    each); on the tensor route also the cumsums (fp64 (BH, L)), dy's
+    ``BWD_TERMS`` bf16 terms ((BH, L, terms, P)), four per-step sums
+    ((BH, L) each) and ⟨Hn_c, h_c⟩ ((BH, nc))."""
+    BH, nc = Bsz * H, L // Q
+    sizes = [4 * BH * nc * P * N] * 2 + [4 * BH * nc] * 2 \
+        + [4 * BH * L * N] * 2
+    if route == "mma":
+        sizes += [8 * BH * L, 2 * BWD_TERMS * BH * L * P, 16 * BH * L,
+                  4 * BH * nc]
+    return sum(-(-n // 16) * 16 for n in sizes)
+
+
 @functools.lru_cache(maxsize=256)
-def bwd_plan(Bsz: int, H: int, L: int, P: int, N: int, Q: int,
-             shared: bool, sms: int) -> BwdPlan:
-    """The backward's launches: a block per (batch row, head, chunk) in
-    (1) and (3), a thread per state entry of each (batch row, head) in (2),
-    and in (4) a grid-stride loop over the dB and dC outputs ((B, L, N)
-    where the heads share B and C, else (B, H, L, N)) of at most 8 blocks
-    an SM. Raises for P and N the kernel does not take or a chunk whose
-    shared memory is past ``SMEM_LIMIT``. The kernel takes P and N powers
-    of two in [4, 128] with P·N <= 8192 (the models' (64, 128), (64, 16)
-    and (32, 16))."""
-    if not all(4 <= v <= 128 and v & (v - 1) == 0 for v in (P, N)) \
-            or P * N > 8192:
+def bwd_plan(dtype: torch.dtype, Bsz: int, H: int, L: int, P: int, N: int,
+             Q: int, shared: bool, sms: int) -> BwdPlan:
+    """The backward's launches (:class:`BwdPlan`): on both routes a thread
+    per state entry of each (batch row, head) in the fold and, in the head
+    sum, a grid-stride loop over the dB and dC outputs ((B, L, N) where the
+    heads share B and C, else (B, H, L, N)) of at most 8 blocks an SM. The
+    tensor route (:func:`bwd_route`): two blocks per (batch row, head,
+    chunk) in (1'), own state and gradient; two per (batch row, head,
+    chunk, 64-row tile) in (3'), its (3s) and (3t) blocks, heaviest tiles
+    first (the kernel's order); a warp per (batch row, head, chunk) in
+    (4'), 8 a block. The CUDA-core route: a block per (batch row, head,
+    chunk) in (1) and (3); it takes P and N powers of two in [4, 128] with
+    P·N <= 8192. Raises for shapes neither route takes or shared memory
+    past ``SMEM_LIMIT``."""
+    route = bwd_route(dtype, P, N)
+    if route == "cuda_cores" and (
+            not all(4 <= v <= 128 and v & (v - 1) == 0 for v in (P, N))
+            or P * N > 8192):
         raise ValueError(f"ssd_scan_bwd takes P and N powers of two in [4, "
-                         f"128] with P*N <= 8192; got P={P}, N={N}")
-    smem_state, smem_chunk = bwd_smem_bytes(P, N, Q)
-    if smem_chunk > SMEM_LIMIT:
-        raise ValueError(f"(P, N, Q) = ({P}, {N}, {Q}) needs {smem_chunk} "
-                         f"bytes of shared memory in the backward, more than "
-                         f"{SMEM_LIMIT}")
+                         f"128] with P*N <= 8192, or for bfloat16 (P, N) in "
+                         f"{BWD_MMA_SHAPES}; got P={P}, N={N}")
+    smem_state, smem_tiles = bwd_smem_bytes(P, N, Q, route)
+    if max(smem_state, smem_tiles) > SMEM_LIMIT:
+        raise ValueError(f"(P, N, Q) = ({P}, {N}, {Q}) needs "
+                         f"{max(smem_state, smem_tiles)} bytes of shared "
+                         f"memory in the backward, more than {SMEM_LIMIT}")
     BH, nc = Bsz * H, L // Q
     outs = Bsz * (1 if shared else H) * L * N
-    return BwdPlan(BH * nc, (BH, -(-P * N // BWD_THREADS)), BH * nc,
+    mma = route == "mma"
+    tiles = -(-Q // BWD_TILE)
+    warps = BWD_THREADS // 32
+    return BwdPlan(route, (2 if mma else 1) * BH * nc,
+                   (BH, -(-P * N // BWD_THREADS)),
+                   2 * tiles * BH * nc if mma else BH * nc,
+                   -(-BH * nc // warps) if mma else 0,
                    max(1, min(-(-outs // BWD_THREADS), 8 * sms)),
-                   smem_state, smem_chunk)
+                   smem_state, smem_tiles,
+                   bwd_workspace_bytes(Bsz, H, L, P, N, Q, route))
+
+
+def bwd_mma_flops(Bsz: int, H: int, L: int, P: int, N: int, Q: int) -> int:
+    """The tensor route's bf16 operations, 2·16·8·16 a ``mma.sync`` as its
+    warps issue them: (1') per chunk and head the own state and its
+    gradient, ``BWD_TERMS`` products each over the 64-row-rounded chunk;
+    (3') per 64-column block of a tile pair S and D (D once a term), the
+    cross terms of Gᵀ·dy (terms·(terms+1)/2) and Wᵀ·C, W·B (once a term),
+    a diagonal tile's blocks above (3s) or below (3t) a warp's rows
+    skipped; then the state products, B·Hnᵀ and x·Hn once a term, dy·h_c
+    the cross terms. The route's bound is these at the bf16 rate."""
+    T, R = BWD_TERMS, BWD_TILE
+    cross = T * (T + 1) // 2
+    nt, P16, N16 = -(-Q // R), P // 16, N // 16
+    Qp = nt * R
+    per_chunk = 2 * (P // 16) * (Qp // 16) * T * (N // 8)      # (1')
+    for i in range(nt):
+        for j in range(i, nt):
+            for w in range(4):
+                s_cols = 4 - (w if j == i else 0)         # (3s) s-tile i
+                t_cols = w + 1 if j == i else 4           # (3t) t-tile j
+                per_chunk += 2 * s_cols * (N16 + P16 * T + P16 * cross
+                                           + N16 * T)
+                per_chunk += 2 * t_cols * (N16 + P16 * T + N16 * T)
+    per_chunk += nt * 4 * 2 * (N16 * T * P16 + N16 * P16 * T)   # (3s) state
+    per_chunk += nt * 4 * 2 * N16 * P16 * cross                  # (3t) state
+    return per_chunk * 4096 * Bsz * H * (L // Q)
 
 
 def _workspace(dev: torch.device, BH: int, L: int, P: int, N: int, Q: int
@@ -596,12 +697,15 @@ def _library() -> ctypes.CDLL:
 def _bwd_library() -> ctypes.CDLL:
     """The built backward library with its C signatures declared."""
     lib = build.load("ssd_scan_bwd")
-    lib.ssd_scan_bwd.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
+    lib.ssd_scan_bwd.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_longlong]
+                                 + [ctypes.c_int] * 7
                                  + [ctypes.POINTER(ctypes.c_longlong)]
-                                 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                                 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.ssd_scan_bwd.restype = ctypes.c_int
     lib.ssd_scan_bwd_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.ssd_scan_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.ssd_scan_bwd_ws_bytes.argtypes = [ctypes.c_int] * 7
+    lib.ssd_scan_bwd_ws_bytes.restype = ctypes.c_longlong
     lib.ssd_scan_bwd_error_string.argtypes = [ctypes.c_int]
     lib.ssd_scan_bwd_error_string.restype = ctypes.c_char_p
     return lib

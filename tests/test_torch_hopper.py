@@ -1284,7 +1284,8 @@ SCAN_BWD_SHAPES = [(4, 24, 512, 64, 128, 256),     # mamba2-130m's training
                    (2, 8, 64, 32, 16, 32),         # the tiny configs'
                    (2, 3, 20, 32, 16, 32),         # L below the chunk
                    (1, 4, 96, 16, 32, 48),         # a ragged chunk count
-                   (2, 2, 200, 32, 8, 100)]
+                   (2, 2, 200, 32, 8, 100),
+                   (1, 4, 96, 64, 16, 48)]         # ragged, tensor route
 
 
 def _scan_bwd_operands(Bsz, H, L, P, N, dtype, layout, dev, seed):
@@ -1311,8 +1312,14 @@ def test_ssd_scan_bwd_matches_plain_version(hopper, shape, dtype, layout,
                                             with_dh):
     """One launch sequence per call, every gradient in its operand's shape
     and dtype within its bound of the plain backward, a rerun bit-equal
-    (no atomics)."""
+    (no atomics). bf16 at the models' (P, N) takes the tensor route (the
+    plan says so), with B and C shared, expanded with stride 0 or per
+    head; fp32 and the other shapes the CUDA-core route."""
     Bsz, H, L, P, N, Q = shape
+    route = ss.bwd_plan(dtype, Bsz, H, L, P, N, min(Q, L),
+                        layout != "per_head", 132).route
+    assert route == ("mma" if dtype == torch.bfloat16 and (P, N) in
+                     ss.BWD_MMA_SHAPES else "cuda_cores")
     args = _scan_bwd_operands(Bsz, H, L, P, N, dtype, layout, hopper,
                               seed=sum(shape))
     g = torch.Generator(device=hopper).manual_seed(3)
@@ -1333,14 +1340,48 @@ def test_ssd_scan_bwd_matches_plain_version(hopper, shape, dtype, layout,
 
 @pytest.mark.parametrize("P,N,Q", [(64, 128, 256), (64, 16, 256),
                                    (32, 16, 32), (16, 32, 48), (4, 4, 1),
-                                   (128, 64, 256), (8, 128, 512)])
+                                   (128, 64, 256), (8, 128, 512),
+                                   (64, 16, 48), (32, 16, 20)])
 def test_ssd_scan_bwd_plan_sizes_the_kernels_shared_memory(hopper, P, N, Q):
-    """The plan's shared-memory bytes are the kernel's own count for both
-    launches that use it."""
+    """The plan's shared-memory bytes are the kernel's own count for the
+    launches that use it: the CUDA-core route's states and chunk launches
+    and, at the tensor route's (P, N), its states and tile launches; the
+    workspace the plan allocates is the kernel's carve of it."""
     lib = ss._bwd_library()
     state, chunk = ss.bwd_smem_bytes(P, N, Q)
     assert lib.ssd_scan_bwd_smem_bytes(P, N, Q, 0) == state
     assert lib.ssd_scan_bwd_smem_bytes(P, N, Q, 1) == chunk
+    routes = ["cuda_cores"]
+    if (P, N) in ss.BWD_MMA_SHAPES:
+        routes.append("mma")
+        state, tiles = ss.bwd_smem_bytes(P, N, Q, "mma")
+        assert lib.ssd_scan_bwd_smem_bytes(P, N, Q, 2) == state
+        assert lib.ssd_scan_bwd_smem_bytes(P, N, Q, 3) == tiles
+    for route in routes:
+        for Bsz, H, L in ((1, 3, 2 * Q), (4, 24, 4 * Q)):
+            assert lib.ssd_scan_bwd_ws_bytes(Bsz, H, L, P, N, Q,
+                                             int(route == "mma")) == \
+                ss.bwd_workspace_bytes(Bsz, H, L, P, N, Q, route)
+
+
+@pytest.mark.parametrize("P,N", sorted(ss.BWD_MMA_SHAPES))
+def test_ssd_scan_bwd_is_finite_at_chunk_256_near_softplus_zero(hopper, P,
+                                                                N):
+    """The reference's NaN (chunk 256, dt = softplus(0), A = -1): the
+    tensor route takes no positive exponent, so every gradient is finite
+    and within its bound of the plain backward, a rerun bit-equal."""
+    args = list(_scan_bwd_operands(2, 4, 512, P, N, torch.bfloat16,
+                                   "shared", hopper, seed=P + N))
+    args[1] = torch.full_like(args[1], float(np.log(2.0)))
+    args[2] = -torch.ones_like(args[2])
+    g = torch.Generator(device=hopper).manual_seed(5)
+    dy = torch.randn(args[0].shape, generator=g, device=hopper)
+    got = ops.ssd_scan_bwd(*args, dy, chunk=256)
+    again = ops.ssd_scan_bwd(*args, dy, chunk=256)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for a, b in zip(got, ops.ssd_scan_bwd_ref(*args, dy, chunk=256)):
+        _scan_bwd_close(a, b)
 
 
 def test_ssd_scan_bwd_rejects_what_the_kernel_does_not_take(hopper):

@@ -344,35 +344,144 @@ def test_gating_bwd_plan_reads_and_writes_every_logit_once(N, E, k, aligned):
 SCAN_BWD = [(4, 24, 512, 64, 128, 256), (4, 128, 512, 64, 16, 256),
             (4, 8, 64, 32, 16, 32), (1, 4, 96, 16, 32, 48),
             (2, 3, 20, 32, 16, 20)]
+SCAN_DTYPES = [torch.float32, torch.bfloat16]
 
 
 @pytest.mark.parametrize("Bsz,H,L,P,N,Q", SCAN_BWD)
 @pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_head"])
+@pytest.mark.parametrize("dtype", SCAN_DTYPES, ids=["fp32", "bf16"])
 def test_scan_bwd_plan_covers_rows_entries_and_outputs(Bsz, H, L, P, N, Q,
-                                                       shared):
-    """A block per (batch row, head, chunk) in the states and chunk
-    launches, a thread per state entry in the fold, and the head sum's
-    grid-stride loop over (B, L, N) or (B, H, L, N) outputs within 8
-    blocks an SM; both shared-memory sizes within the card's 227 KB."""
+                                                       shared, dtype):
+    """The route from the dtype and (P, N) alone; the tensor route's two
+    states blocks (own state and its gradient) and two tile blocks ((3s)
+    and (3t)) per (batch row, head, chunk, 64-row tile) and a scan warp per
+    (batch row, head, chunk), the CUDA-core route's block per (batch row,
+    head, chunk) in the states and chunk launches; on both a thread per
+    state entry in the fold, and the head sum's grid-stride loop over (B,
+    L, N) or (B, H, L, N) outputs within 8 blocks an SM; both
+    shared-memory sizes within the card's 227 KB; the workspace the
+    kernel carves."""
+    route = SS.bwd_route(dtype, P, N)
+    assert route == ("mma" if dtype == torch.bfloat16 and
+                     (P, N) in SS.BWD_MMA_SHAPES else "cuda_cores")
+    BH, nc, tiles = Bsz * H, L // Q, -(-Q // SS.BWD_TILE)
     for sms in (132, 1):
-        p = SS.bwd_plan(Bsz, H, L, P, N, Q, shared, sms)
-        assert p.state_blocks == p.chunk_blocks == Bsz * H * (L // Q)
+        p = SS.bwd_plan(dtype, Bsz, H, L, P, N, Q, shared, sms)
+        assert p.route == route
+        if route == "mma":
+            assert p.state_blocks == 2 * BH * nc
+            assert p.tile_blocks == 2 * tiles * BH * nc
+            assert (p.scan_blocks - 1) * 8 < BH * nc <= p.scan_blocks * 8
+        else:
+            assert p.state_blocks == p.tile_blocks == BH * nc
+            assert p.scan_blocks == 0
         rows, groups = p.fold_grid
-        assert rows == Bsz * H
+        assert rows == BH
         assert (groups - 1) * SS.BWD_THREADS < P * N <= groups * \
             SS.BWD_THREADS
         outs = Bsz * (1 if shared else H) * L * N
         assert 1 <= p.reduce_blocks <= 8 * sms
         assert p.reduce_blocks == min(-(-outs // SS.BWD_THREADS), 8 * sms)
-        assert max(p.smem_state, p.smem_chunk) <= SS.SMEM_LIMIT
+        assert max(p.smem_state, p.smem_tiles) <= SS.SMEM_LIMIT
+        assert (p.smem_state, p.smem_tiles) == SS.bwd_smem_bytes(P, N, Q,
+                                                                 route)
+        assert p.workspace == SS.bwd_workspace_bytes(Bsz, H, L, P, N, Q,
+                                                     route)
+
+
+def _tile_blocks(ntt: int, nc: int):
+    """The tensor route's tile launch as the kernel reads blockIdx.x:
+    k = x // nc, chunk x % nc, rank k // 2; side 0 the (3s) block of
+    s-tile rank walking the t-tiles rank.. ntt - 1, side 1 the (3t) block
+    of t-tile ntt - 1 - rank walking the s-tiles 0.. that tile."""
+    for x in range(2 * ntt * nc):
+        k, c = divmod(x, nc)
+        rank, side = divmod(k, 2)
+        if side == 0:
+            yield side, c, [(rank, j) for j in range(rank, ntt)]
+        else:
+            j = ntt - 1 - rank
+            yield side, c, [(i, j) for i in range(j + 1)]
+
+
+@pytest.mark.parametrize("Bsz,H,L,P,N,Q", SCAN_BWD[:3] + SCAN_BWD[4:])
+def test_scan_bwd_tiles_cover_every_pair_once_heaviest_first(Bsz, H, L, P,
+                                                             N, Q):
+    """Over the tile launch's grid (x as above, y the head, z the batch
+    row), each (s-tile, t-tile >= s-tile) pair of every chunk, head and
+    batch row is walked exactly once by a (3s) block and once by a (3t)
+    block, and each side's blocks come in order of walks that never
+    lengthen (the heaviest first)."""
+    p = SS.bwd_plan(torch.bfloat16, Bsz, H, L, P, N, Q, True, 132)
+    ntt, nc = -(-Q // SS.BWD_TILE), L // Q
+    blocks = list(_tile_blocks(ntt, nc))
+    assert len(blocks) * H * Bsz == p.tile_blocks
+    for side in (0, 1):
+        seen = np.zeros((nc, ntt, ntt), np.int64)
+        walks = []
+        for sd, c, pairs in blocks:
+            if sd == side:
+                walks.append(len(pairs))
+                for i, j in pairs:
+                    seen[c, i, j] += 1
+        want = np.triu(np.ones((ntt, ntt), np.int64))
+        assert (seen == want[None]).all(), side
+        assert walks == sorted(walks, reverse=True), side
+
+
+def test_scan_bwd_tensor_route_fills_the_card_at_mamba2s_shape():
+    """At mamba2-130m's training shape on 132 SMs: 384 blocks of the
+    states launch, 1536 of the tile launch, whose shared memory lets two
+    blocks share an SM (228 KB, 1 KB reserved a block): over five blocks
+    an SM in flight or waiting."""
+    p = SS.bwd_plan(torch.bfloat16, 4, 24, 512, 64, 128, 256, True, 132)
+    assert p.route == "mma"
+    assert p.state_blocks == 384 >= 2 * 132
+    assert p.tile_blocks == 1536 >= 5 * 2 * 132
+    assert 2 * (p.smem_tiles + 1024) <= 228 * 1024
+    assert 3 * (p.smem_state + 1024) <= 228 * 1024
 
 
 def test_scan_bwd_shared_memory_at_the_models_shapes():
-    """mamba2's (64, 128, 256) is the largest the models take: its chunk
-    launch holds 225,800 bytes of the 232,448 a block may use."""
+    """mamba2's (64, 128, 256) is the largest the models take: the
+    CUDA-core chunk launch holds 225,800 bytes of the 232,448 a block may
+    use, the tensor route's tile launch 102,912 (x, B and two stages of C
+    and dy's two terms, 64 rows each, and 16 bytes a step) and its states
+    launch 73,728."""
     assert SS.bwd_smem_bytes(64, 128, 256) == (103424, 225800)
     assert SS.bwd_smem_bytes(64, 16, 256)[1] == 111112
     assert SS.bwd_smem_bytes(32, 16, 32)[1] < 96 * 1024
+    assert SS.bwd_smem_bytes(64, 128, 256, "mma") == (73728, 102912)
+    assert SS.bwd_smem_bytes(64, 16, 256, "mma") == (45056, 59904)
+    row = lambda w: 2 * 64 * (w + SS.PAD)  # noqa: E731  a 64-row bf16 tile
+    assert 102912 == (row(64) + row(128) + 2 * (row(128) + 2 * row(64))
+                      + 16 * 256 + 4 * SS.BWD_MMA_THREADS)
+
+
+@pytest.mark.parametrize("P,N,route", [(64, 128, "mma"), (64, 16, "mma"),
+                                       (32, 16, "mma"), (16, 32, "cuda_cores"),
+                                       (32, 8, "cuda_cores"),
+                                       (128, 64, "cuda_cores")])
+def test_scan_bwd_route_is_the_tensor_one_at_the_models_shapes(P, N, route):
+    """bf16 at the models' (P, N) takes the tensor route, other bf16 shapes
+    and every fp32 one the CUDA-core route."""
+    assert SS.bwd_route(torch.bfloat16, P, N) == route
+    assert SS.bwd_route(torch.float32, P, N) == "cuda_cores"
+
+
+def test_scan_bwd_workspace_regions_start_on_16_bytes():
+    """The workspace is the sum of its regions each rounded up to 16
+    bytes, the tensor route's four more (cumsums, dy's terms, per-step
+    sums, ⟨Hn, h⟩) after the CUDA-core route's six."""
+    Bsz, H, L, P, N, Q = 1, 3, 20, 32, 16, 20
+    BH, nc = Bsz * H, L // Q
+    up = lambda n: -(-n // 16) * 16  # noqa: E731
+    cores = (2 * up(4 * BH * nc * P * N) + 2 * up(4 * BH * nc)
+             + 2 * up(4 * BH * L * N))
+    assert SS.bwd_workspace_bytes(Bsz, H, L, P, N, Q, "cuda_cores") == cores
+    assert SS.bwd_workspace_bytes(Bsz, H, L, P, N, Q, "mma") == cores + (
+        up(8 * BH * L) + up(2 * SS.BWD_TERMS * BH * L * P) + up(16 * BH * L)
+        + up(4 * BH * nc))
 
 
 @pytest.mark.parametrize("P,N,Q,match", [(48, 16, 32, "powers of two"),
@@ -381,5 +490,13 @@ def test_scan_bwd_shared_memory_at_the_models_shapes():
                                          (128, 128, 32, "powers of two"),
                                          (128, 64, 1024, "shared memory")])
 def test_scan_bwd_plan_refuses_what_the_kernel_does_not_take(P, N, Q, match):
-    with pytest.raises(ValueError, match=match):
-        SS.bwd_plan(1, 2, Q, P, N, Q, True, 132)
+    for dtype in SCAN_DTYPES:
+        with pytest.raises(ValueError, match=match):
+            SS.bwd_plan(dtype, 1, 2, Q, P, N, Q, True, 132)
+
+
+def test_scan_bwd_tensor_route_counts_its_bf16_operations():
+    """The route's bound counts the products its warps issue: at mamba2's
+    shape 25.1 GFLOP (0.0254 ms at the bf16 rate), at jamba's 44.7."""
+    assert SS.bwd_mma_flops(4, 24, 512, 64, 128, 256) == 25115492352
+    assert SS.bwd_mma_flops(4, 128, 512, 64, 16, 256) == 44694503424
