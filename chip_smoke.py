@@ -273,6 +273,30 @@ roofline}``, ``parallel.*``) on the one card:
     printed beside the step phases 12, 15, 21 and 25 measured there, its
     share of the measured wall time at most 1.05.
 
+Tensor parallelism (``repro_torch.parallel.tensor``; ``mesh_step`` and
+``greedy_decode`` on a mesh with ``model`` > 1):
+
+30. ``flash_attention`` and ``decode_attention`` at the ranks' shapes at
+    ``model`` 2 against their plain versions, each twice bit-equal:
+    llama3.2-1b's 4 of 8 kv heads, granite-20b's 24 heads over its one kv
+    head (flash, D 128) and all 48 heads over a rank's block of 272
+    cached positions (decode with its log-sum-exp: lse within 1e-4,
+    o = 0 and lse = -inf at length 0, o without the lse the same bits),
+    timed beside their bounds, plain versions and SDPA; then two spawned
+    ranks sharing the one card over gloo (NCCL refuses two ranks of one
+    group on one device) on a (1, 2) mesh: llama3.2-1b at full width cut
+    to 2 layers in fp32 (every logit within rtol/atol 1e-3), then in bf16
+    llama3.2-1b uncut and granite-20b at full width cut to 8 of its 52
+    layers (the whole model, ~55 GB, cannot share the card with its two
+    halves; each logit within 3e-2 of its row's largest |logit|: a rank
+    rounds its share of a product before the sum), random weights that
+    each rank draws whole and cuts (``shard_params``), prompt 4 x 512 and
+    32 decode steps teacher-forced with the one-process run's tokens on
+    the same card, the greedy tokens equal counted, each
+    rank's launches of rmsnorm, flash and decode exact, prefill and decode
+    times per rank and the collectives' share (timed between
+    synchronisations), none a multi-card speed.
+
 The last two lines of standard output are the ``kernels`` JSON line
 (thirteen entries) and the ``ok`` JSON line. Exits non-zero without a
 CUDA device.
@@ -284,6 +308,9 @@ import copy
 import dataclasses
 import itertools
 import json
+import multiprocessing
+import os
+import queue
 import re
 import subprocess
 import sys
@@ -346,6 +373,7 @@ from repro_torch.obs import MetricsRegistry, Tracer  # noqa: E402
 from repro_torch.obs.report import critical_path, request_paths  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.optim.compression import quantize_weight  # noqa: E402
+from repro_torch.parallel import tensor as TP  # noqa: E402
 from repro_torch.runtime.engine import EngineConfig, ServingEngine  # noqa: E402
 from repro_torch.runtime.fleet import (FleetEngine, FleetRouter,  # noqa: E402
                                        SLOClass, TenantSpec)
@@ -1220,12 +1248,14 @@ def flash_bound(B, KV, G, Sq, Skv, D, causal, dtype) -> tuple:
     return roofline(nbytes, flops, dtype)
 
 
-def decode_bound(B, KV, G, length, D, dtype) -> tuple:
+def decode_bound(B, KV, G, length, D, dtype, lse: bool = False) -> tuple:
     """The K and V rows below ``length`` read once, q read and o written
-    once; 4·D flops per (query head, position)."""
+    once (and the fp32 lse, with ``lse``); 4·D flops per (query head,
+    position)."""
     e = torch.finfo(dtype).bits // 8
     nbytes = (2 * B * KV * length * D + 2 * B * KV * G * D) * e
-    return roofline(nbytes, 4 * D * B * KV * G * length, dtype)
+    return roofline(nbytes + 4 * B * KV * G * lse,
+                    4 * D * B * KV * G * length, dtype)
 
 
 def flash_operands(B, KV, G, S, D, dtype, strided, gen, dev):
@@ -4286,6 +4316,366 @@ def phase_mesh(dev, measured: dict) -> dict:
     return dict(launches=launches, roofline=rows)
 
 
+# -- tensor-parallel serving on a model axis: two ranks sharing the card ------
+
+# (arch, depth cut or None, dtype): full-width llama3.2-1b cut to 2 layers
+# in fp32 holds the split's arithmetic to SERVE_TOL on the card; then the
+# bf16 models, llama3.2-1b uncut and granite-20b (~55 GB whole) cut to 8
+TP_SERVE = (("llama3.2-1b", 2, torch.float32),
+            ("llama3.2-1b", None, torch.bfloat16),
+            ("granite-20b", 8, torch.bfloat16))
+# in bf16 each rank rounds its share of a row-parallel product before the
+# sum, where one process rounds the whole product once: the logits are
+# held to the LM bf16 bound, 3e-2, of each row's largest |logit| (phase
+# 12's relative form; elementwise they differ as two bf16 runs do)
+TP_ROW_TOL = LM_KERNEL_TOL[torch.bfloat16]["rtol"]
+TP_MESH = (1, 2)                 # (data, model)
+TP_GEN = 33                      # the prompt's token, then 32 decode steps
+TP_SEED = 30
+TP_TIMEOUT = 600.0               # the ranks' seconds, their start included
+TP_COLLECTIVES = ("all_reduce", "all_gather")
+# (B, KV, G, S, D, what): the ranks' prefill attention at model 2, causal
+TP_FLASH = ((4, 4, 4, 512, 64, "llama3.2-1b rank: 4 of 8 kv heads"),
+            (4, 1, 24, 512, 128, "granite-20b rank: 24 of 48 heads"))
+# (B, KV, G, S, D, lengths, what): the ranks' decode attention at model 2,
+# the first length timed (the middle of the run's fills)
+TP_DECODE = ((4, 4, 4, 544, 64, (528, 513, 1, 0),
+              "llama3.2-1b rank: 4 of 8 kv heads, whole cache"),
+             (4, 1, 48, 272, 128, (256, 272, 241, 1, 0),
+              "granite-20b rank: all 48 heads over a block of 272"))
+
+
+def tp_config(arch: str, layers, dtype):
+    cfg = get_config(arch).with_(param_dtype=dtype, compute_dtype=dtype)
+    return cfg if layers is None else cfg.with_(n_layers=layers)
+
+
+def tp_check(logits: torch.Tensor, ref: torch.Tensor, dtype, label: str
+             ) -> tuple:
+    """(max abs err, largest |diff| over its row's largest |logit|) of the
+    ranks' logits against the one-process run's: fp32 within SERVE_TOL
+    elementwise, bf16 within TP_ROW_TOL of each row's largest |logit|."""
+    if dtype == torch.float32:
+        err = max_err(logits, ref, **SERVE_TOL)
+    elif not torch.isfinite(logits).all():
+        raise AssertionError(f"{label}: non-finite logits")
+    else:
+        err = float((logits - ref).abs().max())
+    rel = float(((logits - ref).abs().amax(-1) / ref.abs().amax(-1)).max())
+    if dtype != torch.float32 and not rel <= TP_ROW_TOL:
+        raise AssertionError(f"{label}: logits differ by {rel:.3e} of their "
+                             f"row's largest |logit| (bound {TP_ROW_TOL})")
+    return err, rel
+
+
+def tp_expected(cfg) -> dict:
+    """A rank's launches of one prefill and TP_GEN - 1 decode steps: its
+    rmsnorm 2L+1 a call, flash L, decode L a step (each rank runs every
+    layer on its blocks)."""
+    L = cfg.n_layers
+    return {"rmsnorm": (2 * L + 1) * TP_GEN, "flash_attention": L,
+            "decode_attention": L * (TP_GEN - 1)}
+
+
+def tp_weights(cfg, dev) -> tuple:
+    """Phase 30's bf16 weights, drawn from TP_SEED on the card (every
+    process on the card draws the same), and a checksum of them."""
+    params = api.init(torch.Generator(device=dev).manual_seed(TP_SEED), cfg)
+    return params, sum(float(t.sum(dtype=torch.float32))
+                       for t in tree_leaves(params))
+
+
+@contextlib.contextmanager
+def timed_collectives(spent: list):
+    """Each ``parallel.tensor`` collective timed between two
+    synchronisations of the card (its seconds appended to ``spent``)."""
+    orig = {k: getattr(TP, k) for k in TP_COLLECTIVES}
+
+    def timed(fn):
+        def call(t, *args, **kw):
+            sync(t.device)
+            t0 = time.perf_counter()
+            out = fn(t, *args, **kw)
+            sync(t.device)
+            spent.append(time.perf_counter() - t0)
+            return out
+        return call
+    for k, fn in orig.items():
+        setattr(TP, k, timed(fn))
+    try:
+        yield
+    finally:
+        for k, fn in orig.items():
+            setattr(TP, k, fn)
+
+
+def tp_rank_run(mesh, dev, cfg, prompt: np.ndarray,
+                forced: np.ndarray) -> dict:
+    """One model on this rank: the whole weights drawn and cut to its
+    blocks (``shard_params``, the decode layout), then three teacher-forced
+    ``greedy_decode`` runs on the mesh: the counted one (launches, tokens,
+    this rank's vocabulary columns of the logits), a warm timed one, and
+    one with the collectives timed between synchronisations."""
+    gen = forced.shape[1]
+    whole, check = tp_weights(cfg, dev)
+    params = TP.shard_params(whole, cfg, mesh, "decode")
+    del whole
+    torch.cuda.empty_cache()
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    toks = torch.from_numpy(prompt).to(dev)
+    teach = torch.from_numpy(forced).to(dev)
+    for k in SERVE_KERNELS:
+        getattr(ops, k).launches = 0
+    res = greedy_decode(params, cfg, toks, gen, keep_logits=True,
+                        mesh=mesh, forced=teach)
+    launches = {k: getattr(ops, k).launches for k in SERVE_KERNELS}
+    logits = torch.stack(res.logits).float().cpu().numpy()
+    warm = greedy_decode(params, cfg, toks, gen, mesh=mesh, forced=teach)
+    spent: list = []
+    with timed_collectives(spent):
+        sync(dev)
+        t0 = time.perf_counter()
+        timed = greedy_decode(params, cfg, toks, gen, mesh=mesh,
+                              forced=teach)
+        sync(dev)
+        wall = time.perf_counter() - t0
+    out = dict(tokens=res.tokens, logits=logits, launches=launches,
+               checksum=check, bytes=nbytes, prefill_ms=warm.prefill_ms,
+               decode_ms=warm.decode_ms_per_token,
+               peak_gib=(torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                         if dev.type == "cuda" else 0.0),
+               collectives=len(spent), collective_ms=sum(spent) * 1e3,
+               timed_ms=wall * 1e3, timed_prefill_ms=timed.prefill_ms,
+               timed_decode_ms=timed.decode_ms_per_token)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def tp_rank(rank: int, world: int, store: str, device: str, runs: list,
+            out) -> None:
+    """Phase 30's rank process: joins the group on ``device`` (gloo: the
+    ranks share the one card), builds the (1, 2) mesh and serves each run
+    (config, prompt, forced tokens). A failure raises here and ends the
+    process with a non-zero exit code, which fails the phase."""
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = MESH.join_group(store, rank, world, device)
+    mesh = MESH.make_mesh(TP_MESH, ("data", "model"), device=dev)
+    out.put((rank, dist.get_backend(), [tp_rank_run(mesh, dev, *run)
+                                        for run in runs]))
+    dist.destroy_process_group()
+
+
+def spawn_ranks(fn, world: int, *args) -> list:
+    """``fn(rank, world, store, *args, queue)`` in ``world`` spawned
+    processes (a ``FileStore`` in a temporary directory); their results by
+    rank. A rank that exits with an error, or ranks still running after
+    TP_TIMEOUT, fail the phase; every process is joined or killed."""
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "store")
+        procs = [ctx.Process(target=fn, args=(r, world, store, *args, out))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + TP_TIMEOUT
+        got = {}
+        try:
+            while len(got) < world:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"ranks did not finish within "
+                                         f"{TP_TIMEOUT} s")
+                try:
+                    rank, *payload = out.get(timeout=1.0)
+                except queue.Empty:
+                    codes = [p.exitcode for p in procs]
+                    if any(c not in (None, 0) for c in codes):
+                        raise AssertionError(f"a rank failed: exit codes "
+                                             f"{codes}")
+                    continue
+                got[rank] = payload
+        finally:
+            for p in procs:
+                p.join(timeout=max(1.0, deadline - time.monotonic()))
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            raise AssertionError(f"a rank failed: exit codes {codes}")
+    return [got[r] for r in range(world)]
+
+
+def tp_kernels(dev) -> dict:
+    """flash_attention and decode_attention at the ranks' shapes that no
+    earlier phase launched (the bf16 flash at G 24 over one kv head,
+    D 128; decode at G 48 / D 128 over a block of positions, with its
+    log-sum-exp) and llama3.2-1b's rank shapes, against their plain
+    versions, each twice bit-equal; decode's lse within 1e-4 of the plain
+    version's, o = 0 and lse = −inf at length 0, o without the lse the same
+    bits as with it; the first length of each timed beside its bound, the
+    plain version and SDPA."""
+    gen = torch.Generator(device=dev).manual_seed(TP_SEED)
+    F = torch.nn.functional
+    bf = torch.bfloat16
+    worst = dict(flash_attention=0.0, decode_attention=0.0)
+    timings = []
+    for B, KV, G, S, D, what in TP_FLASH:
+        q, k, v = flash_operands(B, KV, G, S, D, bf, True, gen, dev)
+        o = same_twice(lambda: (ops.flash_attention(q, k, v, causal=True),),
+                       f"flash {what}")[0]
+        e = lm_check(o, ops.flash_attention_ref(q, k, v, causal=True), bf)
+        worst["flash_attention"] = max(worst["flash_attention"], e)
+        shape = f"(B,KV,G,S,D)=({B},{KV},{G},{S},{D}) bf16 causal"
+        print(f"flash {what} {shape} vs plain: {e:.1e}, rerun bit-equal")
+        qh = q.reshape(B, KV * G, S, D)
+        kh, vh = k.contiguous(), v.contiguous()
+        t = attention_timing(
+            lambda: ops.flash_attention(q, k, v, causal=True),
+            lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=G > 1),
+            f"{what} {shape}", flash_bound(B, KV, G, S, S, D, True, bf))
+        t["plain_ms"] = cuda_ms(lambda: ops.flash_attention_ref(
+            q, k, v, causal=True), iters=10, warm=2)
+        timings.append(("flash_attention", t))
+    for B, KV, G, S, D, lengths, what in TP_DECODE:
+        q, kc, vc = decode_operands(B, KV, G, S, D, bf, gen, dev)
+        for n in lengths:
+            o, lse = same_twice(lambda: ops.decode_attention(
+                q, kc, vc, n, return_lse=True), f"decode {what} at {n}")
+            ro, rlse = ops.decode_attention_ref(q, kc, vc, n,
+                                                return_lse=True)
+            if not torch.equal(ops.decode_attention(q, kc, vc, n), o):
+                raise AssertionError(f"decode {what} at {n}: o without the "
+                                     f"lse differs from o with it")
+            if n == 0:
+                if o.any() or not torch.isneginf(lse).all():
+                    raise AssertionError(f"decode {what}: length 0 gave o "
+                                         f"!= 0 or a finite lse")
+                print(f"decode {what} at length 0: o = 0, lse = -inf")
+                continue
+            e = lm_check(o, ro, bf)
+            el = max_err(lse, rlse, rtol=1e-5, atol=1e-4)
+            worst["decode_attention"] = max(worst["decode_attention"], e)
+            print(f"decode {what} (B,KV,G,D)=({B},{KV},{G},{D}) bf16, cache "
+                  f"{S}, length {n} vs plain: o {e:.1e}, lse {el:.1e}, "
+                  f"reruns bit-equal, o without the lse bit-equal")
+        n = lengths[0]
+        qd = q.reshape(B, KV * G, 1, D)
+        kd, vd = kc[:, :, :n].contiguous(), vc[:, :, :n].contiguous()
+        lse_on = KV == 1
+        t = attention_timing(
+            lambda: ops.decode_attention(q, kc, vc, n, return_lse=lse_on),
+            lambda: F.scaled_dot_product_attention(qd, kd, vd,
+                                                   enable_gqa=G > 1),
+            f"{what}, length {n}{', with lse' if lse_on else ''}",
+            decode_bound(B, KV, G, n, D, bf, lse=lse_on))
+        t["plain_ms"] = cuda_ms(lambda: ops.decode_attention_ref(
+            q, kc, vc, n, return_lse=lse_on))
+        timings.append(("decode_attention", t))
+    for name, t in timings:
+        report_timing(name, t)
+    return worst
+
+
+def phase_tp(dev) -> dict:
+    """30: tensor-parallel serving on a (1, 2) mesh's ``model`` axis, two
+    spawned ranks sharing the one card over gloo (NCCL refuses two ranks
+    of one group on one device): llama3.2-1b cut to 2 layers in fp32,
+    then in bf16 uncut (its 8 kv heads split) and granite-20b at full
+    width cut to 8 of its 52 layers (MQA: wk/wv whole and the decode
+    cache sequence-sharded, merged by log-sum-exp), prompt 4 x 512 and
+    32 decode steps teacher-forced with the one-process run's tokens;
+    the logits held to that run on the same card (``tp_check``), each
+    rank's launches of rmsnorm, flash and
+    decode exact, prefill and decode times per rank and the collectives'
+    share. Returns the launches (both ranks) and the kernels' worst
+    errors at the ranks' shapes."""
+    worst = tp_kernels(dev)
+    runs, refs = [], []
+    for arch, layers, dtype in TP_SERVE:
+        cfg = tp_config(arch, layers, dtype)
+        params, check = tp_weights(cfg, dev)
+        g = torch.Generator(device=dev).manual_seed(TP_SEED + 1)
+        toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                             generator=g, device=dev)
+        ref = greedy_decode(params, cfg, toks, TP_GEN, keep_logits=True)
+        warm = greedy_decode(params, cfg, toks, TP_GEN)
+        refs.append(dict(logits=torch.stack(ref.logits).float().cpu(),
+                         tokens=ref.tokens, checksum=check,
+                         bytes=sum(t.numel() * t.element_size()
+                                   for t in tree_leaves(params)),
+                         prefill_ms=warm.prefill_ms,
+                         decode_ms=warm.decode_ms_per_token))
+        runs.append((cfg, toks.cpu().numpy(), ref.tokens))
+        del params, ref, warm, toks
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(tp_rank, TP_MESH[0] * TP_MESH[1], dev.type, runs)
+    ranks_s = time.perf_counter() - t0
+    launches = dict.fromkeys(SERVE_KERNELS, 0)
+    for i, (arch, layers, dtype) in enumerate(TP_SERVE):
+        cfg, ref = tp_config(arch, layers, dtype), refs[i]
+        got = [r[1][i] for r in ranks]
+        want = tp_expected(cfg)
+        for rank, r in enumerate(got):
+            if r["checksum"] != ref["checksum"]:
+                raise AssertionError(f"tp {arch}: rank {rank} drew other "
+                                     f"weights")
+            if r["launches"] != want:
+                raise AssertionError(f"tp {arch}: rank {rank} launches "
+                                     f"{r['launches']}, expected {want}")
+            for k, v in r["launches"].items():
+                launches[k] += v
+        logits = torch.from_numpy(np.concatenate([r["logits"] for r in got],
+                                                 axis=-1))
+        err, rel = tp_check(logits, ref["logits"], dtype, f"tp {arch}")
+        same = [np.array_equal(r["tokens"], got[0]["tokens"]) for r in got]
+        equal = int((got[0]["tokens"][:, 1:] == ref["tokens"][:, 1:]).sum())
+        first = bool((got[0]["tokens"][:, 0] == ref["tokens"][:, 0]).all())
+        cut = "uncut" if layers is None else \
+            f"cut to {layers} of {get_config(arch).n_layers} layers"
+        print(f"tp: {arch} full width, {cut}, "
+              f"{str(cfg.compute_dtype)[6:]}, prompt {LM_PROMPT} x "
+              f"batch {LM_BATCH}, {TP_GEN - 1} decode steps teacher-forced, "
+              f"on a {TP_MESH} mesh (two ranks sharing one card over "
+              f"{ranks[0][0]}): logits vs the one-process run max abs err "
+              f"{err:.3e}, largest |diff| {rel:.3e} of its row's largest "
+              f"|logit| (bound: "
+              f"{'rtol/atol 1e-3' if dtype == torch.float32 else TP_ROW_TOL}"
+              f"); greedy tokens equal "
+              f"{equal}/{LM_BATCH * (TP_GEN - 1)} of the decode steps' "
+              f"(prefill's equal: {first}), ranks agree: {all(same)}; "
+              f"launches per rank {got[0]['launches']} (exact); params "
+              f"{ref['bytes'] / 2 ** 30:.2f} GiB whole, "
+              f"{[round(r['bytes'] / 2 ** 30, 2) for r in got]} GiB a rank")
+        for rank, r in enumerate(got):
+            print(f"tp: {arch} rank {rank} (two ranks sharing one card over "
+                  f"gloo; not a multi-card speed): prefill "
+                  f"{r['prefill_ms']:.3f} ms, decode {r['decode_ms']:.3f} "
+                  f"ms/token; collectives timed between synchronisations: "
+                  f"{r['collectives']} in one prefill and {TP_GEN - 1} "
+                  f"steps, {r['collective_ms']:.3f} ms of that run's "
+                  f"{r['timed_ms']:.3f} ms (share "
+                  f"{r['collective_ms'] / r['timed_ms']:.3f}; its prefill "
+                  f"{r['timed_prefill_ms']:.3f} ms, decode "
+                  f"{r['timed_decode_ms']:.3f} ms/token); peak device "
+                  f"memory {r['peak_gib']:.2f} GiB")
+        print(f"tp: {arch} one process on the same card: prefill "
+              f"{ref['prefill_ms']:.3f} ms, decode {ref['decode_ms']:.3f} "
+              f"ms/token")
+    print(f"tp: the ranks' processes ran {ranks_s:.1f} s, their start and "
+          f"weight draws included")
+    return dict(launches=launches, worst=worst)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4383,6 +4773,12 @@ def main() -> int:
             ssm_moe["mamba2-130m"]["prefill"].get("busy_ms"))})["launches"]
     for k, v in mesh.items():
         vlm_encdec[k] = vlm_encdec.get(k, 0) + v
+    tp = phase_tp(dev)
+    for k, v in tp["launches"].items():
+        vlm_encdec[k] = vlm_encdec.get(k, 0) + v
+    for name, e in tp["worst"].items():
+        lm_timing[name]["max_abs_err"] = max(lm_timing[name]["max_abs_err"],
+                                             e)
     train_launch = {k: train["launches"].get(k, 0)
                     + rocoin["launches"].get(k, 0)
                     + ssm_train["launches"][k] + vlm_encdec.get(k, 0)

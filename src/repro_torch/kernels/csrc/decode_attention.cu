@@ -6,6 +6,12 @@
 // bf16 q and caches; the output in q's type. ``length`` (the cache fill)
 // is a host int or an int32 on the device, read by the kernel itself, so a
 // decode loop that keeps its position on the card needs no host sync.
+// Where the caller asks for it, the kernel also writes each query row's
+// log-sum-exp of its scaled scores, lse[b, h, g] = log sum_{j < length}
+// exp(q . k_j / sqrt(D)), in fp32: what a caller that holds the cache in
+// sequence blocks on several ranks needs to merge their outputs by their
+// softmax weights. A row over no position (length 0) gets o = 0 and
+// lse = -inf, so that such a block weighs nothing in that merge.
 //
 // Replaces repro/kernels/decode_attention.py:_decode_kernel (the Pallas
 // TPU kernel), which walks a (B, KV, kv block) grid with the kv axis
@@ -66,6 +72,7 @@ constexpr int kUnroll = 4;                // loads of K and V in flight per lane
 constexpr int kMaxHeads = 8;              // query heads per block, at most
 constexpr int kMaxSplits = 64;            // blocks per (b, kv head, chunk)
 constexpr float kNegInf = -1e30f;
+constexpr uint32_t kMinusInfBits = 0xff800000u;   // the lse of no position
 
 __device__ __forceinline__ float bf16_lo(uint32_t w) {
   return __uint_as_float(w << 16);
@@ -145,7 +152,8 @@ template <typename T, int D, int kHeads>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
               const T* __restrict__ vc, T* __restrict__ o,
-              float* __restrict__ ws, int* __restrict__ counters, Strides st,
+              float* __restrict__ lse, float* __restrict__ ws,
+              int* __restrict__ counters, Strides st,
               int B, int KV, int G, int S,
               const int32_t* __restrict__ length_ptr, int length_val,
               float scale) {
@@ -298,6 +306,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     }
     if (nsplit == 1) {
       op[gi * D + d] = from_f32<T>(tot_a / fmaxf(tot_l, 1e-20f));
+      if (lse != nullptr && d == 0)
+        lse[bh * G + g0 + gi] = tot_l > 0.f ? mx + logf(tot_l)
+                                            : __uint_as_float(kMinusInfBits);
     } else {
       const long long row = (bh * G + g0 + gi) * nsplit + split;
       ws_acc[row * D + d] = tot_a;
@@ -353,6 +364,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     for (int off = 16; off > 0; off >>= 1)
       tot += __shfl_xor_sync(0xffffffffu, tot, off);
     const float inv = 1.f / fmaxf(tot, 1e-20f);
+    if (lse != nullptr && lane == 0)
+      lse[bh * G + g0 + gi] = tot > 0.f ? mx + logf(tot)
+                                        : __uint_as_float(kMinusInfBits);
 #pragma unroll
     for (int i = 0; i < kMaxSplits / 32; ++i)
       sm_w[gi * kMaxSplits + lane + 32 * i] = ms[i] * inv;
@@ -371,42 +385,42 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 
 template <typename T, int D, int kHeads>
 int launch_g(const void* q, const void* kc, const void* vc, void* o,
-             float* ws, int* counters, const Strides& st, int B, int KV,
-             int G, int S, int nsplit, const int32_t* length_ptr,
+             float* lse, float* ws, int* counters, const Strides& st, int B,
+             int KV, int G, int S, int nsplit, const int32_t* length_ptr,
              int length_val, float scale, cudaStream_t stream) {
   const int nchunk = (G + kHeads - 1) / kHeads;
   const dim3 grid(nsplit, nchunk * KV, B);
   decode_kernel<T, D, kHeads><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), static_cast<T*>(o), ws, counters, st, B, KV,
-      G, S, length_ptr, length_val, scale);
+      static_cast<const T*>(vc), static_cast<T*>(o), lse, ws, counters, st, B,
+      KV, G, S, length_ptr, length_val, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the block's query-head chunk: G itself when it is 1, 2 or 4, else 8
 template <typename T, int D>
 int launch_d(const void* q, const void* kc, const void* vc, void* o,
-             float* ws, int* counters, const Strides& st, int B, int KV,
-             int G, int S, int nsplit, const int32_t* length_ptr,
+             float* lse, float* ws, int* counters, const Strides& st, int B,
+             int KV, int G, int S, int nsplit, const int32_t* length_ptr,
              int length_val, float scale, cudaStream_t stream) {
   if (G == 1)
-    return launch_g<T, D, 1>(q, kc, vc, o, ws, counters, st, B, KV, G, S,
+    return launch_g<T, D, 1>(q, kc, vc, o, lse, ws, counters, st, B, KV, G, S,
                              nsplit, length_ptr, length_val, scale, stream);
   if (G == 2)
-    return launch_g<T, D, 2>(q, kc, vc, o, ws, counters, st, B, KV, G, S,
+    return launch_g<T, D, 2>(q, kc, vc, o, lse, ws, counters, st, B, KV, G, S,
                              nsplit, length_ptr, length_val, scale, stream);
   if (G <= 4)
-    return launch_g<T, D, 4>(q, kc, vc, o, ws, counters, st, B, KV, G, S,
+    return launch_g<T, D, 4>(q, kc, vc, o, lse, ws, counters, st, B, KV, G, S,
                              nsplit, length_ptr, length_val, scale, stream);
-  return launch_g<T, D, kMaxHeads>(q, kc, vc, o, ws, counters, st, B, KV, G,
-                                   S, nsplit, length_ptr, length_val, scale,
-                                   stream);
+  return launch_g<T, D, kMaxHeads>(q, kc, vc, o, lse, ws, counters, st, B, KV,
+                                   G, S, nsplit, length_ptr, length_val,
+                                   scale, stream);
 }
 
 template <typename T>
-int launch(const void* q, const void* kc, const void* vc, void* o, float* ws,
-           int* counters, const Strides& st, int B, int KV, int G, int S,
-           int D, int nsplit, const int32_t* length_ptr, int length_val,
+int launch(const void* q, const void* kc, const void* vc, void* o, float* lse,
+           float* ws, int* counters, const Strides& st, int B, int KV, int G,
+           int S, int D, int nsplit, const int32_t* length_ptr, int length_val,
            float scale, cudaStream_t stream) {
   if (B <= 0 || KV <= 0 || G <= 0) return 0;
   if (nsplit < 1 || nsplit > kMaxSplits ||
@@ -420,16 +434,16 @@ int launch(const void* q, const void* kc, const void* vc, void* o, float* ws,
     return static_cast<int>(cudaErrorMisalignedAddress);
   switch (D) {
     case 32:
-      return launch_d<T, 32>(q, kc, vc, o, ws, counters, st, B, KV, G, S,
+      return launch_d<T, 32>(q, kc, vc, o, lse, ws, counters, st, B, KV, G, S,
                              nsplit, length_ptr, length_val, scale, stream);
     case 64:
-      return launch_d<T, 64>(q, kc, vc, o, ws, counters, st, B, KV, G, S,
+      return launch_d<T, 64>(q, kc, vc, o, lse, ws, counters, st, B, KV, G, S,
                              nsplit, length_ptr, length_val, scale, stream);
     case 96:
-      return launch_d<T, 96>(q, kc, vc, o, ws, counters, st, B, KV, G, S,
+      return launch_d<T, 96>(q, kc, vc, o, lse, ws, counters, st, B, KV, G, S,
                              nsplit, length_ptr, length_val, scale, stream);
     case 128:
-      return launch_d<T, 128>(q, kc, vc, o, ws, counters, st, B, KV, G, S,
+      return launch_d<T, 128>(q, kc, vc, o, lse, ws, counters, st, B, KV, G, S,
                               nsplit, length_ptr, length_val, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -443,28 +457,32 @@ extern "C" {
 // Launches on ``stream`` and returns cudaGetLastError(). q is (B, KV, G, D)
 // and the caches (B, KV, S, D), each given by its element strides (the last
 // axis has stride 1; the caches' base and strides 16-byte aligned); o is
-// (B, KV, G, D) contiguous; D is 32, 64, 96 or 128. ``length_ptr`` (an
+// (B, KV, G, D) contiguous; D is 32, 64, 96 or 128. ``lse``, when not
+// null, receives the (B, KV, G) fp32 log-sum-exp of each row's scaled
+// scores (-inf over no position). ``length_ptr`` (an
 // int32 on the device) wins over ``length_val`` when it is not null.
 // ``nsplit`` blocks share each (b, kv head, chunk); with more than one,
 // ``ws`` is B·KV·G·nsplit·(D + 2) floats of scratch and ``counters`` one
 // zeroed int per (b, kv head, chunk), left zeroed. ``bf16`` selects bf16
 // (1) or fp32 (0) for q, the caches and o.
 int decode_attention(const void* q, const void* kc, const void* vc, void* o,
-                     long long qb, long long qh, long long qg, long long kb,
-                     long long kh, long long ks, long long vb, long long vh,
-                     long long vs, int B, int KV, int G, int S, int D,
+                     void* lse, long long qb, long long qh, long long qg,
+                     long long kb, long long kh, long long ks, long long vb,
+                     long long vh, long long vs, int B, int KV, int G, int S,
+                     int D,
                      const void* length_ptr, int length_val, float scale,
                      int bf16, int nsplit, void* ws, void* counters,
                      void* stream) {
   const Strides st{qb, qh, qg, kb, kh, ks, vb, vh, vs};
   const int32_t* lp = static_cast<const int32_t*>(length_ptr);
   float* w = static_cast<float*>(ws);
+  float* ls = static_cast<float*>(lse);
   int* c = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(q, kc, vc, o, w, c, st, B, KV, G, S, D,
-                                      nsplit, lp, length_val, scale, s)
-              : launch<float>(q, kc, vc, o, w, c, st, B, KV, G, S, D, nsplit,
-                              lp, length_val, scale, s);
+  return bf16 ? launch<__nv_bfloat16>(q, kc, vc, o, ls, w, c, st, B, KV, G,
+                                      S, D, nsplit, lp, length_val, scale, s)
+              : launch<float>(q, kc, vc, o, ls, w, c, st, B, KV, G, S, D,
+                              nsplit, lp, length_val, scale, s);
 }
 
 const char* decode_attention_error_string(int code) {

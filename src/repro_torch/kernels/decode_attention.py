@@ -3,7 +3,13 @@
     q (B, KV, G, D), k/v caches (B, KV, S, D), length → o (B, KV, G, D)
 
 ``o = softmax_j(q·k_j / sqrt(D)) · v`` over the first ``length`` cache
-positions, fp32 inside, in q's dtype.
+positions, fp32 inside, in q's dtype. With ``return_lse=True`` also the
+(B, KV, G) fp32 log-sum-exp of each row's scaled scores,
+``lse = log Σ_j exp(q·k_j / sqrt(D))``: a tensor-parallel decode step that
+holds the cache in sequence blocks on several ranks merges the blocks'
+outputs by their weights ``exp(lse_r − logsumexp_r lse_r)``. A row over no
+position (``length`` 0) gets o = 0 and lse = −inf on both routes, so that
+such a block weighs nothing in the merge.
 
 :func:`decode_attention` launches the hand-written CUDA kernel
 ``csrc/decode_attention.cu`` on CUDA tensors and takes the plain version
@@ -53,10 +59,13 @@ Length = Union[int, torch.Tensor]
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
-                         v_cache: torch.Tensor, length: Length
-                         ) -> torch.Tensor:
+                         v_cache: torch.Tensor, length: Length, *,
+                         return_lse: bool = False):
     """Plain version: q (B, KV, G, D); caches (B, KV, S, D); length an int
-    or a one-element tensor."""
+    or a one-element tensor. Returns o, or (o, lse) with ``return_lse``.
+    Past a length of 0 the masked softmax is the kernel's; at 0 (every
+    position masked by the finite ``NEG_INF``, whose softmax would be the
+    mean of v) o is 0 and lse −inf, as the kernel gives them."""
     S, D = k_cache.shape[2], q.shape[-1]
     scale = 1.0 / math.sqrt(D)
     s = torch.einsum("bhgd,bhsd->bhgs", q.float(), k_cache.float()) * scale
@@ -65,7 +74,13 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     mask = torch.arange(S, device=q.device) < length
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhgs,bhsd->bhgd", p, v_cache.float()).to(q.dtype)
+    o = torch.einsum("bhgs,bhsd->bhgd", p, v_cache.float()).to(q.dtype)
+    empty = torch.as_tensor(length, device=q.device) <= 0
+    o = torch.where(empty, 0, o)
+    if not return_lse:
+        return o
+    lse = torch.where(empty, -math.inf, torch.logsumexp(s, dim=-1))
+    return o, lse
 
 
 def head_chunk(G: int) -> int:
@@ -107,14 +122,15 @@ def _check(q, k_cache, v_cache, length) -> None:
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, length: Length) -> torch.Tensor:
+                     v_cache: torch.Tensor, length: Length, *,
+                     return_lse: bool = False):
     """q: (B, KV, G, D); caches: (B, KV, S, D), one dtype (f32/bf16);
-    length: the number of valid cache positions. Returns (B, KV, G, D) in
-    q's dtype."""
+    length: the number of valid cache positions. Returns o (B, KV, G, D)
+    in q's dtype, or (o, lse (B, KV, G) fp32) with ``return_lse``."""
     _check(q, k_cache, v_cache, length)
     if plain_route(q.device):
         return plain("decode_attention", decode_attention_ref, q, k_cache,
-                     v_cache, length)
+                     v_cache, length, return_lse=return_lse)
     no_backward("decode_attention", q, k_cache, v_cache)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda, cpu or meta "
@@ -135,8 +151,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} is not one of {HEAD_DIMS}")
     out = torch.empty((B, KV, G, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, KV, G), dtype=torch.float32,
+                      device=q.device) if return_lse else None
     if out.numel() == 0:
-        return out                                  # no query rows
+        return (out, lse) if return_lse else out    # no query rows
     ks, vs = k_cache.stride(), v_cache.stride()
     if (k_cache.data_ptr() | v_cache.data_ptr() | (
             ks[0] | ks[1] | ks[2] | vs[0] | vs[1] | vs[2]) * q.element_size()
@@ -148,7 +166,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     with on_device(q.device):
         rc = lib.decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            out.data_ptr(), *q.stride()[:3], *ks[:3], *vs[:3], B, KV, G, S,
+            out.data_ptr(), None if lse is None else lse.data_ptr(),
+            *q.stride()[:3], *ks[:3], *vs[:3], B, KV, G, S,
             D, length_ptr, length_val, 1.0 / math.sqrt(D),
             int(q.dtype == torch.bfloat16), nsplit, ws, counters,
             stream_handle(q.device))
@@ -156,7 +175,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         msg = lib.decode_attention_error_string(rc).decode()
         raise RuntimeError(f"decode_attention launch failed: {msg} ({rc})")
     decode_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0
@@ -188,7 +207,7 @@ def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = build.load("decode_attention")
     lib.decode_attention.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 5
+        [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 5
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int,
            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
     lib.decode_attention.restype = ctypes.c_int

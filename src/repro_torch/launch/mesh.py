@@ -5,7 +5,8 @@ device and no process group, as in the JAX package's ``launch/mesh.py``.
 :func:`make_production_mesh` is abstract (shape and axis names only: the
 dry run's 256- and 512-chip meshes); :func:`make_mesh` and
 :func:`make_host_mesh` return a ``DeviceMesh`` over the running process
-group, which :func:`init_group` starts (one process) where none runs.
+group, which :func:`init_group` starts (one process) where none runs, or
+which several processes join with :func:`join_group`.
 """
 from __future__ import annotations
 
@@ -31,6 +32,27 @@ def init_group(device: DeviceLike = None) -> None:
         torch.cuda.set_device(dev.index or 0)
     dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                             store=dist.HashStore(), rank=0, world_size=1)
+
+
+def join_group(store: str, rank: int, world: int,
+               device: DeviceLike = None) -> torch.device:
+    """Join a ``world``-process group as ``rank`` through a ``FileStore``
+    at the path ``store`` (no TCP rendezvous) and return this rank's
+    device. On ``cuda`` (the default) rank r takes card r modulo the
+    host's cards, over NCCL where every rank has a card of its own and
+    over gloo where ranks share one (NCCL refuses two ranks of one group
+    on one device; gloo copies CUDA tensors through host memory for each
+    collective). On ``cpu``, gloo."""
+    dev = resolve_device(device)
+    backend = "gloo"
+    if dev.type == "cuda":
+        cards = torch.cuda.device_count()
+        dev = torch.device("cuda", rank % cards)
+        torch.cuda.set_device(dev)
+        backend = "nccl" if cards >= world else "gloo"
+    dist.init_process_group(backend, store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    return dev
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:

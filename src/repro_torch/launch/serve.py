@@ -20,6 +20,12 @@ The CLI keeps the reference's flags as they are, so ``--tiny`` (a
 ``store_true`` flag whose default is True) is always on; call
 ``generate(..., tiny=False)`` for the published widths.
 
+On a ``DeviceMesh`` (``greedy_decode(..., mesh=mesh)``) the loop runs
+the mesh's prefill and serve steps (``launch.steps.mesh_step``): with
+``model`` > 1 the dense family tensor-parallel, on params cut by
+``parallel.tensor.shard_params(..., kind="decode")``, and the argmax taken
+across the vocabulary shards (:func:`repro_torch.parallel.tensor.argmax`).
+
 One difference from the reference: an enc-dec's cross cache holds exactly
 the encoder's rows (``api.init_cache(..., enc_len=...)``). The reference
 zero-pads it to ``prompt_len + gen`` rows and attends to the padding at
@@ -37,10 +43,13 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.compat import Shard, axis_names, local, mesh_shape
 from repro_torch.configs.archs import tiny_version
-from repro_torch.configs.base import ModelConfig, get_config
+from repro_torch.configs.base import ModelConfig, ShapeConfig, get_config
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch import steps as ST
 from repro_torch.models import api
+from repro_torch.parallel import tensor as TP
 
 
 @dataclasses.dataclass
@@ -68,43 +77,107 @@ def splice(dst: torch.Tensor, src: torch.Tensor) -> None:
     dst[tuple(slice(0, n) for n in src.shape)] = src
 
 
+def _mesh_tokens(logits, mesh) -> torch.Tensor:
+    """The greedy tokens (B, 1) of a mesh step's last-position logits (a
+    DTensor): the argmax across the vocabulary shards where ``model``
+    shards it, then every data rank's rows gathered (the next step takes
+    the global batch)."""
+    names = axis_names(mesh)
+    loc = local(logits)[:, -1:]
+    tok = loc.argmax(-1)
+    if "model" in names and isinstance(
+            logits.placements[names.index("model")], Shard):
+        m = mesh_shape(mesh)["model"]
+        tok = TP.argmax(loc, mesh.get_group("model"), m,
+                        mesh.get_local_rank("model") * loc.shape[-1])
+    for a in ("data", "pod"):                       # inner axis first
+        if mesh_shape(mesh).get(a, 1) > 1:
+            tok = TP.all_gather(tok, mesh.get_group(a),
+                                mesh_shape(mesh)[a]).flatten(0, 1)
+    return tok
+
+
 @torch.no_grad()
 def greedy_decode(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
                   gen: int, *, embeds: Optional[torch.Tensor] = None,
                   positions: Optional[torch.Tensor] = None,
-                  keep_logits: bool = False) -> Generation:
+                  keep_logits: bool = False, mesh=None,
+                  forced: Optional[torch.Tensor] = None) -> Generation:
     """Prefill a prompt, then ``gen - 1`` greedy decode steps, on the
     prompt's device, under ``torch.no_grad()`` (params that need a
     gradient serve too). The prompt is ``tokens`` (B, P), or ``embeds``
     (B, P, d) where they replace the tokens (the VLM); the enc-dec takes
     both, its encoder frames ``embeds`` (B, S_enc, d) of any length
     beside the decoder prompt ``tokens``. ``positions`` go to the prefill
-    only. Returns ``gen`` tokens per row."""
+    only. Returns ``gen`` tokens per row.
+
+    With ``mesh`` the steps are the mesh's (``launch.steps.mesh_step``;
+    ``params`` as they take them, the prompt global, the same on every
+    rank) and a kept logit row is this rank's block (its batch rows, its
+    vocabulary columns). Its cache holds the ``P + gen - 1`` positions the
+    steps write (the reference's loop allocates one more, which no step
+    reads), so that a sequence-sharded cache splits evenly at the usual
+    lengths (512 + 32 over 2, 4, 8 ranks). ``forced`` (B, gen) feeds its
+    tokens to the decode steps in place of the argmax (teacher forcing);
+    the returned tokens are still each step's argmax."""
     lead = tokens if tokens is not None else embeds
     dev = lead.device
     B, P = lead.shape[:2]
-    enc_len = embeds.shape[1] if cfg.family == "encdec" else None
-    cache = api.init_cache(cfg, B, P + gen, enc_len=enc_len, device=dev)
     batch = {k: v for k, v in (("tokens", tokens), ("embeds", embeds),
                                ("positions", positions)) if v is not None}
+    if mesh is None:
+        enc_len = embeds.shape[1] if cfg.family == "encdec" else None
+        cache = api.init_cache(cfg, B, P + gen, enc_len=enc_len, device=dev)
+
+        def prefill():
+            logits, pcache = api.prefill(params, cfg, batch)
+            for name, c in cache.items():
+                splice(c, pcache[name])
+            return logits, cache
+
+        def serve(cache, cur, index):
+            return api.decode_step(params, cfg, {"tokens": cur}, cache,
+                                   index)[0]
+
+        def pick(logits):
+            return logits[:, -1:].argmax(-1)
+
+        def row(logits):
+            return logits[:, -1]
+    else:
+        n = P + max(gen - 1, 0)           # the positions the steps write
+        pstep = ST.mesh_step(cfg, ShapeConfig("prefill", P, B, "prefill"),
+                             mesh, cache_len=n)
+        sstep = ST.mesh_step(cfg, ShapeConfig("decode", n, B, "decode"),
+                             mesh)
+
+        def prefill():
+            return pstep(params, batch)
+
+        def serve(cache, cur, index):
+            return sstep(params, cache, {"tokens": cur}, index)[0]
+
+        def pick(logits):
+            return _mesh_tokens(logits, mesh)
+
+        def row(logits):
+            return local(logits)[:, -1]
     _sync(dev)
     t0 = time.perf_counter()
-    logits, pcache = api.prefill(params, cfg, batch)
-    for name, c in cache.items():
-        splice(c, pcache[name])
+    logits, cache = prefill()
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
-    cur = logits[:, -1:].argmax(-1)
-    out, kept = [cur], [logits[:, -1]]
+    cur = pick(logits)
+    out, kept = [cur], [row(logits)]
     t0 = time.perf_counter()
     for t in range(gen - 1):
-        logits, cache = api.decode_step(params, cfg, {"tokens": cur}, cache,
-                                        P + t)
-        cur = logits[:, -1:].argmax(-1)
+        feed = cur if forced is None else forced[:, t:t + 1]
+        logits = serve(cache, feed, P + t)
+        cur = pick(logits)
         out.append(cur)
         if keep_logits:
-            kept.append(logits[:, -1])
+            kept.append(row(logits))
     _sync(dev)
     t_decode = time.perf_counter() - t0
     return Generation(torch.cat(out, dim=1).cpu().numpy(),

@@ -18,15 +18,27 @@ The reference's spec functions (``make_rules``, ``batch_specs``,
 ``meta`` tensors paired with their specs (:class:`Placed`) where it
 returns ``ShapeDtypeStruct``s with shardings. :func:`mesh_step` stands
 where ``jit_step`` does: the train, prefill or serve step of a
-``DeviceMesh`` with data axes (``data``, and ``pod`` if present) and
-``model`` = 1. Each rank takes its rows of the global batch; the forward
+``DeviceMesh`` with data axes (``data``, and ``pod`` if present) and a
+``model`` axis. Each rank takes its rows of the global batch; the forward
 and backward run on its local tensors through the hand-written kernels
 (a wrapper never sees a DTensor); the gradients are reduce-scattered to
 the ZeRO-1 blocks (``zero1=True``) or all-reduced, to their mean over the
-data ranks. Tensor parallelism (``model`` > 1) is modelled by the dry run
-(``repro_torch.launch.dryrun``), not executed, as the JAX package's tests
-only compile it; the MoE's expert parallelism runs on a ``model`` axis
-through :func:`repro_torch.models.transformer.moe_apply`.
+data ranks.
+
+With ``model`` > 1 the dense family's prefill and serve steps run
+tensor-parallel (``repro_torch.parallel.tensor``): each rank holds its
+blocks of the params as ``param_specs(cfg, mesh, kind=...)`` place them
+(``tensor.shard_params``) and of the cache as ``cache_specs`` place it,
+and computes its heads, FFN columns and vocabulary columns, summing over
+the ``model`` ranks where the reference's GSPMD would. The logits come
+back sharded on the vocabulary. What a mesh with ``model`` > 1 does not
+execute, the dry run (``repro_torch.launch.dryrun``) models: a train step
+(the JAX package's tests only compile one), and the moe, ssm, hybrid, vlm
+and encdec families, whose layers (the experts, ``ssm_inner``,
+``conv_ch``, the head-dim-sharded state, M-RoPE inputs and cross caches)
+have no tensor-parallel path yet. The MoE's expert parallelism runs on a
+``model`` axis outside these steps, through
+:func:`repro_torch.models.transformer.moe_apply`.
 """
 from __future__ import annotations
 
@@ -42,9 +54,10 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import api
 from repro_torch.optim import adamw
 from repro_torch.parallel import specs as SP
+from repro_torch.parallel import tensor as TP
 from repro_torch.parallel.sharding import (DEFAULT_RULES, NamedSharding,
-                                           PartitionSpec, placements,
-                                           resolve_spec)
+                                           PartitionSpec, axes_of,
+                                           placements, resolve_spec)
 from repro_torch.tree import trainable, tree_map
 
 
@@ -277,15 +290,26 @@ def _data_axes(mesh) -> Tuple[str, ...]:
 
 
 def mesh_plan(cfg: ModelConfig, mesh: DeviceMesh, *,
-              zero1: bool = True) -> MeshPlan:
+              zero1: bool = True, kind: str = "train") -> MeshPlan:
     """The data axes of ``mesh`` and, with ``zero1``, each leaf's ZeRO-1
-    dimension (from ``zero1_specs`` of the sanitized train specs)."""
+    dimension (from ``zero1_specs`` of the sanitized train specs), for a
+    step of ``kind``. With ``model`` > 1 only the dense family's prefill
+    and decode steps execute; the others raise ``NotImplementedError``."""
     sizes = mesh_shape(mesh)
-    if sizes.get("model", 1) > 1:
+    if sizes.get("model", 1) > 1 and kind == "train":
         raise NotImplementedError(
-            "a step on a mesh with model > 1 (tensor parallelism) is "
-            "modelled by repro_torch.launch.dryrun, not executed; the MoE's "
-            "expert parallelism runs through models.transformer.moe_apply")
+            "a train step on a mesh with model > 1 is modelled by "
+            "repro_torch.launch.dryrun, not executed: tensor parallelism "
+            "runs the dense family's prefill and decode steps only")
+    if sizes.get("model", 1) > 1 and cfg.family != "dense":
+        raise NotImplementedError(
+            f"the {cfg.family} family on a mesh with model > 1 is modelled "
+            f"by repro_torch.launch.dryrun, not executed: tensor parallelism "
+            f"runs the dense family only (its experts, SSM channels, M-RoPE "
+            f"inputs or cross caches have no tensor-parallel path yet, and "
+            f"the MoE must not compute tokens replicated over model once "
+            f"per rank); the MoE's expert parallelism runs through "
+            f"models.transformer.moe_apply")
     axes = _data_axes(mesh)
     index = 0
     for a in axes:
@@ -371,24 +395,42 @@ def _grad_block(g: torch.Tensor, dim: Optional[int], plan: MeshPlan
     return out.div_(plan.count).movedim(0, dim)
 
 
+def _global(t: torch.Tensor, plan: MeshPlan, full: Tuple[int, ...]
+            ) -> torch.Tensor:
+    """A ``meta`` stand-in of the global tensor whose local block is ``t``
+    (its batch rows over the data ranks, ``full`` elsewhere)."""
+    return torch.empty((t.shape[0] * plan.count, *full), dtype=t.dtype,
+                       device="meta")
+
+
 def mesh_step(cfg: ModelConfig, shape: ShapeConfig, mesh: DeviceMesh,
               opt_cfg: Optional[adamw.AdamWConfig] = None, *,
-              zero1: bool = True):
+              zero1: bool = True, cache_len: Optional[int] = None):
     """The step of ``shape.kind`` on ``mesh`` (``jit_step``'s twin):
 
     - train ``(state, batch) -> (state, metrics)``: ``state`` from
       :func:`mesh_state` (updated in place), ``batch`` global (each rank
-      takes its rows);
+      takes its rows); ``model`` = 1 only;
     - prefill ``(params, batch) -> (logits, cache)``, serve ``(params,
-      cache, batch, index) -> (logits, cache)``: params replicated
-      DTensors or whole tensors; logits and cache come back as DTensors
-      sharded on the batch over the data axes (a serve step updates the
-      cache in place).
+      cache, batch, index) -> (logits, cache)``: params as
+      ``param_specs(cfg, mesh, kind=...)`` place them, as DTensors or this
+      rank's blocks (``parallel.tensor.shard_params``), or whole tensors
+      (cut to views of this rank's blocks); a prefill also takes the
+      decode layout (an MQA's whole ``wk``/``wv``, of which it reads its
+      input-dim block). Logits come back as DTensors, the batch on the
+      data axes and, with ``model`` > 1, the vocabulary on ``model``. The
+      prefill's cache is the serving cache of ``cache_len`` positions (the
+      prompt's by default) holding the prompt, placed as
+      :func:`cache_specs` of a decode shape of that length places it:
+      each rank's block, its kv heads or its block of positions, is
+      spliced on the rank. A serve step takes such a cache (DTensors or
+      this rank's blocks) and updates it in place.
     """
-    plan = mesh_plan(cfg, mesh, zero1=zero1 and shape.kind == "train")
+    plan = mesh_plan(cfg, mesh, zero1=zero1 and shape.kind == "train",
+                     kind=shape.kind)
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     axes = _data_axes(mesh)
-    rows = [axes if len(axes) > 1 else axes[0]]
+    rows = axes if len(axes) > 1 else axes[0] if axes else None
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
         params = tree_map(local, state.params)
@@ -405,33 +447,102 @@ def mesh_step(cfg: ModelConfig, shape: ShapeConfig, mesh: DeviceMesh,
             metrics["loss"] = _mean(loss.clone(), plan)
         return state, metrics
 
-    @torch.no_grad()
-    def prefill_step(params, batch):
-        logits, cache = api.prefill(tree_map(local, params), cfg,
-                                    local_rows(batch, plan))
-        return _dtensor(mesh, logits, rows), mesh_cache(cache, mesh)
+    if shape.kind == "train":
+        return train_step
+    split = mesh_shape(mesh).get("model", 1) > 1
+    pplaced = param_specs(cfg, mesh, kind=shape.kind)
+    pshapes, pspecs = tensors_of(pplaced), specs_of(pplaced)
+
+    def local_params(params):
+        return TP.fit(tree_map(local, params), pshapes, pspecs, cfg, mesh)
+
+    def logits_of(logits, lay):
+        spec = [rows, None, "model" if lay is not None and lay.split_vocab
+                else None]
+        return _dtensor(mesh, logits, spec, _global(
+            logits, plan, (logits.shape[1], cfg.vocab)))
+
+    if shape.kind == "prefill":
+        lay = TP.layout(cfg, mesh, pspecs) if split else None
+
+        @torch.no_grad()
+        def prefill_step(params, batch):
+            with TP.installed(lay):
+                logits, cache = api.prefill(local_params(params), cfg,
+                                            local_rows(batch, plan))
+            if lay is None and cache_len is None:
+                return logits_of(logits, lay), mesh_cache(cache, mesh)
+            B = logits.shape[0] * plan.count
+            return logits_of(logits, lay), _serving_cache(
+                cfg, cache, mesh, B, cache_len or cache["k"].shape[2])
+        return prefill_step
+
+    cplaced = cache_specs(cfg, shape, mesh)
+    cshapes, cspecs = tensors_of(cplaced), specs_of(cplaced)
+    lay = TP.layout(cfg, mesh, pspecs, cspecs["k"], shape.seq_len) \
+        if split else None
 
     @torch.no_grad()
     def serve_step(params, cache, batch, index):
-        logits, _ = api.decode_step(tree_map(local, params), cfg,
-                                    local_rows(batch, plan),
-                                    tree_map(local, cache), index)
-        return _dtensor(mesh, logits, rows), cache
-
-    if shape.kind == "train":
-        return train_step
-    if shape.kind == "prefill":
-        return prefill_step
+        local_cache = TP.fit(tree_map(local, cache), cshapes, cspecs, cfg,
+                             mesh)
+        with TP.installed(lay):
+            logits, _ = api.decode_step(local_params(params), cfg,
+                                        local_rows(batch, plan),
+                                        local_cache, index)
+        return logits_of(logits, lay), cache
     return serve_step
 
 
+def _serving_cache(cfg: ModelConfig, cache: Any, mesh: DeviceMesh,
+                   batch: int, length: int) -> Any:
+    """The prompt's cache (L, B_r, P, KV or this rank's KV, hd) laid into
+    this rank's block of a decode cache of ``length`` positions placed by
+    :func:`cache_specs` of a decode shape (B = ``batch``): zeros past the
+    prompt, and only the rank's positions where the sequence is sharded.
+    A cache that already is its block (``length`` the prompt's, nothing
+    cut) is placed as it is. A self-attention cache ({"k", "v"}) only:
+    another family's prefill cache goes to :func:`mesh_cache` whole."""
+    if set(cache) != {"k", "v"}:
+        raise ValueError(f"cache_len lays a self-attention KV cache; the "
+                         f"{cfg.family} family's cache ({sorted(cache)}) is "
+                         f"placed whole by mesh_cache")
+    placed = cache_specs(cfg, ShapeConfig("serve", length, batch, "decode"),
+                         mesh)
+    out = {}
+    for name, t in cache.items():
+        full, spec = placed[name]
+        want = SP.local_shape(tuple(full.shape), spec, mesh)
+        if tuple(t.shape) != want:
+            seq = spec[2] if len(spec) > 2 else None
+            s0, _ = TP.block(length, seq, mesh)
+            dst = t.new_zeros(want)
+            n = max(0, min(want[2], t.shape[2] - s0))
+            dst[:, :, :n] = t[:, :, s0:s0 + n]
+            t = dst
+        out[name] = _dtensor(mesh, t, spec, full)
+    return out
+
+
 def mesh_cache(cache: Any, mesh: DeviceMesh) -> Any:
-    """A cache of this rank's rows as DTensors placed by
+    """A cache of this rank's rows (whole on the ``model`` axis) as
+    DTensors of this rank's blocks, placed by
     :func:`repro_torch.parallel.specs.cache_specs` (the batch on the data
-    axes): a serving cache for :func:`mesh_step`'s serve step. The specs
-    are read on a mesh of the same axes at size 1, where no axis is
-    dropped for divisibility: the local blocks are exact."""
+    axes, and the kv heads or the sequence on ``model``): a serving cache
+    for :func:`mesh_step`'s serve step. The specs are read on a mesh of
+    the same axes with the data axes at size 1 (the rows given are
+    already this rank's) and ``model`` at its size; a leaf sharded on
+    ``model`` is cut to this rank's block (a copy)."""
     names = axis_names(mesh)
-    specs = SP.cache_specs(cache, AbstractMesh([1] * len(names), names))
-    return tree_map(lambda t, s: DTensor.from_local(
-        t, mesh, placements(mesh, s), run_check=False), cache, specs)
+    sizes = mesh_shape(mesh)
+    specs = SP.cache_specs(cache, AbstractMesh(
+        [sizes[a] if a == "model" else 1 for a in names], names))
+
+    def place(t, spec):
+        for dim, entry in enumerate(spec):
+            if "model" in axes_of(entry) and sizes["model"] > 1:
+                lo, hi = TP.block(t.shape[dim], "model", mesh)
+                t = t.narrow(dim, lo, hi - lo).clone()
+        return DTensor.from_local(t, mesh, placements(mesh, spec),
+                                  run_check=False)
+    return tree_map(place, cache, specs)

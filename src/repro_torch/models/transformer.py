@@ -38,7 +38,18 @@ Differences from the reference:
   current (``parallel.sharding.axis_rules``): then the expert-parallel
   path of the reference's ``shard_map`` (``E % model == 0``), with the
   tokens sent to the ranks that hold their experts by ``all_to_all`` and
-  the results sent back, in place of the reference's ``psum``.
+  the results sent back, in place of the reference's ``psum``;
+- the dense family's prefill and decode run tensor-parallel where a
+  :class:`repro_torch.parallel.tensor.Layout` is current (a mesh step with
+  ``model`` > 1, ``launch.steps.mesh_step``), on this rank's blocks of the
+  params: its query heads, with a sum over the ranks after the output
+  projection; its kv heads where they divide the axis, else k and v summed
+  over the input-dim blocks of ``wk``/``wv`` (prefill) or projected whole
+  (decode); a sequence-sharded decode cache's blocks merged by their
+  log-sum-exp; its FFN columns with a sum after ``wo``; its vocabulary rows
+  of the embedding (:func:`repro_torch.parallel.tensor.embed_lookup`) and
+  columns of the logits. GSPMD makes the same split of the reference's
+  forward from its ``constrain`` calls and the params' shardings.
 """
 from __future__ import annotations
 
@@ -52,6 +63,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.parallel import sharding
+from repro_torch.parallel import tensor as TP
 from repro_torch.tree import stack_init, tree_map
 
 Params = Dict[str, Any]
@@ -104,13 +116,37 @@ def _proj(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def _project_qkv(p: Params, x: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(..., d) → q (..., Hp, hd), k and v (..., KV, hd)."""
-    return _proj(p["wq"], x), _proj(p["wk"], x), _proj(p["wv"], x)
+    """(..., d) → q (..., Hp, hd), k and v (..., KV, hd). Tensor-parallel:
+    q of the rank's heads, k and v of its kv heads, or, where ``wk``/``wv``
+    are cut on their input dimension, ``x[..., d_r] @ w[d_r]`` summed over
+    the ranks (whole)."""
+    tp = TP.current()
+    if tp is None or tp.kv != "input":
+        return _proj(p["wq"], x), _proj(p["wk"], x), _proj(p["wv"], x)
+    xs = x[..., tp.embed[0]:tp.embed[1]]
+    kv = TP.all_reduce(torch.cat([_proj(p["wk"], xs), _proj(p["wv"], xs)],
+                                 -2), tp.group)
+    k, v = kv.chunk(2, dim=-2)
+    return _proj(p["wq"], x), k, v
 
 
 def _out_proj(p: Params, out: torch.Tensor) -> torch.Tensor:
-    """(..., Hp, hd) → (..., d)."""
-    return out.flatten(-2) @ p["wo"].flatten(0, 1)
+    """(..., Hp, hd) → (..., d); tensor-parallel, the rank's heads' share,
+    summed over the ranks."""
+    y = out.flatten(-2) @ p["wo"].flatten(0, 1)
+    tp = TP.current()
+    return TP.all_reduce(y, tp.group) if tp is not None and tp.split_heads \
+        else y
+
+
+def _kv_read(t: torch.Tensor) -> torch.Tensor:
+    """The kv heads of ``t`` (..., KV, hd) that the rank's query heads read
+    (``t`` itself off a tensor-parallel layout and where the rank holds
+    its own kv heads)."""
+    tp = TP.current()
+    if tp is None or tp.kv == "heads":
+        return t
+    return t[..., tp.kv_read[0]:tp.kv_read[1], :]
 
 
 def rope_table(cfg: ModelConfig, positions) -> Rope:
@@ -157,7 +193,7 @@ def attention_apply(p: Params, x: torch.Tensor, rope: Rope, *,
     returns k, v (B, S, KV, hd)."""
     q, k, v = _project_qkv(p, x)
     q, k = _apply_positions(q, k, rope)
-    out = attend(p, q, k, v, causal=causal)
+    out = attend(p, q, _kv_read(k), _kv_read(v), causal=causal)
     if return_kv:
         return out, (k, v)
     return out
@@ -180,15 +216,75 @@ def attention_decode(p: Params, x: torch.Tensor, rope: Rope,
     new token's position (an int, or an int32 tensor on the card). The new
     K/V row is written into the caches in place (the reference donates
     them); attention runs over positions ``<= index`` through
-    ``decode_attention``. Returns (out, k_cache, v_cache)."""
+    ``decode_attention``. Returns (out, k_cache, v_cache). Over a
+    sequence-sharded cache (tensor-parallel) the rank holds a block of the
+    positions: :func:`_attend_block`."""
     q, k, v = _project_qkv(p, x)
     q, k = _apply_positions(q, k, rope)
+    tp = TP.current()
+    if tp is not None and tp.seq is not None:
+        out = _attend_block(p, q, k, v, k_cache, v_cache, index, tp)
+        return out, k_cache, v_cache
     _write_row(k_cache, k, index)
     _write_row(v_cache, v, index)
     length = index + 1
     if isinstance(length, torch.Tensor):
         length = length.reshape(1).to(torch.int32)
-    return attend_cache(p, q, k_cache, v_cache, length), k_cache, v_cache
+    return (attend_cache(p, q, _kv_read(k_cache), _kv_read(v_cache), length),
+            k_cache, v_cache)
+
+
+def _write_block_row(cache: torch.Tensor, row: torch.Tensor, index: Index,
+                     s0: int) -> None:
+    """Write ``row`` at position ``index`` of a cache block (B, n, KV, hd)
+    that holds positions [s0, s0 + n), in place, where the block holds
+    it. A tensor ``index`` stays on the device: the block's row at the
+    clamped position is rewritten with itself where it is not owned."""
+    n = cache.shape[1]
+    if not isinstance(index, torch.Tensor):
+        if s0 <= index < s0 + n:
+            _write_row(cache, row, index - s0)
+        return
+    local = index.reshape(1).long() - s0
+    pos = local.clamp(0, n - 1)
+    owned = ((local >= 0) & (local < n)).view(1, 1, 1, 1)
+    cache.index_copy_(1, pos, torch.where(owned, row.to(cache.dtype),
+                                          cache.index_select(1, pos)))
+
+
+def _attend_block(p: Params, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, index: Index, tp) -> torch.Tensor:
+    """The reference's "flash-decoding style context parallelism" for a
+    cache whose sequence is sharded on ``model`` (kv heads that do not
+    divide the axis, the MQA decode): this rank holds positions
+    ``tp.seq`` = [s0, s1) of the caches (B, s1 - s0, KV, hd) and the whole
+    k, v of the new token (``wk``/``wv`` replicated). It writes the row
+    where it holds ``index``, gathers q to every head, attends over its
+    valid positions, ``clamp(index + 1 - s0, 0, s1 - s0)`` of them, for
+    (o_r, lse_r), merges the ranks' by their softmax weights
+    (:func:`repro_torch.parallel.tensor.merge_blocks`), then takes its
+    heads' rows into ``wo`` (summed over the ranks). → (B, 1, d)."""
+    s0, s1 = tp.seq
+    _write_block_row(k_cache, k, index, s0)
+    _write_block_row(v_cache, v, index, s0)
+    if tp.split_heads:                              # (m, B, 1, H/m, hd)
+        q = TP.all_gather(q, tp.group, tp.size).permute(1, 2, 0, 3, 4)
+        q = q.flatten(2, 3)
+    B, _, H, hd = q.shape
+    KV = k_cache.shape[2]
+    if isinstance(index, torch.Tensor):
+        length = (index.reshape(1) + 1 - s0).clamp(0, s1 - s0).to(
+            torch.int32)
+    else:
+        length = max(0, min(index + 1 - s0, s1 - s0))
+    o, lse = ops.decode_attention(q.reshape(B, KV, H // KV, hd),
+                                  k_cache.permute(0, 2, 1, 3),
+                                  v_cache.permute(0, 2, 1, 3), length,
+                                  return_lse=True)
+    o = TP.merge_blocks(o, lse, tp).reshape(B, 1, H, hd)
+    h0, h1 = tp.heads
+    return _out_proj(p, o[:, :, h0:h1])
 
 
 def attend_cache(p: Params, q: torch.Tensor, k_cache: torch.Tensor,
@@ -221,14 +317,20 @@ def ffn_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def ffn_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """The dense FFN."""
+    """The dense FFN. Tensor-parallel: the rank's columns of ``wi`` (a
+    SwiGLU's as gate_r ‖ up_r) and rows of ``wo``, summed over the ranks
+    before ``wo``'s bias."""
     h = L.dense_apply(p["wi"], x)
     if cfg.act == "swiglu":
         gate, up = h.chunk(2, dim=-1)
         h = L.swiglu(gate, up)
     else:
         h = L.gelu(h)
-    return L.dense_apply(p["wo"], h)
+    tp = TP.current()
+    if tp is None or not tp.split_ffn:
+        return L.dense_apply(p["wo"], h)
+    y = TP.all_reduce(h @ p["wo"]["kernel"], tp.group)
+    return y + p["wo"]["bias"] if "bias" in p["wo"] else y
 
 
 # ---------------------------------------------------------------------------
@@ -455,6 +557,10 @@ def _embed(params: Params, cfg: ModelConfig, tokens, embeds) -> torch.Tensor:
     ids' embedding rows (a decode step's new token)."""
     if embeds is not None:
         return embeds.to(cfg.compute_dtype)
+    tp = TP.current()
+    if tp is not None and tp.split_vocab:
+        return TP.embed_lookup(params["embed"]["embedding"], tokens,
+                               tp).to(cfg.compute_dtype)
     return L.embed_apply(params["embed"], tokens).to(cfg.compute_dtype)
 
 
@@ -475,6 +581,8 @@ def lm_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def _lm_head(params: Params, cfg: ModelConfig, x: torch.Tensor
              ) -> torch.Tensor:
+    """Logits of ``x``; tensor-parallel, the rank's vocabulary columns
+    (its rows of a tied embedding), left sharded."""
     if cfg.tie_embeddings or "lm_head" not in params:
         return L.embed_attend(params["embed"], x)
     return L.dense_apply(params["lm_head"], x)

@@ -1,0 +1,318 @@
+"""Tensor parallelism on a mesh's ``model`` axis: the dense family's
+prefill and serve steps split over the ranks of that axis.
+
+The JAX package runs any step on any mesh through ``jit`` with the
+``in_shardings`` of ``param_specs`` / ``cache_specs``; GSPMD splits the
+work as the logical rules say (``heads``, ``kv_heads``, ``mlp`` and
+``vocab`` on ``model``, ``parallel/sharding.py``). The port executes the
+same split by hand, in three parts:
+
+- the rank layout: :func:`shard_params` cuts whole params into this
+  rank's blocks as the sanitized specs of ``param_specs(cfg, mesh, kind)``
+  place them, and :class:`Layout` (:func:`layout`) says what the rank
+  computes, read from those specs and, for a decode step, from the
+  cache's. :func:`installed` makes a layout current for the model code
+  (``models/transformer.py``), which reads it with :func:`current`;
+- the collectives: :func:`all_reduce` (a sum, or a max where the
+  log-sum-exp merge needs one) and :func:`all_gather`, over the group of
+  the ``model`` axis, and nothing else;
+- the masks: :func:`embed_lookup`, the vocabulary-sharded embedding
+  gather, whose rows equal the whole gather bit for bit, and
+  :func:`merge_blocks`, the cross-rank merge of a sequence-sharded decode
+  cache's blocks by their log-sum-exp.
+
+Where a rank's group is gloo and its tensors lie on the card (two ranks
+sharing one card, where NCCL refuses two ranks of one group on one
+device), gloo copies each tensor through host memory itself: with torch
+2.11 + CUDA 12.8 it carries all three collectives used here (a sum, a
+max, a gather) on CUDA tensors in fp32 and bf16
+(``tools/gloo_cuda_probe.py`` on an H100), so nothing is staged here.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+import threading
+from typing import Any, NamedTuple, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from repro_torch.compat import all_gather_single, mesh_shape
+from repro_torch.parallel import specs as SP
+from repro_torch.parallel.sharding import axes_of
+from repro_torch.tree import tree_map_with_path
+
+
+# ---------------------------------------------------------------------------
+# the collectives, over the model axis's group
+# ---------------------------------------------------------------------------
+
+def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``t`` summed (``op="sum"``) or maxed (``"max"``) over the group's
+    ranks, in place; returns ``t``. Every rank gets the same bits."""
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    dist.all_reduce(t, op=red, group=group)
+    return t
+
+
+def all_gather(t: torch.Tensor, group, size: int) -> torch.Tensor:
+    """Every rank's ``t`` stacked in rank order: (size, *t.shape)."""
+    src = t.reshape(-1)
+    out = src.new_empty(size * src.numel())
+    all_gather_single(out, src, group=group)
+    return out.view(size, *t.shape)
+
+
+# ---------------------------------------------------------------------------
+# the rank layout
+# ---------------------------------------------------------------------------
+
+class Layout(NamedTuple):
+    """What one rank of the ``model`` axis computes in a dense prefill or
+    decode step. Ranges are [start, stop) in the whole tensor's indices.
+
+    - ``heads``: its query heads (every head where ``wq`` is not split);
+      ``split_heads``: ``wq``/``wo`` hold only those, so the output
+      projection is summed over the ranks;
+    - ``kv``: ``"heads"`` (its own kv heads, which divide the axis),
+      ``"input"`` (``wk``/``wv`` cut on their input dimension, block
+      ``embed`` of d: k and v are summed over the ranks and whole) or
+      ``"whole"`` (``wk``/``wv`` replicated: k and v whole);
+      ``kv_read``: the kv heads, of the k/v (or cache) the rank holds,
+      that its query heads read;
+    - ``split_ffn``: ``wi``/``wo`` hold its FFN columns/rows (summed after);
+    - ``vocab``: its rows of the embedding and columns of the logits
+      (``split_vocab`` when that is not the whole vocabulary);
+    - ``seq``: a decode step's cache positions on this rank where the
+      cache is sequence-sharded, else None (the rank holds them all).
+    """
+    group: Any
+    size: int
+    heads: Tuple[int, int]
+    split_heads: bool
+    kv: str
+    kv_read: Tuple[int, int]
+    embed: Tuple[int, int]
+    split_ffn: bool
+    vocab: Tuple[int, int]
+    split_vocab: bool
+    seq: Optional[Tuple[int, int]]
+
+
+def block(length: int, entry, mesh) -> Tuple[int, int]:
+    """This rank's block [lo, hi) of a dimension of ``length`` placed by
+    the spec entry ``entry`` (None: the whole), split by its mesh axes in
+    order, major first."""
+    idx, n = 0, 1
+    sizes = mesh_shape(mesh)
+    for a in axes_of(entry):
+        idx = idx * sizes[a] + mesh.get_local_rank(a)
+        n *= sizes[a]
+    if length % n:
+        raise ValueError(f"{length} does not split over {n} ranks")
+    step = length // n
+    return idx * step, (idx + 1) * step
+
+
+def _entry(spec, dim: int):
+    return spec[dim] if dim < len(spec) else None
+
+
+def _model_only(entry, what: str):
+    """``entry`` where it is ``"model"`` or None; another axis there is a
+    placement this slice does not execute."""
+    if entry is None or entry == "model":
+        return entry
+    raise NotImplementedError(
+        f"{what} placed on {entry}: the tensor-parallel steps split it on "
+        f"the model axis alone")
+
+
+def layout(cfg, mesh, param_spec_tree: Any, cache_spec: Any = None,
+           cache_len: int = 0) -> Layout:
+    """The layout of this rank of ``mesh``'s ``model`` axis for a dense
+    config's params placed by ``param_spec_tree`` (sanitized
+    ``param_specs`` of the step's kind) and, for a decode step, its KV
+    cache of ``cache_len`` positions placed by ``cache_spec`` (the spec of
+    the (L, B, S, KV, hd) ``k`` leaf)."""
+    attn = param_spec_tree["layers"]["attn"]
+    Hp, KV, d, V = cfg.heads_padded, cfg.n_kv_heads, cfg.d_model, cfg.vocab
+    heads_e = _model_only(_entry(attn["wq"], 2), "wq's heads")
+    h0, h1 = block(Hp, heads_e, mesh)
+    kv_heads_e = _model_only(_entry(attn["wk"], 2), "wk's kv heads")
+    input_e = _model_only(_entry(attn["wk"], 1), "wk's input dimension")
+    kv = "heads" if kv_heads_e else "input" if input_e else "whole"
+    G = Hp // KV
+    if kv == "heads":
+        k0, k1 = block(KV, kv_heads_e, mesh)
+        kv_read = (0, k1 - k0)
+    elif (h1 - h0) % G == 0:
+        kv_read = (h0 // G, h1 // G)
+    elif G % (h1 - h0) == 0:
+        kv_read = (h0 // G, h0 // G + 1)
+    else:
+        raise NotImplementedError(
+            f"query heads [{h0}, {h1}) straddle groups of {G}: no kv head "
+            f"range serves them")
+    wi_e = _model_only(_entry(param_spec_tree["layers"]["ffn"]["wi"]
+                              ["kernel"], 2), "the FFN's columns")
+    vocab_e = _model_only(_entry(param_spec_tree["embed"]["embedding"], 0),
+                          "the vocabulary")
+    seq = None
+    if cache_spec is not None:
+        seq_e = _entry(cache_spec, 2)
+        if seq_e is not None and "model" in axes_of(seq_e):
+            seq = block(cache_len, _model_only(
+                seq_e, "the cache's sequence"), mesh)
+        if (kv == "heads") != (_entry(cache_spec, 3) == "model"):
+            raise ValueError(f"a cache placed {cache_spec} does not hold the "
+                             f"kv heads that wk/wv placed {attn['wk']} give")
+    return Layout(mesh.get_group("model"), mesh_shape(mesh)["model"],
+                  (h0, h1), heads_e is not None, kv, kv_read,
+                  block(d, input_e, mesh), wi_e is not None,
+                  block(V, vocab_e, mesh), vocab_e is not None, seq)
+
+
+_local = threading.local()
+
+
+def current() -> Optional[Layout]:
+    """The layout :func:`installed` made current, else None (off a mesh
+    with ``model`` > 1: the model code runs whole)."""
+    return getattr(_local, "layout", None)
+
+
+@contextlib.contextmanager
+def installed(lay: Optional[Layout]):
+    """Make ``lay`` current for the enclosed model code."""
+    prev = current()
+    _local.layout = lay
+    try:
+        yield
+    finally:
+        _local.layout = prev
+
+
+# ---------------------------------------------------------------------------
+# cutting whole params into this rank's blocks
+# ---------------------------------------------------------------------------
+
+def _path(path) -> str:
+    return "/".join(str(p) for p in path)
+
+
+def _cut(path, t: torch.Tensor, spec, mesh, swiglu: bool) -> torch.Tensor:
+    """This rank's block of the whole leaf ``t`` placed by ``spec``, as a
+    view where one range gives it. A SwiGLU ``wi`` (d, 2·ff) = [gate | up]
+    is cut in each half, giving gate_r ‖ up_r (a copy): ``param_specs``
+    shards its last dimension in two contiguous halves, which at
+    ``model`` 2 would give one rank all of gate and the other all of up."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        if swiglu and dim == t.dim() - 1 and _path(path).endswith(
+                "ffn/wi/kernel"):
+            half = t.shape[dim] // 2
+            lo, hi = block(half, entry, mesh)
+            t = torch.cat([t.narrow(dim, lo, hi - lo),
+                           t.narrow(dim, half + lo, hi - lo)], dim)
+        else:
+            lo, hi = block(t.shape[dim], entry, mesh)
+            t = t.narrow(dim, lo, hi - lo)
+    return t
+
+
+def param_spec_tree(params: Any, cfg, mesh, kind: str) -> Any:
+    """The sanitized ``param_specs`` of ``kind`` for a params tree."""
+    return SP.sanitize_tree(SP.param_specs(params, mesh, cfg=cfg, kind=kind),
+                            params, mesh)
+
+
+def shard_params(params: Any, cfg, mesh, kind: str) -> Any:
+    """Whole params (from ``api.init`` or ``convert.lm_params_from_jax``,
+    the same on every rank) cut into this rank's blocks, as the sanitized
+    ``param_specs(cfg, mesh, kind=kind)`` place them: compact copies, so
+    that the whole tree can be freed. ``wi`` of a SwiGLU FFN is cut per
+    half (:func:`_cut`). ``kind`` "decode" keeps an MQA's ``wk``/``wv``
+    whole (1.5 MB a layer at granite-20b's width); a prefill step takes
+    its input-dim block as a view of them (:func:`fit`)."""
+    specs = param_spec_tree(params, cfg, mesh, kind)
+    swiglu = cfg.act == "swiglu"
+    return tree_map_with_path(
+        lambda p, t, s: _cut(p, t, s, mesh, swiglu).clone(
+            memory_format=torch.contiguous_format), params, specs)
+
+
+def fit(params: Any, shapes: Any, specs: Any, cfg, mesh) -> Any:
+    """Local params for a step whose kind places them by ``specs`` (the
+    whole leaves' shapes ``shapes``): a leaf already of its local block's
+    shape is kept, a whole leaf is cut to a view of its block (the
+    decode layout's whole MQA ``wk``/``wv`` at prefill). Any other shape
+    was laid out for another mesh or kind."""
+    swiglu = cfg.act == "swiglu"
+
+    def one(path, t, whole, spec):
+        want = SP.local_shape(tuple(whole.shape), spec, mesh)
+        if tuple(t.shape) == want:
+            return t
+        if tuple(t.shape) == tuple(whole.shape):
+            return _cut(path, t, spec, mesh, swiglu)
+        raise ValueError(f"{_path(path)} of shape {tuple(t.shape)}: the step "
+                         f"takes this rank's block {want} (placed {spec}) or "
+                         f"the whole {tuple(whole.shape)}")
+    return tree_map_with_path(one, params, shapes, specs)
+
+
+# ---------------------------------------------------------------------------
+# the masks
+# ---------------------------------------------------------------------------
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
+                 lay: Layout) -> torch.Tensor:
+    """Rows of a vocabulary-sharded embedding: each rank looks up the ids
+    in its ``[v0, v1)``, fills the others' rows with -0.0 and the ranks'
+    rows are summed. Every row is one rank's row plus -0.0s, which is
+    that row bit for bit (-0.0 is the identity of an IEEE sum, signed
+    zeros included), so the rows equal the whole table's gather."""
+    v0, v1 = lay.vocab
+    local = ids - v0
+    inside = (local >= 0) & (local < v1 - v0)
+    rows = F.embedding(local.clamp(0, v1 - v0 - 1), table)
+    rows = torch.where(inside[..., None], rows, -0.0)
+    return all_reduce(rows, lay.group)
+
+
+def merge_blocks(o: torch.Tensor, lse: torch.Tensor, lay: Layout
+                 ) -> torch.Tensor:
+    """The attention output over the whole sequence from each rank's
+    output ``o`` (..., D) and log-sum-exp ``lse`` (...) over its block of
+    it: ``Σ_r exp(lse_r − M) o_r / Σ_r exp(lse_r − M)``, M the ranks' max,
+    in fp32, in o's dtype. A block over no position (lse −inf) weighs 0; so
+    does every block where all are empty (o = 0), with no NaN."""
+    m = all_reduce(lse.clone(), lay.group, "max")
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    w = torch.exp(lse - m)[..., None]
+    both = all_reduce(torch.cat([o.float() * w, w], -1), lay.group)
+    num, den = both[..., :-1], both[..., -1:]
+    return (num / den.clamp_min(math.ldexp(1.0, -126))).to(o.dtype)
+
+
+def argmax(logits: torch.Tensor, group=None, size: int = 1,
+           v0: int = 0) -> torch.Tensor:
+    """The index of the max over the last axis of logits (..., V/size)
+    whose vocabulary is sharded over ``group`` (this rank's block starting
+    at ``v0``), as ``torch.argmax`` of the whole row gives it: the first
+    index of the max. Each rank finds its max and first index (+ ``v0``);
+    the ranks' pairs are gathered and the larger value wins, the lower
+    rank (so the lower index) on a tie. Values compare exactly (fp32 holds
+    bf16 and fp32 logits, and indices below 2^24, as they are)."""
+    if size == 1:
+        return logits.argmax(-1)
+    idx = logits.argmax(-1)
+    val = logits.gather(-1, idx[..., None])[..., 0].float()
+    pairs = all_gather(torch.stack([val, (idx + v0).float()], -1), group,
+                       size)                                # (m, ..., 2)
+    best = pairs[..., 0].argmax(0, keepdim=True)    # the first max: low rank
+    return pairs[..., 1].gather(0, best)[0].long()

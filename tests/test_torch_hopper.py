@@ -460,6 +460,41 @@ def test_decode_attention_splits_reset_their_counters(hopper):
 
 
 @pytest.mark.parametrize("dtype", LM_DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,KV,G,D,S", [(4, 4, 4, 64, 544),
+                                        (4, 1, 48, 128, 272)],
+                         ids=["llama-rank", "granite-block"])
+@pytest.mark.parametrize("length", [0, 1, 137, 256, 272])
+@pytest.mark.parametrize("as_tensor", [False, True], ids=["int", "tensor"])
+def test_decode_attention_lse_matches_plain_version(hopper, dtype, B, KV, G,
+                                                    D, S, length, as_tensor):
+    """The log-sum-exp output at the tensor-parallel ranks' shapes
+    (llama3.2-1b's 4 of 8 kv heads at model 2; granite-20b's 48 heads over
+    its rank's block of 272 positions) against the plain version's: o and
+    lse close, o = 0 and lse = −inf at length 0, a rerun bit-equal, and o
+    without the lse the same bits as with it."""
+    q, kc, vc = _decode_operands(B, KV, G, S, D, dtype, hopper, seed=length)
+    n = (torch.tensor([length], dtype=torch.int32, device=hopper)
+         if as_tensor else length)
+    before = ops.decode_attention.launches
+    o, lse = ops.decode_attention(q, kc, vc, n, return_lse=True)
+    again = ops.decode_attention(q, kc, vc, n, return_lse=True)
+    alone = ops.decode_attention(q, kc, vc, n)
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches == before + 3
+    assert lse.shape == (B, KV, G) and lse.dtype == torch.float32
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    assert torch.equal(o, alone)
+    ro, rlse = ops.decode_attention_ref(q, kc, vc, length, return_lse=True)
+    if length == 0:
+        assert not o.any() and torch.isneginf(lse).all()
+        assert not ro.any() and torch.isneginf(rlse).all()
+        return
+    _close(o, ro, dtype)
+    np.testing.assert_allclose(lse.cpu().numpy(), rlse.cpu().numpy(),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", LM_DTYPES, ids=["fp32", "bf16"])
 def test_attention_kernels_copy_views_they_cannot_address(hopper, dtype):
     """Views whose strides are odd (not 16-byte aligned) reach the kernels
     as contiguous copies and give the plain versions' answers."""

@@ -224,7 +224,7 @@ def test_train_slice_modules_import_neither_jax_nor_repro(module):
 
 MESH_SLICE = ["compat", "launch.mesh", "parallel.sharding",
               "parallel.specs", "parallel.pipeline", "launch.roofline",
-              "launch.dryrun"]
+              "launch.dryrun", "parallel.tensor"]
 
 
 @pytest.mark.parametrize("module", MESH_SLICE)
