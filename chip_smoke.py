@@ -296,6 +296,24 @@ Tensor parallelism (``repro_torch.parallel.tensor``; ``mesh_step`` and
     rank's launches of rmsnorm, flash and decode exact, prefill and decode
     times per rank and the collectives' share (timed between
     synchronisations), none a multi-card speed.
+31. the MoE on a ``model`` axis, as the reference's
+    ``_moe_apply_shard_map`` splits it: ``flash_attention`` and
+    ``decode_attention`` at moonshot-v1-16b-a3b's rank shapes (8 of 16 kv
+    heads, D 128; checked and timed in phase 30's kernel pass), then two
+    ranks on the (1, 2) mesh as in phase 30: moonshot at full width cut to
+    2 layers in fp32 (expert-parallel: 32 of 64 experts a rank; every
+    logit within rtol/atol 1e-3), then cut to 8 of its 48 layers in bf16
+    (~10.5 GB whole; each logit within 3e-2 of its row's largest
+    |logit|), each rank's routes recorded beside the one-process run's:
+    only logit rows at or past a position whose route differs may pass
+    the bound (printed), and differing router rows stay under 1%; then
+    four ranks on a (2, 2) mesh serving tiny moonshot with 3 experts in
+    fp32 (every logit within 1e-3): no published config has an expert
+    count that two ranks fail to divide, so this is the card's run of the
+    ff-sharded experts, their d cut over ``data``, the prefill's weight
+    gather and the 2-D decode. Launches of rmsnorm, flash, decode and
+    ``topk_gating`` exact per rank; times per rank and the collectives'
+    share as in phase 30.
 
 The last two lines of standard output are the ``kernels`` JSON line
 (thirteen entries) and the ``ok`` JSON line. Exits non-zero without a
@@ -1946,22 +1964,45 @@ def expected_launches(cfg, steps: int) -> tuple:
 
 
 @contextlib.contextmanager
-def recording_routes():
+def recording_routes(weights: list = None):
     """Record the experts each ``topk_gating`` call picks while the block
-    runs ((N, k) int32 on the CPU, in call order). The launch counters are
-    read after the block."""
+    runs ((N, k) int32 on the CPU, in call order), and their weights in
+    ``weights`` where given. The launch counters are read after the
+    block."""
     routes = []
     gate = ops.topk_gating
 
     def recorded(logits, k):
         w, i = gate(logits, k)
         routes.append(i.cpu())
+        if weights is not None:
+            weights.append(w.cpu())
         return w, i
     ops.topk_gating = recorded
     try:
         yield routes
     finally:
         ops.topk_gating = gate
+
+
+@contextlib.contextmanager
+def replaying_routes(weights: list, routes: list, dev):
+    """``topk_gating`` returns another run's recorded (weights, experts),
+    call after call, while the block runs (no launch): that run's routing
+    decisions, so that what differs is the arithmetic alone."""
+    gate = ops.topk_gating
+    calls = iter(zip(weights, routes))
+
+    def replayed(logits, k):
+        w, i = next(calls)
+        return torch.from_numpy(w).to(dev), torch.from_numpy(i).to(dev)
+    ops.topk_gating = replayed
+    try:
+        yield
+    finally:
+        ops.topk_gating = gate
+    if next(calls, None) is not None:
+        raise AssertionError("the replayed run made fewer router calls")
 
 
 def phase_ssm_moe_card_vs_cpu(dev) -> None:
@@ -4336,13 +4377,26 @@ TP_TIMEOUT = 600.0               # the ranks' seconds, their start included
 TP_COLLECTIVES = ("all_reduce", "all_gather")
 # (B, KV, G, S, D, what): the ranks' prefill attention at model 2, causal
 TP_FLASH = ((4, 4, 4, 512, 64, "llama3.2-1b rank: 4 of 8 kv heads"),
-            (4, 1, 24, 512, 128, "granite-20b rank: 24 of 48 heads"))
+            (4, 1, 24, 512, 128, "granite-20b rank: 24 of 48 heads"),
+            (4, 8, 1, 512, 128, "moonshot-v1-16b-a3b rank: 8 of 16 kv "
+             "heads"))
 # (B, KV, G, S, D, lengths, what): the ranks' decode attention at model 2,
 # the first length timed (the middle of the run's fills)
 TP_DECODE = ((4, 4, 4, 544, 64, (528, 513, 1, 0),
               "llama3.2-1b rank: 4 of 8 kv heads, whole cache"),
              (4, 1, 48, 272, 128, (256, 272, 241, 1, 0),
-              "granite-20b rank: all 48 heads over a block of 272"))
+              "granite-20b rank: all 48 heads over a block of 272"),
+             (4, 8, 1, 544, 128, (528, 513, 1, 0),
+              "moonshot-v1-16b-a3b rank: 8 of 16 kv heads, whole cache"))
+# the kernels a tensor-parallel rank launches (topk_gating: the MoE's
+# router, replicated on every rank)
+TP_KERNELS = SERVE_KERNELS + ("topk_gating",)
+# (arch, depth cut, dtype) of phase 31 on the (1, 2) mesh: moonshot's 64
+# experts split 32 a rank
+MOE_TP_SERVE = ((MOE_ARCH, 2, torch.float32),
+                (MOE_ARCH, 8, torch.bfloat16))
+MOE_TP_SMALL_MESH = (2, 2)       # (data, model): tiny moonshot's 3 experts
+MOE_TP_SMALL_EXPERTS = 3         # divide no model axis: ff-sharded
 
 
 def tp_config(arch: str, layers, dtype):
@@ -4370,11 +4424,13 @@ def tp_check(logits: torch.Tensor, ref: torch.Tensor, dtype, label: str
 
 def tp_expected(cfg) -> dict:
     """A rank's launches of one prefill and TP_GEN - 1 decode steps: its
-    rmsnorm 2L+1 a call, flash L, decode L a step (each rank runs every
-    layer on its blocks)."""
+    rmsnorm 2L+1 a call, flash L, decode L a step, an MoE's topk_gating L
+    a call (each rank runs every layer on its blocks and routes all of
+    its rows)."""
     L = cfg.n_layers
     return {"rmsnorm": (2 * L + 1) * TP_GEN, "flash_attention": L,
-            "decode_attention": L * (TP_GEN - 1)}
+            "decode_attention": L * (TP_GEN - 1),
+            "topk_gating": L * TP_GEN if cfg.family == "moe" else 0}
 
 
 def tp_weights(cfg, dev) -> tuple:
@@ -4414,8 +4470,9 @@ def tp_rank_run(mesh, dev, cfg, prompt: np.ndarray,
     """One model on this rank: the whole weights drawn and cut to its
     blocks (``shard_params``, the decode layout), then three teacher-forced
     ``greedy_decode`` runs on the mesh: the counted one (launches, tokens,
-    this rank's vocabulary columns of the logits), a warm timed one, and
-    one with the collectives timed between synchronisations."""
+    this rank's batch rows and vocabulary columns of the logits, an MoE's
+    routes), a warm timed one, and one with the collectives timed between
+    synchronisations."""
     gen = forced.shape[1]
     whole, check = tp_weights(cfg, dev)
     params = TP.shard_params(whole, cfg, mesh, "decode")
@@ -4424,11 +4481,13 @@ def tp_rank_run(mesh, dev, cfg, prompt: np.ndarray,
     nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     toks = torch.from_numpy(prompt).to(dev)
     teach = torch.from_numpy(forced).to(dev)
-    for k in SERVE_KERNELS:
+    for k in TP_KERNELS:
         getattr(ops, k).launches = 0
-    res = greedy_decode(params, cfg, toks, gen, keep_logits=True,
-                        mesh=mesh, forced=teach)
-    launches = {k: getattr(ops, k).launches for k in SERVE_KERNELS}
+    gates: list = []
+    with recording_routes(gates) as routes:
+        res = greedy_decode(params, cfg, toks, gen, keep_logits=True,
+                            mesh=mesh, forced=teach)
+    launches = {k: getattr(ops, k).launches for k in TP_KERNELS}
     logits = torch.stack(res.logits).float().cpu().numpy()
     warm = greedy_decode(params, cfg, toks, gen, mesh=mesh, forced=teach)
     spent: list = []
@@ -4440,6 +4499,8 @@ def tp_rank_run(mesh, dev, cfg, prompt: np.ndarray,
         sync(dev)
         wall = time.perf_counter() - t0
     out = dict(tokens=res.tokens, logits=logits, launches=launches,
+               routes=[r.numpy() for r in routes],
+               gates=[w.numpy() for w in gates],
                checksum=check, bytes=nbytes, prefill_ms=warm.prefill_ms,
                decode_ms=warm.decode_ms_per_token,
                peak_gib=(torch.cuda.max_memory_allocated(dev) / 2 ** 30
@@ -4457,16 +4518,17 @@ def sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def tp_rank(rank: int, world: int, store: str, device: str, runs: list,
-            out) -> None:
-    """Phase 30's rank process: joins the group on ``device`` (gloo: the
-    ranks share the one card), builds the (1, 2) mesh and serves each run
-    (config, prompt, forced tokens). A failure raises here and ends the
-    process with a non-zero exit code, which fails the phase."""
+def tp_rank(rank: int, world: int, store: str, device: str, shape: tuple,
+            runs: list, out) -> None:
+    """Phase 30's and 31's rank process: joins the group on ``device``
+    (gloo: the ranks share the one card), builds the ``shape`` (data,
+    model) mesh and serves each run (config, prompt, forced tokens). A
+    failure raises here and ends the process with a non-zero exit code,
+    which fails the phase."""
     import torch.distributed as dist
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = MESH.join_group(store, rank, world, device)
-    mesh = MESH.make_mesh(TP_MESH, ("data", "model"), device=dev)
+    mesh = MESH.make_mesh(shape, ("data", "model"), device=dev)
     out.put((rank, dist.get_backend(), [tp_rank_run(mesh, dev, *run)
                                         for run in runs]))
     dist.destroy_process_group()
@@ -4585,6 +4647,99 @@ def tp_kernels(dev) -> dict:
     return worst
 
 
+def tp_reference(cfg, dev) -> tuple:
+    """The one-process run on the card that the ranks are held to: the
+    weights drawn from TP_SEED, a prompt LM_BATCH x LM_PROMPT, TP_GEN
+    greedy tokens with their logits and an MoE's routes, and a warm
+    rerun's times. Returns (that record, the ranks' run: config, prompt,
+    forced tokens)."""
+    params, check = tp_weights(cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(TP_SEED + 1)
+    toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=g,
+                         device=dev)
+    with recording_routes() as routes:
+        ref = greedy_decode(params, cfg, toks, TP_GEN, keep_logits=True)
+    warm = greedy_decode(params, cfg, toks, TP_GEN)
+    out = dict(logits=torch.stack(ref.logits).float().cpu(),
+               tokens=ref.tokens, checksum=check,
+               routes=[r.numpy() for r in routes],
+               bytes=sum(t.numel() * t.element_size()
+                         for t in tree_leaves(params)),
+               prefill_ms=warm.prefill_ms, decode_ms=warm.decode_ms_per_token)
+    run = (cfg, toks.cpu().numpy(), ref.tokens)
+    del params, ref, warm, toks
+    torch.cuda.empty_cache()
+    return out, run
+
+
+def tp_launches(label: str, cfg, got: list, ref: dict, launches: dict
+                ) -> None:
+    """Every rank drew the one-process run's weights and launched exactly
+    ``tp_expected``; its launches are added to ``launches``."""
+    want = tp_expected(cfg)
+    for rank, r in enumerate(got):
+        if r["checksum"] != ref["checksum"]:
+            raise AssertionError(f"{label}: rank {rank} drew other weights")
+        if r["launches"] != want:
+            raise AssertionError(f"{label}: rank {rank} launches "
+                                 f"{r['launches']}, expected {want}")
+        for k, v in r["launches"].items():
+            launches[k] += v
+
+
+def tp_logits(got: list, shape: tuple) -> torch.Tensor:
+    """The ranks' logits (steps, B_r, V_r), rank r at mesh coordinates
+    (r // model, r % model), whole: the vocabulary columns joined over
+    ``model``, the batch rows over ``data``."""
+    m = shape[1]
+    return torch.from_numpy(np.concatenate([np.concatenate(
+        [r["logits"] for r in got[d * m:(d + 1) * m]], axis=-1)
+        for d in range(shape[0])], axis=1))
+
+
+def tp_report(label: str, what: str, cfg, dtype, got: list, ref: dict,
+              err: float, rel: float, backend: str, shape: tuple,
+              keep: np.ndarray = None) -> None:
+    """Phase 30's and 31's lines for one model (``label``, described by
+    ``what``): the check, the tokens (those of the (step, batch row) pairs
+    in ``keep``, all by default), each rank's times and the one-process
+    run's."""
+    toks, want = got[0]["tokens"], ref["tokens"]
+    keep = np.ones(want.shape[::-1], bool) if keep is None else keep
+    same = [np.array_equal(r["tokens"], toks) for r in got]
+    held = keep.T[:, 1:]
+    equal = int((toks[:, 1:] == want[:, 1:])[held].sum())
+    first = bool((toks[:, 0] == want[:, 0])[keep[0]].all())
+    print(f"{label} {what}, {str(cfg.compute_dtype)[6:]}, prompt "
+          f"{LM_PROMPT} x "
+          f"batch {LM_BATCH}, {TP_GEN - 1} decode steps teacher-forced, "
+          f"on a {shape} mesh ({len(got)} ranks sharing one card over "
+          f"{backend}): logits vs the one-process run max abs err "
+          f"{err:.3e}, largest |diff| {rel:.3e} of its row's largest "
+          f"|logit| (bound: "
+          f"{'rtol/atol 1e-3' if dtype == torch.float32 else TP_ROW_TOL}"
+          f"); greedy tokens equal {equal}/{int(held.sum())} of the decode "
+          f"steps' held (prefill's equal: {first}), ranks agree: "
+          f"{all(same)}; launches per rank {got[0]['launches']} (exact); "
+          f"params {ref['bytes'] / 2 ** 30:.2f} GiB whole, "
+          f"{[round(r['bytes'] / 2 ** 30, 2) for r in got]} GiB a rank")
+    for rank, r in enumerate(got):
+        print(f"{label} rank {rank} ({len(got)} ranks sharing one card over "
+              f"gloo; not a multi-card speed): prefill "
+              f"{r['prefill_ms']:.3f} ms, decode {r['decode_ms']:.3f} "
+              f"ms/token; collectives timed between synchronisations: "
+              f"{r['collectives']} in one prefill and {TP_GEN - 1} "
+              f"steps, {r['collective_ms']:.3f} ms of that run's "
+              f"{r['timed_ms']:.3f} ms (share "
+              f"{r['collective_ms'] / r['timed_ms']:.3f}; its prefill "
+              f"{r['timed_prefill_ms']:.3f} ms, decode "
+              f"{r['timed_decode_ms']:.3f} ms/token); peak device "
+              f"memory {r['peak_gib']:.2f} GiB")
+    print(f"{label} one process on the same card: prefill "
+          f"{ref['prefill_ms']:.3f} ms, decode {ref['decode_ms']:.3f} "
+          f"ms/token")
+
+
 def phase_tp(dev) -> dict:
     """30: tensor-parallel serving on a (1, 2) mesh's ``model`` axis, two
     spawned ranks sharing the one card over gloo (NCCL refuses two ranks
@@ -4597,83 +4752,205 @@ def phase_tp(dev) -> dict:
     rank's launches of rmsnorm, flash and
     decode exact, prefill and decode times per rank and the collectives'
     share. Returns the launches (both ranks) and the kernels' worst
-    errors at the ranks' shapes."""
+    errors at the ranks' shapes (phase 31's shapes among them)."""
     worst = tp_kernels(dev)
     runs, refs = [], []
     for arch, layers, dtype in TP_SERVE:
-        cfg = tp_config(arch, layers, dtype)
-        params, check = tp_weights(cfg, dev)
-        g = torch.Generator(device=dev).manual_seed(TP_SEED + 1)
-        toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
-                             generator=g, device=dev)
-        ref = greedy_decode(params, cfg, toks, TP_GEN, keep_logits=True)
-        warm = greedy_decode(params, cfg, toks, TP_GEN)
-        refs.append(dict(logits=torch.stack(ref.logits).float().cpu(),
-                         tokens=ref.tokens, checksum=check,
-                         bytes=sum(t.numel() * t.element_size()
-                                   for t in tree_leaves(params)),
-                         prefill_ms=warm.prefill_ms,
-                         decode_ms=warm.decode_ms_per_token))
-        runs.append((cfg, toks.cpu().numpy(), ref.tokens))
-        del params, ref, warm, toks
-        torch.cuda.empty_cache()
+        ref, run = tp_reference(tp_config(arch, layers, dtype), dev)
+        refs.append(ref)
+        runs.append(run)
     t0 = time.perf_counter()
-    ranks = spawn_ranks(tp_rank, TP_MESH[0] * TP_MESH[1], dev.type, runs)
+    ranks = spawn_ranks(tp_rank, TP_MESH[0] * TP_MESH[1], dev.type,
+                        TP_MESH, runs)
     ranks_s = time.perf_counter() - t0
-    launches = dict.fromkeys(SERVE_KERNELS, 0)
+    launches = dict.fromkeys(TP_KERNELS, 0)
     for i, (arch, layers, dtype) in enumerate(TP_SERVE):
         cfg, ref = tp_config(arch, layers, dtype), refs[i]
         got = [r[1][i] for r in ranks]
-        want = tp_expected(cfg)
-        for rank, r in enumerate(got):
-            if r["checksum"] != ref["checksum"]:
-                raise AssertionError(f"tp {arch}: rank {rank} drew other "
-                                     f"weights")
-            if r["launches"] != want:
-                raise AssertionError(f"tp {arch}: rank {rank} launches "
-                                     f"{r['launches']}, expected {want}")
-            for k, v in r["launches"].items():
-                launches[k] += v
-        logits = torch.from_numpy(np.concatenate([r["logits"] for r in got],
-                                                 axis=-1))
-        err, rel = tp_check(logits, ref["logits"], dtype, f"tp {arch}")
-        same = [np.array_equal(r["tokens"], got[0]["tokens"]) for r in got]
-        equal = int((got[0]["tokens"][:, 1:] == ref["tokens"][:, 1:]).sum())
-        first = bool((got[0]["tokens"][:, 0] == ref["tokens"][:, 0]).all())
+        tp_launches(f"tp {arch}", cfg, got, ref, launches)
+        err, rel = tp_check(tp_logits(got, TP_MESH), ref["logits"], dtype,
+                            f"tp {arch}")
         cut = "uncut" if layers is None else \
             f"cut to {layers} of {get_config(arch).n_layers} layers"
-        print(f"tp: {arch} full width, {cut}, "
-              f"{str(cfg.compute_dtype)[6:]}, prompt {LM_PROMPT} x "
-              f"batch {LM_BATCH}, {TP_GEN - 1} decode steps teacher-forced, "
-              f"on a {TP_MESH} mesh (two ranks sharing one card over "
-              f"{ranks[0][0]}): logits vs the one-process run max abs err "
-              f"{err:.3e}, largest |diff| {rel:.3e} of its row's largest "
-              f"|logit| (bound: "
-              f"{'rtol/atol 1e-3' if dtype == torch.float32 else TP_ROW_TOL}"
-              f"); greedy tokens equal "
-              f"{equal}/{LM_BATCH * (TP_GEN - 1)} of the decode steps' "
-              f"(prefill's equal: {first}), ranks agree: {all(same)}; "
-              f"launches per rank {got[0]['launches']} (exact); params "
-              f"{ref['bytes'] / 2 ** 30:.2f} GiB whole, "
-              f"{[round(r['bytes'] / 2 ** 30, 2) for r in got]} GiB a rank")
-        for rank, r in enumerate(got):
-            print(f"tp: {arch} rank {rank} (two ranks sharing one card over "
-                  f"gloo; not a multi-card speed): prefill "
-                  f"{r['prefill_ms']:.3f} ms, decode {r['decode_ms']:.3f} "
-                  f"ms/token; collectives timed between synchronisations: "
-                  f"{r['collectives']} in one prefill and {TP_GEN - 1} "
-                  f"steps, {r['collective_ms']:.3f} ms of that run's "
-                  f"{r['timed_ms']:.3f} ms (share "
-                  f"{r['collective_ms'] / r['timed_ms']:.3f}; its prefill "
-                  f"{r['timed_prefill_ms']:.3f} ms, decode "
-                  f"{r['timed_decode_ms']:.3f} ms/token); peak device "
-                  f"memory {r['peak_gib']:.2f} GiB")
-        print(f"tp: {arch} one process on the same card: prefill "
-              f"{ref['prefill_ms']:.3f} ms, decode {ref['decode_ms']:.3f} "
-              f"ms/token")
+        tp_report(f"tp: {arch}", f"full width, {cut}", cfg, dtype, got,
+                  ref, err, rel, ranks[0][0], TP_MESH)
     print(f"tp: the ranks' processes ran {ranks_s:.1f} s, their start and "
           f"weight draws included")
     return dict(launches=launches, worst=worst)
+
+
+def route_divergence(routes: list, ref: list, L: int, B: int, P: int
+                     ) -> tuple:
+    """A run's routes (``recording_routes``: each call's L router calls in
+    layer order, the prefill's (B·P, k) rows then each decode step's
+    (B, k)) against the one-process run's, a token's experts compared as a
+    set (their order within the token moves no slot): (router rows, rows
+    whose experts differ, each batch row's first position where one
+    differs, inf where none does)."""
+    if len(routes) != len(ref):
+        raise AssertionError(f"{len(routes)} router calls, the one-process "
+                             f"run made {len(ref)}")
+    first = np.full(B, np.inf)
+    n_rows = n_diff = 0
+    for c, (a, b) in enumerate(zip(routes, ref)):
+        diff = (np.sort(a, -1) != np.sort(b, -1)).any(-1)
+        n_rows, n_diff = n_rows + diff.size, n_diff + int(diff.sum())
+        call = c // L
+        if call == 0:
+            for row, d in enumerate(diff.reshape(B, P)):
+                hit = np.flatnonzero(d)
+                if hit.size:
+                    first[row] = min(first[row], hit[0])
+        else:
+            for row in np.flatnonzero(diff):
+                first[row] = min(first[row], P + call - 1)
+    return n_rows, n_diff, first
+
+
+def moe_tp_check(label: str, cfg, dtype, got: list, ref: dict) -> tuple:
+    """Phase 31's check of a (1, 2) run against the one-process run. The
+    ranks route alike; their routes are set beside the one-process run's
+    (in fp32 differing router rows stay under MAX_ROUTE_DIFF; in bf16 a
+    rank's rounding of its share of a product flips near-tied experts, so
+    the share is printed). Each logit row (step, batch row) is held to
+    ``tp_check``'s bound; only rows at or past a position where that
+    batch row's route differs may pass it, fewer than MAX_ROUTE_DIFF of
+    the router rows, and each is printed. Returns (max abs err and
+    row-relative err over the rows within the bound, the (step, batch
+    row) mask no differing route reaches)."""
+    for rank, r in enumerate(got[1:], 1):
+        if len(r["routes"]) != len(got[0]["routes"]) or not all(
+                np.array_equal(a, b) for a, b in zip(r["routes"],
+                                                      got[0]["routes"])):
+            raise AssertionError(f"{label}: rank {rank} routed otherwise "
+                                 f"than rank 0")
+    n_rows, n_diff, first = route_divergence(
+        got[0]["routes"], ref["routes"], cfg.n_layers, LM_BATCH, LM_PROMPT)
+    print(f"{label}: router rows whose experts differ from the one-process "
+          f"run's {n_diff} of {n_rows} ({n_diff / n_rows:.4%}; bound "
+          f"{MAX_ROUTE_DIFF:.0%} in fp32); each batch row's first such "
+          f"position {first.tolist()}")
+    if dtype == torch.float32 and n_diff > MAX_ROUTE_DIFF * n_rows:
+        raise AssertionError(f"{label}: {n_diff} of {n_rows} router rows "
+                             f"pick other experts")
+    logits, want = tp_logits(got, TP_MESH), ref["logits"]
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{label}: non-finite logits")
+    diff = (logits - want).abs()
+    rel = diff.amax(-1) / want.abs().amax(-1)                  # (steps, B)
+    if dtype == torch.float32:
+        past = (diff > SERVE_TOL["atol"] + SERVE_TOL["rtol"] * want.abs()
+                ).any(-1).numpy()
+    else:
+        past = (rel > TP_ROW_TOL).numpy()
+    pos = LM_PROMPT - 1 + np.arange(TP_GEN)
+    keep = pos[:, None] < first[None, :]
+    for t, b in zip(*np.nonzero(past)):
+        print(f"{label}: logit row of step {t}, batch row {b} (position "
+              f"{pos[t]}; the row's first differing route at "
+              f"{first[b]}) past the bound: max abs err "
+              f"{float(diff[t, b].max()):.3e}, {float(rel[t, b]):.3e} of "
+              f"its largest |logit|")
+    if (past & keep).any():
+        raise AssertionError(f"{label}: logit rows past the bound that no "
+                             f"differing route reaches")
+    if past.sum() >= MAX_ROUTE_DIFF * n_rows:
+        raise AssertionError(f"{label}: {int(past.sum())} logit rows past "
+                             f"the bound")
+    held = torch.from_numpy(~past)
+    return float(diff[held].max()), float(rel[held].max()), keep
+
+
+def replayed_check(label: str, cfg, got: list, ref: dict, dev) -> tuple:
+    """A bf16 run's logits against the one-process run on the ranks'
+    routing decisions (rank 0's weights and experts, ``replaying_routes``)
+    with the ranks' forced tokens: every row within TP_ROW_TOL of its
+    largest |logit| (``tp_check``): the split's arithmetic alone."""
+    params, check = tp_weights(cfg, dev)
+    if check != ref["checksum"]:
+        raise AssertionError(f"{label}: the replay drew other weights")
+    g = torch.Generator(device=dev).manual_seed(TP_SEED + 1)
+    toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=g,
+                         device=dev)
+    with replaying_routes(got[0]["gates"], got[0]["routes"], dev):
+        rep = greedy_decode(params, cfg, toks, TP_GEN, keep_logits=True,
+                            forced=torch.from_numpy(ref["tokens"]).to(dev))
+    del params
+    torch.cuda.empty_cache()
+    return tp_check(tp_logits(got, TP_MESH),
+                    torch.stack(rep.logits).float().cpu(), cfg.compute_dtype,
+                    f"{label} (replayed routes)")
+
+
+def phase_moe_tp(dev) -> dict:
+    """31: the MoE on a ``model`` axis (the reference's
+    ``_moe_apply_shard_map``'s paths). Two ranks sharing the card over
+    gloo on the (1, 2) mesh: moonshot-v1-16b-a3b at full width cut to 2
+    layers in fp32 and to 8 of 48 in bf16, expert-parallel (32 of 64
+    experts a rank), held to the one-process run (``moe_tp_check``); then
+    four ranks on the (2, 2) mesh serving tiny moonshot with 3 experts in
+    fp32 (ff-sharded, d over ``data``: the prefill's weight gather and the
+    2-D decode), every logit within 1e-3 and every token equal. Launches
+    exact per rank (topk_gating L a call beside rmsnorm, flash, decode).
+    Returns the launches (all ranks)."""
+    launches = dict.fromkeys(TP_KERNELS, 0)
+    runs, refs = [], []
+    for arch, layers, dtype in MOE_TP_SERVE:
+        ref, run = tp_reference(tp_config(arch, layers, dtype), dev)
+        refs.append(ref)
+        runs.append(run)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(tp_rank, TP_MESH[0] * TP_MESH[1], dev.type,
+                        TP_MESH, runs)
+    ranks_s = time.perf_counter() - t0
+    for i, (arch, layers, dtype) in enumerate(MOE_TP_SERVE):
+        cfg, ref = tp_config(arch, layers, dtype), refs[i]
+        got = [r[1][i] for r in ranks]
+        label = f"moe tp {arch}"
+        tp_launches(label, cfg, got, ref, launches)
+        err, rel, keep = moe_tp_check(label, cfg, dtype, got, ref)
+        if dtype == torch.float32 and not np.array_equal(
+                got[0]["tokens"][keep.T], ref["tokens"][keep.T]):
+            raise AssertionError(f"{label}: greedy tokens differ from the "
+                                 f"one-process run's")
+        if dtype != torch.float32:
+            print(f"{label}: logits vs the one-process run, held rows: max "
+                  f"abs err {err:.3e}, {rel:.3e} of a row's largest |logit|")
+            err, rel = replayed_check(label, cfg, got, ref, dev)
+            print(f"{label}: on the ranks' routes (replayed) every logit row "
+                  f"within {rel:.3e} of its largest |logit| (bound "
+                  f"{TP_ROW_TOL}), max abs err {err:.3e}")
+        tp_report(f"moe tp: {arch} at {layers} layers",
+                  f"(full width, cut from {get_config(arch).n_layers}), "
+                  f"expert-parallel ({cfg.n_experts // TP_MESH[1]} of "
+                  f"{cfg.n_experts} experts a rank)", cfg, dtype, got, ref,
+                  err, rel, ranks[0][0], TP_MESH,
+                  keep if dtype == torch.float32 else None)
+    small = tiny_version(get_config(MOE_ARCH)).with_(
+        n_experts=MOE_TP_SMALL_EXPERTS)
+    ref, run = tp_reference(small, dev)
+    t1 = time.perf_counter()
+    four = spawn_ranks(tp_rank, MOE_TP_SMALL_MESH[0] * MOE_TP_SMALL_MESH[1],
+                       dev.type, MOE_TP_SMALL_MESH, [run])
+    four_s = time.perf_counter() - t1
+    got = [r[1][0] for r in four]
+    label = f"moe tp {small.name} ({MOE_TP_SMALL_EXPERTS} experts)"
+    tp_launches(label, small, got, ref, launches)
+    err, rel = tp_check(tp_logits(got, MOE_TP_SMALL_MESH), ref["logits"],
+                        torch.float32, label)
+    if not all(np.array_equal(r["tokens"], ref["tokens"]) for r in got):
+        raise AssertionError(f"{label}: greedy tokens differ from the "
+                             f"one-process run's")
+    tp_report(f"moe tp: {small.name} E {MOE_TP_SMALL_EXPERTS}",
+              f"(d {small.d_model}, ff {small.d_ff}; no published config "
+              f"has experts that two ranks fail to divide, so this tiny "
+              f"one is the card's run of the ff-sharded experts, d over "
+              f"data, the weight gather and the 2-D decode)", small,
+              torch.float32, got, ref, err, rel, four[0][0],
+              MOE_TP_SMALL_MESH)
+    print(f"moe tp: the two ranks' processes ran {ranks_s:.1f} s, the four "
+          f"ranks' {four_s:.1f} s, their start and weight draws included")
+    return dict(launches=launches)
 
 
 def main() -> int:
@@ -4774,8 +5051,10 @@ def main() -> int:
     for k, v in mesh.items():
         vlm_encdec[k] = vlm_encdec.get(k, 0) + v
     tp = phase_tp(dev)
-    for k, v in tp["launches"].items():
-        vlm_encdec[k] = vlm_encdec.get(k, 0) + v
+    moe_tp = phase_moe_tp(dev)
+    for k in TP_KERNELS:
+        vlm_encdec[k] = (vlm_encdec.get(k, 0) + tp["launches"][k]
+                         + moe_tp["launches"][k])
     for name, e in tp["worst"].items():
         lm_timing[name]["max_abs_err"] = max(lm_timing[name]["max_abs_err"],
                                              e)

@@ -22,7 +22,7 @@ The CLI keeps the reference's flags as they are, so ``--tiny`` (a
 
 On a ``DeviceMesh`` (``greedy_decode(..., mesh=mesh)``) the loop runs
 the mesh's prefill and serve steps (``launch.steps.mesh_step``): with
-``model`` > 1 the dense family tensor-parallel, on params cut by
+``model`` > 1 the dense and MoE families tensor-parallel, on params cut by
 ``parallel.tensor.shard_params(..., kind="decode")``, and the argmax taken
 across the vocabulary shards (:func:`repro_torch.parallel.tensor.argmax`).
 

@@ -25,20 +25,19 @@ and backward run on its local tensors through the hand-written kernels
 the ZeRO-1 blocks (``zero1=True``) or all-reduced, to their mean over the
 data ranks.
 
-With ``model`` > 1 the dense family's prefill and serve steps run
-tensor-parallel (``repro_torch.parallel.tensor``): each rank holds its
-blocks of the params as ``param_specs(cfg, mesh, kind=...)`` place them
-(``tensor.shard_params``) and of the cache as ``cache_specs`` place it,
-and computes its heads, FFN columns and vocabulary columns, summing over
-the ``model`` ranks where the reference's GSPMD would. The logits come
-back sharded on the vocabulary. What a mesh with ``model`` > 1 does not
-execute, the dry run (``repro_torch.launch.dryrun``) models: a train step
-(the JAX package's tests only compile one), and the moe, ssm, hybrid, vlm
-and encdec families, whose layers (the experts, ``ssm_inner``,
-``conv_ch``, the head-dim-sharded state, M-RoPE inputs and cross caches)
-have no tensor-parallel path yet. The MoE's expert parallelism runs on a
-``model`` axis outside these steps, through
-:func:`repro_torch.models.transformer.moe_apply`.
+With ``model`` > 1 the dense and MoE families' prefill and serve steps
+run tensor-parallel (``repro_torch.parallel.tensor``): each rank holds
+its blocks of the params as ``param_specs(cfg, mesh, kind=...)`` place
+them (``tensor.shard_params``) and of the cache as ``cache_specs`` place
+it, and computes its heads, FFN columns (an MoE's experts or their ff
+columns, as the reference's ``_moe_apply_shard_map`` splits them) and
+vocabulary columns, summing over the ``model`` ranks where the
+reference's GSPMD or ``psum`` would. The logits come back sharded on the
+vocabulary. What a mesh with ``model`` > 1 does not execute, the dry run
+(``repro_torch.launch.dryrun``) models: a train step (the JAX package's
+tests only compile one), and the ssm, hybrid, vlm and encdec families,
+whose layers (``ssm_inner``, ``conv_ch``, the head-dim-sharded state,
+M-RoPE inputs and cross caches) have no tensor-parallel path yet.
 """
 from __future__ import annotations
 
@@ -293,23 +292,22 @@ def mesh_plan(cfg: ModelConfig, mesh: DeviceMesh, *,
               zero1: bool = True, kind: str = "train") -> MeshPlan:
     """The data axes of ``mesh`` and, with ``zero1``, each leaf's ZeRO-1
     dimension (from ``zero1_specs`` of the sanitized train specs), for a
-    step of ``kind``. With ``model`` > 1 only the dense family's prefill
-    and decode steps execute; the others raise ``NotImplementedError``."""
+    step of ``kind``. With ``model`` > 1 only the dense and MoE families'
+    prefill and decode steps execute; the others raise
+    ``NotImplementedError``."""
     sizes = mesh_shape(mesh)
     if sizes.get("model", 1) > 1 and kind == "train":
         raise NotImplementedError(
             "a train step on a mesh with model > 1 is modelled by "
             "repro_torch.launch.dryrun, not executed: tensor parallelism "
-            "runs the dense family's prefill and decode steps only")
-    if sizes.get("model", 1) > 1 and cfg.family != "dense":
+            "runs the dense and moe families' prefill and decode steps "
+            "only")
+    if sizes.get("model", 1) > 1 and cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"the {cfg.family} family on a mesh with model > 1 is modelled "
             f"by repro_torch.launch.dryrun, not executed: tensor parallelism "
-            f"runs the dense family only (its experts, SSM channels, M-RoPE "
-            f"inputs or cross caches have no tensor-parallel path yet, and "
-            f"the MoE must not compute tokens replicated over model once "
-            f"per rank); the MoE's expert parallelism runs through "
-            f"models.transformer.moe_apply")
+            f"runs the dense and moe families only (SSM channels, M-RoPE "
+            f"inputs or cross caches have no tensor-parallel path yet)")
     axes = _data_axes(mesh)
     index = 0
     for a in axes:

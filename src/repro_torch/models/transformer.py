@@ -34,15 +34,15 @@ Differences from the reference:
 - one card needs no sharding constraints, so ``constrain`` is dropped, and
   there is no ``train`` flag (it only selects a remat policy there);
 - ``moe_apply`` is the reference's single-device path
-  (``_moe_apply_dense``) unless a ``DeviceMesh`` with ``model`` > 1 is
-  current (``parallel.sharding.axis_rules``): then the expert-parallel
-  path of the reference's ``shard_map`` (``E % model == 0``), with the
-  tokens sent to the ranks that hold their experts by ``all_to_all`` and
-  the results sent back, in place of the reference's ``psum``;
-- the dense family's prefill and decode run tensor-parallel where a
-  :class:`repro_torch.parallel.tensor.Layout` is current (a mesh step with
-  ``model`` > 1, ``launch.steps.mesh_step``), on this rank's blocks of the
-  params: its query heads, with a sum over the ranks after the output
+  (``_moe_apply_dense``) unless a tensor-parallel layout with an MoE
+  (:class:`repro_torch.parallel.tensor.Experts`) is current: then the
+  paths of the reference's ``_moe_apply_shard_map``, each rank routing all
+  of its data shard's rows and summing its partial output over ``model``
+  (:func:`_moe_sharded`);
+- the dense and MoE families' prefill and decode run tensor-parallel where
+  a :class:`repro_torch.parallel.tensor.Layout` is current (a mesh step
+  with ``model`` > 1, ``launch.steps.mesh_step``), on this rank's blocks
+  of the params: its query heads, with a sum over the ranks after the output
   projection; its kv heads where they divide the axis, else k and v summed
   over the input-dim blocks of ``wk``/``wv`` (prefill) or projected whole
   (decode); a sequence-sharded decode cache's blocks merged by their
@@ -58,11 +58,9 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from repro_torch.compat import DeviceMesh, local, mesh_shape
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.parallel import sharding
 from repro_torch.parallel import tensor as TP
 from repro_torch.tree import stack_init, tree_map
 
@@ -394,73 +392,117 @@ def _expert_compute(buf: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor
     return torch.einsum("becf,efd->becd", L.swiglu(gate, up), wo)
 
 
-def _expert_mesh() -> Optional[DeviceMesh]:
-    """The current ``DeviceMesh`` when it has a ``model`` axis of size
-    > 1 under installed rules (the reference's ``shard_map`` condition)."""
-    mesh = sharding.current_mesh()
-    if (isinstance(mesh, DeviceMesh) and sharding._state().rules is not None
-            and mesh_shape(mesh).get("model", 1) > 1):
-        return mesh
-    return None
-
-
-def _experts_parallel(buf: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
-                      mesh: DeviceMesh) -> torch.Tensor:
-    """buf (B, E, C, d) of this rank's tokens → the experts' outputs
-    (B, E, C, d), each expert computed on the ``model`` rank that holds it.
-    ``wi``/``wo`` are laid out by ``parallel.specs.param_specs`` (expert
-    dim on ``model``): DTensors, or this rank's local blocks of E/m
-    consecutive experts. One ``all_to_all`` sends every rank's slots for an
-    expert block to its rank, one sends the outputs back (both
-    differentiable)."""
-    from torch.distributed.nn.functional import all_to_all_single
-    m = mesh_shape(mesh)["model"]
-    B, E, C, d = buf.shape
-    if E % m:
-        raise NotImplementedError(
-            f"{E} experts over model={m}: the reference's ff-sharded MoE "
-            f"(E % model != 0) is modelled by repro_torch.launch.dryrun, "
-            f"not executed")
-    el = E // m
-    wi, wo = local(wi), local(wo)
-    if wi.shape[0] != el or wo.shape[0] != el:
-        raise ValueError(
-            f"expert weights of {wi.shape[0]}/{wo.shape[0]} experts on a "
-            f"rank of model={m}: expected the local block of {el}, laid out "
-            f"by parallel.specs.param_specs")
-    group = mesh.get_group("model")
-    send = buf.reshape(B, m, el, C, d).transpose(0, 1).contiguous()
-    recv = all_to_all_single(torch.empty_like(send), send, group=group)
-    out = _expert_compute(recv.reshape(m * B, el, C, d), wi, wo)
-    back = all_to_all_single(torch.empty_like(send),
-                             out.reshape(m, B, el, C, d).contiguous(),
-                             group=group)
-    return back.transpose(0, 1).reshape(B, E, C, d)
+def _combine(out: torch.Tensor, dest: torch.Tensor, top_w: torch.Tensor,
+             dtype) -> torch.Tensor:
+    """The experts' outputs ``out`` (B, n_slots, d') back at their slots:
+    each token's K slot outputs weighted by ``top_w`` (B, S, K) and
+    summed; a slot at the dustbin ``n_slots`` adds zeros. → (B, S, d')."""
+    B, _, d = out.shape
+    S, K = top_w.shape[1:]
+    out = torch.cat([out, out.new_zeros((B, 1, d))], dim=1)
+    slot_out = out[torch.arange(B, device=out.device)[:, None], dest]
+    return torch.einsum("bskd,bsk->bsd", slot_out.reshape(B, S, K, d),
+                        top_w.to(dtype))
 
 
 def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """The MoE FFN — the reference's single-device path
     (``_moe_apply_dense``): dispatch per batch row with capacity C; a
     dropped slot adds nothing (its token keeps only the residual of that
-    slot). Under a mesh with ``model`` > 1 the experts run on the ranks
-    that hold them (:func:`_experts_parallel`); each rank routes and
-    combines its own rows, so the output is the single-device one."""
+    slot). Under a tensor-parallel layout with an MoE, the reference's
+    sharded paths (:func:`_moe_sharded`)."""
+    tp = TP.current()
+    if tp is not None and tp.moe is not None:
+        return _moe_sharded(p, cfg, x, tp)
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
-    top_w, flat_e, pos, keep, C = _moe_route(local(p["router"]["kernel"]),
-                                             cfg, x)
+    top_w, flat_e, pos, keep, C = _moe_route(p["router"]["kernel"], cfg, x)
     dest = torch.where(keep, flat_e * C + pos, E * C)          # dustbin E·C
     buf = _gather_dispatch(x, dest, E * C, K).reshape(B, E, C, d)
-    mesh = _expert_mesh()
-    if mesh is None:
-        out = _expert_compute(buf, p["wi"], p["wo"])
+    out = _expert_compute(buf, p["wi"], p["wo"])
+    return _combine(out.reshape(B, E * C, d), dest, top_w, x.dtype)
+
+
+def _gather_d(w: torch.Tensor, ex: TP.Experts) -> torch.Tensor:
+    """An expert matrix cut on d (its dim 2) over ``data``, whole again:
+    the reference's FSDP re-gather."""
+    return TP.all_gather(w, ex.data_group, ex.data_size).movedim(
+        0, 2).flatten(2, 3)
+
+
+def _moe_sharded(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                 tp: TP.Layout) -> torch.Tensor:
+    """The reference's ``_moe_apply_shard_map`` on this rank, whose rows
+    ``x`` (B, S, d) every ``model`` rank of its data shard holds:
+
+    - expert-parallel (the rank holds experts [e0, e1)): it routes every
+      row, dispatches only the slots routed to its experts (the others to
+      the dustbin), runs them and combines its partial output;
+    - ff-sharded (every expert at the rank's ff block): it dispatches
+      every slot; where the expert matrices are also cut on d over
+      ``data``, a prefill first gathers them over ``data`` and a
+      one-token step takes :func:`_moe_decode_2d`.
+
+    The partial outputs are summed over the ``model`` ranks."""
+    ex = tp.moe
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    (e0, e1), (f0, f1), (d0, d1) = ex.experts, ex.ff, ex.embed
+    wi, wo = p["wi"], p["wo"]
+    if (tuple(wi.shape) != (e1 - e0, 2, d1 - d0, f1 - f0)
+            or tuple(wo.shape) != (e1 - e0, f1 - f0, d1 - d0)):
+        raise ValueError(
+            f"expert weights wi {tuple(wi.shape)}, wo {tuple(wo.shape)} on "
+            f"a rank that holds experts [{e0}, {e1}), ff [{f0}, {f1}) and "
+            f"d [{d0}, {d1}): expected its blocks, cut by "
+            f"parallel.tensor.shard_params")
+    fsdp = (d0, d1) != (0, d)
+    if fsdp and S == 1:
+        return _moe_decode_2d(p, cfg, x, tp)
+    top_w, flat_e, pos, keep, C = _moe_route(p["router"]["kernel"], cfg, x)
+    if ex.split_experts:
+        mine = (flat_e >= e0) & (flat_e < e1) & keep
+        dest = torch.where(mine, (flat_e - e0) * C + pos, (e1 - e0) * C)
     else:
-        out = _experts_parallel(buf, p["wi"], p["wo"], mesh)
-    out = out.reshape(B, E * C, d)
-    out = torch.cat([out, out.new_zeros((B, 1, d))], dim=1)
-    slot_out = out[torch.arange(B, device=x.device)[:, None], dest]
-    return torch.einsum("bskd,bsk->bsd", slot_out.reshape(B, S, K, d),
-                        top_w.to(x.dtype))
+        dest = torch.where(keep, flat_e * C + pos, E * C)
+        if fsdp:
+            wi, wo = _gather_d(wi, ex), _gather_d(wo, ex)
+    n = (e1 - e0) * C
+    buf = _gather_dispatch(x, dest, n, K).reshape(B, e1 - e0, C, d)
+    out = _expert_compute(buf, wi, wo)
+    y = _combine(out.reshape(B, n, d), dest, top_w, x.dtype)
+    return TP.all_reduce(y.contiguous(), tp.group)
+
+
+def _moe_decode_2d(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                   tp: TP.Layout) -> torch.Tensor:
+    """The reference's 2-D-sharded decode (one token a row, every expert
+    at the rank's ff block and d block [d0, d1) over ``data``): gather the
+    rows over ``data``, route them all, take the dispatched rows' d block,
+    sum the gate and up products over ``data``, apply ``wo`` (the rank's
+    ff rows and d columns), sum over ``model``, combine, gather the
+    output's d columns over ``data`` and keep this rank's rows. The
+    weights stay where they are: a few small collectives a layer."""
+    ex = tp.moe
+    B, _, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    d0, d1 = ex.embed
+    xg = TP.all_gather(x, ex.data_group, ex.data_size).flatten(0, 1)
+    Bf = xg.shape[0]
+    top_w, flat_e, pos, keep, C = _moe_route(p["router"]["kernel"], cfg,
+                                             xg)
+    dest = torch.where(keep, flat_e * C + pos, E * C)
+    buf = _gather_dispatch(xg, dest, E * C, K).reshape(Bf, E, C, d)
+    buf = buf[..., d0:d1]
+    gu = TP.all_reduce(torch.stack([
+        torch.einsum("becd,edf->becf", buf, p["wi"][:, 0]),
+        torch.einsum("becd,edf->becf", buf, p["wi"][:, 1])]), ex.data_group)
+    out = torch.einsum("becf,efd->becd", L.swiglu(gu[0], gu[1]), p["wo"])
+    out = TP.all_reduce(out.contiguous(), tp.group)
+    y = _combine(out.reshape(Bf, E * C, d1 - d0), dest, top_w, x.dtype)
+    y = TP.all_gather(y.contiguous(), ex.data_group, ex.data_size)
+    y = y.permute(1, 2, 0, 3).reshape(Bf, 1, d)
+    return y[ex.data_index * B:(ex.data_index + 1) * B]
 
 
 def moe_aux_loss(p: Params, cfg: ModelConfig, x: torch.Tensor

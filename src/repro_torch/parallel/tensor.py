@@ -1,11 +1,12 @@
-"""Tensor parallelism on a mesh's ``model`` axis: the dense family's
-prefill and serve steps split over the ranks of that axis.
+"""Tensor parallelism on a mesh's ``model`` axis: the dense and MoE
+families' prefill and serve steps split over the ranks of that axis.
 
 The JAX package runs any step on any mesh through ``jit`` with the
 ``in_shardings`` of ``param_specs`` / ``cache_specs``; GSPMD splits the
 work as the logical rules say (``heads``, ``kv_heads``, ``mlp`` and
 ``vocab`` on ``model``, ``parallel/sharding.py``). The port executes the
-same split by hand, in three parts:
+same split by hand (the MoE FFN as the reference's own
+``_moe_apply_shard_map`` splits it), in three parts:
 
 - the rank layout: :func:`shard_params` cuts whole params into this
   rank's blocks as the sanitized specs of ``param_specs(cfg, mesh, kind)``
@@ -15,7 +16,8 @@ same split by hand, in three parts:
   (``models/transformer.py``), which reads it with :func:`current`;
 - the collectives: :func:`all_reduce` (a sum, or a max where the
   log-sum-exp merge needs one) and :func:`all_gather`, over the group of
-  the ``model`` axis, and nothing else;
+  the ``model`` axis (and of ``data`` for an MoE whose expert matrices
+  are cut on d over it), and nothing else;
 - the masks: :func:`embed_lookup`, the vocabulary-sharded embedding
   gather, whose rows equal the whole gather bit for bit, and
   :func:`merge_blocks`, the cross-rank merge of a sequence-sharded decode
@@ -69,9 +71,37 @@ def all_gather(t: torch.Tensor, group, size: int) -> torch.Tensor:
 # the rank layout
 # ---------------------------------------------------------------------------
 
+class Experts(NamedTuple):
+    """What one rank computes of an MoE FFN, the reference's
+    ``_moe_apply_shard_map``. Every ``model`` rank routes all of its data
+    shard's rows (they are replicated over ``model``) and its partial
+    output is summed over the ``model`` ranks.
+
+    - ``experts``: its experts [e0, e1); ``split_experts``: a block of
+      E/model of them (expert-parallel, ``E % model == 0``): it dispatches
+      only the slots routed to them;
+    - ``ff``: its block of every expert's ff columns/rows, a part of them
+      where the experts do not divide the axis (``E % model != 0``, each
+      rank holding every expert): it dispatches every slot;
+    - ``embed``: its block [d0, d1) of the expert matrices' d, cut over
+      ``data`` (the whole d where they are not): a prefill gathers the
+      weights over ``data``, a one-token step takes the 2-D path;
+      ``data_group``, ``data_size``, ``data_index``: that axis's group,
+      size and this rank's index on it.
+    """
+    experts: Tuple[int, int]
+    split_experts: bool
+    ff: Tuple[int, int]
+    embed: Tuple[int, int]
+    data_group: Any
+    data_size: int
+    data_index: int
+
+
 class Layout(NamedTuple):
-    """What one rank of the ``model`` axis computes in a dense prefill or
-    decode step. Ranges are [start, stop) in the whole tensor's indices.
+    """What one rank of the ``model`` axis computes in a dense or MoE
+    prefill or decode step. Ranges are [start, stop) in the whole
+    tensor's indices.
 
     - ``heads``: its query heads (every head where ``wq`` is not split);
       ``split_heads``: ``wq``/``wo`` hold only those, so the output
@@ -83,6 +113,7 @@ class Layout(NamedTuple):
       ``kv_read``: the kv heads, of the k/v (or cache) the rank holds,
       that its query heads read;
     - ``split_ffn``: ``wi``/``wo`` hold its FFN columns/rows (summed after);
+    - ``moe``: an MoE layer's :class:`Experts` (None for a dense FFN);
     - ``vocab``: its rows of the embedding and columns of the logits
       (``split_vocab`` when that is not the whole vocabulary);
     - ``seq``: a decode step's cache positions on this rank where the
@@ -99,6 +130,7 @@ class Layout(NamedTuple):
     vocab: Tuple[int, int]
     split_vocab: bool
     seq: Optional[Tuple[int, int]]
+    moe: Optional[Experts] = None
 
 
 def block(length: int, entry, mesh) -> Tuple[int, int]:
@@ -130,10 +162,40 @@ def _model_only(entry, what: str):
         f"the model axis alone")
 
 
+def _experts(cfg, mesh, ffn: Any) -> Experts:
+    """The :class:`Experts` of an MoE FFN whose stacked ``wi`` (L, E, 2,
+    d, ff) and ``wo`` (L, E, ff, d) are placed by the sanitized specs
+    ``ffn["wi"]``, ``ffn["wo"]``: the experts or the ff columns on
+    ``model``, d on ``data`` or whole."""
+    wi, wo = ffn["wi"], ffn["wo"]
+    e_e, d_e, ff_e = _entry(wi, 1), _entry(wi, 3), _entry(wi, 4)
+    if (e_e, ff_e, d_e) != (_entry(wo, 1), _entry(wo, 2), _entry(wo, 3)):
+        raise ValueError(f"the experts' wi placed {wi} and wo placed {wo} "
+                         f"cut different blocks")
+    e_e = _model_only(e_e, "the experts")
+    ff_e = _model_only(ff_e, "the experts' ff columns")
+    if (e_e is None) == (ff_e is None):
+        raise NotImplementedError(
+            f"experts placed {wi}: the tensor-parallel MoE splits either "
+            f"the experts or their ff columns over the model axis")
+    if d_e not in (None, "data"):
+        raise NotImplementedError(
+            f"the experts' d placed on {d_e}: the tensor-parallel MoE cuts "
+            f"it over the data axis alone")
+    sizes = mesh_shape(mesh)
+    split_d = d_e is not None and sizes["data"] > 1
+    return Experts(block(cfg.n_experts, e_e, mesh), e_e is not None,
+                   block(cfg.d_ff, ff_e, mesh),
+                   block(cfg.d_model, d_e, mesh),
+                   mesh.get_group("data") if split_d else None,
+                   sizes["data"] if split_d else 1,
+                   mesh.get_local_rank("data") if split_d else 0)
+
+
 def layout(cfg, mesh, param_spec_tree: Any, cache_spec: Any = None,
            cache_len: int = 0) -> Layout:
-    """The layout of this rank of ``mesh``'s ``model`` axis for a dense
-    config's params placed by ``param_spec_tree`` (sanitized
+    """The layout of this rank of ``mesh``'s ``model`` axis for a dense or
+    MoE config's params placed by ``param_spec_tree`` (sanitized
     ``param_specs`` of the step's kind) and, for a decode step, its KV
     cache of ``cache_len`` positions placed by ``cache_spec`` (the spec of
     the (L, B, S, KV, hd) ``k`` leaf)."""
@@ -156,8 +218,10 @@ def layout(cfg, mesh, param_spec_tree: Any, cache_spec: Any = None,
         raise NotImplementedError(
             f"query heads [{h0}, {h1}) straddle groups of {G}: no kv head "
             f"range serves them")
-    wi_e = _model_only(_entry(param_spec_tree["layers"]["ffn"]["wi"]
-                              ["kernel"], 2), "the FFN's columns")
+    ffn = param_spec_tree["layers"]["ffn"]
+    moe = _experts(cfg, mesh, ffn) if cfg.family == "moe" else None
+    wi_e = None if moe else _model_only(_entry(ffn["wi"]["kernel"], 2),
+                                        "the FFN's columns")
     vocab_e = _model_only(_entry(param_spec_tree["embed"]["embedding"], 0),
                           "the vocabulary")
     seq = None
@@ -172,7 +236,7 @@ def layout(cfg, mesh, param_spec_tree: Any, cache_spec: Any = None,
     return Layout(mesh.get_group("model"), mesh_shape(mesh)["model"],
                   (h0, h1), heads_e is not None, kv, kv_read,
                   block(d, input_e, mesh), wi_e is not None,
-                  block(V, vocab_e, mesh), vocab_e is not None, seq)
+                  block(V, vocab_e, mesh), vocab_e is not None, seq, moe)
 
 
 _local = threading.local()
@@ -235,7 +299,8 @@ def shard_params(params: Any, cfg, mesh, kind: str) -> Any:
     the same on every rank) cut into this rank's blocks, as the sanitized
     ``param_specs(cfg, mesh, kind=kind)`` place them: compact copies, so
     that the whole tree can be freed. ``wi`` of a SwiGLU FFN is cut per
-    half (:func:`_cut`). ``kind`` "decode" keeps an MQA's ``wk``/``wv``
+    half (:func:`_cut`); an MoE's ``wi`` (E, 2, d, ff) holds gate and up
+    on an axis of their own, which no spec cuts. ``kind`` "decode" keeps an MQA's ``wk``/``wv``
     whole (1.5 MB a layer at granite-20b's width); a prefill step takes
     its input-dim block as a view of them (:func:`fit`)."""
     specs = param_spec_tree(params, cfg, mesh, kind)

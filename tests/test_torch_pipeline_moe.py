@@ -1,7 +1,7 @@
 """The GPipe pipeline (``repro_torch.parallel.pipeline``) and the
 expert-parallel MoE (``repro_torch.models.transformer.moe_apply`` under a
-mesh with ``model`` > 1) on CPU process groups, against direct application
-and the JAX package.
+tensor-parallel layout with ``model`` > 1) on CPU process groups, against
+direct application and the JAX package.
 
 Multi-process cases run two gloo processes through
 ``test_torch_mesh_train.run_ranks`` (each joined with its own 60 s limit,
@@ -18,16 +18,15 @@ from repro.configs.base import get_config as j_get_config
 from repro.models import api as JAPI
 from repro.models import transformer as JT
 from repro.parallel import pipeline as JPP
-from repro_torch.compat import distribute_tensor, init_device_mesh, local
+from repro_torch.compat import init_device_mesh
 from repro_torch.configs.archs import tiny_version
 from repro_torch.configs.base import get_config
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.launch import mesh as M
+from repro_torch.launch import steps as ST
 from repro_torch.models import transformer as T
 from repro_torch.parallel import pipeline as PP
-from repro_torch.parallel.sharding import (DEFAULT_RULES, axis_rules,
-                                           placements)
-from repro_torch.parallel.specs import param_specs, sanitize_tree
+from repro_torch.parallel import tensor as TP
 from repro_torch.tree import tree_map
 from test_torch_mesh_train import run_ranks, solo_group  # noqa: F401
 
@@ -109,70 +108,77 @@ def test_port_pipeline_two_stages_equals_direct(n_micro, tmp_path):
 # -- expert-parallel MoE -----------------------------------------------------------
 
 def _moe_inputs():
-    """Tiny moonshot's first MoE layer (fp32, JAX init carried) and an
-    input of 4 rows."""
+    """Tiny moonshot (fp32, JAX init carried), its first MoE layer in JAX
+    and an input of 4 rows."""
     jcfg = j_tiny(j_get_config("moonshot-v1-16b-a3b"))
     jparams = JAPI.init(jax.random.key(4), jcfg)
     jffn = jax.tree.map(lambda t: t[0], jparams["layers"]["ffn"])
     x = np.array(jax.random.normal(jax.random.key(5),
                                      (4, 32, jcfg.d_model)))
-    ffn = lm_params_from_jax(jax.device_get(jffn))
-    return jcfg, jffn, ffn, x
+    params = lm_params_from_jax(jax.device_get(jparams))
+    return jcfg, jffn, params, x
 
 
-def _moe_worker(rank, world, ffn, x):
-    """Places the experts by ``param_specs`` (expert dim on ``model``),
-    runs the expert-parallel MoE on this rank's rows, and returns the
-    output, the local expert counts of wi/wo, and whether whole
-    (unplaced) expert weights were refused."""
+def _moe_worker(rank, world, params, x):
+    """Cuts the params to this rank's blocks (``shard_params``: E/model
+    experts), makes its layout current and runs the first layer's MoE on
+    every row, as the reference's ``shard_map`` gives each ``model`` rank
+    all of its data shard's rows. Returns the output, the local expert
+    counts of wi/wo, wi's spec, and whether whole expert weights were
+    refused."""
     cfg = tiny_version(get_config("moonshot-v1-16b-a3b"))
     mesh = init_device_mesh("cpu", (1, world), mesh_dim_names=("data",
                                                                 "model"))
-    specs = sanitize_tree(param_specs({"ffn": ffn}, mesh, cfg, "train"),
-                          {"ffn": ffn}, mesh)["ffn"]
-    placed = tree_map(lambda t, s: distribute_tensor(t, mesh,
-                                                     placements(mesh, s)),
-                      ffn, specs)
-    rows = x.shape[0] // world
-    part = torch.from_numpy(x[rank * rows:(rank + 1) * rows])
-    with axis_rules(DEFAULT_RULES, mesh), torch.no_grad():
-        assert T._expert_mesh() is mesh
-        out = T.moe_apply(placed, cfg, part)
+    specs = ST.specs_of(ST.param_specs(cfg, mesh, kind="prefill"))
+    first = lambda t: t[0]  # noqa: E731
+    ffn = tree_map(first, TP.shard_params(params, cfg, mesh,
+                                          "prefill")["layers"]["ffn"])
+    with TP.installed(TP.layout(cfg, mesh, specs)), torch.no_grad():
+        out = T.moe_apply(ffn, cfg, torch.from_numpy(x))
         try:
-            T.moe_apply(ffn, cfg, part)
+            T.moe_apply(tree_map(first, params["layers"]["ffn"]), cfg,
+                        torch.from_numpy(x))
             refused = False
         except ValueError:
             refused = True
-    counts = (local(placed["wi"]).shape[0], local(placed["wo"]).shape[0])
-    return out.numpy(), counts, tuple(specs["wi"]), refused
+    counts = (ffn["wi"].shape[0], ffn["wo"].shape[0])
+    return out.numpy(), counts, tuple(specs["layers"]["ffn"]["wi"]), refused
 
 
 def test_expert_parallel_moe_equals_single_device(tmp_path):
     """model = 2 with the experts placed by ``param_specs``: each rank
-    holds two experts of four (its local block), routes its rows, and its
-    experts run on it for both ranks' tokens (all_to_all there and back);
-    the output equals the port's single-device MoE and the JAX
-    reference's, within 1e-5. Whole expert weights on a rank are refused."""
-    jcfg, jffn, ffn, x = _moe_inputs()
+    holds two experts of four (its block) and every row; it dispatches
+    only the slots routed to its experts and the ranks' partial outputs
+    are summed (no all_to_all). Every rank's output equals the port's
+    single-device MoE and the JAX reference's, within 1e-5. Whole expert
+    weights on a rank are refused."""
+    jcfg, jffn, params, x = _moe_inputs()
     cfg = tiny_version(get_config("moonshot-v1-16b-a3b"))
     assert cfg.n_experts % 2 == 0
-    ranks = run_ranks(_moe_worker, 2, tmp_path, ffn, x)
-    for _, counts, wi_spec, refused in ranks:
-        assert counts == (cfg.n_experts // 2,) * 2
-        assert wi_spec[0] == "model"
-        assert refused
-    got = np.concatenate([r[0] for r in ranks])
+    ranks = run_ranks(_moe_worker, 2, tmp_path, params, x)
     with torch.no_grad():
-        single = T.moe_apply(ffn, cfg, torch.from_numpy(x)).numpy()
+        single = T.moe_apply(tree_map(lambda t: t[0],
+                                      params["layers"]["ffn"]), cfg,
+                             torch.from_numpy(x)).numpy()
     ref = np.asarray(JT.moe_apply(jffn, jcfg, jnp.asarray(x)))
-    np.testing.assert_allclose(got, single, **TOL)
-    np.testing.assert_allclose(got, ref, **TOL)
+    for got, counts, wi_spec, refused in ranks:
+        assert counts == (cfg.n_experts // 2,) * 2
+        assert wi_spec[1] == "model"
+        assert refused
+        np.testing.assert_allclose(got, single, **TOL)
+        np.testing.assert_allclose(got, ref, **TOL)
     assert np.abs(single).max() > 0.1
 
 
 def test_moe_takes_the_single_device_path_off_a_mesh():
+    """No layout is current off a mesh step: the MoE is the reference's
+    single-device path, within 1e-5 of its ``_moe_apply_dense``."""
+    jcfg, jffn, params, x = _moe_inputs()
     cfg = tiny_version(get_config("moonshot-v1-16b-a3b"))
-    assert T._expert_mesh() is None
-    with axis_rules(DEFAULT_RULES, None):
-        assert T._expert_mesh() is None
-    assert cfg.n_experts > 1
+    assert TP.current() is None and cfg.n_experts > 1
+    with torch.no_grad():
+        got = T.moe_apply(tree_map(lambda t: t[0], params["layers"]["ffn"]),
+                          cfg, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(
+        got, np.asarray(JT._moe_apply_dense(jffn, jcfg, jnp.asarray(x))),
+        **TOL)
