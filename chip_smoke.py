@@ -103,8 +103,8 @@ kernels, ``ssd_scan`` (the SSM prefill's chunked scan) and ``topk_gating``
     1e-3) and tokens (equal) are held in the batch rows where no routing
     differs;
 15. full-width bf16 serving, prompt 512 x batch 4, 32 tokens: mamba2-130m
-    (24 layers) and moonshot-v1-16b-a3b (48 layers, 56 GB) through
-    ``generate(tiny=False)``, and one full-width period (8 layers) of
+    (24 layers) through ``generate(tiny=False)``, moonshot-v1-16b-a3b cut
+    to 16 of its 48 layers and one full-width period (8 layers) of
     jamba-v0.1-52b through ``greedy_decode``; launches exact; logits
     finite; a decode step against a prefill of the same tokens (255 + 1
     against 256 where the scan runs, the MoE at a capacity that drops
@@ -174,9 +174,9 @@ hand-written kernels, ``rmsnorm_bwd`` and ``flash_attention_bwd``
     (batch 4 x 64): losses within 1e-3 relative, step-1 gradients within
     1e-3 leaf by leaf, every gradient finite and nonzero, launches exactly
     2L+1 / 2L+1 / L / L a step (rmsnorm, rmsnorm_bwd, flash, flash_bwd);
-21. full-width bf16 llama3.2-1b (all 16 layers, 1.50 B parameters)
-    through ``train.run(tiny=False, steps=20, batch=4, seq=512,
-    ckpt_every=10)``: launches exact, loss finite and falling, every
+21. full-width bf16 llama3.2-1b cut to 4 of its 16 layers (0.76 B
+    parameters) through ``train.run(tiny=False, steps=20, batch=4,
+    seq=512, ckpt_every=10)``: launches exact, loss finite and falling, every
     layer's step-1 gradient nonzero, the step-10 checkpoint restored and
     stepped to 20 bit-equal to the run's state; step ms, tokens/s and a
     profile of one step;
@@ -257,19 +257,20 @@ The multi-device tooling (``repro_torch.launch.{mesh,steps,dryrun,
 roofline}``, ``parallel.*``) on the one card:
 
 29. a one-process NCCL group and a (1, 1) ``DeviceMesh``; full-width
-    llama3.2-1b, batch 4 x 512, bf16 over fp32 master: two ``mesh_step``
+    llama3.2-1b cut to 4 layers (phase 21's depth), batch 4 x 512, bf16
+    over fp32 master: two ``mesh_step``
     train steps (ZeRO-1 on) bit-equal to two ``make_train_step`` steps
     (losses, every param and master leaf), a mesh prefill and 8 mesh
     serve steps bit-equal to ``greedy_decode`` (tokens and logits), the
     five LM kernels' launches in that window each above 0; the mesh state
     snapshotted to host as ``CheckpointManager.save`` snapshots it
     (``ckpt.checkpoint.snapshot``; no file is written: phase 21's two
-    checkpoints already put 42 GB on disk, and write and read the format
-    at this width), restored from the snapshot onto
+    checkpoints write and read the format at this width), restored from the snapshot onto
     the mesh with placements (``from_snapshot``, ``restore``'s code after
     the file read) and stepped bit-equal to the off-mesh third step; then
     ``dryrun.run_cell`` at one chip on ``H100_SXM`` for the train and prefill cells of llama3.2-1b and
-    mamba2-130m cut to batch 4 x 512, each bound (ms, dominant term)
+    mamba2-130m cut to batch 4 x 512 (llama's train cell to phase 21's
+    4 layers), each bound (ms, dominant term)
     printed beside the step phases 12, 15, 21 and 25 measured there, its
     share of the measured wall time at most 1.05.
 
@@ -286,9 +287,9 @@ Tensor parallelism (``repro_torch.parallel.tensor``; ``mesh_step`` and
     ranks sharing the one card over gloo (NCCL refuses two ranks of one
     group on one device) on a (1, 2) mesh: llama3.2-1b at full width cut
     to 2 layers in fp32 (every logit within rtol/atol 1e-3), then in bf16
-    llama3.2-1b uncut and granite-20b at full width cut to 8 of its 52
-    layers (the whole model, ~55 GB, cannot share the card with its two
-    halves; each logit within 3e-2 of its row's largest |logit|: a rank
+    llama3.2-1b and granite-20b at full width cut to 4 layers (the whole
+    granite, ~55 GB, cannot share the card with its two halves; each
+    logit within 3e-2 of its row's largest |logit|: a rank
     rounds its share of a product before the sum), random weights that
     each rank draws whole and cuts (``shard_params``), prompt 4 x 512 and
     32 decode steps teacher-forced with the one-process run's tokens on
@@ -302,8 +303,8 @@ Tensor parallelism (``repro_torch.parallel.tensor``; ``mesh_step`` and
     heads, D 128; checked and timed in phase 30's kernel pass), then two
     ranks on the (1, 2) mesh as in phase 30: moonshot at full width cut to
     2 layers in fp32 (expert-parallel: 32 of 64 experts a rank; every
-    logit within rtol/atol 1e-3), then cut to 8 of its 48 layers in bf16
-    (~10.5 GB whole; each logit within 3e-2 of its row's largest
+    logit within rtol/atol 1e-3), then cut to 4 of its 48 layers in bf16
+    (~6.2 GB whole; each logit within 3e-2 of its row's largest
     |logit|), each rank's routes recorded beside the one-process run's:
     only logit rows at or past a position whose route differs may pass
     the bound (printed), and differing router rows stay under 1%; then
@@ -314,6 +315,29 @@ Tensor parallelism (``repro_torch.parallel.tensor``; ``mesh_step`` and
     gather and the 2-D decode. Launches of rmsnorm, flash, decode and
     ``topk_gating`` exact per rank; times per rank and the collectives'
     share as in phase 30.
+32. the SSM and hybrid families on a ``model`` axis (a mamba mixer's SSM
+    heads, or every head's block of channels, as the decode state's spec
+    places them; the gated norm's sums of squares and ``out_proj``
+    summed over ``model``): ``ssd_scan`` at the ranks' shapes at
+    ``model`` 2 (mamba2-130m's 12 of 24 heads, jamba's 64 of 128) against
+    its plain version within 2e-3, twice bit-equal, timed by device time
+    beside its bound; then two ranks on the (1, 2) mesh: mamba2-130m
+    uncut in fp32 (every logit within rtol/atol 1e-3, greedy tokens
+    equal) and in bf16 (3e-2 of each row's largest |logit|), one
+    full-width jamba-v0.1-52b period in bf16 (~26.5 GB whole: the ranks
+    draw it in turn behind a barrier, each cutting its ~13.3 GB block
+    before the next draws), held on the ranks' routes replayed in one
+    process (the unreplayed rows past 3e-2 printed); then four ranks on
+    a (1, 4) mesh in fp32 (within 1e-3, tokens equal): tiny jamba (its 2
+    kv heads over 4 ranks: the MQA fallbacks beside the mamba split) and
+    a tiny SSM of 3 heads of 64 channels (the head-dim split, ``in_proj``
+    whole). Launches of rmsnorm (one fewer per mamba layer per call: the
+    split gated norm runs in plain ops around its all-reduce), flash,
+    decode, ``ssd_scan`` and ``topk_gating`` exact per rank; times per
+    rank and the collectives' share as in phase 30.
+
+Each phase's wall seconds are printed on a line of their own
+(``phase <function>: <s> s``).
 
 The last two lines of standard output are the ``kernels`` JSON line
 (thirteen entries) and the ``ok`` JSON line. Exits non-zero without a
@@ -463,8 +487,10 @@ SSM_MOE_SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu"
 SSM_MOE_TPU = {"ssd_scan": "src/repro/kernels/ssd_scan.py:24",
                "topk_gating": "src/repro/kernels/topk_gating.py:19"}
 MOE_ARCH = "moonshot-v1-16b-a3b"
-# (arch, depth cut or None): phase 15's models, full width
-SSM_MOE_SERVE = (("mamba2-130m", None), (MOE_ARCH, None),
+# (arch, depth cut or None): phase 15's models, full width (moonshot cut
+# to 16 of its 48 layers, ~10 GB, and jamba to one period: the call's
+# time limit)
+SSM_MOE_SERVE = (("mamba2-130m", None), (MOE_ARCH, 16),
                  ("jamba-v0.1-52b", 8))
 # the JAX package's gating bounds (tests/test_kernels.py::test_topk_gating)
 GATE_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -2066,9 +2092,10 @@ def phase_ssm_moe_card_vs_cpu(dev) -> None:
 
 
 def phase_ssm_moe_serve(dev) -> dict:
-    """The slice's main paths at full width, bf16: mamba2-130m and
-    moonshot-v1-16b-a3b through ``generate(tiny=False)``, one period of
-    jamba-v0.1-52b through ``greedy_decode``; exact launches, finite
+    """The slice's main paths at full width, bf16: mamba2-130m uncut
+    through ``generate(tiny=False)``, moonshot-v1-16b-a3b cut to 16 of its
+    48 layers and one period of jamba-v0.1-52b through ``greedy_decode``
+    (SSM_MOE_SERVE); exact launches, finite
     logits; then on the same weights and prompt a decode step against a
     prefill of the same tokens, and a profile of one prefill and of 8
     decode steps. Each model is freed before the next is drawn."""
@@ -2106,7 +2133,7 @@ def phase_ssm_moe_serve(dev) -> dict:
             raise AssertionError(f"serve {arch}: tokens or logits malformed")
         per_call = expected_launches(cfg, 0)
         print(f"serve: {arch} full width ({cfg.n_layers} layers"
-              f"{'' if depth is None else ', depth cut to one period'}, "
+              f"{'' if depth is None else ', depth cut'}, "
               f"d_model {cfg.d_model}, vocab {cfg.vocab}), "
               f"{str(cfg.compute_dtype)[6:]}, {api.param_count(params):,} "
               f"parameters, prompt {P} x batch {B}, {n} tokens: prefill "
@@ -2858,6 +2885,9 @@ TRAIN_REPLACES = {"rmsnorm_bwd": "src/repro/models/layers.py:66",
 TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
                  "flash_attention_bwd")
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, CKPT_EVERY = 4, 512, 20, 10
+# phase 21's and 29's llama3.2-1b depth: 4 of 16 layers (the call's time
+# limit: uncut, phase 21's two checkpoints wrote 42 GB in ~50 s)
+TRAIN_LAYERS = 4
 CARD_CPU_TRAIN_STEPS, CARD_CPU_TRAIN_SEQ = 3, 64
 TRAIN_TOL = 1e-3                # card vs CPU: losses and step-1 gradients
 # (B, KV, G, Sq, Skv, D) of the flash backward sweep: every head dim, G 1,
@@ -3260,10 +3290,10 @@ def train_profile(step, state, batch, arch: str) -> dict:
 
 
 def phase_train_full(dev) -> dict:
-    """The dense slice's main path: full-width bf16 llama3.2-1b trained
-    through ``train.run`` for 20 steps with checkpoints every 10
-    (``train_full``)."""
-    return train_full(LM_ARCH, None, TRAIN_STEPS, CKPT_EVERY, dev)
+    """The dense slice's main path: full-width bf16 llama3.2-1b cut to
+    TRAIN_LAYERS layers trained through ``train.run`` for 20 steps with
+    checkpoints every 10 (``train_full``)."""
+    return train_full(LM_ARCH, TRAIN_LAYERS, TRAIN_STEPS, CKPT_EVERY, dev)
 
 
 def train_full(arch: str, layers, n: int, ckpt, dev, rerun: bool = False
@@ -4203,11 +4233,12 @@ MESH_SERVE = 8                   # mesh serve steps after the prefill
 MESH_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
                 "flash_attention_bwd", "decode_attention")
 SHARE_LIMIT = 1.05               # bound / measured above this: a wrong count
-# (arch, dry-run shape, kind): the cells timed by phases 12, 15, 21 and 25
-ROOF_CELLS = (("llama3.2-1b", "train_4k", "train"),
-              ("llama3.2-1b", "prefill_32k", "prefill"),
-              ("mamba2-130m", "train_4k", "train"),
-              ("mamba2-130m", "prefill_32k", "prefill"))
+# (arch, dry-run shape, kind, depth cut or None): the cells timed by
+# phases 12, 15, 21 and 25
+ROOF_CELLS = (("llama3.2-1b", "train_4k", "train", TRAIN_LAYERS),
+              ("llama3.2-1b", "prefill_32k", "prefill", None),
+              ("mamba2-130m", "train_4k", "train", None),
+              ("mamba2-130m", "prefill_32k", "prefill", None))
 
 
 def same_tree(a, b, label: str) -> None:
@@ -4231,7 +4262,7 @@ def phase_mesh(dev, measured: dict) -> dict:
     import torch.distributed as dist
     MESH.init_group(dev)
     mesh = MESH.make_mesh((1, 1), ("data", "model"), device=dev)
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(LM_ARCH).with_(n_layers=TRAIN_LAYERS)
     opt = adamw.AdamWConfig(lr=3e-4, total_steps=100, warmup_steps=1)
     shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
     batches = token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, MESH_STEPS + 1, dev,
@@ -4331,15 +4362,16 @@ def phase_mesh(dev, measured: dict) -> dict:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     rows = []
-    for arch, name, kind in ROOF_CELLS:
+    for arch, name, kind, layers in ROOF_CELLS:
         cut = ShapeConfig(name, TRAIN_SEQ, TRAIN_BATCH, kind)
         rec = DR.run_cell(arch, name, False, mesh=(1, 1), shape=cut,
-                          verbose=False)
+                          verbose=False, layers=layers)
         roof = rec["roofline"]
         bound = rec["bound_s"] * 1e3
         wall, busy = measured[(arch, kind)]
         share = bound / wall
-        print(f"roofline: {arch} {kind} at {TRAIN_BATCH} x {TRAIN_SEQ} (the "
+        depth = "" if layers is None else f", {layers} layers"
+        print(f"roofline: {arch} {kind} at {TRAIN_BATCH} x {TRAIN_SEQ}{depth} (the "
               f"{name} cell cut to the measured batch and length) on "
               f"{H100_SXM.name} ({smi}): {roof['flops']:.4e} FLOPs, "
               f"{roof['bytes']:.4e} bytes, bound {bound:.3f} ms "
@@ -4361,10 +4393,11 @@ def phase_mesh(dev, measured: dict) -> dict:
 
 # (arch, depth cut or None, dtype): full-width llama3.2-1b cut to 2 layers
 # in fp32 holds the split's arithmetic to SERVE_TOL on the card; then the
-# bf16 models, llama3.2-1b uncut and granite-20b (~55 GB whole) cut to 8
+# bf16 models, llama3.2-1b and granite-20b (~55 GB whole) cut to 4 layers
+# (16 and 8 before: the call's time limit)
 TP_SERVE = (("llama3.2-1b", 2, torch.float32),
-            ("llama3.2-1b", None, torch.bfloat16),
-            ("granite-20b", 8, torch.bfloat16))
+            ("llama3.2-1b", 4, torch.bfloat16),
+            ("granite-20b", 4, torch.bfloat16))
 # in bf16 each rank rounds its share of a row-parallel product before the
 # sum, where one process rounds the whole product once: the logits are
 # held to the LM bf16 bound, 3e-2, of each row's largest |logit| (phase
@@ -4389,12 +4422,12 @@ TP_DECODE = ((4, 4, 4, 544, 64, (528, 513, 1, 0),
              (4, 8, 1, 544, 128, (528, 513, 1, 0),
               "moonshot-v1-16b-a3b rank: 8 of 16 kv heads, whole cache"))
 # the kernels a tensor-parallel rank launches (topk_gating: the MoE's
-# router, replicated on every rank)
-TP_KERNELS = SERVE_KERNELS + ("topk_gating",)
+# router, replicated on every rank; ssd_scan: an SSM prefill's scan)
+TP_KERNELS = SERVE_KERNELS + ("ssd_scan", "topk_gating")
 # (arch, depth cut, dtype) of phase 31 on the (1, 2) mesh: moonshot's 64
 # experts split 32 a rank
 MOE_TP_SERVE = ((MOE_ARCH, 2, torch.float32),
-                (MOE_ARCH, 8, torch.bfloat16))
+                (MOE_ARCH, 4, torch.bfloat16))
 MOE_TP_SMALL_MESH = (2, 2)       # (data, model): tiny moonshot's 3 experts
 MOE_TP_SMALL_EXPERTS = 3         # divide no model axis: ff-sharded
 
@@ -4415,22 +4448,26 @@ def tp_check(logits: torch.Tensor, ref: torch.Tensor, dtype, label: str
         raise AssertionError(f"{label}: non-finite logits")
     else:
         err = float((logits - ref).abs().max())
-    rel = float(((logits - ref).abs().amax(-1) / ref.abs().amax(-1)).max())
+    rel = row_rel(logits, ref)
     if dtype != torch.float32 and not rel <= TP_ROW_TOL:
         raise AssertionError(f"{label}: logits differ by {rel:.3e} of their "
                              f"row's largest |logit| (bound {TP_ROW_TOL})")
     return err, rel
 
 
-def tp_expected(cfg) -> dict:
-    """A rank's launches of one prefill and TP_GEN - 1 decode steps: its
-    rmsnorm 2L+1 a call, flash L, decode L a step, an MoE's topk_gating L
-    a call (each rank runs every layer on its blocks and routes all of
-    its rows)."""
-    L = cfg.n_layers
-    return {"rmsnorm": (2 * L + 1) * TP_GEN, "flash_attention": L,
-            "decode_attention": L * (TP_GEN - 1),
-            "topk_gating": L * TP_GEN if cfg.family == "moe" else 0}
+def tp_expected(cfg, ssm=None) -> dict:
+    """A rank's launches of one prefill and TP_GEN - 1 decode steps: each
+    rank runs every layer on its blocks and routes all of its rows, so it
+    launches what one process does (``expected_launches``), less one
+    rmsnorm per mamba layer per call where its mixer is split (``ssm``,
+    the rank's ``TP.SSM``: its gated norm runs in plain ops around the
+    all-reduce of its sums of squares)."""
+    norms, flash, decode, scan, gating = expected_launches(cfg, TP_GEN - 1)
+    if ssm is not None and ssm.split:
+        norms -= scan * TP_GEN
+    return {"rmsnorm": norms, "flash_attention": flash,
+            "decode_attention": decode, "ssd_scan": scan,
+            "topk_gating": gating}
 
 
 def tp_weights(cfg, dev) -> tuple:
@@ -4465,19 +4502,43 @@ def timed_collectives(spent: list):
             setattr(TP, k, fn)
 
 
+def tp_blocks(mesh, dev, cfg, in_turn: bool) -> tuple:
+    """This rank's blocks of the TP_SEED weights (``shard_params``, the
+    decode layout) and the whole's checksum. Each rank draws the whole and
+    cuts it; ``in_turn``, one rank at a time behind a barrier (each frees
+    the whole before the next draws): a model whose whole and blocks on
+    every rank at once would not fit the card they share."""
+    import torch.distributed as dist
+
+    def draw():
+        whole, check = tp_weights(cfg, dev)
+        params = TP.shard_params(whole, cfg, mesh, "decode")
+        del whole
+        torch.cuda.empty_cache()
+        return params, check
+    if not in_turn:
+        return draw()
+    out = None
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            out = draw()
+        dist.barrier()
+    return out
+
+
 def tp_rank_run(mesh, dev, cfg, prompt: np.ndarray,
-                forced: np.ndarray) -> dict:
+                forced: np.ndarray, in_turn: bool) -> dict:
     """One model on this rank: the whole weights drawn and cut to its
-    blocks (``shard_params``, the decode layout), then three teacher-forced
-    ``greedy_decode`` runs on the mesh: the counted one (launches, tokens,
-    this rank's batch rows and vocabulary columns of the logits, an MoE's
-    routes), a warm timed one, and one with the collectives timed between
-    synchronisations."""
+    blocks (:func:`tp_blocks`), then two teacher-forced ``greedy_decode``
+    runs on the mesh: the counted one (launches, tokens, this rank's batch
+    rows and vocabulary columns of the logits, an MoE's routes), and a warm
+    one timed, its collectives timed between synchronisations (its prefill
+    and decode times include them: one run fewer keeps the call in its
+    time)."""
     gen = forced.shape[1]
-    whole, check = tp_weights(cfg, dev)
-    params = TP.shard_params(whole, cfg, mesh, "decode")
-    del whole
-    torch.cuda.empty_cache()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    params, check = tp_blocks(mesh, dev, cfg, in_turn)
     nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     toks = torch.from_numpy(prompt).to(dev)
     teach = torch.from_numpy(forced).to(dev)
@@ -4489,7 +4550,6 @@ def tp_rank_run(mesh, dev, cfg, prompt: np.ndarray,
                             mesh=mesh, forced=teach)
     launches = {k: getattr(ops, k).launches for k in TP_KERNELS}
     logits = torch.stack(res.logits).float().cpu().numpy()
-    warm = greedy_decode(params, cfg, toks, gen, mesh=mesh, forced=teach)
     spent: list = []
     with timed_collectives(spent):
         sync(dev)
@@ -4499,15 +4559,15 @@ def tp_rank_run(mesh, dev, cfg, prompt: np.ndarray,
         sync(dev)
         wall = time.perf_counter() - t0
     out = dict(tokens=res.tokens, logits=logits, launches=launches,
+               ssm=TP.ssm_of(cfg, mesh),
                routes=[r.numpy() for r in routes],
                gates=[w.numpy() for w in gates],
-               checksum=check, bytes=nbytes, prefill_ms=warm.prefill_ms,
-               decode_ms=warm.decode_ms_per_token,
+               checksum=check, bytes=nbytes, prefill_ms=timed.prefill_ms,
+               decode_ms=timed.decode_ms_per_token,
                peak_gib=(torch.cuda.max_memory_allocated(dev) / 2 ** 30
                          if dev.type == "cuda" else 0.0),
                collectives=len(spent), collective_ms=sum(spent) * 1e3,
-               timed_ms=wall * 1e3, timed_prefill_ms=timed.prefill_ms,
-               timed_decode_ms=timed.decode_ms_per_token)
+               timed_ms=wall * 1e3)
     del params
     torch.cuda.empty_cache()
     return out
@@ -4518,19 +4578,25 @@ def sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def tp_rank(rank: int, world: int, store: str, device: str, shape: tuple,
-            runs: list, out) -> None:
-    """Phase 30's and 31's rank process: joins the group on ``device``
-    (gloo: the ranks share the one card), builds the ``shape`` (data,
-    model) mesh and serves each run (config, prompt, forced tokens). A
-    failure raises here and ends the process with a non-zero exit code,
-    which fails the phase."""
+def tp_rank(rank: int, world: int, store: str, device: str, runs: list,
+            out) -> None:
+    """The rank process of phases 30–32: joins the group on ``device``
+    (gloo: the ranks share the one card) and serves each run (its (data,
+    model) mesh shape, then config, prompt, forced tokens and whether the
+    ranks draw in turn) on a mesh of that shape, each shape's mesh built
+    once. A failure raises here and ends the process with a non-zero exit
+    code, which fails the phase."""
     import torch.distributed as dist
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False    # as phase_device sets them
     dev = MESH.join_group(store, rank, world, device)
-    mesh = MESH.make_mesh(shape, ("data", "model"), device=dev)
-    out.put((rank, dist.get_backend(), [tp_rank_run(mesh, dev, *run)
-                                        for run in runs]))
+    meshes, done = {}, []
+    for shape, run in runs:
+        if shape not in meshes:
+            meshes[shape] = MESH.make_mesh(shape, ("data", "model"),
+                                           device=dev)
+        done.append(tp_rank_run(meshes[shape], dev, *run))
+    out.put((rank, dist.get_backend(), done))
     dist.destroy_process_group()
 
 
@@ -4675,9 +4741,10 @@ def tp_reference(cfg, dev) -> tuple:
 def tp_launches(label: str, cfg, got: list, ref: dict, launches: dict
                 ) -> None:
     """Every rank drew the one-process run's weights and launched exactly
-    ``tp_expected``; its launches are added to ``launches``."""
-    want = tp_expected(cfg)
+    ``tp_expected`` (of its mamba mixers' ``TP.SSM``); its launches are
+    added to ``launches``."""
     for rank, r in enumerate(got):
+        want = tp_expected(cfg, r["ssm"])
         if r["checksum"] != ref["checksum"]:
             raise AssertionError(f"{label}: rank {rank} drew other weights")
         if r["launches"] != want:
@@ -4699,10 +4766,11 @@ def tp_logits(got: list, shape: tuple) -> torch.Tensor:
 
 def tp_report(label: str, what: str, cfg, dtype, got: list, ref: dict,
               err: float, rel: float, backend: str, shape: tuple,
-              keep: np.ndarray = None) -> None:
-    """Phase 30's and 31's lines for one model (``label``, described by
-    ``what``): the check, the tokens (those of the (step, batch row) pairs
-    in ``keep``, all by default), each rank's times and the one-process
+              keep: np.ndarray = None, printed: bool = False) -> None:
+    """Phases 30-32's lines for one model (``label``, described by
+    ``what``): the check (its bound, or none where the run's readings are
+    only ``printed``), the tokens (those of the (step, batch row) pairs in
+    ``keep``, all by default), each rank's times and the one-process
     run's."""
     toks, want = got[0]["tokens"], ref["tokens"]
     keep = np.ones(want.shape[::-1], bool) if keep is None else keep
@@ -4710,6 +4778,8 @@ def tp_report(label: str, what: str, cfg, dtype, got: list, ref: dict,
     held = keep.T[:, 1:]
     equal = int((toks[:, 1:] == want[:, 1:])[held].sum())
     first = bool((toks[:, 0] == want[:, 0])[keep[0]].all())
+    bound = ("printed, not held" if printed else "rtol/atol 1e-3"
+             if dtype == torch.float32 else TP_ROW_TOL)
     print(f"{label} {what}, {str(cfg.compute_dtype)[6:]}, prompt "
           f"{LM_PROMPT} x "
           f"batch {LM_BATCH}, {TP_GEN - 1} decode steps teacher-forced, "
@@ -4717,72 +4787,112 @@ def tp_report(label: str, what: str, cfg, dtype, got: list, ref: dict,
           f"{backend}): logits vs the one-process run max abs err "
           f"{err:.3e}, largest |diff| {rel:.3e} of its row's largest "
           f"|logit| (bound: "
-          f"{'rtol/atol 1e-3' if dtype == torch.float32 else TP_ROW_TOL}"
-          f"); greedy tokens equal {equal}/{int(held.sum())} of the decode "
+          f"{bound}); greedy tokens equal {equal}/{int(held.sum())} of the "
+          f"decode "
           f"steps' held (prefill's equal: {first}), ranks agree: "
           f"{all(same)}; launches per rank {got[0]['launches']} (exact); "
           f"params {ref['bytes'] / 2 ** 30:.2f} GiB whole, "
           f"{[round(r['bytes'] / 2 ** 30, 2) for r in got]} GiB a rank")
     for rank, r in enumerate(got):
         print(f"{label} rank {rank} ({len(got)} ranks sharing one card over "
-              f"gloo; not a multi-card speed): prefill "
-              f"{r['prefill_ms']:.3f} ms, decode {r['decode_ms']:.3f} "
-              f"ms/token; collectives timed between synchronisations: "
-              f"{r['collectives']} in one prefill and {TP_GEN - 1} "
-              f"steps, {r['collective_ms']:.3f} ms of that run's "
+              f"gloo; not a multi-card speed), warm, its collectives timed "
+              f"between synchronisations: prefill {r['prefill_ms']:.3f} ms, "
+              f"decode {r['decode_ms']:.3f} ms/token; {r['collectives']} "
+              f"collectives in one prefill and {TP_GEN - 1} steps, "
+              f"{r['collective_ms']:.3f} ms of that run's "
               f"{r['timed_ms']:.3f} ms (share "
-              f"{r['collective_ms'] / r['timed_ms']:.3f}; its prefill "
-              f"{r['timed_prefill_ms']:.3f} ms, decode "
-              f"{r['timed_decode_ms']:.3f} ms/token); peak device "
+              f"{r['collective_ms'] / r['timed_ms']:.3f}); peak device "
               f"memory {r['peak_gib']:.2f} GiB")
     print(f"{label} one process on the same card: prefill "
           f"{ref['prefill_ms']:.3f} ms, decode {ref['decode_ms']:.3f} "
           f"ms/token")
 
 
-def phase_tp(dev) -> dict:
+def tp_runs() -> list:
+    """Every rank run of phases 30–32, in order: (phase, arch, depth cut
+    or None, config, (data, model) mesh shape)."""
+    runs = [("tp", arch, layers, tp_config(arch, layers, dtype), TP_MESH)
+            for arch, layers, dtype in TP_SERVE]
+    runs += [("moe", arch, layers, tp_config(arch, layers, dtype), TP_MESH)
+             for arch, layers, dtype in MOE_TP_SERVE]
+    runs.append(("moe", MOE_ARCH, None, tiny_version(get_config(
+        MOE_ARCH)).with_(n_experts=MOE_TP_SMALL_EXPERTS), MOE_TP_SMALL_MESH))
+    runs += [("ssm", arch, layers, tp_config(arch, layers, dtype), TP_MESH)
+             for arch, layers, dtype in SSM_TP_SERVE]
+    runs += [("ssm", arch, None, tiny_version(get_config(arch)).with_(**kw),
+              SSM_TP_SMALL_MESH) for arch, kw in SSM_TP_SMALL]
+    return runs
+
+
+def phase_tp_ranks(dev) -> dict:
+    """The ranks of phases 30–32 (:func:`tp_runs`): each run's one-process
+    reference on the card (``tp_reference``: weights from TP_SEED, the
+    prompt, TP_GEN greedy tokens), then one set of spawned ranks per world
+    size, two on the (1, 2) mesh and four on their (2, 2) and (1, 4)
+    meshes, each serving its runs in turn (``tp_rank``): one process
+    start per world size where each phase would take its own. A hybrid's
+    ranks draw its weights in turn (``tp_blocks``). Returns, by phase, its
+    runs (arch, depth cut, config, mesh shape, reference, every rank's
+    result), the gloo backend's name and the sets' seconds."""
+    runs = tp_runs()
+    refs, args = [], []
+    for _, _, _, cfg, shape in runs:
+        ref, run = tp_reference(cfg, dev)
+        refs.append(ref)
+        args.append((shape, (*run, cfg.family == SSM_TP_DRAW_IN_TURN)))
+    got, backend, seconds = [None] * len(runs), None, {}
+    for world in sorted({a * b for *_, (a, b) in runs}):
+        mine = [i for i, r in enumerate(runs) if r[4][0] * r[4][1] == world]
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(tp_rank, world, dev.type, [args[i] for i in mine])
+        seconds[world] = time.perf_counter() - t0
+        backend = ranks[0][0]
+        for k, i in enumerate(mine):
+            got[i] = [r[1][k] for r in ranks]
+    print(f"tp ranks: {len(runs)} runs of phases 30-32; the two ranks' "
+          f"processes ran {seconds[2]:.1f} s, the four ranks' "
+          f"{seconds[4]:.1f} s, their start and weight draws included")
+    out = {}
+    for (phase, arch, layers, cfg, shape), ref, g in zip(runs, refs, got):
+        out.setdefault(phase, []).append(
+            dict(arch=arch, layers=layers, cfg=cfg, shape=shape, ref=ref,
+                 got=g, backend=backend))
+    return out
+
+
+def phase_tp(dev, ranks: dict) -> dict:
     """30: tensor-parallel serving on a (1, 2) mesh's ``model`` axis, two
     spawned ranks sharing the one card over gloo (NCCL refuses two ranks
-    of one group on one device): llama3.2-1b cut to 2 layers in fp32,
-    then in bf16 uncut (its 8 kv heads split) and granite-20b at full
-    width cut to 8 of its 52 layers (MQA: wk/wv whole and the decode
-    cache sequence-sharded, merged by log-sum-exp), prompt 4 x 512 and
-    32 decode steps teacher-forced with the one-process run's tokens;
-    the logits held to that run on the same card (``tp_check``), each
-    rank's launches of rmsnorm, flash and
-    decode exact, prefill and decode times per rank and the collectives'
-    share. Returns the launches (both ranks) and the kernels' worst
-    errors at the ranks' shapes (phase 31's shapes among them)."""
+    of one group on one device; :func:`phase_tp_ranks`): llama3.2-1b cut
+    to 2 layers in fp32, then in bf16 cut to 4 (its 8 kv heads split) and
+    granite-20b at full width cut to 4 of its 52 layers (MQA: wk/wv whole
+    and the decode cache sequence-sharded, merged by log-sum-exp), prompt
+    4 x 512 and 32 decode steps teacher-forced with the one-process run's
+    tokens; the logits held to that run on the same card (``tp_check``),
+    each rank's launches of rmsnorm, flash and decode exact, prefill and
+    decode times per rank and the collectives' share. Returns the
+    launches (both ranks) and the kernels' worst errors at the ranks'
+    shapes (phase 31's shapes among them)."""
     worst = tp_kernels(dev)
-    runs, refs = [], []
-    for arch, layers, dtype in TP_SERVE:
-        ref, run = tp_reference(tp_config(arch, layers, dtype), dev)
-        refs.append(ref)
-        runs.append(run)
-    t0 = time.perf_counter()
-    ranks = spawn_ranks(tp_rank, TP_MESH[0] * TP_MESH[1], dev.type,
-                        TP_MESH, runs)
-    ranks_s = time.perf_counter() - t0
     launches = dict.fromkeys(TP_KERNELS, 0)
-    for i, (arch, layers, dtype) in enumerate(TP_SERVE):
-        cfg, ref = tp_config(arch, layers, dtype), refs[i]
-        got = [r[1][i] for r in ranks]
+    for r in ranks["tp"]:
+        arch, layers, cfg, ref, got = (r[k] for k in ("arch", "layers", "cfg",
+                                                      "ref", "got"))
+        dtype = cfg.compute_dtype
         tp_launches(f"tp {arch}", cfg, got, ref, launches)
         err, rel = tp_check(tp_logits(got, TP_MESH), ref["logits"], dtype,
                             f"tp {arch}")
         cut = "uncut" if layers is None else \
             f"cut to {layers} of {get_config(arch).n_layers} layers"
         tp_report(f"tp: {arch}", f"full width, {cut}", cfg, dtype, got,
-                  ref, err, rel, ranks[0][0], TP_MESH)
-    print(f"tp: the ranks' processes ran {ranks_s:.1f} s, their start and "
-          f"weight draws included")
+                  ref, err, rel, r["backend"], TP_MESH)
     return dict(launches=launches, worst=worst)
 
 
 def route_divergence(routes: list, ref: list, L: int, B: int, P: int
                      ) -> tuple:
     """A run's routes (``recording_routes``: each call's L router calls in
-    layer order, the prefill's (B·P, k) rows then each decode step's
+    MoE-layer order, the prefill's (B·P, k) rows then each decode step's
     (B, k)) against the one-process run's, a token's experts compared as a
     set (their order within the token moves no slot): (router rows, rows
     whose experts differ, each batch row's first position where one
@@ -4816,8 +4926,9 @@ def moe_tp_check(label: str, cfg, dtype, got: list, ref: dict) -> tuple:
     ``tp_check``'s bound; only rows at or past a position where that
     batch row's route differs may pass it, fewer than MAX_ROUTE_DIFF of
     the router rows, and each is printed. Returns (max abs err and
-    row-relative err over the rows within the bound, the (step, batch
-    row) mask no differing route reaches)."""
+    row-relative err over the rows
+    within the bound, the (step, batch row) mask no differing route
+    reaches)."""
     for rank, r in enumerate(got[1:], 1):
         if len(r["routes"]) != len(got[0]["routes"]) or not all(
                 np.array_equal(a, b) for a, b in zip(r["routes"],
@@ -4825,7 +4936,8 @@ def moe_tp_check(label: str, cfg, dtype, got: list, ref: dict) -> tuple:
             raise AssertionError(f"{label}: rank {rank} routed otherwise "
                                  f"than rank 0")
     n_rows, n_diff, first = route_divergence(
-        got[0]["routes"], ref["routes"], cfg.n_layers, LM_BATCH, LM_PROMPT)
+        got[0]["routes"], ref["routes"], expected_launches(cfg, 0)[4],
+        LM_BATCH, LM_PROMPT)
     print(f"{label}: router rows whose experts differ from the one-process "
           f"run's {n_diff} of {n_rows} ({n_diff / n_rows:.4%}; bound "
           f"{MAX_ROUTE_DIFF:.0%} in fp32); each batch row's first such "
@@ -4858,54 +4970,122 @@ def moe_tp_check(label: str, cfg, dtype, got: list, ref: dict) -> tuple:
         raise AssertionError(f"{label}: {int(past.sum())} logit rows past "
                              f"the bound")
     held = torch.from_numpy(~past)
+    if not held.any():
+        return float("nan"), float("nan"), keep
     return float(diff[held].max()), float(rel[held].max()), keep
 
 
-def replayed_check(label: str, cfg, got: list, ref: dict, dev) -> tuple:
-    """A bf16 run's logits against the one-process run on the ranks'
-    routing decisions (rank 0's weights and experts, ``replaying_routes``)
-    with the ranks' forced tokens: every row within TP_ROW_TOL of its
-    largest |logit| (``tp_check``): the split's arithmetic alone."""
+def upcast_(tree: dict) -> dict:
+    """Every leaf of a params tree in fp32, in place, one leaf at a time
+    (the cache emptied after each): a bf16 model's exact function without
+    its bf16 and fp32 copies on the card at once."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            upcast_(v)
+        else:
+            tree[k] = v.float()
+            del v
+            if tree[k].is_cuda:
+                torch.cuda.empty_cache()
+    return tree
+
+
+def replayed_logits(label: str, cfg, got: list, ref: dict, dev,
+                    exact: bool = False) -> tuple:
+    """The one-process run's logits (steps, B, V) on the ranks' routing
+    decisions (rank 0's weights and experts, ``replaying_routes``; a
+    config without experts routes nothing) with the ranks' forced tokens;
+    with ``exact`` also those of the same bf16 weights upcast to fp32
+    after it (``upcast_``: one draw), the function that bf16 rounds.
+    Returns (logits, the exact logits or None)."""
     params, check = tp_weights(cfg, dev)
     if check != ref["checksum"]:
         raise AssertionError(f"{label}: the replay drew other weights")
     g = torch.Generator(device=dev).manual_seed(TP_SEED + 1)
     toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=g,
                          device=dev)
-    with replaying_routes(got[0]["gates"], got[0]["routes"], dev):
-        rep = greedy_decode(params, cfg, toks, TP_GEN, keep_logits=True,
-                            forced=torch.from_numpy(ref["tokens"]).to(dev))
+
+    def run(params, cfg):
+        replay = replaying_routes(got[0]["gates"], got[0]["routes"], dev) \
+            if cfg.n_experts else contextlib.nullcontext()
+        with replay:
+            rep = greedy_decode(params, cfg, toks, TP_GEN, keep_logits=True,
+                                forced=torch.from_numpy(ref["tokens"]).to(
+                                    dev))
+        return torch.stack(rep.logits).float().cpu()
+    out = run(params, cfg)
+    high = run(upcast_(params), cfg.with_(
+        param_dtype=torch.float32, compute_dtype=torch.float32)) \
+        if exact else None
     del params
     torch.cuda.empty_cache()
+    return out, high
+
+
+def replayed_check(label: str, cfg, got: list, ref: dict, dev) -> tuple:
+    """A bf16 run's logits against the one-process run on the ranks'
+    routing decisions (``replayed_logits``): every row within TP_ROW_TOL
+    of its largest |logit| (``tp_check``): the split's arithmetic alone."""
     return tp_check(tp_logits(got, TP_MESH),
-                    torch.stack(rep.logits).float().cpu(), cfg.compute_dtype,
-                    f"{label} (replayed routes)")
+                    replayed_logits(label, cfg, got, ref, dev)[0],
+                    cfg.compute_dtype, f"{label} (replayed routes)")
 
 
-def phase_moe_tp(dev) -> dict:
+def row_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest |a − b| of a row over that row's largest |b|, the
+    largest over the rows."""
+    return float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max())
+
+
+def bf16_readings(label: str, cfg, got: list, ref: dict, dev) -> tuple:
+    """A bf16 run's logits against the one-process run on the ranks'
+    routes (``replayed_logits``; a config without experts routes nothing)
+    and both against the fp32 function of the same bf16 weights, printed.
+    Returns (the ranks' logits, the one-process logits)."""
+    logits = tp_logits(got, TP_MESH)
+    one, exact = replayed_logits(label, cfg, got, ref, dev, exact=True)
+    print(f"{label}: bf16 logits' largest |diff| over their row's largest "
+          f"|logit|: the ranks against one process {row_rel(logits, one):.3e}"
+          f"; against the fp32 function of the same bf16 weights one "
+          f"process {row_rel(one, exact):.3e}, the ranks "
+          f"{row_rel(logits, exact):.3e}")
+    return logits, one
+
+
+def phase_moe_tp(dev, ranks: dict) -> dict:
     """31: the MoE on a ``model`` axis (the reference's
-    ``_moe_apply_shard_map``'s paths). Two ranks sharing the card over
-    gloo on the (1, 2) mesh: moonshot-v1-16b-a3b at full width cut to 2
-    layers in fp32 and to 8 of 48 in bf16, expert-parallel (32 of 64
-    experts a rank), held to the one-process run (``moe_tp_check``); then
-    four ranks on the (2, 2) mesh serving tiny moonshot with 3 experts in
-    fp32 (ff-sharded, d over ``data``: the prefill's weight gather and the
-    2-D decode), every logit within 1e-3 and every token equal. Launches
-    exact per rank (topk_gating L a call beside rmsnorm, flash, decode).
-    Returns the launches (all ranks)."""
+    ``_moe_apply_shard_map``'s paths; the ranks of
+    :func:`phase_tp_ranks`). Two ranks sharing the card over gloo on the
+    (1, 2) mesh: moonshot-v1-16b-a3b at full width cut to 2 layers in fp32
+    and to 4 of 48 in bf16, expert-parallel (32 of 64 experts a rank),
+    held to the one-process run (``moe_tp_check``); then four ranks on the
+    (2, 2) mesh serving tiny moonshot with 3 experts in fp32 (ff-sharded,
+    d over ``data``: the prefill's weight gather and the 2-D decode),
+    every logit within 1e-3 and every token equal. Launches exact per rank
+    (topk_gating L a call beside rmsnorm, flash, decode). Returns the
+    launches (all ranks)."""
     launches = dict.fromkeys(TP_KERNELS, 0)
-    runs, refs = [], []
-    for arch, layers, dtype in MOE_TP_SERVE:
-        ref, run = tp_reference(tp_config(arch, layers, dtype), dev)
-        refs.append(ref)
-        runs.append(run)
-    t0 = time.perf_counter()
-    ranks = spawn_ranks(tp_rank, TP_MESH[0] * TP_MESH[1], dev.type,
-                        TP_MESH, runs)
-    ranks_s = time.perf_counter() - t0
-    for i, (arch, layers, dtype) in enumerate(MOE_TP_SERVE):
-        cfg, ref = tp_config(arch, layers, dtype), refs[i]
-        got = [r[1][i] for r in ranks]
+    for r in ranks["moe"]:
+        arch, layers, cfg, ref, got, shape = (
+            r[k] for k in ("arch", "layers", "cfg", "ref", "got", "shape"))
+        dtype = cfg.compute_dtype
+        if shape != TP_MESH:
+            label = f"moe tp {cfg.name} ({cfg.n_experts} experts)"
+            tp_launches(label, cfg, got, ref, launches)
+            err, rel = tp_check(tp_logits(got, shape), ref["logits"],
+                                torch.float32, label)
+            if not all(np.array_equal(g["tokens"], ref["tokens"])
+                       for g in got):
+                raise AssertionError(f"{label}: greedy tokens differ from "
+                                     f"the one-process run's")
+            tp_report(f"moe tp: {cfg.name} E {cfg.n_experts}",
+                      f"(d {cfg.d_model}, ff {cfg.d_ff}; no published config "
+                      f"has experts that two ranks fail to divide, so this "
+                      f"tiny one is the card's run of the ff-sharded "
+                      f"experts, d over data, the weight gather and the 2-D "
+                      f"decode)", cfg, torch.float32, got, ref, err, rel,
+                      r["backend"], shape)
+            continue
         label = f"moe tp {arch}"
         tp_launches(label, cfg, got, ref, launches)
         err, rel, keep = moe_tp_check(label, cfg, dtype, got, ref)
@@ -4924,33 +5104,159 @@ def phase_moe_tp(dev) -> dict:
                   f"(full width, cut from {get_config(arch).n_layers}), "
                   f"expert-parallel ({cfg.n_experts // TP_MESH[1]} of "
                   f"{cfg.n_experts} experts a rank)", cfg, dtype, got, ref,
-                  err, rel, ranks[0][0], TP_MESH,
+                  err, rel, r["backend"], TP_MESH,
                   keep if dtype == torch.float32 else None)
-    small = tiny_version(get_config(MOE_ARCH)).with_(
-        n_experts=MOE_TP_SMALL_EXPERTS)
-    ref, run = tp_reference(small, dev)
-    t1 = time.perf_counter()
-    four = spawn_ranks(tp_rank, MOE_TP_SMALL_MESH[0] * MOE_TP_SMALL_MESH[1],
-                       dev.type, MOE_TP_SMALL_MESH, [run])
-    four_s = time.perf_counter() - t1
-    got = [r[1][0] for r in four]
-    label = f"moe tp {small.name} ({MOE_TP_SMALL_EXPERTS} experts)"
-    tp_launches(label, small, got, ref, launches)
-    err, rel = tp_check(tp_logits(got, MOE_TP_SMALL_MESH), ref["logits"],
-                        torch.float32, label)
-    if not all(np.array_equal(r["tokens"], ref["tokens"]) for r in got):
-        raise AssertionError(f"{label}: greedy tokens differ from the "
-                             f"one-process run's")
-    tp_report(f"moe tp: {small.name} E {MOE_TP_SMALL_EXPERTS}",
-              f"(d {small.d_model}, ff {small.d_ff}; no published config "
-              f"has experts that two ranks fail to divide, so this tiny "
-              f"one is the card's run of the ff-sharded experts, d over "
-              f"data, the weight gather and the 2-D decode)", small,
-              torch.float32, got, ref, err, rel, four[0][0],
-              MOE_TP_SMALL_MESH)
-    print(f"moe tp: the two ranks' processes ran {ranks_s:.1f} s, the four "
-          f"ranks' {four_s:.1f} s, their start and weight draws included")
     return dict(launches=launches)
+
+
+# -- the SSM and hybrid families on a model axis ------------------------------
+
+# (arch, depth cut or None, dtype) of phase 32 on the (1, 2) mesh:
+# mamba2-130m uncut in fp32 (SERVE_TOL elementwise, tokens equal), in bf16
+# cut to 2 layers and uncut, and one jamba period in bf16 on the ranks'
+# routes replayed; a bf16 run is held to TP_ROW_TOL of each row's largest
+# |logit|, except those of SSM_TP_PRINTED
+SSM_TP_SERVE = (("mamba2-130m", None, torch.float32),
+                ("mamba2-130m", 2, torch.bfloat16),
+                ("mamba2-130m", None, torch.bfloat16),
+                ("jamba-v0.1-52b", 8, torch.bfloat16))
+# bf16 runs whose readings are printed and not held: two correct bf16 runs
+# of random mamba2-130m's 24 layers lie further apart than TP_ROW_TOL (each
+# layer adds its rounding to the residual's): the JAX package's own bf16
+# lies 1.6e-1 from its fp32 at 24 tiny layers and 3.5e-2 at 4
+# (tests/test_torch_ssm_tensor_parallel.py::
+# test_bf16_lies_from_fp32_as_far_as_the_references_own); on the card one
+# process's bf16 lies 2.5e-2 from fp32 at 2 layers, 5.1e-2 at 4, 1.9e-1
+# at 24, so the split is held at 2
+SSM_TP_PRINTED = (("mamba2-130m", None, torch.bfloat16),)
+SSM_TP_DRAW_IN_TURN = "hybrid"   # the family whose ranks draw one at a time
+SSM_TP_SMALL_MESH = (1, 4)       # (data, model)
+# the four ranks' tiny fp32 configs: jamba (its 2 kv heads over 4 ranks:
+# the MQA fallbacks beside the mamba split) and an SSM of 3 heads of 64
+# channels, which no axis divides while their channels do (the head-dim
+# split; in_proj's 419 columns split over no axis: the rank holds it whole)
+SSM_TP_SMALL = (("jamba-v0.1-52b", {}),
+                ("mamba2-130m", dict(d_model=96, ssm_head_dim=64)))
+# (B, L, H, P, N, Q, what): the ranks' scan at model 2 (bf16 x/B/C views,
+# y and state fp32, as the model calls it)
+SSM_TP_SCAN = ((4, 512, 12, 64, 128, 256, "mamba2-130m rank: 12 of 24 heads"),
+               (4, 512, 64, 64, 16, 256, "jamba-v0.1-52b rank: 64 of 128 "
+                "heads"))
+
+
+def ssm_tp_kernels(dev) -> float:
+    """``ssd_scan`` at the ranks' shapes at ``model`` 2 against its plain
+    version (y and the state within SSD_TOL's fp32 2e-3), twice bit-equal,
+    timed by device time beside its bound and the plain version. Returns
+    the worst error."""
+    gen = torch.Generator(device=dev).manual_seed(TP_SEED + 2)
+    bf, f32 = torch.bfloat16, torch.float32
+    worst = 0.0
+    for B, L, H, P, N, Q, what in SSM_TP_SCAN:
+        args = ssd_operands(B, H, L, P, N, bf, True, gen, dev)
+        kw = dict(chunk=Q, return_state=True, out_dtype=f32)
+        y, h = same_twice(lambda: ops.ssd_scan(*args, **kw),
+                          f"ssd_scan {what}")
+        ry, rh = ops.ssd_scan_ref(*args, **kw)
+        e = max(max_err(y, ry, **SSD_TOL[f32]), max_err(h, rh, **SSD_TOL[f32]))
+        worst = max(worst, e)
+        device_ms = MB.time_callable(lambda: ops.ssd_scan(*args, **kw),
+                                     repeats=200, warmup=3) * 1e3
+        plain_ms = cuda_ms(lambda: ops.ssd_scan_ref(*args, **kw), iters=10,
+                           warm=2)
+        bound, by = ssd_bound(B, H, L, P, N, Q, bf, f32)
+        plan = SS.mma_plan(B, H, L, P, N, Q, True,
+                           torch.cuda.get_device_properties(dev)
+                           .multi_processor_count) \
+            if dev.type == "cuda" else None
+        print(f"ssd_scan {what} (B,L,H,P,N,Q)=({B},{L},{H},{P},{N},{Q}) bf16 "
+              f"x/B/C strided views, y and state fp32: vs plain {e:.1e} "
+              f"(bound rtol/atol 2e-3), rerun bit-equal; device "
+              f"{device_ms:.5f} ms, bound {bound:.6f} ms ({by}), plain "
+              f"{plain_ms:.5f} ms; plan {plan}")
+    return worst
+
+
+def phase_ssm_tp(dev, ranks: dict) -> dict:
+    """32: the SSM and hybrid families on a ``model`` axis (the ranks of
+    :func:`phase_tp_ranks`). ``ssd_scan`` at the ranks' shapes
+    (:func:`ssm_tp_kernels`); two ranks sharing the card over gloo on the
+    (1, 2) mesh: mamba2-130m uncut in fp32 (every logit within 1e-3,
+    tokens equal) and in bf16 cut to 2 layers (every row within
+    TP_ROW_TOL of its largest |logit|) and uncut (printed: SSM_TP_PRINTED),
+    one jamba-v0.1-52b period in bf16, its ranks having drawn it in turn,
+    within TP_ROW_TOL on their routes replayed in one process (the
+    routes' divergence printed); each bf16 run's distance from the fp32
+    function printed beside one process's (``bf16_readings``); then four
+    ranks on (1, 4) serving
+    tiny jamba and a tiny head-dim SSM in fp32 (within 1e-3, tokens
+    equal). Launches exact per rank. Returns the launches (all ranks) and
+    the scan's worst error."""
+    worst = ssm_tp_kernels(dev)
+    launches = dict.fromkeys(TP_KERNELS, 0)
+    for r in ranks["ssm"]:
+        arch, layers, cfg, ref, got, shape = (
+            r[k] for k in ("arch", "layers", "cfg", "ref", "got", "shape"))
+        dtype, H = cfg.compute_dtype, cfg.n_ssm_heads
+        if shape != TP_MESH:
+            label = f"ssm tp {cfg.name} (d {cfg.d_model}, {H} SSM heads " \
+                f"of {cfg.ssm_head_dim})"
+        else:
+            label = f"ssm tp {arch}"
+        tp_launches(label, cfg, got, ref, launches)
+        if cfg.n_experts and dtype != torch.float32:
+            n_rows, n_diff, first = route_divergence(
+                got[0]["routes"], ref["routes"], expected_launches(cfg, 0)[4],
+                LM_BATCH, LM_PROMPT)
+            print(f"{label}: router rows whose experts differ from the "
+                  f"one-process run's {n_diff} of {n_rows} "
+                  f"({n_diff / n_rows:.4%}); each batch row's first such "
+                  f"position {first.tolist()}; logits on their own routes "
+                  f"{row_rel(tp_logits(got, TP_MESH), ref['logits']):.3e} "
+                  f"of a row's largest |logit| from the one-process run's")
+            label += " (replayed routes)"
+        if dtype == torch.float32:
+            err, rel = tp_check(tp_logits(got, shape), ref["logits"], dtype,
+                                label)
+            if not all(np.array_equal(g["tokens"], ref["tokens"])
+                       for g in got):
+                raise AssertionError(f"{label}: greedy tokens differ from "
+                                     f"the one-process run's")
+        else:
+            logits, one = bf16_readings(label, cfg, got, ref, dev)
+            if (arch, layers, dtype) in SSM_TP_PRINTED:
+                if not torch.isfinite(logits).all():
+                    raise AssertionError(f"{label}: non-finite logits")
+                err, rel = float((logits - one).abs().max()), \
+                    row_rel(logits, one)
+            else:
+                err, rel = tp_check(logits, one, dtype, label)
+        (h0, h1), (p0, p1) = got[0]["ssm"].heads, got[0]["ssm"].head_dim
+        Pd = cfg.ssm_head_dim
+        how = (f"SSM heads split ({h1 - h0} of {H} a rank)" if h1 - h0 < H
+               else f"SSM head channels split ({p1 - p0} of each head's "
+                    f"{Pd} a rank)" if p1 - p0 < Pd
+               else "the mixer whole on every rank")
+        if shape != TP_MESH:
+            tp_report(f"ssm tp: {cfg.name} d {cfg.d_model}", f"(tiny, {how})",
+                      cfg, dtype, got, ref, err, rel, r["backend"], shape)
+            continue
+        cut = "uncut" if layers is None else \
+            f"cut to {layers} of {get_config(arch).n_layers} layers"
+        tp_report(f"ssm tp: {arch}", f"full width, {cut}, {how}", cfg, dtype,
+                  got, ref, err, rel, r["backend"], shape,
+                  printed=(arch, layers, dtype) in SSM_TP_PRINTED)
+    return dict(launches=launches, worst=worst)
+
+
+def timed(fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall seconds printed on a line of their
+    own (``phase <function>[ <name>]: <s> s``)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    name = f" {args[0]}" if args and isinstance(args[0], str) else ""
+    print(f"phase {fn.__name__}{name}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -4958,9 +5264,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    smi = phase_device()
-    phase_build()
-    timing = phase_kernel(dev)
+    t_start = time.perf_counter()
+    smi = timed(phase_device)
+    timed(phase_build)
+    timing = timed(phase_kernel, dev)
 
     uniform = ensemble()
     mixed = ensemble(mem_range=(1e6, 4e6))
@@ -4971,33 +5278,34 @@ def main() -> int:
               f"{sorted(set(ens.part_dims))}, replicas per slot "
               f"{ens.ir.member.sum(1).tolist()}, slots without a student "
               f"{int((ens.ir.student_of < 0).sum())}")
-    phase_profile(uniform, dev)
+    timed(phase_profile, uniform, dev)
     phases = [
-        phase_serve("fused", uniform, dev, fused=True),
-        phase_serve("legacy", mixed, dev, fused=False, seed=1),
-        phase_serve("int8", uniform, dev, quantize="int8", fused=True,
-                    seed=2, fp32_twin=server_from_ensemble(
-                        uniform, seed=2, device=dev)),
+        timed(phase_serve, "fused", uniform, dev, fused=True),
+        timed(phase_serve, "legacy", mixed, dev, fused=False, seed=1),
+        timed(phase_serve, "int8", uniform, dev, quantize="int8",
+              fused=True, seed=2, fp32_twin=server_from_ensemble(
+                  uniform, seed=2, device=dev)),
     ]
 
     plans = coded_plans()
-    decode_timing = phase_decode_kernel(dev, plans)
+    decode_timing = timed(phase_decode_kernel, dev, plans)
     coded = {name: ensemble_for(ir, seed=3) for name, ir in plans.items()}
     sysdev = plans["coded-fused"].device_names[
         int(np.flatnonzero(plans["coded-fused"].member[0])[0])]
-    phase_profile(coded["coded-fused"], dev, label="coded-fused decode",
-                  failure=FailureModel(forced_failures=[sysdev],
-                                       outages=False))
+    timed(phase_profile, coded["coded-fused"], dev,
+          label="coded-fused decode",
+          failure=FailureModel(forced_failures=[sysdev], outages=False))
     coded_phases = [
-        phase_serve("coded-fused", coded["coded-fused"], dev, fused=True,
-                    seed=3, coded=True),
-        phase_serve("coded-legacy", coded["coded-legacy"], dev, fused=False,
-                    seed=4, coded=True),
-        phase_serve("compute-fused", coded["compute-fused"], dev, fused=True,
-                    seed=5, coded=True),
+        timed(phase_serve, "coded-fused", coded["coded-fused"], dev,
+              fused=True, seed=3, coded=True),
+        timed(phase_serve, "coded-legacy", coded["coded-legacy"], dev,
+              fused=False, seed=4, coded=True),
+        timed(phase_serve, "compute-fused", coded["compute-fused"], dev,
+              fused=True, seed=5, coded=True),
     ]
-    coded_phases.append(phase_repair("repair", coded_phases[0]["server"],
-                                     coded_phases[0]["cpu"]))
+    coded_phases.append(timed(phase_repair, "repair",
+                              coded_phases[0]["server"],
+                              coded_phases[0]["cpu"]))
     phases += coded_phases
 
     kernel = dict(name="quorum_aggregate", route="cuda",
@@ -5018,26 +5326,26 @@ def main() -> int:
                   library_ms=decode_timing["library_ms"],
                   device_ms=decode_timing["device_ms"])
 
-    lm_timing = phase_lm_kernels(dev)
-    phase_lm_card_vs_cpu(dev)
-    lm = phase_lm_serve(dev)
-    lm_timing.update(phase_ssm_moe_kernels(dev))
-    phase_ssm_moe_card_vs_cpu(dev)
-    ssm_moe = phase_ssm_moe_serve(dev)
-    matmul_timing = phase_matmul_kernels(dev, plans)
-    measured = phase_measured(dev)
-    offline = phase_offline(dev)
-    train_timing = phase_train_kernels(dev)
-    phase_train_card_vs_cpu(dev)
-    train = phase_train_full(dev)
-    rocoin = phase_lm_rocoin(dev)
-    ssm_train_timing = phase_ssm_train_kernels(dev)
-    phase_ssm_train_card_vs_cpu(dev)
-    ssm_train = phase_ssm_train_full(dev)
-    new_worst = phase_vlm_encdec_kernels(dev)
-    phase_vlm_encdec_card_vs_cpu(dev)
-    vlm_encdec = phase_vlm_encdec_full(dev)["launches"]
-    mesh = phase_mesh(dev, {
+    lm_timing = timed(phase_lm_kernels, dev)
+    timed(phase_lm_card_vs_cpu, dev)
+    lm = timed(phase_lm_serve, dev)
+    lm_timing.update(timed(phase_ssm_moe_kernels, dev))
+    timed(phase_ssm_moe_card_vs_cpu, dev)
+    ssm_moe = timed(phase_ssm_moe_serve, dev)
+    matmul_timing = timed(phase_matmul_kernels, dev, plans)
+    measured = timed(phase_measured, dev)
+    offline = timed(phase_offline, dev)
+    train_timing = timed(phase_train_kernels, dev)
+    timed(phase_train_card_vs_cpu, dev)
+    train = timed(phase_train_full, dev)
+    rocoin = timed(phase_lm_rocoin, dev)
+    ssm_train_timing = timed(phase_ssm_train_kernels, dev)
+    timed(phase_ssm_train_card_vs_cpu, dev)
+    ssm_train = timed(phase_ssm_train_full, dev)
+    new_worst = timed(phase_vlm_encdec_kernels, dev)
+    timed(phase_vlm_encdec_card_vs_cpu, dev)
+    vlm_encdec = timed(phase_vlm_encdec_full, dev)["launches"]
+    mesh = timed(phase_mesh, dev, {
         ("llama3.2-1b", "train"): (train["step_ms"],
                                    train["profile"].get("busy_ms")),
         ("llama3.2-1b", "prefill"): (lm["prefill"]["wall_ms"],
@@ -5050,12 +5358,14 @@ def main() -> int:
             ssm_moe["mamba2-130m"]["prefill"].get("busy_ms"))})["launches"]
     for k, v in mesh.items():
         vlm_encdec[k] = vlm_encdec.get(k, 0) + v
-    tp = phase_tp(dev)
-    moe_tp = phase_moe_tp(dev)
+    ranks = timed(phase_tp_ranks, dev)
+    tp = timed(phase_tp, dev, ranks)
+    moe_tp = timed(phase_moe_tp, dev, ranks)
+    ssm_tp = timed(phase_ssm_tp, dev, ranks)
     for k in TP_KERNELS:
         vlm_encdec[k] = (vlm_encdec.get(k, 0) + tp["launches"][k]
-                         + moe_tp["launches"][k])
-    for name, e in tp["worst"].items():
+                         + moe_tp["launches"][k] + ssm_tp["launches"][k])
+    for name, e in (*tp["worst"].items(), ("ssd_scan", ssm_tp["worst"])):
         lm_timing[name]["max_abs_err"] = max(lm_timing[name]["max_abs_err"],
                                              e)
     train_launch = {k: train["launches"].get(k, 0)
@@ -5115,6 +5425,8 @@ def main() -> int:
                                   "bound_by", "library_ms", "device_ms",
                                   "autograd_ms", "route_bound_ms")})
                          for name in SSM_TRAIN_SOURCES]
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [kernel, decode] + lm_kernels
                       + matmul_kernels + train_kernels

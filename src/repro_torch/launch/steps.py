@@ -25,19 +25,20 @@ and backward run on its local tensors through the hand-written kernels
 the ZeRO-1 blocks (``zero1=True``) or all-reduced, to their mean over the
 data ranks.
 
-With ``model`` > 1 the dense and MoE families' prefill and serve steps
-run tensor-parallel (``repro_torch.parallel.tensor``): each rank holds
-its blocks of the params as ``param_specs(cfg, mesh, kind=...)`` place
-them (``tensor.shard_params``) and of the cache as ``cache_specs`` place
-it, and computes its heads, FFN columns (an MoE's experts or their ff
-columns, as the reference's ``_moe_apply_shard_map`` splits them) and
-vocabulary columns, summing over the ``model`` ranks where the
-reference's GSPMD or ``psum`` would. The logits come back sharded on the
-vocabulary. What a mesh with ``model`` > 1 does not execute, the dry run
-(``repro_torch.launch.dryrun``) models: a train step (the JAX package's
-tests only compile one), and the ssm, hybrid, vlm and encdec families,
-whose layers (``ssm_inner``, ``conv_ch``, the head-dim-sharded state,
-M-RoPE inputs and cross caches) have no tensor-parallel path yet.
+With ``model`` > 1 the dense, MoE, SSM and hybrid families' prefill and
+serve steps run tensor-parallel (``repro_torch.parallel.tensor``): each
+rank holds its blocks of the params as ``param_specs(cfg, mesh,
+kind=...)`` place them (``tensor.shard_params``) and of the cache as
+``cache_specs`` place it, and computes its heads, FFN columns (an MoE's
+experts or their ff columns, as the reference's ``_moe_apply_shard_map``
+splits them), SSM heads or head channels (as the decode cache's
+``state`` spec places them) and vocabulary columns, summing over the
+``model`` ranks where the reference's GSPMD or ``psum`` would. The
+logits come back sharded on the vocabulary. What a mesh with ``model`` >
+1 does not execute, the dry run (``repro_torch.launch.dryrun``) models:
+a train step (the JAX package's tests only compile one), and the vlm and
+encdec families, whose M-RoPE inputs, padded heads and cross caches have
+no tensor-parallel path yet.
 """
 from __future__ import annotations
 
@@ -284,6 +285,9 @@ class MeshPlan(NamedTuple):
     zero1: Optional[adamw.Zero1]
 
 
+TP_FAMILIES = ("dense", "moe", "ssm", "hybrid")   # served at model > 1
+
+
 def _data_axes(mesh) -> Tuple[str, ...]:
     return tuple(a for a in ("pod", "data") if a in mesh_shape(mesh))
 
@@ -292,22 +296,23 @@ def mesh_plan(cfg: ModelConfig, mesh: DeviceMesh, *,
               zero1: bool = True, kind: str = "train") -> MeshPlan:
     """The data axes of ``mesh`` and, with ``zero1``, each leaf's ZeRO-1
     dimension (from ``zero1_specs`` of the sanitized train specs), for a
-    step of ``kind``. With ``model`` > 1 only the dense and MoE families'
-    prefill and decode steps execute; the others raise
-    ``NotImplementedError``."""
+    step of ``kind``. With ``model`` > 1 only the dense, MoE, SSM and
+    hybrid families' prefill and decode steps execute; a train step and
+    the vlm and encdec families raise ``NotImplementedError``."""
     sizes = mesh_shape(mesh)
     if sizes.get("model", 1) > 1 and kind == "train":
         raise NotImplementedError(
             "a train step on a mesh with model > 1 is modelled by "
             "repro_torch.launch.dryrun, not executed: tensor parallelism "
-            "runs the dense and moe families' prefill and decode steps "
-            "only")
-    if sizes.get("model", 1) > 1 and cfg.family not in ("dense", "moe"):
+            "runs the dense, moe, ssm and hybrid families' prefill and "
+            "decode steps only")
+    if sizes.get("model", 1) > 1 and cfg.family not in TP_FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family} family on a mesh with model > 1 is modelled "
             f"by repro_torch.launch.dryrun, not executed: tensor parallelism "
-            f"runs the dense and moe families only (SSM channels, M-RoPE "
-            f"inputs or cross caches have no tensor-parallel path yet)")
+            f"runs the dense, moe, ssm and hybrid families only (M-RoPE "
+            f"inputs, padded heads and cross caches have no tensor-parallel "
+            f"path yet)")
     axes = _data_axes(mesh)
     index = 0
     for a in axes:
@@ -420,8 +425,10 @@ def mesh_step(cfg: ModelConfig, shape: ShapeConfig, mesh: DeviceMesh,
       prefill's cache is the serving cache of ``cache_len`` positions (the
       prompt's by default) holding the prompt, placed as
       :func:`cache_specs` of a decode shape of that length places it:
-      each rank's block, its kv heads or its block of positions, is
-      spliced on the rank. A serve step takes such a cache (DTensors or
+      each rank's block, its kv heads or its block of positions, its SSM
+      heads or head channels, is spliced on the rank (an SSM ``conv``
+      window split over ``model`` is this rank's plain tensor:
+      :func:`_conv_leaf`). A serve step takes such a cache (DTensors or
       this rank's blocks) and updates it in place.
     """
     plan = mesh_plan(cfg, mesh, zero1=zero1 and shape.kind == "train",
@@ -471,19 +478,24 @@ def mesh_step(cfg: ModelConfig, shape: ShapeConfig, mesh: DeviceMesh,
             if lay is None and cache_len is None:
                 return logits_of(logits, lay), mesh_cache(cache, mesh)
             B = logits.shape[0] * plan.count
+            length = cache_len or (cache["k"].shape[2] if "k" in cache
+                                   else shape.seq_len)
             return logits_of(logits, lay), _serving_cache(
-                cfg, cache, mesh, B, cache_len or cache["k"].shape[2])
+                cfg, cache, mesh, B, length)
         return prefill_step
 
     cplaced = cache_specs(cfg, shape, mesh)
     cshapes, cspecs = tensors_of(cplaced), specs_of(cplaced)
-    lay = TP.layout(cfg, mesh, pspecs, cspecs["k"], shape.seq_len) \
+    if "conv" in cspecs:
+        cspecs["conv"] = _conv_spec(cspecs["state"], cshapes["state"].dim(),
+                                    cshapes["conv"].dim())
+    lay = TP.layout(cfg, mesh, pspecs, cspecs.get("k"), shape.seq_len) \
         if split else None
 
     @torch.no_grad()
     def serve_step(params, cache, batch, index):
         local_cache = TP.fit(tree_map(local, cache), cshapes, cspecs, cfg,
-                             mesh)
+                             mesh, in_place=True)
         with TP.installed(lay):
             logits, _ = api.decode_step(local_params(params), cfg,
                                         local_rows(batch, plan),
@@ -492,26 +504,78 @@ def mesh_step(cfg: ModelConfig, shape: ShapeConfig, mesh: DeviceMesh,
     return serve_step
 
 
+def _conv_spec(state_spec, state_ndim: int, conv_ndim: int
+               ) -> PartitionSpec:
+    """The spec a serving cache's ``conv`` window (…, B, k − 1, CH) is laid
+    out by: its batch rows as the ``state`` leaf's (…, B, H, P, N) of
+    ``state_ndim`` dimensions placed by ``state_spec``, and nothing on
+    ``model``, whose channels :func:`_conv_leaf`
+    sets. ``cache_specs``' own ``conv`` entry is not a layout of the
+    window: the reference tests ``name.endswith(("k", "v", ...))`` before
+    its ``conv`` rule, "conv" ends in "v", so it places the window by the
+    KV rule (its leading axis on the batch axes, its batch where a KV
+    cache's sequence goes), and the port mirrors it leaf for leaf."""
+    batch = state_spec[state_ndim - 4] \
+        if state_ndim - 4 < len(state_spec) else None
+    return PartitionSpec(*([None] * (conv_ndim - 3) + [batch]))
+
+
+def _conv_leaf(mesh: DeviceMesh, t: torch.Tensor, spec,
+               ssm: Optional[TP.SSM], full=None):
+    """A rank's ``conv`` window (its rows, every position of the window)
+    as a serving cache holds it. Where the mixer is split its channels are
+    [x_r | B | C] (``TP.SSM.conv_cols``; cut here from a window of every
+    channel): x sharded over ``model`` and B, C replicated, which no
+    placement of a DTensor describes, so the block stays this rank's plain
+    tensor. A whole mixer's window is every channel on every rank: a
+    DTensor placed by :func:`_conv_spec`'s ``spec``, replicated on
+    ``model``, of the global shape ``full`` (inferred from the placement
+    where not given)."""
+    if ssm is not None and ssm.split:
+        if t.shape[-1] == ssm.n_heads * ssm.P + 2 * ssm.N:
+            t = t.index_select(-1, ssm.conv_cols().to(t.device))
+        return t
+    if full is None:
+        return DTensor.from_local(t, mesh, placements(mesh, spec),
+                                  run_check=False)
+    return _dtensor(mesh, t, spec, full)
+
+
 def _serving_cache(cfg: ModelConfig, cache: Any, mesh: DeviceMesh,
                    batch: int, length: int) -> Any:
-    """The prompt's cache (L, B_r, P, KV or this rank's KV, hd) laid into
-    this rank's block of a decode cache of ``length`` positions placed by
-    :func:`cache_specs` of a decode shape (B = ``batch``): zeros past the
-    prompt, and only the rank's positions where the sequence is sharded.
-    A cache that already is its block (``length`` the prompt's, nothing
-    cut) is placed as it is. A self-attention cache ({"k", "v"}) only:
-    another family's prefill cache goes to :func:`mesh_cache` whole."""
-    if set(cache) != {"k", "v"}:
-        raise ValueError(f"cache_len lays a self-attention KV cache; the "
-                         f"{cfg.family} family's cache ({sorted(cache)}) is "
-                         f"placed whole by mesh_cache")
+    """The prompt's cache (this rank's rows and, with ``model`` > 1, its
+    blocks as the prefill computed them) laid into this rank's block of a
+    decode cache of ``length`` positions placed by :func:`cache_specs` of
+    a decode shape (B = ``batch``), for any family served at ``model`` >
+    1 (dense, moe, ssm, hybrid):
+
+    - ``k``/``v`` (L, B_r, P, KV or this rank's KV, hd): zeros past the
+      prompt, and only the rank's positions where the sequence is sharded;
+    - ``state``: the rank's SSM heads or head channels, as the spec places
+      them;
+    - ``conv``: the rank's window over [x_r | B | C] (:func:`_conv_leaf`
+      says how it is placed), spliced into the leading rows of k − 1 where
+      the prompt is shorter, as the reference's ``splice`` does.
+
+    A leaf that already is its block is placed as it is."""
     placed = cache_specs(cfg, ShapeConfig("serve", length, batch, "decode"),
                          mesh)
+    ssm = TP.ssm_of(cfg, mesh)
     out = {}
     for name, t in cache.items():
         full, spec = placed[name]
+        if name == "conv":
+            k = full.shape[-2]
+            if t.shape[-2] != k:
+                dst = t.new_zeros((*t.shape[:-2], k, t.shape[-1]))
+                dst[..., :t.shape[-2], :] = t
+                t = dst
+            st = placed["state"]
+            out[name] = _conv_leaf(mesh, t, _conv_spec(
+                st.spec, st.tensor.dim(), full.dim()), ssm, full)
+            continue
         want = SP.local_shape(tuple(full.shape), spec, mesh)
-        if tuple(t.shape) != want:
+        if tuple(t.shape) != want and name in ("k", "v"):
             seq = spec[2] if len(spec) > 2 else None
             s0, _ = TP.block(length, seq, mesh)
             dst = t.new_zeros(want)
@@ -526,21 +590,28 @@ def mesh_cache(cache: Any, mesh: DeviceMesh) -> Any:
     """A cache of this rank's rows (whole on the ``model`` axis) as
     DTensors of this rank's blocks, placed by
     :func:`repro_torch.parallel.specs.cache_specs` (the batch on the data
-    axes, and the kv heads or the sequence on ``model``): a serving cache
-    for :func:`mesh_step`'s serve step. The specs are read on a mesh of
-    the same axes with the data axes at size 1 (the rows given are
-    already this rank's) and ``model`` at its size; a leaf sharded on
-    ``model`` is cut to this rank's block (a copy)."""
+    axes, and the kv heads or the sequence, the SSM heads or head
+    channels on ``model``): a serving cache for :func:`mesh_step`'s serve
+    step. The specs are read on a mesh of the same axes with the data axes
+    at size 1 (the rows given are already this rank's) and ``model`` at
+    its size; a leaf sharded on ``model`` is cut to this rank's block (a
+    copy). An SSM ``conv`` window is cut to the rank's [x_r | B | C] (a
+    plain tensor where the mixer is split: :func:`_conv_leaf`)."""
     names = axis_names(mesh)
     sizes = mesh_shape(mesh)
     specs = SP.cache_specs(cache, AbstractMesh(
         [sizes[a] if a == "model" else 1 for a in names], names))
+    ssm = TP.ssm_for(*cache["state"].shape[-3:], mesh) \
+        if "state" in cache else None
 
-    def place(t, spec):
+    def place(name, t, spec):
+        if name == "conv":
+            return _conv_leaf(mesh, t, _conv_spec(
+                specs["state"], cache["state"].dim(), t.dim()), ssm)
         for dim, entry in enumerate(spec):
             if "model" in axes_of(entry) and sizes["model"] > 1:
                 lo, hi = TP.block(t.shape[dim], "model", mesh)
                 t = t.narrow(dim, lo, hi - lo).clone()
         return DTensor.from_local(t, mesh, placements(mesh, spec),
                                   run_check=False)
-    return tree_map(place, cache, specs)
+    return {name: place(name, t, specs[name]) for name, t in cache.items()}

@@ -13,6 +13,15 @@ differentiates a period through the backward kernels of the four it runs
 forward (``rmsnorm_bwd``, ``ssd_scan_bwd``, ``flash_attention_bwd``,
 ``topk_gating_bwd``). Jamba has ``pos="none"``: attention is unrotated. A decode step updates the cache
 in place, and there is no ``train`` flag, as in ``transformer.py``.
+
+Under a tensor-parallel layout (a mesh step with ``model`` > 1) each
+sub-layer runs its own split, as the layout reads each kind from the
+sub-layer that holds it (``parallel.tensor.layout``): the attention's
+heads (and the MQA fallbacks) and the dense FFN's columns as in
+``transformer.py``, the MoE's experts as the reference's
+``_moe_apply_shard_map``, the mamba mixers' SSM heads or head channels
+as in ``ssm.py``; the cache is each rank's block of {k, v, conv,
+state}.
 """
 from __future__ import annotations
 

@@ -7,7 +7,8 @@ dual form through the hand-written ``ssd_scan`` kernel, which also returns
 the final state the cache keeps; decode carries the constant-size
 recurrent state in plain PyTorch (its einsums carry no kernel in the
 reference either). Every RMSNorm, the gated one included, goes through
-``rmsnorm``.
+``rmsnorm``, except a gated norm whose row a tensor-parallel rank holds
+only part of (below).
 
 Differences from the reference:
 
@@ -22,7 +23,20 @@ Differences from the reference:
   dt = softplus(0); the port's are finite);
 - a decode step writes the new conv window and state into the cache in
   place and returns the same dict (the reference donates it);
-- no ``train`` flag and no sharding constraints, as in ``transformer.py``.
+- no ``train`` flag and no sharding constraints, as in ``transformer.py``;
+- under a tensor-parallel layout whose :class:`repro_torch.parallel.tensor.SSM`
+  splits the mixer (a mesh step with ``model`` > 1,
+  ``launch.steps.mesh_step``), a rank runs its SSM heads, or every head's
+  block of channels, on its blocks of the params (``in_proj``'s columns
+  [z_r | x_r | B | C | dt_r], or the whole product where ``in_proj`` is
+  whole; the conv over [x_r | B | C]): the scan on (B, H_r, L, P_r), the
+  decode recurrence on its state block, the gated norm's sums of squares
+  summed over ``model`` (one all-reduce of (B, L, 1) in fp32, then the
+  reference's formula in plain ops: a row split over the ranks needs the
+  collective between the reduction and the scale, which one launch of
+  the ``rmsnorm`` kernel cannot hold) and ``out_proj``'s partial products
+  summed after it. GSPMD makes the same split of the reference's forward
+  from ``xh``'s ``ssm_inner`` constraint and the params' shardings.
 """
 from __future__ import annotations
 
@@ -35,6 +49,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.parallel import tensor as TP
 from repro_torch.tree import stack_init
 
 Params = Dict[str, Any]
@@ -67,10 +82,42 @@ def mamba_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
             "out_proj": L.dense_init(gen, d_in, cfg.d_model, **kw)}
 
 
-def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
-    """(..., d_proj) → z (..., d_in), xbc (..., conv_ch), dt (..., H)."""
+def _split_ssm():
+    """The current tensor-parallel layout's :class:`TP.SSM` where it splits
+    the mixer over the ``model`` ranks, else None (the mixer runs whole)."""
+    tp = TP.current()
+    ssm = tp.ssm if tp is not None else None
+    return ssm if ssm is not None and ssm.split else None
+
+
+def _rank_dims(cfg: ModelConfig):
+    """(:func:`_dims` of what this rank computes: its channels, heads,
+    head channels, N and conv channels; the splitting :class:`TP.SSM` or
+    None)."""
+    ssm = _split_ssm()
+    if ssm is None:
+        return _dims(cfg), None
+    H, P = ssm.heads[1] - ssm.heads[0], ssm.head_dim[1] - ssm.head_dim[0]
+    return (H * P, H, P, ssm.N, H * P + 2 * _G * ssm.N), ssm
+
+
+def _split_proj(cfg: ModelConfig, proj: torch.Tensor, ssm=None):
+    """(..., d_proj) → z (..., d_in), xbc (..., conv_ch), dt (..., H). On a
+    rank that splits the mixer (``ssm``), its z_r, [x_r | B | C] and dt_r:
+    the columns of its ``in_proj`` block, or taken from the whole product
+    where ``in_proj`` is whole (x_r and B | C then joined: a copy)."""
     d_in, H, P, N, conv_ch = _dims(cfg)
-    return proj.split([d_in, conv_ch, H], dim=-1)
+    if ssm is None:
+        return proj.split([d_in, conv_ch, H], dim=-1)
+    (h0, h1), (p0, p1) = ssm.heads, ssm.head_dim
+    if proj.shape[-1] != 2 * d_in + 2 * _G * N + H:
+        c = (h1 - h0) * (p1 - p0)
+        return proj.split([c, c + 2 * _G * N, h1 - h0], dim=-1)
+    z, x, bc, dt = proj.split([d_in, d_in, 2 * _G * N, H], dim=-1)
+
+    def mine(t):
+        return t.unflatten(-1, (H, P))[..., h0:h1, p0:p1].flatten(-2)
+    return mine(z), torch.cat([mine(x), bc], -1), dt[..., h0:h1]
 
 
 def _causal_conv(p: Params, xbc: torch.Tensor) -> torch.Tensor:
@@ -83,8 +130,29 @@ def _causal_conv(p: Params, xbc: torch.Tensor) -> torch.Tensor:
     return F.silu(y.transpose(1, 2).contiguous() + p["conv_b"])
 
 
-def _gated_norm(p: Params, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    return L.rmsnorm_apply(p["out_norm"], y * F.silu(z))
+def _gated_norm(p: Params, y: torch.Tensor, z: torch.Tensor, d_in: int,
+                ssm=None) -> torch.Tensor:
+    """RMSNorm of ``y · silu(z)`` over all ``d_in`` channels, through the
+    ``rmsnorm`` kernel; on a rank that splits the mixer (``ssm``), of its
+    channels: their fp32 sums of squares summed over ``model``, then the
+    reference's ``x · rsqrt(sum / d_in + eps) · scale_r`` in plain ops."""
+    g = y * F.silu(z)
+    if ssm is None:
+        return L.rmsnorm_apply(p["out_norm"], g)
+    gf = g.float()
+    tp = TP.current()
+    ss = TP.all_reduce(gf.square().sum(-1, keepdim=True), tp.group)
+    return (gf * torch.rsqrt(ss / d_in + 1e-6)          # rmsnorm_apply's eps
+            * p["out_norm"]["scale"].float()).to(g.dtype)
+
+
+def _out_proj(p: Params, g: torch.Tensor, ssm=None) -> torch.Tensor:
+    """``out_proj`` (no bias) of the normed ``g``; on a rank that splits
+    the mixer, of its channels' rows, summed over ``model`` in fp32."""
+    if ssm is None:
+        return L.dense_apply(p["out_proj"], g)
+    return TP.sum_partials(g.float() @ p["out_proj"]["kernel"].float(),
+                           TP.current().group, g.dtype)
 
 
 def _scan_operands(xh, dt, A, Bm, Cm):
@@ -112,10 +180,11 @@ def mamba_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
                 return_state: bool = False):
     """Full-sequence mamba2 mixer through ``ssd_scan``. x: (B, Len, d).
     With ``return_state`` also returns (final SSM state, conv tail) for
-    decode continuation."""
-    d_in, H, P, N, conv_ch = _dims(cfg)
+    decode continuation: on a rank that splits the mixer, its block of
+    each, (B, H_r, P_r, N) and (B, k−1, [x_r | B | C])."""
+    (d_in, H, P, N, conv_ch), ssm = _rank_dims(cfg)
     proj = L.dense_apply(p["in_proj"], x)
-    z, xbc, dt = _split_proj(cfg, proj)
+    z, xbc, dt = _split_proj(cfg, proj, ssm)
     conv_tail = xbc[:, -(cfg.ssm_conv - 1):] if return_state else None
     xbc = _causal_conv(p, xbc)
     xs, Bm, Cm = xbc.split([d_in, _G * N, _G * N], dim=-1)
@@ -127,7 +196,7 @@ def mamba_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
                             out_dtype=torch.float32)
     y = y.permute(0, 2, 1, 3) + xh.float() * p["D"][:, None]
     y = y.reshape(*x.shape[:-1], d_in).to(cfg.compute_dtype)
-    out = L.dense_apply(p["out_proj"], _gated_norm(p, y, z))
+    out = _out_proj(p, _gated_norm(p, y, z, cfg.d_inner, ssm), ssm)
     if return_state:
         return out, h_fin, conv_tail
     return out
@@ -137,10 +206,12 @@ def mamba_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  conv_state: torch.Tensor, ssm_state: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode. x (B, 1, d); conv_state (B, k−1, CH); ssm_state
-    (B, H, P, N). Returns (out, new conv window, new state)."""
-    d_in, H, P, N, conv_ch = _dims(cfg)
+    (B, H, P, N); on a rank that splits the mixer, its blocks of the two
+    (CH = [x_r | B | C], H_r, P_r). Returns (out, new conv window, new
+    state)."""
+    (d_in, H, P, N, conv_ch), ssm = _rank_dims(cfg)
     proj = L.dense_apply(p["in_proj"], x)
-    z, xbc, dt = _split_proj(cfg, proj)                    # (B, 1, ·)
+    z, xbc, dt = _split_proj(cfg, proj, ssm)               # (B, 1, ·)
     window = torch.cat([conv_state, xbc], dim=1)          # (B, k, CH)
     conv_out = torch.einsum("bkc,kc->bc", window.float(),
                             p["conv_w"].float())
@@ -155,7 +226,7 @@ def mamba_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     y = torch.einsum("bn,bhpn->bhp", Cm, h_new)
     y = y + xh * p["D"][:, None]
     y = y.reshape(-1, 1, d_in).to(cfg.compute_dtype)
-    out = L.dense_apply(p["out_proj"], _gated_norm(p, y, z))
+    out = _out_proj(p, _gated_norm(p, y, z, cfg.d_inner, ssm), ssm)
     return out, window[:, 1:], h_new
 
 

@@ -121,20 +121,23 @@ def _project_qkv(p: Params, x: torch.Tensor
     tp = TP.current()
     if tp is None or tp.kv != "input":
         return _proj(p["wq"], x), _proj(p["wk"], x), _proj(p["wv"], x)
-    xs = x[..., tp.embed[0]:tp.embed[1]]
-    kv = TP.all_reduce(torch.cat([_proj(p["wk"], xs), _proj(p["wv"], xs)],
-                                 -2), tp.group)
+    xs = x[..., tp.embed[0]:tp.embed[1]].float()
+    kv = TP.sum_partials(torch.cat([_proj(p["wk"].float(), xs),
+                                    _proj(p["wv"].float(), xs)], -2),
+                         tp.group, x.dtype)
     k, v = kv.chunk(2, dim=-2)
     return _proj(p["wq"], x), k, v
 
 
 def _out_proj(p: Params, out: torch.Tensor) -> torch.Tensor:
     """(..., Hp, hd) → (..., d); tensor-parallel, the rank's heads' share,
-    summed over the ranks."""
-    y = out.flatten(-2) @ p["wo"].flatten(0, 1)
+    summed over the ranks in fp32 (:func:`TP.sum_partials`)."""
     tp = TP.current()
-    return TP.all_reduce(y, tp.group) if tp is not None and tp.split_heads \
-        else y
+    if tp is None or not tp.split_heads:
+        return out.flatten(-2) @ p["wo"].flatten(0, 1)
+    return TP.sum_partials(out.flatten(-2).float()
+                           @ p["wo"].flatten(0, 1).float(), tp.group,
+                           out.dtype)
 
 
 def _kv_read(t: torch.Tensor) -> torch.Tensor:
@@ -327,7 +330,8 @@ def ffn_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     tp = TP.current()
     if tp is None or not tp.split_ffn:
         return L.dense_apply(p["wo"], h)
-    y = TP.all_reduce(h @ p["wo"]["kernel"], tp.group)
+    y = TP.sum_partials(h.float() @ p["wo"]["kernel"].float(), tp.group,
+                        h.dtype)
     return y + p["wo"]["bias"] if "bias" in p["wo"] else y
 
 
@@ -383,13 +387,18 @@ def _gather_dispatch(x: torch.Tensor, dest: torch.Tensor, n_slots: int,
     return x_pad[torch.arange(B, device=x.device)[:, None], src[:, :n_slots]]
 
 
-def _expert_compute(buf: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor
-                    ) -> torch.Tensor:
+def _expert_compute(buf: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+                    partial: bool = False) -> torch.Tensor:
     """buf (B, E, C, d) × wi (E, 2, d, ff) × wo (E, ff, d) → (B, E, C, d):
-    batched products, as the reference leaves them to XLA."""
+    batched products, as the reference leaves them to XLA. ``partial``
+    (``wi``/``wo`` a rank's block of ff, its products a share of the
+    whole): ``wo``'s product in fp32, for :func:`TP.sum_partials`."""
     gate = torch.einsum("becd,edf->becf", buf, wi[:, 0])
     up = torch.einsum("becd,edf->becf", buf, wi[:, 1])
-    return torch.einsum("becf,efd->becd", L.swiglu(gate, up), wo)
+    h = L.swiglu(gate, up)
+    if partial:
+        h, wo = h.float(), wo.float()
+    return torch.einsum("becf,efd->becd", h, wo)
 
 
 def _combine(out: torch.Tensor, dest: torch.Tensor, top_w: torch.Tensor,
@@ -443,7 +452,8 @@ def _moe_sharded(p: Params, cfg: ModelConfig, x: torch.Tensor,
       ``data``, a prefill first gathers them over ``data`` and a
       one-token step takes :func:`_moe_decode_2d`.
 
-    The partial outputs are summed over the ``model`` ranks."""
+    The partial outputs are summed over the ``model`` ranks in fp32
+    (:func:`TP.sum_partials`)."""
     ex = tp.moe
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
@@ -469,9 +479,10 @@ def _moe_sharded(p: Params, cfg: ModelConfig, x: torch.Tensor,
             wi, wo = _gather_d(wi, ex), _gather_d(wo, ex)
     n = (e1 - e0) * C
     buf = _gather_dispatch(x, dest, n, K).reshape(B, e1 - e0, C, d)
-    out = _expert_compute(buf, wi, wo)
-    y = _combine(out.reshape(B, n, d), dest, top_w, x.dtype)
-    return TP.all_reduce(y.contiguous(), tp.group)
+    out = _expert_compute(buf, wi, wo, partial=not ex.split_experts)
+    y = _combine(out.reshape(B, n, d).float(), dest, top_w.to(x.dtype),
+                 torch.float32)
+    return TP.sum_partials(y, tp.group, x.dtype)
 
 
 def _moe_decode_2d(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -494,11 +505,14 @@ def _moe_decode_2d(p: Params, cfg: ModelConfig, x: torch.Tensor,
     dest = torch.where(keep, flat_e * C + pos, E * C)
     buf = _gather_dispatch(xg, dest, E * C, K).reshape(Bf, E, C, d)
     buf = buf[..., d0:d1]
-    gu = TP.all_reduce(torch.stack([
-        torch.einsum("becd,edf->becf", buf, p["wi"][:, 0]),
-        torch.einsum("becd,edf->becf", buf, p["wi"][:, 1])]), ex.data_group)
-    out = torch.einsum("becf,efd->becd", L.swiglu(gu[0], gu[1]), p["wo"])
-    out = TP.all_reduce(out.contiguous(), tp.group)
+    buf, wi = buf.float(), p["wi"].float()
+    gu = TP.sum_partials(torch.stack([
+        torch.einsum("becd,edf->becf", buf, wi[:, 0]),
+        torch.einsum("becd,edf->becf", buf, wi[:, 1])]), ex.data_group,
+        x.dtype)
+    out = TP.sum_partials(torch.einsum(
+        "becf,efd->becd", L.swiglu(gu[0], gu[1]).float(), p["wo"].float()),
+        tp.group, x.dtype)
     y = _combine(out.reshape(Bf, E * C, d1 - d0), dest, top_w, x.dtype)
     y = TP.all_gather(y.contiguous(), ex.data_group, ex.data_size)
     y = y.permute(1, 2, 0, 3).reshape(Bf, 1, d)

@@ -1,21 +1,28 @@
-"""Tensor parallelism on a mesh's ``model`` axis: the dense and MoE
-families' prefill and serve steps split over the ranks of that axis.
+"""Tensor parallelism on a mesh's ``model`` axis: the dense, MoE, SSM and
+hybrid families' prefill and serve steps split over the ranks of that
+axis.
 
 The JAX package runs any step on any mesh through ``jit`` with the
 ``in_shardings`` of ``param_specs`` / ``cache_specs``; GSPMD splits the
-work as the logical rules say (``heads``, ``kv_heads``, ``mlp`` and
-``vocab`` on ``model``, ``parallel/sharding.py``). The port executes the
-same split by hand (the MoE FFN as the reference's own
-``_moe_apply_shard_map`` splits it), in three parts:
+work as the logical rules say (``heads``, ``kv_heads``, ``mlp``,
+``vocab`` and ``ssm_inner`` on ``model``, ``parallel/sharding.py``). The
+port executes the same split by hand (the MoE FFN as the reference's own
+``_moe_apply_shard_map`` splits it; a mamba mixer by its SSM heads or
+head channels, :class:`SSM`), in three parts:
 
 - the rank layout: :func:`shard_params` cuts whole params into this
   rank's blocks as the sanitized specs of ``param_specs(cfg, mesh, kind)``
-  place them, and :class:`Layout` (:func:`layout`) says what the rank
-  computes, read from those specs and, for a decode step, from the
-  cache's. :func:`installed` makes a layout current for the model code
-  (``models/transformer.py``), which reads it with :func:`current`;
+  place them (a mamba mixer's by its channel set, which no contiguous
+  block of the specs gives), and :class:`Layout` (:func:`layout`) says
+  what the rank computes, read from those specs and, for a decode step,
+  from the cache's (the SSM channels from the decode cache's ``state``
+  spec). :func:`installed` makes a layout current for the model code
+  (``models/transformer.py``, ``models/ssm.py``, ``models/hybrid.py``),
+  which reads it with :func:`current`;
 - the collectives: :func:`all_reduce` (a sum, or a max where the
-  log-sum-exp merge needs one) and :func:`all_gather`, over the group of
+  log-sum-exp merge needs one; :func:`sum_partials`, the sum of the ranks'
+  shares of a product, kept in fp32 until it is whole) and
+  :func:`all_gather`, over the group of
   the ``model`` axis (and of ``data`` for an MoE whose expert matrices
   are cut on d over it), and nothing else;
 - the masks: :func:`embed_lookup`, the vocabulary-sharded embedding
@@ -59,6 +66,17 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     return t
 
 
+def sum_partials(t: torch.Tensor, group, dtype) -> torch.Tensor:
+    """A rank's share ``t`` of a sum split over the group (a row-parallel
+    product's partial result), summed in fp32 and rounded to ``dtype``
+    once: one process rounds the whole product once, and a bf16 share
+    rounded before the sum would add a rounding for each rank, which a
+    deep bf16 model carries to its logits. The caller takes the share's
+    product in fp32 (``x.float() @ w.float()``: a bf16 operand's products
+    exact, their sums in fp32)."""
+    return all_reduce(t.float().contiguous(), group).to(dtype)
+
+
 def all_gather(t: torch.Tensor, group, size: int) -> torch.Tensor:
     """Every rank's ``t`` stacked in rank order: (size, *t.shape)."""
     src = t.reshape(-1)
@@ -98,10 +116,63 @@ class Experts(NamedTuple):
     data_index: int
 
 
+class SSM(NamedTuple):
+    """What one rank computes of a mamba mixer of ``n_heads`` SSM heads of
+    ``P`` channels over a state of ``N`` (d_inner = n_heads·P), as the
+    reference's ``xh`` constrained to ``("batch", "seq", "ssm_inner",
+    None)`` (``models/ssm.py:141``) and the decode cache's ``state`` spec
+    place it:
+
+    - ``heads`` [h0, h1) of the heads (``ssm_inner`` on H: the heads
+      divide the axis), every channel of each;
+    - ``head_dim`` [p0, p1) of each head's channels (``head_dim_shard`` on
+      P: H does not divide the axis and P does), every head;
+    - neither (whole): every channel, and the mixer runs replicated.
+
+    The rank's d_inner channels are h·P + p over its heads and head
+    channels, head-major (:meth:`channels`): those of z, x and the scan's
+    output y, of ``out_norm``'s scale and of ``out_proj``'s rows. B and C
+    (one group of N channels each) are whole on every rank: every head
+    reads them. ``in_proj``'s columns are [z | x | B | C | dt] and the
+    conv's channels [x | B | C] (``models/ssm.py``), so the rank's columns
+    of each (:meth:`in_cols`, :meth:`conv_cols`) are no contiguous block.
+    Where it holds less than the whole (:attr:`split`), the gated norm's
+    sums of squares and ``out_proj``'s products are summed over
+    ``model``."""
+    heads: Tuple[int, int]
+    head_dim: Tuple[int, int]
+    n_heads: int
+    P: int
+    N: int
+
+    @property
+    def split(self) -> bool:
+        return (self.heads, self.head_dim) != ((0, self.n_heads), (0, self.P))
+
+    def channels(self) -> torch.Tensor:
+        """The rank's d_inner channels, head-major."""
+        (h0, h1), (p0, p1) = self.heads, self.head_dim
+        return (torch.arange(h0, h1)[:, None] * self.P
+                + torch.arange(p0, p1)).flatten()
+
+    def conv_cols(self) -> torch.Tensor:
+        """The rank's conv channels [x_r | B | C]."""
+        d_in = self.n_heads * self.P
+        return torch.cat([self.channels(),
+                          torch.arange(d_in, d_in + 2 * self.N)])
+
+    def in_cols(self) -> torch.Tensor:
+        """The rank's ``in_proj`` columns [z_r | x_r | B | C | dt_r]."""
+        d_in, ch = self.n_heads * self.P, self.channels()
+        return torch.cat([ch, d_in + ch, torch.arange(2 * d_in, 2 * d_in
+                                                      + 2 * self.N),
+                          2 * d_in + 2 * self.N + torch.arange(*self.heads)])
+
+
 class Layout(NamedTuple):
-    """What one rank of the ``model`` axis computes in a dense or MoE
-    prefill or decode step. Ranges are [start, stop) in the whole
-    tensor's indices.
+    """What one rank of the ``model`` axis computes in a dense, MoE, SSM
+    or hybrid prefill or decode step. Ranges are [start, stop) in the
+    whole tensor's indices.
 
     - ``heads``: its query heads (every head where ``wq`` is not split);
       ``split_heads``: ``wq``/``wo`` hold only those, so the output
@@ -117,7 +188,11 @@ class Layout(NamedTuple):
     - ``vocab``: its rows of the embedding and columns of the logits
       (``split_vocab`` when that is not the whole vocabulary);
     - ``seq``: a decode step's cache positions on this rank where the
-      cache is sequence-sharded, else None (the rank holds them all).
+      cache is sequence-sharded, else None (the rank holds them all);
+    - ``ssm``: a mamba mixer's :class:`SSM` (None without one).
+
+    A family without attention (the SSM) has no heads: (0, 0), ``kv``
+    "whole"; one without a dense FFN, ``split_ffn`` False.
     """
     group: Any
     size: int
@@ -131,6 +206,7 @@ class Layout(NamedTuple):
     split_vocab: bool
     seq: Optional[Tuple[int, int]]
     moe: Optional[Experts] = None
+    ssm: Optional[SSM] = None
 
 
 def block(length: int, entry, mesh) -> Tuple[int, int]:
@@ -192,40 +268,102 @@ def _experts(cfg, mesh, ffn: Any) -> Experts:
                    mesh.get_local_rank("data") if split_d else 0)
 
 
+def state_spec(H: int, P: int, N: int, mesh) -> Tuple[Any, int]:
+    """The decode cache's ``state`` spec for H SSM heads of P channels over
+    a state of N on ``mesh``, and the leaf's rank:
+    ``parallel.specs.cache_specs`` of a ``meta`` state (L, B, H, P, N),
+    whose H and P entries say which channels a rank holds (they depend on
+    H, P and the ``model`` axis alone; a hybrid's state has one more
+    leading axis, which no entry reads)."""
+    n = 1
+    for s in mesh_shape(mesh).values():
+        n *= s
+    t = torch.empty((1, n, H, P, N), device="meta")
+    return SP.cache_specs({"state": t}, mesh)["state"], t.dim()
+
+
+def ssm_for(H: int, P: int, N: int, mesh) -> SSM:
+    """The :class:`SSM` of this rank for a mixer of H heads of P channels
+    over a state of N, read from its decode state's spec
+    (:func:`state_spec`): ``ssm_inner`` (the heads) or ``head_dim_shard``
+    (each head's channels) on ``model``, or whole. The one rule of a
+    rank's SSM channels: params, caches and the layout all take it from
+    here."""
+    spec, ndim = state_spec(H, P, N, mesh)
+    h_e = _model_only(_entry(spec, ndim - 3), "the SSM state's heads")
+    p_e = _model_only(_entry(spec, ndim - 2), "the SSM state's head dim")
+    if h_e is not None and p_e is not None:
+        raise ValueError(f"a state placed {spec} splits both its heads and "
+                         f"their channels over the model axis")
+    return SSM(block(H, h_e, mesh), block(P, p_e, mesh), H, P, N)
+
+
+def ssm_of(cfg, mesh) -> Optional[SSM]:
+    """The :class:`SSM` of ``cfg``'s mamba mixers on this rank
+    (:func:`ssm_for`); None for a family without them."""
+    if cfg.family not in ("ssm", "hybrid"):
+        return None
+    return ssm_for(cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, mesh)
+
+
+def _find(tree: Any, pred) -> Any:
+    """The first dict of a spec tree (in layer and sub-layer order) for
+    which ``pred`` holds, else None."""
+    if not isinstance(tree, dict):
+        return None
+    if pred(tree):
+        return tree
+    for v in tree.values():
+        got = _find(v, pred)
+        if got is not None:
+            return got
+    return None
+
+
 def layout(cfg, mesh, param_spec_tree: Any, cache_spec: Any = None,
            cache_len: int = 0) -> Layout:
-    """The layout of this rank of ``mesh``'s ``model`` axis for a dense or
-    MoE config's params placed by ``param_spec_tree`` (sanitized
-    ``param_specs`` of the step's kind) and, for a decode step, its KV
-    cache of ``cache_len`` positions placed by ``cache_spec`` (the spec of
-    the (L, B, S, KV, hd) ``k`` leaf)."""
-    attn = param_spec_tree["layers"]["attn"]
-    Hp, KV, d, V = cfg.heads_padded, cfg.n_kv_heads, cfg.d_model, cfg.vocab
-    heads_e = _model_only(_entry(attn["wq"], 2), "wq's heads")
-    h0, h1 = block(Hp, heads_e, mesh)
-    kv_heads_e = _model_only(_entry(attn["wk"], 2), "wk's kv heads")
-    input_e = _model_only(_entry(attn["wk"], 1), "wk's input dimension")
-    kv = "heads" if kv_heads_e else "input" if input_e else "whole"
-    G = Hp // KV
-    if kv == "heads":
-        k0, k1 = block(KV, kv_heads_e, mesh)
-        kv_read = (0, k1 - k0)
-    elif (h1 - h0) % G == 0:
-        kv_read = (h0 // G, h1 // G)
-    elif G % (h1 - h0) == 0:
-        kv_read = (h0 // G, h0 // G + 1)
-    else:
-        raise NotImplementedError(
-            f"query heads [{h0}, {h1}) straddle groups of {G}: no kv head "
-            f"range serves them")
-    ffn = param_spec_tree["layers"]["ffn"]
-    moe = _experts(cfg, mesh, ffn) if cfg.family == "moe" else None
-    wi_e = None if moe else _model_only(_entry(ffn["wi"]["kernel"], 2),
-                                        "the FFN's columns")
+    """The layout of this rank of ``mesh``'s ``model`` axis for a config's
+    params placed by ``param_spec_tree`` (sanitized ``param_specs`` of the
+    step's kind) and, for a decode step, its KV cache of ``cache_len``
+    positions placed by ``cache_spec`` (the spec of the (L, B, S, KV, hd)
+    ``k`` leaf). Each kind of sub-layer (attention, dense FFN, MoE FFN,
+    mamba mixer) is read from the first (sub-)layer of ``layers`` or a
+    hybrid's ``periods`` that holds it; a mamba mixer's :class:`SSM` is
+    :func:`ssm_of`'s."""
+    stack = param_spec_tree.get("layers", param_spec_tree.get("periods"))
+    attn = _find(stack, lambda t: "wq" in t)
+    d, V = cfg.d_model, cfg.vocab
+    heads_e = input_e = None
+    h0 = h1 = 0
+    kv, kv_read = "whole", (0, 0)
+    if attn is not None:
+        Hp, KV = cfg.heads_padded, cfg.n_kv_heads
+        heads_e = _model_only(_entry(attn["wq"], 2), "wq's heads")
+        h0, h1 = block(Hp, heads_e, mesh)
+        kv_heads_e = _model_only(_entry(attn["wk"], 2), "wk's kv heads")
+        input_e = _model_only(_entry(attn["wk"], 1), "wk's input dimension")
+        kv = "heads" if kv_heads_e else "input" if input_e else "whole"
+        G = Hp // KV
+        if kv == "heads":
+            k0, k1 = block(KV, kv_heads_e, mesh)
+            kv_read = (0, k1 - k0)
+        elif (h1 - h0) % G == 0:
+            kv_read = (h0 // G, h1 // G)
+        elif G % (h1 - h0) == 0:
+            kv_read = (h0 // G, h0 // G + 1)
+        else:
+            raise NotImplementedError(
+                f"query heads [{h0}, {h1}) straddle groups of {G}: no kv "
+                f"head range serves them")
+    moe_ffn = _find(stack, lambda t: "router" in t)
+    moe = _experts(cfg, mesh, moe_ffn) if moe_ffn is not None else None
+    dense = _find(stack, lambda t: isinstance(t.get("wi"), dict))
+    wi_e = None if dense is None else _model_only(
+        _entry(dense["wi"]["kernel"], 2), "the FFN's columns")
     vocab_e = _model_only(_entry(param_spec_tree["embed"]["embedding"], 0),
                           "the vocabulary")
     seq = None
-    if cache_spec is not None:
+    if cache_spec is not None and attn is not None:
         seq_e = _entry(cache_spec, 2)
         if seq_e is not None and "model" in axes_of(seq_e):
             seq = block(cache_len, _model_only(
@@ -236,7 +374,8 @@ def layout(cfg, mesh, param_spec_tree: Any, cache_spec: Any = None,
     return Layout(mesh.get_group("model"), mesh_shape(mesh)["model"],
                   (h0, h1), heads_e is not None, kv, kv_read,
                   block(d, input_e, mesh), wi_e is not None,
-                  block(V, vocab_e, mesh), vocab_e is not None, seq, moe)
+                  block(V, vocab_e, mesh), vocab_e is not None, seq, moe,
+                  ssm_of(cfg, mesh))
 
 
 _local = threading.local()
@@ -267,17 +406,60 @@ def _path(path) -> str:
     return "/".join(str(p) for p in path)
 
 
-def _cut(path, t: torch.Tensor, spec, mesh, swiglu: bool) -> torch.Tensor:
+# a mamba mixer's leaves (and the decode cache's conv window): the
+# dimension, counted from the last, that a rank holds by its SSM channel
+# set, and which of the set's index kinds it takes there
+_SSM_LEAVES = {"mixer/in_proj/kernel": (1, "in"), "mixer/conv_w": (1, "conv"),
+               "mixer/conv_b": (1, "conv"), "mixer/out_proj/kernel": (2, "ch"),
+               "mixer/out_norm/scale": (1, "ch"), "mixer/A_log": (1, "heads"),
+               "mixer/D": (1, "heads"), "mixer/dt_bias": (1, "heads")}
+
+
+def _ssm_leaf(name: str) -> Optional[Tuple[int, str]]:
+    """``_SSM_LEAVES``' entry of a params path (or of the cache's
+    ``conv``), else None."""
+    if name == "conv":
+        return 1, "conv"
+    return next((v for k, v in _SSM_LEAVES.items() if name.endswith(k)),
+                None)
+
+
+def _ssm_cut(t: torch.Tensor, dim: int, kind: str, entry,
+             ssm: SSM) -> torch.Tensor:
+    """The rank's part of dimension ``dim`` of a mixer leaf or ``conv``
+    window (a copy): ``in_proj``'s [z_r | x_r | B | C | dt_r] columns
+    where the spec ``entry`` splits them (whole where the sanitizer
+    dropped the split: the mixer takes its channels from the product), the
+    conv's [x_r | B | C], ``out_proj``'s rows and ``out_norm``'s scale
+    over its channels, ``A_log``/``D``/``dt_bias`` over its heads. A whole
+    mixer (nothing split) keeps every leaf whole."""
+    if not ssm.split or (kind == "in" and entry is None):
+        return t
+    if kind == "heads":
+        return t.narrow(dim, ssm.heads[0], ssm.heads[1] - ssm.heads[0])
+    idx = {"in": ssm.in_cols, "conv": ssm.conv_cols,
+           "ch": ssm.channels}[kind]()
+    return t.index_select(dim, idx.to(t.device))
+
+
+def _cut(path, t: torch.Tensor, spec, mesh, swiglu: bool,
+         ssm: Optional[SSM] = None) -> torch.Tensor:
     """This rank's block of the whole leaf ``t`` placed by ``spec``, as a
     view where one range gives it. A SwiGLU ``wi`` (d, 2·ff) = [gate | up]
     is cut in each half, giving gate_r ‖ up_r (a copy): ``param_specs``
     shards its last dimension in two contiguous halves, which at
-    ``model`` 2 would give one rank all of gate and the other all of up."""
+    ``model`` 2 would give one rank all of gate and the other all of up.
+    A mamba mixer's leaves (and the decode cache's ``conv`` window) are
+    cut on their channel dimension by the rank's :class:`SSM` channel set
+    (:func:`_ssm_cut`), for the same reason: ``in_proj``'s contiguous
+    block at ``model`` 2 would be all of z and part of x."""
+    name = _path(path)
+    leaf = _ssm_leaf(name) if ssm is not None else None
+    sdim = None if leaf is None else t.dim() - leaf[0]
     for dim, entry in enumerate(spec):
-        if entry is None:
+        if entry is None or dim == sdim:
             continue
-        if swiglu and dim == t.dim() - 1 and _path(path).endswith(
-                "ffn/wi/kernel"):
+        if swiglu and dim == t.dim() - 1 and name.endswith("ffn/wi/kernel"):
             half = t.shape[dim] // 2
             lo, hi = block(half, entry, mesh)
             t = torch.cat([t.narrow(dim, lo, hi - lo),
@@ -285,6 +467,8 @@ def _cut(path, t: torch.Tensor, spec, mesh, swiglu: bool) -> torch.Tensor:
         else:
             lo, hi = block(t.shape[dim], entry, mesh)
             t = t.narrow(dim, lo, hi - lo)
+    if leaf is not None:
+        t = _ssm_cut(t, sdim, leaf[1], _entry(spec, sdim), ssm)
     return t
 
 
@@ -302,28 +486,41 @@ def shard_params(params: Any, cfg, mesh, kind: str) -> Any:
     half (:func:`_cut`); an MoE's ``wi`` (E, 2, d, ff) holds gate and up
     on an axis of their own, which no spec cuts. ``kind`` "decode" keeps an MQA's ``wk``/``wv``
     whole (1.5 MB a layer at granite-20b's width); a prefill step takes
-    its input-dim block as a view of them (:func:`fit`)."""
+    its input-dim block as a view of them (:func:`fit`). A mamba mixer's
+    leaves hold the rank's :class:`SSM` channels (:func:`_ssm_cut`,
+    :func:`ssm_of`)."""
     specs = param_spec_tree(params, cfg, mesh, kind)
-    swiglu = cfg.act == "swiglu"
+    swiglu, ssm = cfg.act == "swiglu", ssm_of(cfg, mesh)
     return tree_map_with_path(
-        lambda p, t, s: _cut(p, t, s, mesh, swiglu).clone(
+        lambda p, t, s: _cut(p, t, s, mesh, swiglu, ssm).clone(
             memory_format=torch.contiguous_format), params, specs)
 
 
-def fit(params: Any, shapes: Any, specs: Any, cfg, mesh) -> Any:
-    """Local params for a step whose kind places them by ``specs`` (the
-    whole leaves' shapes ``shapes``): a leaf already of its local block's
-    shape is kept, a whole leaf is cut to a view of its block (the
-    decode layout's whole MQA ``wk``/``wv`` at prefill). Any other shape
-    was laid out for another mesh or kind."""
-    swiglu = cfg.act == "swiglu"
+def fit(params: Any, shapes: Any, specs: Any, cfg, mesh, *,
+        in_place: bool = False) -> Any:
+    """Local params (or a cache) for a step whose kind places them by
+    ``specs`` (the whole leaves' shapes ``shapes``): a leaf already of its
+    local block's shape is kept, a whole leaf is cut to its block (a view
+    where one range gives it: the decode layout's whole MQA ``wk``/``wv``
+    at prefill; a copy of a mamba mixer's channels). Any other shape was
+    laid out for another mesh or kind. With ``in_place`` (a cache the step
+    updates) a whole leaf whose block is no view raises: the step's writes
+    would miss it."""
+    swiglu, ssm = cfg.act == "swiglu", ssm_of(cfg, mesh)
 
     def one(path, t, whole, spec):
-        want = SP.local_shape(tuple(whole.shape), spec, mesh)
+        want = tuple(_cut(path, whole, spec, mesh, swiglu, ssm).shape)
         if tuple(t.shape) == want:
             return t
         if tuple(t.shape) == tuple(whole.shape):
-            return _cut(path, t, spec, mesh, swiglu)
+            got = _cut(path, t, spec, mesh, swiglu, ssm)
+            if in_place and got.untyped_storage().data_ptr() != \
+                    t.untyped_storage().data_ptr():
+                raise ValueError(
+                    f"{_path(path)}: this rank's block of a whole cache leaf "
+                    f"is a copy, which the step's in-place writes would "
+                    f"miss; lay the cache out with launch.steps.mesh_cache")
+            return got
         raise ValueError(f"{_path(path)} of shape {tuple(t.shape)}: the step "
                          f"takes this rank's block {want} (placed {spec}) or "
                          f"the whole {tuple(whole.shape)}")
