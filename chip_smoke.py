@@ -335,6 +335,25 @@ Tensor parallelism (``repro_torch.parallel.tensor``; ``mesh_step`` and
     split gated norm runs in plain ops around its all-reduce), flash,
     decode, ``ssd_scan`` and ``topk_gating`` exact per rank; times per
     rank and the collectives' share as in phase 30.
+33. the VLM and the enc-dec on a ``model`` axis: ``flash_attention`` and
+    ``decode_attention`` at the ranks' shapes at ``model`` 2 (qwen2-vl's
+    16 of 32 heads over 2 kv heads; whisper-medium's encoder over 1500
+    frames, its cross-attention and its self and 1500-row cross caches)
+    against their plain versions, timed beside SDPA; then two ranks on
+    the (1, 2) mesh: qwen2-vl-7b at full width cut to 2 layers in fp32
+    (every logit within rtol/atol 1e-3, tokens equal) and 4 in bf16
+    (patch embeddings with M-RoPE streams that differ; its 4 inert heads
+    on the last rank), whisper-medium uncut in fp32 (1500 frames, a
+    64-token decoder prompt; the cross cache holds the encoder's rows)
+    and in bf16 cut to ``ENCDEC_TP_BF16_LAYERS`` encoder and decoder
+    layers, where one process's own bf16 lies within 3e-2 of its fp32
+    function (both distances printed); bf16 within 3e-2 of each row's
+    largest |logit|; then four ranks on a (1, 4) mesh serving the tiny
+    configs in fp32 (within 1e-3, tokens equal): qwen2-vl's ranks past the
+    first hold only inert heads, whisper's 2 kv heads over 4 ranks take
+    wk/wv cut on d at prefill and sequence-sharded self and cross caches.
+    Launches of flash and decode (and the VLM's rmsnorm) exact per rank;
+    times per rank and the collectives' share as in phase 30.
 
 Each phase's wall seconds are printed on a line of their own
 (``phase <function>: <s> s``).
@@ -1302,12 +1321,14 @@ def decode_bound(B, KV, G, length, D, dtype, lse: bool = False) -> tuple:
                     4 * D * B * KV * G * length, dtype)
 
 
-def flash_operands(B, KV, G, S, D, dtype, strided, gen, dev):
-    """q as a view of a (B, S, KV, G, D) projection and k, v of (B, S, KV,
-    D) ones, as the model passes them (or contiguous copies)."""
+def flash_operands(B, KV, G, S, D, dtype, strided, gen, dev, Skv=None):
+    """q as a view of a (B, S, KV, G, D) projection and k, v of (B, Skv,
+    KV, D) ones (Skv = S by default), as the model passes them (or
+    contiguous copies)."""
+    Skv = S if Skv is None else Skv
     qm = torch.randn((B, S, KV, G, D), generator=gen, device=dev).to(dtype)
-    km = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dtype)
-    vm = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dtype)
+    km = torch.randn((B, Skv, KV, D), generator=gen, device=dev).to(dtype)
+    vm = torch.randn((B, Skv, KV, D), generator=gen, device=dev).to(dtype)
     q, k, v = qm.permute(0, 2, 3, 1, 4), km.permute(0, 2, 1, 3), \
         vm.permute(0, 2, 1, 3)
     if strided:
@@ -4408,11 +4429,14 @@ TP_GEN = 33                      # the prompt's token, then 32 decode steps
 TP_SEED = 30
 TP_TIMEOUT = 600.0               # the ranks' seconds, their start included
 TP_COLLECTIVES = ("all_reduce", "all_gather")
-# (B, KV, G, S, D, what): the ranks' prefill attention at model 2, causal
-TP_FLASH = ((4, 4, 4, 512, 64, "llama3.2-1b rank: 4 of 8 kv heads"),
-            (4, 1, 24, 512, 128, "granite-20b rank: 24 of 48 heads"),
-            (4, 8, 1, 512, 128, "moonshot-v1-16b-a3b rank: 8 of 16 kv "
-             "heads"))
+# (B, KV, G, Sq, Skv, D, causal, what): the ranks' prefill attention at
+# model 2
+TP_FLASH = ((4, 4, 4, 512, 512, 64, True, "llama3.2-1b rank: 4 of 8 kv "
+             "heads"),
+            (4, 1, 24, 512, 512, 128, True, "granite-20b rank: 24 of 48 "
+             "heads"),
+            (4, 8, 1, 512, 512, 128, True, "moonshot-v1-16b-a3b rank: 8 of "
+             "16 kv heads"))
 # (B, KV, G, S, D, lengths, what): the ranks' decode attention at model 2,
 # the first length timed (the middle of the run's fills)
 TP_DECODE = ((4, 4, 4, 544, 64, (528, 513, 1, 0),
@@ -4433,8 +4457,70 @@ MOE_TP_SMALL_EXPERTS = 3         # divide no model axis: ff-sharded
 
 
 def tp_config(arch: str, layers, dtype):
+    """``arch`` at full width in ``dtype``, cut to ``layers`` (an enc-dec's
+    encoder and decoder each) where given."""
     cfg = get_config(arch).with_(param_dtype=dtype, compute_dtype=dtype)
-    return cfg if layers is None else cfg.with_(n_layers=layers)
+    if layers is None:
+        return cfg
+    if cfg.family == "encdec":
+        return cfg.with_(n_enc_layers=layers, n_dec_layers=layers)
+    return cfg.with_(n_layers=layers)
+
+
+def tp_prompt(cfg, dev) -> dict:
+    """A tensor-parallel run's prompt, drawn from TP_SEED + 1 on ``dev``
+    (``random_prompt``): LM_BATCH x LM_PROMPT tokens; a VLM's patch
+    embeddings beside them, with M-RoPE streams that differ (temporal 2,
+    height and width over a grid 32 patches wide); an enc-dec's
+    WHISPER_FRAMES encoder frames beside a WHISPER_PROMPT-token decoder
+    prompt (phase 28's)."""
+    g = torch.Generator(device=dev).manual_seed(TP_SEED + 1)
+    if cfg.family == "encdec":
+        return random_prompt(cfg, LM_BATCH, WHISPER_PROMPT, g,
+                             frames=WHISPER_FRAMES)
+    prompt = random_prompt(cfg, LM_BATCH, LM_PROMPT, g)
+    if cfg.pos == "mrope":
+        i = torch.arange(LM_PROMPT, dtype=torch.int32, device=dev)
+        prompt["positions"] = torch.stack(
+            [torch.full_like(i, 2), i // 32, i % 32])[:, None].expand(
+                3, LM_BATCH, LM_PROMPT)
+    return prompt
+
+
+def tp_prompt_of(cfg) -> str:
+    """What :func:`tp_prompt` gives ``cfg``, in words."""
+    if cfg.family == "encdec":
+        return (f"{WHISPER_FRAMES} frames and a {WHISPER_PROMPT}-token "
+                f"decoder prompt x batch {LM_BATCH}")
+    what = "patch embeddings, M-RoPE streams that differ" \
+        if cfg.pos == "mrope" else "tokens"
+    return f"prompt {LM_PROMPT} x batch {LM_BATCH} ({what})"
+
+
+def prompt_host(prompt: dict) -> dict:
+    """A prompt as numpy arrays for the rank processes (floats in fp32,
+    which holds bf16 exactly)."""
+    return {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
+            for k, v in prompt.items()}
+
+
+def prompt_on(prompt: dict, cfg, dev) -> dict:
+    """:func:`prompt_host`'s arrays back on ``dev``, floats in the config's
+    ``compute_dtype``."""
+    out = {}
+    for k, a in prompt.items():
+        t = torch.from_numpy(a).to(dev)
+        out[k] = t.to(cfg.compute_dtype) if t.is_floating_point() else t
+    return out
+
+
+def tp_serve(params, cfg, prompt: dict, gen: int = None, **kw):
+    """``greedy_decode`` of ``gen`` tokens (TP_GEN by default) on
+    ``prompt`` (its tokens, and embeddings and positions where it has
+    them)."""
+    return greedy_decode(params, cfg, prompt["tokens"], gen or TP_GEN,
+                         embeds=prompt.get("embeds"),
+                         positions=prompt.get("positions"), **kw)
 
 
 def tp_check(logits: torch.Tensor, ref: torch.Tensor, dtype, label: str
@@ -4526,44 +4612,42 @@ def tp_blocks(mesh, dev, cfg, in_turn: bool) -> tuple:
     return out
 
 
-def tp_rank_run(mesh, dev, cfg, prompt: np.ndarray,
+def tp_rank_run(mesh, dev, cfg, prompt: dict,
                 forced: np.ndarray, in_turn: bool) -> dict:
     """One model on this rank: the whole weights drawn and cut to its
-    blocks (:func:`tp_blocks`), then two teacher-forced ``greedy_decode``
-    runs on the mesh: the counted one (launches, tokens, this rank's batch
-    rows and vocabulary columns of the logits, an MoE's routes), and a warm
-    one timed, its collectives timed between synchronisations (its prefill
-    and decode times include them: one run fewer keeps the call in its
-    time)."""
+    blocks (:func:`tp_blocks`), then one teacher-forced ``greedy_decode``
+    run on the mesh, counted (launches, tokens, this rank's batch rows and
+    vocabulary columns of the logits, an MoE's routes) and timed, its
+    collectives timed between synchronisations (its prefill and decode
+    times include them and an MoE's route recording; a spawn's first run
+    its warm-up: one run, where two were, keeps the call in its time)."""
     gen = forced.shape[1]
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     params, check = tp_blocks(mesh, dev, cfg, in_turn)
     nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
-    toks = torch.from_numpy(prompt).to(dev)
+    prompt = prompt_on(prompt, cfg, dev)
     teach = torch.from_numpy(forced).to(dev)
     for k in TP_KERNELS:
         getattr(ops, k).launches = 0
     gates: list = []
-    with recording_routes(gates) as routes:
-        res = greedy_decode(params, cfg, toks, gen, keep_logits=True,
-                            mesh=mesh, forced=teach)
-    launches = {k: getattr(ops, k).launches for k in TP_KERNELS}
-    logits = torch.stack(res.logits).float().cpu().numpy()
     spent: list = []
-    with timed_collectives(spent):
+    with recording_routes(gates) as routes, timed_collectives(spent):
         sync(dev)
         t0 = time.perf_counter()
-        timed = greedy_decode(params, cfg, toks, gen, mesh=mesh,
-                              forced=teach)
+        res = tp_serve(params, cfg, prompt, gen, keep_logits=True, mesh=mesh,
+                       forced=teach)
         sync(dev)
         wall = time.perf_counter() - t0
+    launches = {k: getattr(ops, k).launches for k in TP_KERNELS}
+    logits = torch.stack(res.logits).float().cpu().numpy()
     out = dict(tokens=res.tokens, logits=logits, launches=launches,
+               vocab_split=logits.shape[-1] != cfg.vocab,
                ssm=TP.ssm_of(cfg, mesh),
                routes=[r.numpy() for r in routes],
                gates=[w.numpy() for w in gates],
-               checksum=check, bytes=nbytes, prefill_ms=timed.prefill_ms,
-               decode_ms=timed.decode_ms_per_token,
+               checksum=check, bytes=nbytes, prefill_ms=res.prefill_ms,
+               decode_ms=res.decode_ms_per_token,
                peak_gib=(torch.cuda.max_memory_allocated(dev) / 2 ** 30
                          if dev.type == "cuda" else 0.0),
                collectives=len(spent), collective_ms=sum(spent) * 1e3,
@@ -4580,7 +4664,7 @@ def sync(dev: torch.device) -> None:
 
 def tp_rank(rank: int, world: int, store: str, device: str, runs: list,
             out) -> None:
-    """The rank process of phases 30–32: joins the group on ``device``
+    """The rank process of phases 30–33: joins the group on ``device``
     (gloo: the ranks share the one card) and serves each run (its (data,
     model) mesh shape, then config, prompt, forced tokens and whether the
     ranks draw in turn) on a mesh of that shape, each shape's mesh built
@@ -4641,39 +4725,44 @@ def spawn_ranks(fn, world: int, *args) -> list:
     return [got[r] for r in range(world)]
 
 
-def tp_kernels(dev) -> dict:
-    """flash_attention and decode_attention at the ranks' shapes that no
-    earlier phase launched (the bf16 flash at G 24 over one kv head,
-    D 128; decode at G 48 / D 128 over a block of positions, with its
-    log-sum-exp) and llama3.2-1b's rank shapes, against their plain
+def tp_kernels(dev, flash=TP_FLASH, decode=TP_DECODE, seed=TP_SEED
+               ) -> dict:
+    """flash_attention and decode_attention at the ranks' shapes (``flash``,
+    ``decode``; by default phases 30-31's: the bf16 flash at G 24 over
+    one kv head, D 128, and decode at G 48 / D 128 over a block of
+    positions, with its log-sum-exp, that no earlier phase launched, and
+    llama3.2-1b's and moonshot's rank shapes), against their plain
     versions, each twice bit-equal; decode's lse within 1e-4 of the plain
     version's, o = 0 and lse = −inf at length 0, o without the lse the same
     bits as with it; the first length of each timed beside its bound, the
     plain version and SDPA."""
-    gen = torch.Generator(device=dev).manual_seed(TP_SEED)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     F = torch.nn.functional
     bf = torch.bfloat16
     worst = dict(flash_attention=0.0, decode_attention=0.0)
     timings = []
-    for B, KV, G, S, D, what in TP_FLASH:
-        q, k, v = flash_operands(B, KV, G, S, D, bf, True, gen, dev)
-        o = same_twice(lambda: (ops.flash_attention(q, k, v, causal=True),),
+    for B, KV, G, Sq, Skv, D, causal, what in flash:
+        q, k, v = flash_operands(B, KV, G, Sq, D, bf, True, gen, dev, Skv)
+        o = same_twice(lambda: (ops.flash_attention(q, k, v, causal=causal),),
                        f"flash {what}")[0]
-        e = lm_check(o, ops.flash_attention_ref(q, k, v, causal=True), bf)
+        e = lm_check(o, ops.flash_attention_ref(q, k, v, causal=causal), bf)
         worst["flash_attention"] = max(worst["flash_attention"], e)
-        shape = f"(B,KV,G,S,D)=({B},{KV},{G},{S},{D}) bf16 causal"
+        shape = (f"(B,KV,G,S,D)=({B},{KV},{G},{Sq},{D}) bf16 causal"
+                 if causal and Sq == Skv else
+                 f"(B,KV,G,Sq,Skv,D)=({B},{KV},{G},{Sq},{Skv},{D}) bf16 "
+                 f"{'causal' if causal else 'full'}")
         print(f"flash {what} {shape} vs plain: {e:.1e}, rerun bit-equal")
-        qh = q.reshape(B, KV * G, S, D)
+        qh = q.reshape(B, KV * G, Sq, D)
         kh, vh = k.contiguous(), v.contiguous()
         t = attention_timing(
-            lambda: ops.flash_attention(q, k, v, causal=True),
+            lambda: ops.flash_attention(q, k, v, causal=causal),
             lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=True, enable_gqa=G > 1),
-            f"{what} {shape}", flash_bound(B, KV, G, S, S, D, True, bf))
+                qh, kh, vh, is_causal=causal, enable_gqa=G > 1),
+            f"{what} {shape}", flash_bound(B, KV, G, Sq, Skv, D, causal, bf))
         t["plain_ms"] = cuda_ms(lambda: ops.flash_attention_ref(
-            q, k, v, causal=True), iters=10, warm=2)
+            q, k, v, causal=causal), iters=10, warm=2)
         timings.append(("flash_attention", t))
-    for B, KV, G, S, D, lengths, what in TP_DECODE:
+    for B, KV, G, S, D, lengths, what in decode:
         q, kc, vc = decode_operands(B, KV, G, S, D, bf, gen, dev)
         for n in lengths:
             o, lse = same_twice(lambda: ops.decode_attention(
@@ -4715,25 +4804,22 @@ def tp_kernels(dev) -> dict:
 
 def tp_reference(cfg, dev) -> tuple:
     """The one-process run on the card that the ranks are held to: the
-    weights drawn from TP_SEED, a prompt LM_BATCH x LM_PROMPT, TP_GEN
-    greedy tokens with their logits and an MoE's routes, and a warm
-    rerun's times. Returns (that record, the ranks' run: config, prompt,
-    forced tokens)."""
+    weights drawn from TP_SEED, the prompt (:func:`tp_prompt`), TP_GEN
+    greedy tokens with their logits, an MoE's routes and the run's times
+    (its route recording included). Returns (that record, the ranks' run:
+    config, prompt (:func:`prompt_host`), forced tokens)."""
     params, check = tp_weights(cfg, dev)
-    g = torch.Generator(device=dev).manual_seed(TP_SEED + 1)
-    toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=g,
-                         device=dev)
+    prompt = tp_prompt(cfg, dev)
     with recording_routes() as routes:
-        ref = greedy_decode(params, cfg, toks, TP_GEN, keep_logits=True)
-    warm = greedy_decode(params, cfg, toks, TP_GEN)
+        ref = tp_serve(params, cfg, prompt, keep_logits=True)
     out = dict(logits=torch.stack(ref.logits).float().cpu(),
                tokens=ref.tokens, checksum=check,
                routes=[r.numpy() for r in routes],
                bytes=sum(t.numel() * t.element_size()
                          for t in tree_leaves(params)),
-               prefill_ms=warm.prefill_ms, decode_ms=warm.decode_ms_per_token)
-    run = (cfg, toks.cpu().numpy(), ref.tokens)
-    del params, ref, warm, toks
+               prefill_ms=ref.prefill_ms, decode_ms=ref.decode_ms_per_token)
+    run = (cfg, prompt_host(prompt), ref.tokens)
+    del params, ref, prompt
     torch.cuda.empty_cache()
     return out, run
 
@@ -4757,32 +4843,35 @@ def tp_launches(label: str, cfg, got: list, ref: dict, launches: dict
 def tp_logits(got: list, shape: tuple) -> torch.Tensor:
     """The ranks' logits (steps, B_r, V_r), rank r at mesh coordinates
     (r // model, r % model), whole: the vocabulary columns joined over
-    ``model``, the batch rows over ``data``."""
+    ``model`` where it splits them (each rank holds them all where it
+    does not: whisper-medium's 51865 divide no axis), the batch rows over
+    ``data``."""
     m = shape[1]
-    return torch.from_numpy(np.concatenate([np.concatenate(
-        [r["logits"] for r in got[d * m:(d + 1) * m]], axis=-1)
-        for d in range(shape[0])], axis=1))
+
+    def rows(ranks):
+        if not ranks[0]["vocab_split"]:
+            return ranks[0]["logits"]
+        return np.concatenate([r["logits"] for r in ranks], axis=-1)
+    return torch.from_numpy(np.concatenate(
+        [rows(got[d * m:(d + 1) * m]) for d in range(shape[0])], axis=1))
 
 
 def tp_report(label: str, what: str, cfg, dtype, got: list, ref: dict,
               err: float, rel: float, backend: str, shape: tuple,
-              keep: np.ndarray = None, printed: bool = False) -> None:
-    """Phases 30-32's lines for one model (``label``, described by
-    ``what``): the check (its bound, or none where the run's readings are
-    only ``printed``), the tokens (those of the (step, batch row) pairs in
-    ``keep``, all by default), each rank's times and the one-process
-    run's."""
+              keep: np.ndarray = None) -> None:
+    """Phases 30-33's lines for one model (``label``, described by
+    ``what``): the check and its bound, the tokens (those of the (step,
+    batch row) pairs in ``keep``, all by default), each rank's times and
+    the one-process run's."""
     toks, want = got[0]["tokens"], ref["tokens"]
     keep = np.ones(want.shape[::-1], bool) if keep is None else keep
     same = [np.array_equal(r["tokens"], toks) for r in got]
     held = keep.T[:, 1:]
     equal = int((toks[:, 1:] == want[:, 1:])[held].sum())
     first = bool((toks[:, 0] == want[:, 0])[keep[0]].all())
-    bound = ("printed, not held" if printed else "rtol/atol 1e-3"
-             if dtype == torch.float32 else TP_ROW_TOL)
-    print(f"{label} {what}, {str(cfg.compute_dtype)[6:]}, prompt "
-          f"{LM_PROMPT} x "
-          f"batch {LM_BATCH}, {TP_GEN - 1} decode steps teacher-forced, "
+    bound = "rtol/atol 1e-3" if dtype == torch.float32 else TP_ROW_TOL
+    print(f"{label} {what}, {str(cfg.compute_dtype)[6:]}, "
+          f"{tp_prompt_of(cfg)}, {TP_GEN - 1} decode steps teacher-forced, "
           f"on a {shape} mesh ({len(got)} ranks sharing one card over "
           f"{backend}): logits vs the one-process run max abs err "
           f"{err:.3e}, largest |diff| {rel:.3e} of its row's largest "
@@ -4795,7 +4884,7 @@ def tp_report(label: str, what: str, cfg, dtype, got: list, ref: dict,
           f"{[round(r['bytes'] / 2 ** 30, 2) for r in got]} GiB a rank")
     for rank, r in enumerate(got):
         print(f"{label} rank {rank} ({len(got)} ranks sharing one card over "
-              f"gloo; not a multi-card speed), warm, its collectives timed "
+              f"gloo; not a multi-card speed), its collectives timed "
               f"between synchronisations: prefill {r['prefill_ms']:.3f} ms, "
               f"decode {r['decode_ms']:.3f} ms/token; {r['collectives']} "
               f"collectives in one prefill and {TP_GEN - 1} steps, "
@@ -4809,7 +4898,7 @@ def tp_report(label: str, what: str, cfg, dtype, got: list, ref: dict,
 
 
 def tp_runs() -> list:
-    """Every rank run of phases 30–32, in order: (phase, arch, depth cut
+    """Every rank run of phases 30–33, in order: (phase, arch, depth cut
     or None, config, (data, model) mesh shape)."""
     runs = [("tp", arch, layers, tp_config(arch, layers, dtype), TP_MESH)
             for arch, layers, dtype in TP_SERVE]
@@ -4821,11 +4910,15 @@ def tp_runs() -> list:
              for arch, layers, dtype in SSM_TP_SERVE]
     runs += [("ssm", arch, None, tiny_version(get_config(arch)).with_(**kw),
               SSM_TP_SMALL_MESH) for arch, kw in SSM_TP_SMALL]
+    runs += [("vlmenc", arch, layers, tp_config(arch, layers, dtype), TP_MESH)
+             for arch, layers, dtype in VLM_ENCDEC_TP_SERVE]
+    runs += [("vlmenc", arch, None, tiny_version(get_config(arch)),
+              VLM_ENCDEC_TP_SMALL_MESH) for arch in VLM_ENCDEC_TP_SMALL]
     return runs
 
 
 def phase_tp_ranks(dev) -> dict:
-    """The ranks of phases 30–32 (:func:`tp_runs`): each run's one-process
+    """The ranks of phases 30–33 (:func:`tp_runs`): each run's one-process
     reference on the card (``tp_reference``: weights from TP_SEED, the
     prompt, TP_GEN greedy tokens), then one set of spawned ranks per world
     size, two on the (1, 2) mesh and four on their (2, 2) and (1, 4)
@@ -4849,7 +4942,7 @@ def phase_tp_ranks(dev) -> dict:
         backend = ranks[0][0]
         for k, i in enumerate(mine):
             got[i] = [r[1][k] for r in ranks]
-    print(f"tp ranks: {len(runs)} runs of phases 30-32; the two ranks' "
+    print(f"tp ranks: {len(runs)} runs of phases 30-33; the two ranks' "
           f"processes ran {seconds[2]:.1f} s, the four ranks' "
           f"{seconds[4]:.1f} s, their start and weight draws included")
     out = {}
@@ -5001,17 +5094,14 @@ def replayed_logits(label: str, cfg, got: list, ref: dict, dev,
     params, check = tp_weights(cfg, dev)
     if check != ref["checksum"]:
         raise AssertionError(f"{label}: the replay drew other weights")
-    g = torch.Generator(device=dev).manual_seed(TP_SEED + 1)
-    toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=g,
-                         device=dev)
+    prompt = tp_prompt(cfg, dev)
 
     def run(params, cfg):
         replay = replaying_routes(got[0]["gates"], got[0]["routes"], dev) \
             if cfg.n_experts else contextlib.nullcontext()
         with replay:
-            rep = greedy_decode(params, cfg, toks, TP_GEN, keep_logits=True,
-                                forced=torch.from_numpy(ref["tokens"]).to(
-                                    dev))
+            rep = tp_serve(params, cfg, prompt, keep_logits=True,
+                           forced=torch.from_numpy(ref["tokens"]).to(dev))
         return torch.stack(rep.logits).float().cpu()
     out = run(params, cfg)
     high = run(upcast_(params), cfg.with_(
@@ -5112,23 +5202,20 @@ def phase_moe_tp(dev, ranks: dict) -> dict:
 # -- the SSM and hybrid families on a model axis ------------------------------
 
 # (arch, depth cut or None, dtype) of phase 32 on the (1, 2) mesh:
-# mamba2-130m uncut in fp32 (SERVE_TOL elementwise, tokens equal), in bf16
-# cut to 2 layers and uncut, and one jamba period in bf16 on the ranks'
-# routes replayed; a bf16 run is held to TP_ROW_TOL of each row's largest
-# |logit|, except those of SSM_TP_PRINTED
-SSM_TP_SERVE = (("mamba2-130m", None, torch.float32),
-                ("mamba2-130m", 2, torch.bfloat16),
-                ("mamba2-130m", None, torch.bfloat16),
-                ("jamba-v0.1-52b", 8, torch.bfloat16))
-# bf16 runs whose readings are printed and not held: two correct bf16 runs
-# of random mamba2-130m's 24 layers lie further apart than TP_ROW_TOL (each
-# layer adds its rounding to the residual's): the JAX package's own bf16
-# lies 1.6e-1 from its fp32 at 24 tiny layers and 3.5e-2 at 4
-# (tests/test_torch_ssm_tensor_parallel.py::
+# mamba2-130m uncut in fp32 (SERVE_TOL elementwise, tokens equal) and in
+# bf16 cut to 2 layers, and one jamba period in bf16 on the ranks' routes
+# replayed; a bf16 run is held to TP_ROW_TOL of each row's largest
+# |logit|. Two correct bf16 runs of random mamba2-130m's 24 layers lie
+# further apart than TP_ROW_TOL (each layer adds its rounding to the
+# residual's): the JAX package's own bf16 lies 1.6e-1 from its fp32 at 24
+# tiny layers and 3.5e-2 at 4 (tests/test_torch_ssm_tensor_parallel.py::
 # test_bf16_lies_from_fp32_as_far_as_the_references_own); on the card one
 # process's bf16 lies 2.5e-2 from fp32 at 2 layers, 5.1e-2 at 4, 1.9e-1
-# at 24, so the split is held at 2
-SSM_TP_PRINTED = (("mamba2-130m", None, torch.bfloat16),)
+# at 24, so the split is held at 2 (the uncut bf16 readings:
+# tools/tp_bf16_depths.py)
+SSM_TP_SERVE = (("mamba2-130m", None, torch.float32),
+                ("mamba2-130m", 2, torch.bfloat16),
+                ("jamba-v0.1-52b", 8, torch.bfloat16))
 SSM_TP_DRAW_IN_TURN = "hybrid"   # the family whose ranks draw one at a time
 SSM_TP_SMALL_MESH = (1, 4)       # (data, model)
 # the four ranks' tiny fp32 configs: jamba (its 2 kv heads over 4 ranks:
@@ -5183,8 +5270,7 @@ def phase_ssm_tp(dev, ranks: dict) -> dict:
     (:func:`ssm_tp_kernels`); two ranks sharing the card over gloo on the
     (1, 2) mesh: mamba2-130m uncut in fp32 (every logit within 1e-3,
     tokens equal) and in bf16 cut to 2 layers (every row within
-    TP_ROW_TOL of its largest |logit|) and uncut (printed: SSM_TP_PRINTED),
-    one jamba-v0.1-52b period in bf16, its ranks having drawn it in turn,
+    TP_ROW_TOL of its largest |logit|), one jamba-v0.1-52b period in bf16, its ranks having drawn it in turn,
     within TP_ROW_TOL on their routes replayed in one process (the
     routes' divergence printed); each bf16 run's distance from the fp32
     function printed beside one process's (``bf16_readings``); then four
@@ -5224,13 +5310,7 @@ def phase_ssm_tp(dev, ranks: dict) -> dict:
                                      f"the one-process run's")
         else:
             logits, one = bf16_readings(label, cfg, got, ref, dev)
-            if (arch, layers, dtype) in SSM_TP_PRINTED:
-                if not torch.isfinite(logits).all():
-                    raise AssertionError(f"{label}: non-finite logits")
-                err, rel = float((logits - one).abs().max()), \
-                    row_rel(logits, one)
-            else:
-                err, rel = tp_check(logits, one, dtype, label)
+            err, rel = tp_check(logits, one, dtype, label)
         (h0, h1), (p0, p1) = got[0]["ssm"].heads, got[0]["ssm"].head_dim
         Pd = cfg.ssm_head_dim
         how = (f"SSM heads split ({h1 - h0} of {H} a rank)" if h1 - h0 < H
@@ -5244,8 +5324,119 @@ def phase_ssm_tp(dev, ranks: dict) -> dict:
         cut = "uncut" if layers is None else \
             f"cut to {layers} of {get_config(arch).n_layers} layers"
         tp_report(f"ssm tp: {arch}", f"full width, {cut}, {how}", cfg, dtype,
-                  got, ref, err, rel, r["backend"], shape,
-                  printed=(arch, layers, dtype) in SSM_TP_PRINTED)
+                  got, ref, err, rel, r["backend"], shape)
+    return dict(launches=launches, worst=worst)
+
+
+# -- the VLM and the enc-dec on a model axis ----------------------------------
+
+# (arch, depth cut or None, dtype) of phase 33 on the (1, 2) mesh:
+# qwen2-vl-7b at full width cut to 2 layers in fp32 (SERVE_TOL, tokens
+# equal) and to 4 in bf16; whisper-medium uncut in fp32 and in bf16 cut to
+# ENCDEC_TP_BF16_LAYERS encoder and decoder layers, a depth where one
+# process's own bf16 lies within TP_ROW_TOL of its fp32 function; a bf16
+# run is held to TP_ROW_TOL of each row's largest |logit|. Measured first
+# on the card (tools/tp_bf16_depths.py --vlm-encdec): one process's bf16
+# whisper lies 6.5e-3, 8.4e-3, 9.5e-3 and 1.69e-2 from its fp32 function at
+# 2, 4, 8 and 24 encoder and decoder layers, the ranks 7.7e-3, 8.7e-3,
+# 1.01e-2 and 1.57e-2 from one process; 8 keeps a third of the depth at a
+# third of the uncut run's time (117 against 250 ms a decode step a rank)
+ENCDEC_TP_BF16_LAYERS = 8
+VLM_ENCDEC_TP_SERVE = ((VLM_ARCH, 2, torch.float32),
+                       (VLM_ARCH, 4, torch.bfloat16),
+                       (ENCDEC_ARCH, None, torch.float32),
+                       (ENCDEC_ARCH, ENCDEC_TP_BF16_LAYERS, torch.bfloat16))
+# the four ranks' tiny fp32 configs: qwen2-vl-7b's (4 heads padded to 32:
+# every rank past the first holds only inert heads) and whisper-medium's
+# (its 2 kv heads over 4 ranks: wk/wv cut on d at prefill, the self and
+# cross caches sequence-sharded and merged by log-sum-exp)
+VLM_ENCDEC_TP_SMALL_MESH = (1, 4)
+VLM_ENCDEC_TP_SMALL = (VLM_ARCH, ENCDEC_ARCH)
+# (B, KV, G, Sq, Skv, D, causal, what): the ranks' prefill attention at
+# model 2
+VLM_ENCDEC_TP_FLASH = (
+    (4, 2, 8, 512, 512, 128, True, "qwen2-vl-7b rank: 16 of 32 heads over "
+     "2 of 4 kv heads"),
+    (4, 8, 1, WHISPER_FRAMES, WHISPER_FRAMES, 64, False, "whisper-medium "
+     "rank's encoder: 8 of 16 heads"),
+    (4, 8, 1, WHISPER_PROMPT, WHISPER_FRAMES, 64, False, "whisper-medium "
+     "rank's cross-attention: the decoder prompt over the frames"))
+# (B, KV, G, S, D, lengths, what): the ranks' decode attention at model 2,
+# the first length timed
+VLM_ENCDEC_TP_DECODE = (
+    (4, 2, 8, LM_PROMPT + TP_GEN - 1, 128, (528, 513, 1, 0),
+     "qwen2-vl-7b rank: 2 of 4 kv heads, whole cache"),
+    (4, 8, 1, WHISPER_PROMPT + TP_GEN - 1, 64, (80, 65, 1, 0),
+     "whisper-medium rank's self cache: 8 of 16 kv heads"),
+    (4, 8, 1, WHISPER_FRAMES, 64, (WHISPER_FRAMES, 750, 1, 0),
+     "whisper-medium rank's cross cache: 8 of 16 kv heads"))
+
+
+def tp_heads_of(cfg, m: int) -> str:
+    """How ``model`` = ``m`` ranks split ``cfg``'s attention, in words."""
+    Hp, KV = cfg.heads_padded, cfg.n_kv_heads
+    inert = (f" ({cfg.n_heads} real: the last {Hp - cfg.n_heads} inert)"
+             if Hp > cfg.n_heads else "")
+    kv = (f"{KV // m} of {KV} kv heads a rank" if KV % m == 0 else
+          f"{KV} kv heads divide no rank: wk/wv cut on d at prefill, whole "
+          f"at decode, the caches' positions split and merged by "
+          f"log-sum-exp")
+    return f"{Hp // m} of {Hp} query heads a rank{inert}, {kv}"
+
+
+def phase_vlm_encdec_tp(dev, ranks: dict) -> dict:
+    """33: the VLM and the enc-dec on a ``model`` axis (the ranks of
+    :func:`phase_tp_ranks`). ``flash_attention`` and ``decode_attention``
+    at the ranks' shapes at ``model`` 2 (:func:`tp_kernels`: qwen2-vl's 16
+    of 32 heads over 2 kv heads, whisper-medium's encoder and
+    cross-attention over 1500 frames and its self and cross caches)
+    against their plain versions, timed beside SDPA; then two ranks on the
+    (1, 2) mesh: qwen2-vl-7b at full width cut to 2 layers in fp32 and 4
+    in bf16 (patch embeddings with M-RoPE streams that differ; its 4 inert
+    heads on the last rank), whisper-medium uncut in fp32 (1500 frames,
+    phase 28's 64-token decoder prompt) and in bf16 cut to
+    ENCDEC_TP_BF16_LAYERS, where one process's own bf16 lies within
+    TP_ROW_TOL of its fp32 function (held here too, and printed beside
+    the ranks' distance: ``bf16_readings``); fp32 within rtol/atol 1e-3
+    of the one-process run with tokens equal, bf16 within TP_ROW_TOL of
+    each row's largest |logit|; then four ranks on (1, 4) serving the tiny
+    configs in fp32 (within 1e-3, tokens equal). Launches exact per rank
+    (the enc-dec's norms are LayerNorm: no rmsnorm). Returns the launches
+    (all ranks) and the kernels' worst errors."""
+    worst = tp_kernels(dev, VLM_ENCDEC_TP_FLASH, VLM_ENCDEC_TP_DECODE,
+                       TP_SEED + 3)
+    launches = dict.fromkeys(TP_KERNELS, 0)
+    for r in ranks["vlmenc"]:
+        arch, layers, cfg, ref, got, shape = (
+            r[k] for k in ("arch", "layers", "cfg", "ref", "got", "shape"))
+        dtype = cfg.compute_dtype
+        label = f"vlm/encdec tp {arch}" + ("" if shape == TP_MESH
+                                           else " (tiny)")
+        tp_launches(label, cfg, got, ref, launches)
+        if dtype == torch.float32:
+            err, rel = tp_check(tp_logits(got, shape), ref["logits"], dtype,
+                                label)
+            if not all(np.array_equal(g["tokens"], ref["tokens"])
+                       for g in got):
+                raise AssertionError(f"{label}: greedy tokens differ from "
+                                     f"the one-process run's")
+        else:
+            logits, one = bf16_readings(label, cfg, got, ref, dev)
+            err, rel = tp_check(logits, one, dtype, label)
+        heads = tp_heads_of(cfg, shape[1])
+        if shape != TP_MESH:
+            tp_report(f"vlm/encdec tp: {cfg.name} tiny", f"(d {cfg.d_model}, "
+                      f"{heads})", cfg, dtype, got, ref, err, rel,
+                      r["backend"], shape)
+            continue
+        full = get_config(arch)
+        depth = (f"{full.n_enc_layers} encoder and {full.n_dec_layers} "
+                 f"decoder layers" if cfg.family == "encdec"
+                 else f"{full.n_layers} layers")
+        cut = f"uncut ({depth})" if layers is None else \
+            f"cut to {layers} of {depth}"
+        tp_report(f"vlm/encdec tp: {arch}", f"full width, {cut}, {heads}",
+                  cfg, dtype, got, ref, err, rel, r["backend"], shape)
     return dict(launches=launches, worst=worst)
 
 
@@ -5362,10 +5553,13 @@ def main() -> int:
     tp = timed(phase_tp, dev, ranks)
     moe_tp = timed(phase_moe_tp, dev, ranks)
     ssm_tp = timed(phase_ssm_tp, dev, ranks)
+    vlm_encdec_tp = timed(phase_vlm_encdec_tp, dev, ranks)
     for k in TP_KERNELS:
         vlm_encdec[k] = (vlm_encdec.get(k, 0) + tp["launches"][k]
-                         + moe_tp["launches"][k] + ssm_tp["launches"][k])
-    for name, e in (*tp["worst"].items(), ("ssd_scan", ssm_tp["worst"])):
+                         + moe_tp["launches"][k] + ssm_tp["launches"][k]
+                         + vlm_encdec_tp["launches"][k])
+    for name, e in (*tp["worst"].items(), *vlm_encdec_tp["worst"].items(),
+                    ("ssd_scan", ssm_tp["worst"])):
         lm_timing[name]["max_abs_err"] = max(lm_timing[name]["max_abs_err"],
                                              e)
     train_launch = {k: train["launches"].get(k, 0)

@@ -22,7 +22,7 @@ The CLI keeps the reference's flags as they are, so ``--tiny`` (a
 
 On a ``DeviceMesh`` (``greedy_decode(..., mesh=mesh)``) the loop runs
 the mesh's prefill and serve steps (``launch.steps.mesh_step``): with
-``model`` > 1 the dense and MoE families tensor-parallel, on params cut by
+``model`` > 1 every LM family tensor-parallel, on params cut by
 ``parallel.tensor.shard_params(..., kind="decode")``, and the argmax taken
 across the vocabulary shards (:func:`repro_torch.parallel.tensor.argmax`).
 
@@ -114,19 +114,22 @@ def greedy_decode(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
     With ``mesh`` the steps are the mesh's (``launch.steps.mesh_step``;
     ``params`` as they take them, the prompt global, the same on every
     rank) and a kept logit row is this rank's block (its batch rows, its
-    vocabulary columns). Its cache holds the ``P + gen - 1`` positions the
-    steps write (the reference's loop allocates one more, which no step
-    reads), so that a sequence-sharded cache splits evenly at the usual
-    lengths (512 + 32 over 2, 4, 8 ranks). ``forced`` (B, gen) feeds its
-    tokens to the decode steps in place of the argmax (teacher forcing);
-    the returned tokens are still each step's argmax."""
+    vocabulary columns). An enc-dec's frames size its cross cache on the
+    mesh as off it; a VLM's ``positions`` reach the prefill, each rank
+    taking its batch rows of the three streams. Its cache holds the
+    ``P + gen - 1`` positions the steps write (the reference's loop
+    allocates one more, which no step reads), so that a sequence-sharded
+    cache splits evenly at the usual lengths (512 + 32 over 2, 4, 8
+    ranks). ``forced`` (B, gen) feeds its tokens to the decode steps in
+    place of the argmax (teacher forcing); the returned tokens are still
+    each step's argmax."""
     lead = tokens if tokens is not None else embeds
     dev = lead.device
     B, P = lead.shape[:2]
     batch = {k: v for k, v in (("tokens", tokens), ("embeds", embeds),
                                ("positions", positions)) if v is not None}
+    enc_len = embeds.shape[1] if cfg.family == "encdec" else None
     if mesh is None:
-        enc_len = embeds.shape[1] if cfg.family == "encdec" else None
         cache = api.init_cache(cfg, B, P + gen, enc_len=enc_len, device=dev)
 
         def prefill():
@@ -149,7 +152,7 @@ def greedy_decode(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
         pstep = ST.mesh_step(cfg, ShapeConfig("prefill", P, B, "prefill"),
                              mesh, cache_len=n)
         sstep = ST.mesh_step(cfg, ShapeConfig("decode", n, B, "decode"),
-                             mesh)
+                             mesh, enc_len=enc_len)
 
         def prefill():
             return pstep(params, batch)

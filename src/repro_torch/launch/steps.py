@@ -25,20 +25,23 @@ and backward run on its local tensors through the hand-written kernels
 the ZeRO-1 blocks (``zero1=True``) or all-reduced, to their mean over the
 data ranks.
 
-With ``model`` > 1 the dense, MoE, SSM and hybrid families' prefill and
-serve steps run tensor-parallel (``repro_torch.parallel.tensor``): each
-rank holds its blocks of the params as ``param_specs(cfg, mesh,
-kind=...)`` place them (``tensor.shard_params``) and of the cache as
-``cache_specs`` place it, and computes its heads, FFN columns (an MoE's
-experts or their ff columns, as the reference's ``_moe_apply_shard_map``
-splits them), SSM heads or head channels (as the decode cache's
-``state`` spec places them) and vocabulary columns, summing over the
-``model`` ranks where the reference's GSPMD or ``psum`` would. The
+With ``model`` > 1 the prefill and serve steps of every LM family
+(dense, MoE, SSM, hybrid, VLM, enc-dec) run tensor-parallel
+(``repro_torch.parallel.tensor``): each rank holds its blocks of the
+params as ``param_specs(cfg, mesh, kind=...)`` place them
+(``tensor.shard_params``) and of the cache as ``cache_specs`` place it,
+and computes its heads (a VLM's padded heads among them, in the
+reference's grouped-major order), FFN columns (an MoE's experts or their
+ff columns, as the reference's ``_moe_apply_shard_map`` splits them), SSM
+heads or head channels (as the decode cache's ``state`` spec places them)
+and vocabulary columns, summing over the ``model`` ranks where the
+reference's GSPMD or ``psum`` would. An enc-dec's encoder, self- and
+cross-attention share one head layout; its cross cache holds exactly the
+encoder's rows (``enc_len``), placed by the KV rule: the rank's kv heads,
+or its block of the rows, merged over the ranks by log-sum-exp. The
 logits come back sharded on the vocabulary. What a mesh with ``model`` >
-1 does not execute, the dry run (``repro_torch.launch.dryrun``) models:
-a train step (the JAX package's tests only compile one), and the vlm and
-encdec families, whose M-RoPE inputs, padded heads and cross caches have
-no tensor-parallel path yet.
+1 does not execute, the dry run (``repro_torch.launch.dryrun``) models: a
+train step (the JAX package's tests only compile one).
 """
 from __future__ import annotations
 
@@ -203,10 +206,14 @@ def batch_specs(cfg: ModelConfig, shape: ShapeConfig,
     return out
 
 
-def cache_specs(cfg: ModelConfig, shape: ShapeConfig, mesh=None) -> Any:
-    """The decode cache of ``shape`` as meta tensors with their specs."""
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
+                enc_len: Optional[int] = None) -> Any:
+    """The decode cache of ``shape`` as meta tensors with their specs; an
+    enc-dec's cross cache ``ck``/``cv`` of ``enc_len`` rows (the
+    encoder's length; the decode length, the reference's layout, when not
+    given), placed by the KV rule as ``k``/``v`` are."""
     cache = api.init_cache(cfg, shape.global_batch, shape.seq_len,
-                           device="meta")
+                           enc_len=enc_len, device="meta")
     if mesh is None:
         return tree_map(lambda t: Placed(t, None), cache)
     spec_tree = SP.cache_specs(cache, mesh,
@@ -285,9 +292,6 @@ class MeshPlan(NamedTuple):
     zero1: Optional[adamw.Zero1]
 
 
-TP_FAMILIES = ("dense", "moe", "ssm", "hybrid")   # served at model > 1
-
-
 def _data_axes(mesh) -> Tuple[str, ...]:
     return tuple(a for a in ("pod", "data") if a in mesh_shape(mesh))
 
@@ -296,23 +300,14 @@ def mesh_plan(cfg: ModelConfig, mesh: DeviceMesh, *,
               zero1: bool = True, kind: str = "train") -> MeshPlan:
     """The data axes of ``mesh`` and, with ``zero1``, each leaf's ZeRO-1
     dimension (from ``zero1_specs`` of the sanitized train specs), for a
-    step of ``kind``. With ``model`` > 1 only the dense, MoE, SSM and
-    hybrid families' prefill and decode steps execute; a train step and
-    the vlm and encdec families raise ``NotImplementedError``."""
+    step of ``kind``. With ``model`` > 1 every family's prefill and decode
+    steps execute; a train step raises ``NotImplementedError``."""
     sizes = mesh_shape(mesh)
     if sizes.get("model", 1) > 1 and kind == "train":
         raise NotImplementedError(
             "a train step on a mesh with model > 1 is modelled by "
             "repro_torch.launch.dryrun, not executed: tensor parallelism "
-            "runs the dense, moe, ssm and hybrid families' prefill and "
-            "decode steps only")
-    if sizes.get("model", 1) > 1 and cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family on a mesh with model > 1 is modelled "
-            f"by repro_torch.launch.dryrun, not executed: tensor parallelism "
-            f"runs the dense, moe, ssm and hybrid families only (M-RoPE "
-            f"inputs, padded heads and cross caches have no tensor-parallel "
-            f"path yet)")
+            "runs the prefill and decode steps only")
     axes = _data_axes(mesh)
     index = 0
     for a in axes:
@@ -408,7 +403,8 @@ def _global(t: torch.Tensor, plan: MeshPlan, full: Tuple[int, ...]
 
 def mesh_step(cfg: ModelConfig, shape: ShapeConfig, mesh: DeviceMesh,
               opt_cfg: Optional[adamw.AdamWConfig] = None, *,
-              zero1: bool = True, cache_len: Optional[int] = None):
+              zero1: bool = True, cache_len: Optional[int] = None,
+              enc_len: Optional[int] = None):
     """The step of ``shape.kind`` on ``mesh`` (``jit_step``'s twin):
 
     - train ``(state, batch) -> (state, metrics)``: ``state`` from
@@ -429,7 +425,11 @@ def mesh_step(cfg: ModelConfig, shape: ShapeConfig, mesh: DeviceMesh,
       heads or head channels, is spliced on the rank (an SSM ``conv``
       window split over ``model`` is this rank's plain tensor:
       :func:`_conv_leaf`). A serve step takes such a cache (DTensors or
-      this rank's blocks) and updates it in place.
+      this rank's blocks) and updates it in place. An enc-dec's cross
+      cache holds the encoder's rows: the prefill's as its encoder gave
+      them, the serve step's ``enc_len`` of them (the decode length, the
+      reference's layout, when not given); each rank its kv heads or its
+      block of the rows, as :func:`cache_specs` places them.
     """
     plan = mesh_plan(cfg, mesh, zero1=zero1 and shape.kind == "train",
                      kind=shape.kind)
@@ -484,13 +484,16 @@ def mesh_step(cfg: ModelConfig, shape: ShapeConfig, mesh: DeviceMesh,
                 cfg, cache, mesh, B, length)
         return prefill_step
 
-    cplaced = cache_specs(cfg, shape, mesh)
+    cplaced = cache_specs(cfg, shape, mesh, enc_len=enc_len)
     cshapes, cspecs = tensors_of(cplaced), specs_of(cplaced)
     if "conv" in cspecs:
         cspecs["conv"] = _conv_spec(cspecs["state"], cshapes["state"].dim(),
                                     cshapes["conv"].dim())
-    lay = TP.layout(cfg, mesh, pspecs, cspecs.get("k"), shape.seq_len) \
-        if split else None
+    lay = None
+    if split:
+        cross = cshapes["ck"].shape[2] if "ck" in cshapes else 0
+        lay = TP.layout(cfg, mesh, pspecs, cspecs.get("k"), shape.seq_len,
+                        cspecs.get("ck"), cross)
 
     @torch.no_grad()
     def serve_step(params, cache, batch, index):
@@ -546,11 +549,13 @@ def _serving_cache(cfg: ModelConfig, cache: Any, mesh: DeviceMesh,
     """The prompt's cache (this rank's rows and, with ``model`` > 1, its
     blocks as the prefill computed them) laid into this rank's block of a
     decode cache of ``length`` positions placed by :func:`cache_specs` of
-    a decode shape (B = ``batch``), for any family served at ``model`` >
-    1 (dense, moe, ssm, hybrid):
+    a decode shape (B = ``batch``), for any family:
 
     - ``k``/``v`` (L, B_r, P, KV or this rank's KV, hd): zeros past the
       prompt, and only the rank's positions where the sequence is sharded;
+    - an enc-dec's ``ck``/``cv`` (L, B_r, S_enc, ...): the encoder's rows,
+      never padded or cut to ``length``: the rank's kv heads as the
+      prefill computed them, or its block of the rows;
     - ``state``: the rank's SSM heads or head channels, as the spec places
       them;
     - ``conv``: the rank's window over [x_r | B | C] (:func:`_conv_leaf`
@@ -558,8 +563,9 @@ def _serving_cache(cfg: ModelConfig, cache: Any, mesh: DeviceMesh,
       the prompt is shorter, as the reference's ``splice`` does.
 
     A leaf that already is its block is placed as it is."""
+    enc_len = cache["ck"].shape[2] if "ck" in cache else None
     placed = cache_specs(cfg, ShapeConfig("serve", length, batch, "decode"),
-                         mesh)
+                         mesh, enc_len=enc_len)
     ssm = TP.ssm_of(cfg, mesh)
     out = {}
     for name, t in cache.items():
@@ -575,9 +581,9 @@ def _serving_cache(cfg: ModelConfig, cache: Any, mesh: DeviceMesh,
                 st.spec, st.tensor.dim(), full.dim()), ssm, full)
             continue
         want = SP.local_shape(tuple(full.shape), spec, mesh)
-        if tuple(t.shape) != want and name in ("k", "v"):
+        if tuple(t.shape) != want and name in ("k", "v", "ck", "cv"):
             seq = spec[2] if len(spec) > 2 else None
-            s0, _ = TP.block(length, seq, mesh)
+            s0, _ = TP.block(full.shape[2], seq, mesh)
             dst = t.new_zeros(want)
             n = max(0, min(want[2], t.shape[2] - s0))
             dst[:, :, :n] = t[:, :, s0:s0 + n]
@@ -591,10 +597,11 @@ def mesh_cache(cache: Any, mesh: DeviceMesh) -> Any:
     DTensors of this rank's blocks, placed by
     :func:`repro_torch.parallel.specs.cache_specs` (the batch on the data
     axes, and the kv heads or the sequence, the SSM heads or head
-    channels on ``model``): a serving cache for :func:`mesh_step`'s serve
-    step. The specs are read on a mesh of the same axes with the data axes
-    at size 1 (the rows given are already this rank's) and ``model`` at
-    its size; a leaf sharded on ``model`` is cut to this rank's block (a
+    channels on ``model``; an enc-dec's cross cache by the same KV rule
+    over its own rows, the encoder's): a serving cache for
+    :func:`mesh_step`'s serve step (given the same ``enc_len``). The specs
+    are read on a mesh of the same axes with the data axes at size 1 (the
+    rows given are already this rank's) and ``model`` at its size; a leaf sharded on ``model`` is cut to this rank's block (a
     copy). An SSM ``conv`` window is cut to the rank's [x_r | B | C] (a
     plain tensor where the mixer is split: :func:`_conv_leaf`)."""
     names = axis_names(mesh)

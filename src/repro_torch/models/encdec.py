@@ -17,6 +17,15 @@ cache through ``decode_attention``. Each decoder layer's cross K/V are
 computed once a forward. LayerNorm and GELU are plain (no kernel).
 Training differentiates the same forward through ``flash_attention_bwd``.
 
+Under a tensor-parallel layout (``parallel.tensor.Layout``: a mesh step
+with ``model`` > 1) the encoder's self-attention, the decoder's self-
+and cross-attention and both FFNs run the rank's blocks as
+``models/transformer.py`` does; the cross K/V go through the same
+projection as self-attention's (``T.project_kv``), and a decode step
+attends to the rank's kv heads of the cross cache, or to its block of
+the encoder's rows, merged over the ranks by log-sum-exp
+(``T.attend_blocks``).
+
 Differences from the reference:
 
 - the cross cache holds exactly the encoder's rows. A decode step attends
@@ -41,6 +50,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.parallel import tensor as TP
 from repro_torch.tree import stack_init, tree_map
 
 Params = Dict[str, Any]
@@ -92,15 +102,35 @@ def dec_block_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 def _cross_kv(p: Params, enc: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The encoder's states (B, S_enc, d) → cross k, v (B, S_enc, KV, hd)."""
-    return T._proj(p["wk"], enc), T._proj(p["wv"], enc)
+    """The encoder's states (B, S_enc, d) → cross k, v (B, S_enc, KV, hd)
+    (tensor-parallel: the rank's kv heads, or whole, summed over the
+    input-dim blocks of ``wk``/``wv``: ``T.project_kv``)."""
+    return T.project_kv(p, enc)
 
 
 def _cross_attend(p: Params, x: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor) -> torch.Tensor:
     """x (B, S_dec, d) over the encoder's k, v (B, S_enc, KV, hd), no mask,
-    through ``flash_attention(causal=False)``."""
-    return T.attend(p, T._proj(p["wq"], x), k, v, causal=False)
+    through ``flash_attention(causal=False)`` (tensor-parallel: the rank's
+    heads over the kv heads they read)."""
+    return T.attend(p, T._proj(p["wq"], x), T._kv_read(k), T._kv_read(v),
+                    causal=False)
+
+
+def _cross_decode(p: Params, x: torch.Tensor, ck: torch.Tensor,
+                  cv: torch.Tensor) -> torch.Tensor:
+    """One decoder row x (B, 1, d) over every row of the cross cache
+    (B, S_enc, KV, hd) through ``decode_attention``. Tensor-parallel over
+    a cross cache whose rows are sharded on ``model`` (``Layout.cross_seq``:
+    kv heads that do not divide the axis), the rank's block of the rows,
+    each of them valid, merged over the ranks by log-sum-exp
+    (``T.attend_blocks``); else its kv heads, or the kv heads its query
+    heads read."""
+    q = T._proj(p["wq"], x)
+    tp = TP.current()
+    if tp is not None and tp.cross_seq is not None:
+        return T.attend_blocks(p, q, ck, cv, ck.shape[1], tp)
+    return T.attend_cache(p, q, T._kv_read(ck), T._kv_read(cv), ck.shape[1])
 
 
 def _layer(stack: Params, i: int) -> Params:
@@ -229,7 +259,6 @@ def encdec_decode_step(params: Params, cfg: ModelConfig, tokens, cache,
     length). ``embeds`` is unused, as in the reference. Returns (logits
     (B, 1, V), cache)."""
     x = _add_positions(cfg, T._embed(params, cfg, tokens, None), index)
-    enc_len = cache["ck"].shape[2]
     for i in range(cfg.n_dec_layers):
         lp = _layer(params["dec_layers"], i)
         h = T.norm_apply(cfg, lp["self_norm"], x)
@@ -237,9 +266,8 @@ def encdec_decode_step(params: Params, cfg: ModelConfig, tokens, cache,
                                      cache["v"][i], index)
         x = x + a
         h = T.norm_apply(cfg, lp["cross_norm"], x)
-        p = lp["cross_attn"]
-        x = x + T.attend_cache(p, T._proj(p["wq"], h), cache["ck"][i],
-                               cache["cv"][i], enc_len)
+        x = x + _cross_decode(lp["cross_attn"], h, cache["ck"][i],
+                              cache["cv"][i])
         h = T.norm_apply(cfg, lp["ffn_norm"], x)
         x = x + T.ffn_apply(lp["ffn"], cfg, h)
     x = T.norm_apply(cfg, params["dec_norm"], x)

@@ -39,17 +39,20 @@ Differences from the reference:
   paths of the reference's ``_moe_apply_shard_map``, each rank routing all
   of its data shard's rows and summing its partial output over ``model``
   (:func:`_moe_sharded`);
-- the dense and MoE families' prefill and decode run tensor-parallel where
-  a :class:`repro_torch.parallel.tensor.Layout` is current (a mesh step
-  with ``model`` > 1, ``launch.steps.mesh_step``), on this rank's blocks
-  of the params: its query heads, with a sum over the ranks after the output
-  projection; its kv heads where they divide the axis, else k and v summed
-  over the input-dim blocks of ``wk``/``wv`` (prefill) or projected whole
-  (decode); a sequence-sharded decode cache's blocks merged by their
-  log-sum-exp; its FFN columns with a sum after ``wo``; its vocabulary rows
-  of the embedding (:func:`repro_torch.parallel.tensor.embed_lookup`) and
-  columns of the logits. GSPMD makes the same split of the reference's
-  forward from its ``constrain`` calls and the params' shardings.
+- the dense, MoE and VLM families' prefill and decode (and the hybrid's
+  and the enc-dec's attention and FFN, which reuse these pieces) run
+  tensor-parallel where a :class:`repro_torch.parallel.tensor.Layout` is
+  current (a mesh step with ``model`` > 1, ``launch.steps.mesh_step``),
+  on this rank's blocks of the params: its query heads (a VLM's padded
+  ones in the same grouped-major order), with a sum over the ranks after
+  the output projection; its kv heads where they divide the axis, else k
+  and v summed over the input-dim blocks of ``wk``/``wv`` (prefill) or
+  projected whole (decode); a sequence-sharded decode cache's blocks
+  merged by their log-sum-exp (:func:`attend_blocks`); its FFN columns
+  with a sum after ``wo``; its vocabulary rows of the embedding
+  (:func:`repro_torch.parallel.tensor.embed_lookup`) and columns of the
+  logits. GSPMD makes the same split of the reference's forward from its
+  ``constrain`` calls and the params' shardings.
 """
 from __future__ import annotations
 
@@ -112,21 +115,26 @@ def _proj(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return (x @ w.flatten(1)).unflatten(-1, w.shape[1:])
 
 
-def _project_qkv(p: Params, x: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(..., d) → q (..., Hp, hd), k and v (..., KV, hd). Tensor-parallel:
-    q of the rank's heads, k and v of its kv heads, or, where ``wk``/``wv``
-    are cut on their input dimension, ``x[..., d_r] @ w[d_r]`` summed over
-    the ranks (whole)."""
+def project_kv(p: Params, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., d) → k and v (..., KV, hd). Tensor-parallel: k and v of the
+    rank's kv heads, or, where ``wk``/``wv`` are cut on their input
+    dimension, ``x[..., d_r] @ w[d_r]`` summed over the ranks (whole)."""
     tp = TP.current()
     if tp is None or tp.kv != "input":
-        return _proj(p["wq"], x), _proj(p["wk"], x), _proj(p["wv"], x)
+        return _proj(p["wk"], x), _proj(p["wv"], x)
     xs = x[..., tp.embed[0]:tp.embed[1]].float()
     kv = TP.sum_partials(torch.cat([_proj(p["wk"].float(), xs),
                                     _proj(p["wv"].float(), xs)], -2),
                          tp.group, x.dtype)
-    k, v = kv.chunk(2, dim=-2)
-    return _proj(p["wq"], x), k, v
+    return kv.chunk(2, dim=-2)
+
+
+def _project_qkv(p: Params, x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(..., d) → q (..., Hp, hd) (tensor-parallel: of the rank's heads),
+    k and v (..., KV, hd) (:func:`project_kv`)."""
+    return (_proj(p["wq"], x), *project_kv(p, x))
 
 
 def _out_proj(p: Params, out: torch.Tensor) -> torch.Tensor:
@@ -261,27 +269,39 @@ def _attend_block(p: Params, q: torch.Tensor, k: torch.Tensor,
     divide the axis, the MQA decode): this rank holds positions
     ``tp.seq`` = [s0, s1) of the caches (B, s1 - s0, KV, hd) and the whole
     k, v of the new token (``wk``/``wv`` replicated). It writes the row
-    where it holds ``index``, gathers q to every head, attends over its
-    valid positions, ``clamp(index + 1 - s0, 0, s1 - s0)`` of them, for
-    (o_r, lse_r), merges the ranks' by their softmax weights
-    (:func:`repro_torch.parallel.tensor.merge_blocks`), then takes its
-    heads' rows into ``wo`` (summed over the ranks). → (B, 1, d)."""
+    where it holds ``index``, then attends over its valid positions,
+    ``clamp(index + 1 - s0, 0, s1 - s0)`` of them
+    (:func:`attend_blocks`). → (B, 1, d)."""
     s0, s1 = tp.seq
     _write_block_row(k_cache, k, index, s0)
     _write_block_row(v_cache, v, index, s0)
-    if tp.split_heads:                              # (m, B, 1, H/m, hd)
-        q = TP.all_gather(q, tp.group, tp.size).permute(1, 2, 0, 3, 4)
-        q = q.flatten(2, 3)
-    B, _, H, hd = q.shape
-    KV = k_cache.shape[2]
     if isinstance(index, torch.Tensor):
         length = (index.reshape(1) + 1 - s0).clamp(0, s1 - s0).to(
             torch.int32)
     else:
         length = max(0, min(index + 1 - s0, s1 - s0))
+    return attend_blocks(p, q, k_cache, v_cache, length, tp)
+
+
+def attend_blocks(p: Params, q: torch.Tensor, k_block: torch.Tensor,
+                  v_block: torch.Tensor, length, tp) -> torch.Tensor:
+    """One query row q (B, 1, H_r, hd) of the rank's heads over its block
+    of a cache whose positions are sharded on ``model`` (B, n, KV, hd,
+    every kv head), the first ``length`` of them valid: it gathers q to
+    every head, attends for (o_r, lse_r), merges the ranks' by their
+    softmax weights (:func:`repro_torch.parallel.tensor.merge_blocks`),
+    then takes its heads' rows into ``wo`` (summed over the ranks). The
+    self cache's decode (:func:`_attend_block`, after its row write) and
+    the enc-dec's cross cache (every row of the block) both come here.
+    → (B, 1, d)."""
+    if tp.split_heads:                              # (m, B, 1, H/m, hd)
+        q = TP.all_gather(q, tp.group, tp.size).permute(1, 2, 0, 3, 4)
+        q = q.flatten(2, 3)
+    B, _, H, hd = q.shape
+    KV = k_block.shape[2]
     o, lse = ops.decode_attention(q.reshape(B, KV, H // KV, hd),
-                                  k_cache.permute(0, 2, 1, 3),
-                                  v_cache.permute(0, 2, 1, 3), length,
+                                  k_block.permute(0, 2, 1, 3),
+                                  v_block.permute(0, 2, 1, 3), length,
                                   return_lse=True)
     o = TP.merge_blocks(o, lse, tp).reshape(B, 1, H, hd)
     h0, h1 = tp.heads

@@ -1,6 +1,6 @@
-"""Tensor parallelism on a mesh's ``model`` axis: the dense, MoE, SSM and
-hybrid families' prefill and serve steps split over the ranks of that
-axis.
+"""Tensor parallelism on a mesh's ``model`` axis: the prefill and serve
+steps of all six LM families (dense, MoE, SSM, hybrid, VLM, enc-dec)
+split over the ranks of that axis.
 
 The JAX package runs any step on any mesh through ``jit`` with the
 ``in_shardings`` of ``param_specs`` / ``cache_specs``; GSPMD splits the
@@ -16,9 +16,10 @@ head channels, :class:`SSM`), in three parts:
   block of the specs gives), and :class:`Layout` (:func:`layout`) says
   what the rank computes, read from those specs and, for a decode step,
   from the cache's (the SSM channels from the decode cache's ``state``
-  spec). :func:`installed` makes a layout current for the model code
-  (``models/transformer.py``, ``models/ssm.py``, ``models/hybrid.py``),
-  which reads it with :func:`current`;
+  spec; an enc-dec's cross cache from ``ck``'s spec and the encoder's
+  length). :func:`installed` makes a layout current for the model code
+  (``models/transformer.py``, ``models/ssm.py``, ``models/hybrid.py``,
+  ``models/encdec.py``), which reads it with :func:`current`;
 - the collectives: :func:`all_reduce` (a sum, or a max where the
   log-sum-exp merge needs one; :func:`sum_partials`, the sum of the ranks'
   shares of a product, kept in fp32 until it is whole) and
@@ -28,7 +29,7 @@ head channels, :class:`SSM`), in three parts:
 - the masks: :func:`embed_lookup`, the vocabulary-sharded embedding
   gather, whose rows equal the whole gather bit for bit, and
   :func:`merge_blocks`, the cross-rank merge of a sequence-sharded decode
-  cache's blocks by their log-sum-exp.
+  cache's blocks (or an enc-dec's cross cache's) by their log-sum-exp.
 
 Where a rank's group is gloo and its tensors lie on the card (two ranks
 sharing one card, where NCCL refuses two ranks of one group on one
@@ -170,9 +171,9 @@ class SSM(NamedTuple):
 
 
 class Layout(NamedTuple):
-    """What one rank of the ``model`` axis computes in a dense, MoE, SSM
-    or hybrid prefill or decode step. Ranges are [start, stop) in the
-    whole tensor's indices.
+    """What one rank of the ``model`` axis computes in a prefill or decode
+    step of any LM family (dense, MoE, SSM, hybrid, VLM, enc-dec). Ranges
+    are [start, stop) in the whole tensor's indices.
 
     - ``heads``: its query heads (every head where ``wq`` is not split);
       ``split_heads``: ``wq``/``wo`` hold only those, so the output
@@ -189,10 +190,15 @@ class Layout(NamedTuple):
       (``split_vocab`` when that is not the whole vocabulary);
     - ``seq``: a decode step's cache positions on this rank where the
       cache is sequence-sharded, else None (the rank holds them all);
-    - ``ssm``: a mamba mixer's :class:`SSM` (None without one).
+    - ``ssm``: a mamba mixer's :class:`SSM` (None without one);
+    - ``cross_seq``: an enc-dec decode step's rows of the cross cache
+      ``ck``/``cv`` on this rank where they are sharded (a block of the
+      encoder's length, which is not the self cache's), else None.
 
     A family without attention (the SSM) has no heads: (0, 0), ``kv``
-    "whole"; one without a dense FFN, ``split_ffn`` False.
+    "whole"; one without a dense FFN, ``split_ffn`` False. The enc-dec's
+    encoder self-attention and its decoder's self- and cross-attention
+    share one head layout, as they share one FFN layout.
     """
     group: Any
     size: int
@@ -207,6 +213,7 @@ class Layout(NamedTuple):
     seq: Optional[Tuple[int, int]]
     moe: Optional[Experts] = None
     ssm: Optional[SSM] = None
+    cross_seq: Optional[Tuple[int, int]] = None
 
 
 def block(length: int, entry, mesh) -> Tuple[int, int]:
@@ -320,17 +327,56 @@ def _find(tree: Any, pred) -> Any:
     return None
 
 
+def _stack(param_spec_tree: Any) -> Any:
+    """The stack of layers a layout is read from: ``layers``, a hybrid's
+    ``periods`` or an enc-dec's ``dec_layers``. An enc-dec's encoder
+    attention and FFN must be placed as the decoder's self- and
+    cross-attention and FFN are (all three attentions come from
+    ``attn_init``, so one head layout serves them); where the specs
+    disagree this raises rather than guesses."""
+    if "dec_layers" not in param_spec_tree:
+        return param_spec_tree.get("layers", param_spec_tree.get("periods"))
+    dec, enc = param_spec_tree["dec_layers"], param_spec_tree["enc_layers"]
+    for group in ({"enc_layers/attn": enc.get("attn"),
+                   "dec_layers/self_attn": dec.get("self_attn"),
+                   "dec_layers/cross_attn": dec.get("cross_attn")},
+                  {"enc_layers/ffn": enc.get("ffn"),
+                   "dec_layers/ffn": dec.get("ffn")}):
+        if any(v != next(iter(group.values())) for v in group.values()):
+            raise ValueError(f"the enc-dec's stacks place their sub-layers "
+                             f"apart, {group}: one rank layout serves them "
+                             f"only where they agree")
+    return dec
+
+
+def _cache_block(spec, length: int, mesh, kv: str, wk, what: str):
+    """This rank's positions [s0, s1) of a KV cache leaf (L, B, S, KV, hd)
+    of ``length`` positions placed by ``spec`` where ``model`` shards
+    them, else None. The leaf must hold the kv heads that ``wk`` (placed
+    ``wk``) gives the rank: its own where ``kv`` is ``"heads"``."""
+    if (kv == "heads") != (_entry(spec, 3) == "model"):
+        raise ValueError(f"{what} placed {spec} does not hold the kv heads "
+                         f"that wk/wv placed {wk} give")
+    entry = _entry(spec, 2)
+    if entry is None or "model" not in axes_of(entry):
+        return None
+    return block(length, _model_only(entry, f"{what}'s sequence"), mesh)
+
+
 def layout(cfg, mesh, param_spec_tree: Any, cache_spec: Any = None,
-           cache_len: int = 0) -> Layout:
+           cache_len: int = 0, cross_spec: Any = None,
+           cross_len: int = 0) -> Layout:
     """The layout of this rank of ``mesh``'s ``model`` axis for a config's
     params placed by ``param_spec_tree`` (sanitized ``param_specs`` of the
     step's kind) and, for a decode step, its KV cache of ``cache_len``
     positions placed by ``cache_spec`` (the spec of the (L, B, S, KV, hd)
-    ``k`` leaf). Each kind of sub-layer (attention, dense FFN, MoE FFN,
-    mamba mixer) is read from the first (sub-)layer of ``layers`` or a
-    hybrid's ``periods`` that holds it; a mamba mixer's :class:`SSM` is
-    :func:`ssm_of`'s."""
-    stack = param_spec_tree.get("layers", param_spec_tree.get("periods"))
+    ``k`` leaf) and an enc-dec's cross cache of ``cross_len`` rows (the
+    encoder's length) placed by ``cross_spec`` (``ck``'s). Each kind of
+    sub-layer (attention, dense FFN, MoE FFN, mamba mixer) is read from
+    the first (sub-)layer of ``layers``, a hybrid's ``periods`` or an
+    enc-dec's ``dec_layers`` (:func:`_stack`) that holds it; a mamba
+    mixer's :class:`SSM` is :func:`ssm_of`'s."""
+    stack = _stack(param_spec_tree)
     attn = _find(stack, lambda t: "wq" in t)
     d, V = cfg.d_model, cfg.vocab
     heads_e = input_e = None
@@ -362,20 +408,18 @@ def layout(cfg, mesh, param_spec_tree: Any, cache_spec: Any = None,
         _entry(dense["wi"]["kernel"], 2), "the FFN's columns")
     vocab_e = _model_only(_entry(param_spec_tree["embed"]["embedding"], 0),
                           "the vocabulary")
-    seq = None
-    if cache_spec is not None and attn is not None:
-        seq_e = _entry(cache_spec, 2)
-        if seq_e is not None and "model" in axes_of(seq_e):
-            seq = block(cache_len, _model_only(
-                seq_e, "the cache's sequence"), mesh)
-        if (kv == "heads") != (_entry(cache_spec, 3) == "model"):
-            raise ValueError(f"a cache placed {cache_spec} does not hold the "
-                             f"kv heads that wk/wv placed {attn['wk']} give")
+    seq = cross = None
+    if attn is not None and cache_spec is not None:
+        seq = _cache_block(cache_spec, cache_len, mesh, kv, attn["wk"],
+                           "the cache")
+    if attn is not None and cross_spec is not None:
+        cross = _cache_block(cross_spec, cross_len, mesh, kv, attn["wk"],
+                             "the cross cache")
     return Layout(mesh.get_group("model"), mesh_shape(mesh)["model"],
                   (h0, h1), heads_e is not None, kv, kv_read,
                   block(d, input_e, mesh), wi_e is not None,
                   block(V, vocab_e, mesh), vocab_e is not None, seq, moe,
-                  ssm_of(cfg, mesh))
+                  ssm_of(cfg, mesh), cross)
 
 
 _local = threading.local()
@@ -482,7 +526,12 @@ def shard_params(params: Any, cfg, mesh, kind: str) -> Any:
     """Whole params (from ``api.init`` or ``convert.lm_params_from_jax``,
     the same on every rank) cut into this rank's blocks, as the sanitized
     ``param_specs(cfg, mesh, kind=kind)`` place them: compact copies, so
-    that the whole tree can be freed. ``wi`` of a SwiGLU FFN is cut per
+    that the whole tree can be freed. Every leaf is cut by its path's
+    spec: an enc-dec's ``enc_layers/attn/*`` and ``dec_layers/{self_attn,
+    cross_attn}/*`` as any attention's, its GELU FFN's ``wi`` kernel and
+    bias on ``mlp`` (``wo``'s bias whole: ``ffn_apply`` adds it once,
+    after the sum), ``lm_head/kernel`` on ``vocab`` where the vocabulary
+    divides the axis. ``wi`` of a SwiGLU FFN is cut per
     half (:func:`_cut`); an MoE's ``wi`` (E, 2, d, ff) holds gate and up
     on an axis of their own, which no spec cuts. ``kind`` "decode" keeps an MQA's ``wk``/``wv``
     whole (1.5 MB a layer at granite-20b's width); a prefill step takes
