@@ -322,7 +322,7 @@ Tensor parallelism (``repro_torch.parallel.tensor``; ``mesh_step`` and
     ``model`` 2 (mamba2-130m's 12 of 24 heads, jamba's 64 of 128) against
     its plain version within 2e-3, twice bit-equal, timed by device time
     beside its bound; then two ranks on the (1, 2) mesh: mamba2-130m
-    uncut in fp32 (every logit within rtol/atol 1e-3, greedy tokens
+    at 12 of its 24 layers in fp32 (every logit within rtol/atol 1e-3, greedy tokens
     equal) and in bf16 (3e-2 of each row's largest |logit|), one
     full-width jamba-v0.1-52b period in bf16 (~26.5 GB whole: the ranks
     draw it in turn behind a barrier, each cutting its ~13.3 GB block
@@ -343,8 +343,9 @@ Tensor parallelism (``repro_torch.parallel.tensor``; ``mesh_step`` and
     the (1, 2) mesh: qwen2-vl-7b at full width cut to 2 layers in fp32
     (every logit within rtol/atol 1e-3, tokens equal) and 4 in bf16
     (patch embeddings with M-RoPE streams that differ; its 4 inert heads
-    on the last rank), whisper-medium uncut in fp32 (1500 frames, a
-    64-token decoder prompt; the cross cache holds the encoder's rows)
+    on the last rank), whisper-medium at 8 of its 24 encoder and
+    decoder layers in fp32 (1500 frames, a 64-token decoder prompt; the
+    cross cache holds the encoder's rows)
     and in bf16 cut to ``ENCDEC_TP_BF16_LAYERS`` encoder and decoder
     layers, where one process's own bf16 lies within 3e-2 of its fp32
     function (both distances printed); bf16 within 3e-2 of each row's
@@ -354,6 +355,33 @@ Tensor parallelism (``repro_torch.parallel.tensor``; ``mesh_step`` and
     wk/wv cut on d at prefill and sequence-sharded self and cross caches.
     Launches of flash and decode (and the VLM's rmsnorm) exact per rank;
     times per rank and the collectives' share as in phase 30.
+34. the dense family's train step on a ``model`` axis (``mesh_step`` of
+    kind train with ``model`` > 1: the sums autograd sees, the
+    vocabulary-parallel cross-entropy, the clip's norm over both axes):
+    ``rmsnorm``, ``flash_attention`` and their backward kernels at the
+    ranks' shapes (llama3.2-1b's 4 of 8 kv heads in fp32 and bf16,
+    granite-20b's 24 of 48 heads over its one kv head in fp32; the norms
+    at D 2048 and 6144) against their plain versions, twice bit-equal,
+    timed beside their bounds, ``F.rms_norm`` / SDPA and those calls'
+    autograd backward; then two ranks on the (1, 2) mesh, each run held
+    to its one-process run on the card (``make_train_step``, the same
+    TP_SEED weights and batches, run first and freed, its results in
+    host memory), 3 AdamW steps of 4 x 512 with warmup 1 and the clip
+    acting: llama3.2-1b at 2 layers and granite-20b at 2 (the MQA's
+    wk/wv cut on d) in fp32 (losses and grad norms within 1e-4 relative,
+    every leaf of the gathered master copy and moments within 1e-3, the
+    params the master's bits), llama3.2-1b at 4 layers in bf16 over the
+    fp32 master (losses 1e-2, grad norms and first-step gradients 3e-2
+    of each leaf's largest: readings printed, a miss written, not
+    raised); then four ranks on a (2, 2) mesh training tiny llama in fp32
+    (ZeRO-1 over ``data`` beside the split, held as the fp32 runs). Rank
+    0 streams the gathered leaves (``launch.steps.gathered``) to the
+    parent through its pipe, which holds each to the reference as it
+    arrives. The leaves replicated on ``model`` bit-equal across the
+    ranks after every step; launches of rmsnorm, rmsnorm_bwd, flash and
+    flash_bwd exact per rank and step (2L+1, 2L+1, L, L); per rank step
+    ms and collectives a step (timed between synchronisations), none a
+    multi-card speed.
 
 Each phase's wall seconds are printed on a line of their own
 (``phase <function>: <s> s``).
@@ -367,6 +395,8 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import fcntl
+import io
 import itertools
 import json
 import multiprocessing
@@ -376,6 +406,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -409,6 +440,7 @@ from repro_torch.data.images import (ImageTaskConfig,  # noqa: E402
                                      SyntheticImages)
 from repro_torch.data.tokens import (SyntheticTokens,  # noqa: E402
                                      TokenTaskConfig)
+from repro_torch.compat import local  # noqa: E402
 from repro_torch.configs.archs import tiny_version  # noqa: E402
 from repro_torch.configs.base import ShapeConfig, get_config  # noqa: E402
 from repro_torch.kernels import autotune as AT  # noqa: E402
@@ -4664,39 +4696,56 @@ def sync(dev: torch.device) -> None:
 
 def tp_rank(rank: int, world: int, store: str, device: str, runs: list,
             out) -> None:
-    """The rank process of phases 30–33: joins the group on ``device``
-    (gloo: the ranks share the one card) and serves each run (its (data,
-    model) mesh shape, then config, prompt, forced tokens and whether the
-    ranks draw in turn) on a mesh of that shape, each shape's mesh built
-    once. A failure raises here and ends the process with a non-zero exit
-    code, which fails the phase."""
+    """The rank process of phases 30–34: joins the group on ``device``
+    (gloo: the ranks share the one card) and runs each run on a mesh of
+    its (data, model) shape, each shape's mesh built once: a serving run
+    (config, prompt, forced tokens and whether the ranks draw in turn) or
+    phase 34's train run (config, batches, checksum), which streams leaves
+    to the parent through ``out``, the rank's end of its pipe, as the
+    results go at the end. A failure raises here and ends the process with
+    a non-zero exit code, which fails the phase."""
     import torch.distributed as dist
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False    # as phase_device sets them
     dev = MESH.join_group(store, rank, world, device)
     meshes, done = {}, []
-    for shape, run in runs:
+    for k, (shape, train, run) in enumerate(runs):
         if shape not in meshes:
             meshes[shape] = MESH.make_mesh(shape, ("data", "model"),
                                            device=dev)
-        done.append(tp_rank_run(meshes[shape], dev, *run))
-    out.put((rank, dist.get_backend(), done))
+        done.append(tp_train_rank_run(meshes[shape], dev, out, k, *run)
+                    if train else tp_rank_run(meshes[shape], dev, *run))
+    out.send(("done", dist.get_backend(), done))
     dist.destroy_process_group()
 
 
-def spawn_ranks(fn, world: int, *args) -> list:
-    """``fn(rank, world, store, *args, queue)`` in ``world`` spawned
-    processes (a ``FileStore`` in a temporary directory); their results by
-    rank. A rank that exits with an error, or ranks still running after
-    TP_TIMEOUT, fail the phase; every process is joined or killed."""
+def spawn_ranks(fn, world: int, *args, on_leaf=None) -> list:
+    """``fn(rank, world, store, *args, conn)`` in ``world`` spawned
+    processes (a ``FileStore`` in a temporary directory), ``conn`` the
+    sending end of the rank's own pipe; their results by rank (what each
+    sends as ``("done", *payload)``). A streamed leaf (``send_leaf``) is
+    handed to ``on_leaf(rank, run, key, tensor)`` as it arrives, so that
+    the parent holds one at a time. A rank that exits with an error (its
+    pipe closes first), or ranks still running after TP_TIMEOUT, fail the
+    phase; every process is joined or killed."""
+    from multiprocessing.connection import wait
     ctx = multiprocessing.get_context("spawn")
-    out = ctx.Queue()
+    pipes = [ctx.Pipe(duplex=False) for _ in range(world)]
+    for r, _ in pipes:                 # 1 MiB a pipe (Linux; 64 KiB else)
+        with contextlib.suppress(OSError, AttributeError):
+            fcntl.fcntl(r.fileno(), getattr(fcntl, "F_SETPIPE_SZ", 1031),
+                        1 << 20)
+    box: dict = {}
     with tempfile.TemporaryDirectory() as tmp:
         store = os.path.join(tmp, "store")
-        procs = [ctx.Process(target=fn, args=(r, world, store, *args, out))
+        procs = [ctx.Process(target=fn, args=(r, world, store, *args,
+                                              pipes[r][1]))
                  for r in range(world)]
         for p in procs:
             p.start()
+        for _, w in pipes:
+            w.close()
+        readers = {pipes[r][0]: r for r in range(world)}
         deadline = time.monotonic() + TP_TIMEOUT
         got = {}
         try:
@@ -4704,15 +4753,22 @@ def spawn_ranks(fn, world: int, *args) -> list:
                 if time.monotonic() > deadline:
                     raise AssertionError(f"ranks did not finish within "
                                          f"{TP_TIMEOUT} s")
-                try:
-                    rank, *payload = out.get(timeout=1.0)
-                except queue.Empty:
-                    codes = [p.exitcode for p in procs]
-                    if any(c not in (None, 0) for c in codes):
-                        raise AssertionError(f"a rank failed: exit codes "
-                                             f"{codes}")
-                    continue
-                got[rank] = payload
+                for conn in wait(list(readers), timeout=1.0):
+                    rank = readers[conn]
+                    try:
+                        msg = conn.recv()
+                    except EOFError:
+                        raise AssertionError(
+                            f"rank {rank} ended without its results: exit "
+                            f"codes {[p.exitcode for p in procs]}") from None
+                    if msg[0] == "done":
+                        got[rank] = list(msg[1:])
+                        del readers[conn]
+                        continue
+                    _, k, key, dtype, shape, n = msg
+                    dtype = getattr(torch, dtype.split(".")[1])
+                    on_leaf(rank, k, key, recv_raw(conn, n, box).view(
+                        dtype).view(shape))
         finally:
             for p in procs:
                 p.join(timeout=max(1.0, deadline - time.monotonic()))
@@ -4898,7 +4954,7 @@ def tp_report(label: str, what: str, cfg, dtype, got: list, ref: dict,
 
 
 def tp_runs() -> list:
-    """Every rank run of phases 30–33, in order: (phase, arch, depth cut
+    """Every rank run of phases 30–34, in order: (phase, arch, depth cut
     or None, config, (data, model) mesh shape)."""
     runs = [("tp", arch, layers, tp_config(arch, layers, dtype), TP_MESH)
             for arch, layers, dtype in TP_SERVE]
@@ -4914,42 +4970,63 @@ def tp_runs() -> list:
              for arch, layers, dtype in VLM_ENCDEC_TP_SERVE]
     runs += [("vlmenc", arch, None, tiny_version(get_config(arch)),
               VLM_ENCDEC_TP_SMALL_MESH) for arch in VLM_ENCDEC_TP_SMALL]
+    runs += [("train", arch, layers, tp_config(arch, layers, dtype), TP_MESH)
+             for arch, layers, dtype in TP_TRAIN]
+    runs.append(("train", LM_ARCH, None, tiny_version(get_config(LM_ARCH)),
+                 TP_TRAIN_SMALL_MESH))
     return runs
 
 
 def phase_tp_ranks(dev) -> dict:
-    """The ranks of phases 30–33 (:func:`tp_runs`): each run's one-process
+    """The ranks of phases 30–34 (:func:`tp_runs`): each run's one-process
     reference on the card (``tp_reference``: weights from TP_SEED, the
-    prompt, TP_GEN greedy tokens), then one set of spawned ranks per world
-    size, two on the (1, 2) mesh and four on their (2, 2) and (1, 4)
-    meshes, each serving its runs in turn (``tp_rank``): one process
-    start per world size where each phase would take its own. A hybrid's
-    ranks draw its weights in turn (``tp_blocks``). Returns, by phase, its
-    runs (arch, depth cut, config, mesh shape, reference, every rank's
-    result), the gloo backend's name and the sets' seconds."""
+    prompt, TP_GEN greedy tokens; a train run's ``train_reference``), then
+    one set of spawned ranks per world size, two on the (1, 2) mesh and
+    four on their (2, 2) and (1, 4) meshes, each running its runs in turn
+    (``tp_rank``): one process start per world size where each phase
+    would take its own. A hybrid's ranks draw its weights in turn
+    (``tp_blocks``). A train run's streamed leaves are held to the
+    reference's as they arrive (``leaf_reading``), each reference leaf
+    freed after. Returns, by phase, its runs (arch, depth cut, config,
+    mesh shape, reference, every rank's result, a train run's readings by
+    leaf), the gloo backend's name and the sets' seconds."""
     runs = tp_runs()
     refs, args = [], []
-    for _, _, _, cfg, shape in runs:
-        ref, run = tp_reference(cfg, dev)
+    for phase, _, _, cfg, shape in runs:
+        if phase == "train":
+            ref, run = train_reference(cfg, dev)
+            args.append((shape, True, run))
+        else:
+            ref, run = tp_reference(cfg, dev)
+            args.append((shape, False,
+                         (*run, cfg.family == SSM_TP_DRAW_IN_TURN)))
         refs.append(ref)
-        args.append((shape, (*run, cfg.family == SSM_TP_DRAW_IN_TURN)))
     got, backend, seconds = [None] * len(runs), None, {}
+    readings = [{} for _ in runs]
     for world in sorted({a * b for *_, (a, b) in runs}):
         mine = [i for i, r in enumerate(runs) if r[4][0] * r[4][1] == world]
+
+        def on_leaf(rank, k, key, t, mine=mine):
+            i = mine[k]
+            readings[i][key] = leaf_reading(key, t, refs[i]["leaves"].pop(
+                key))
         t0 = time.perf_counter()
-        ranks = spawn_ranks(tp_rank, world, dev.type, [args[i] for i in mine])
+        ranks = spawn_ranks(tp_rank, world, dev.type, [args[i] for i in mine],
+                            on_leaf=on_leaf)
         seconds[world] = time.perf_counter() - t0
         backend = ranks[0][0]
         for k, i in enumerate(mine):
             got[i] = [r[1][k] for r in ranks]
-    print(f"tp ranks: {len(runs)} runs of phases 30-33; the two ranks' "
-          f"processes ran {seconds[2]:.1f} s, the four ranks' "
-          f"{seconds[4]:.1f} s, their start and weight draws included")
+    print(f"tp ranks: {len(runs)} runs of phases 30-34; the two ranks' "
+          f"processes ran {seconds.get(2, 0.0):.1f} s, the four ranks' "
+          f"{seconds.get(4, 0.0):.1f} s, their start, weight draws and "
+          f"streamed leaves included")
     out = {}
-    for (phase, arch, layers, cfg, shape), ref, g in zip(runs, refs, got):
+    for (phase, arch, layers, cfg, shape), ref, g, rd in zip(
+            runs, refs, got, readings):
         out.setdefault(phase, []).append(
             dict(arch=arch, layers=layers, cfg=cfg, shape=shape, ref=ref,
-                 got=g, backend=backend))
+                 got=g, backend=backend, readings=rd))
     return out
 
 
@@ -5202,7 +5279,7 @@ def phase_moe_tp(dev, ranks: dict) -> dict:
 # -- the SSM and hybrid families on a model axis ------------------------------
 
 # (arch, depth cut or None, dtype) of phase 32 on the (1, 2) mesh:
-# mamba2-130m uncut in fp32 (SERVE_TOL elementwise, tokens equal) and in
+# mamba2-130m in fp32 (SERVE_TOL elementwise, tokens equal) and in
 # bf16 cut to 2 layers, and one jamba period in bf16 on the ranks' routes
 # replayed; a bf16 run is held to TP_ROW_TOL of each row's largest
 # |logit|. Two correct bf16 runs of random mamba2-130m's 24 layers lie
@@ -5213,7 +5290,9 @@ def phase_moe_tp(dev, ranks: dict) -> dict:
 # process's bf16 lies 2.5e-2 from fp32 at 2 layers, 5.1e-2 at 4, 1.9e-1
 # at 24, so the split is held at 2 (the uncut bf16 readings:
 # tools/tp_bf16_depths.py)
-SSM_TP_SERVE = (("mamba2-130m", None, torch.float32),
+# mamba2-130m's fp32 run cut to 12 of its 24 layers (uncut before phase
+# 34 joined the call: its time)
+SSM_TP_SERVE = (("mamba2-130m", 12, torch.float32),
                 ("mamba2-130m", 2, torch.bfloat16),
                 ("jamba-v0.1-52b", 8, torch.bfloat16))
 SSM_TP_DRAW_IN_TURN = "hybrid"   # the family whose ranks draw one at a time
@@ -5268,7 +5347,7 @@ def phase_ssm_tp(dev, ranks: dict) -> dict:
     """32: the SSM and hybrid families on a ``model`` axis (the ranks of
     :func:`phase_tp_ranks`). ``ssd_scan`` at the ranks' shapes
     (:func:`ssm_tp_kernels`); two ranks sharing the card over gloo on the
-    (1, 2) mesh: mamba2-130m uncut in fp32 (every logit within 1e-3,
+    (1, 2) mesh: mamba2-130m at 12 layers in fp32 (every logit within 1e-3,
     tokens equal) and in bf16 cut to 2 layers (every row within
     TP_ROW_TOL of its largest |logit|), one jamba-v0.1-52b period in bf16, its ranks having drawn it in turn,
     within TP_ROW_TOL on their routes replayed in one process (the
@@ -5332,7 +5411,7 @@ def phase_ssm_tp(dev, ranks: dict) -> dict:
 
 # (arch, depth cut or None, dtype) of phase 33 on the (1, 2) mesh:
 # qwen2-vl-7b at full width cut to 2 layers in fp32 (SERVE_TOL, tokens
-# equal) and to 4 in bf16; whisper-medium uncut in fp32 and in bf16 cut to
+# equal) and to 4 in bf16; whisper-medium in fp32 and in bf16 cut to
 # ENCDEC_TP_BF16_LAYERS encoder and decoder layers, a depth where one
 # process's own bf16 lies within TP_ROW_TOL of its fp32 function; a bf16
 # run is held to TP_ROW_TOL of each row's largest |logit|. Measured first
@@ -5342,9 +5421,12 @@ def phase_ssm_tp(dev, ranks: dict) -> dict:
 # 1.01e-2 and 1.57e-2 from one process; 8 keeps a third of the depth at a
 # third of the uncut run's time (117 against 250 ms a decode step a rank)
 ENCDEC_TP_BF16_LAYERS = 8
+# whisper-medium's fp32 run cut to 8 of its 24 encoder and decoder layers
+# (uncut before phase 34 joined the call: its time)
+ENCDEC_TP_FP32_LAYERS = 8
 VLM_ENCDEC_TP_SERVE = ((VLM_ARCH, 2, torch.float32),
                        (VLM_ARCH, 4, torch.bfloat16),
-                       (ENCDEC_ARCH, None, torch.float32),
+                       (ENCDEC_ARCH, ENCDEC_TP_FP32_LAYERS, torch.float32),
                        (ENCDEC_ARCH, ENCDEC_TP_BF16_LAYERS, torch.bfloat16))
 # the four ranks' tiny fp32 configs: qwen2-vl-7b's (4 heads padded to 32:
 # every rank past the first holds only inert heads) and whisper-medium's
@@ -5393,7 +5475,7 @@ def phase_vlm_encdec_tp(dev, ranks: dict) -> dict:
     against their plain versions, timed beside SDPA; then two ranks on the
     (1, 2) mesh: qwen2-vl-7b at full width cut to 2 layers in fp32 and 4
     in bf16 (patch embeddings with M-RoPE streams that differ; its 4 inert
-    heads on the last rank), whisper-medium uncut in fp32 (1500 frames,
+    heads on the last rank), whisper-medium at 8 layers in fp32 (1500 frames,
     phase 28's 64-token decoder prompt) and in bf16 cut to
     ENCDEC_TP_BF16_LAYERS, where one process's own bf16 lies within
     TP_ROW_TOL of its fp32 function (held here too, and printed beside
@@ -5437,6 +5519,522 @@ def phase_vlm_encdec_tp(dev, ranks: dict) -> dict:
             f"cut to {layers} of {depth}"
         tp_report(f"vlm/encdec tp: {arch}", f"full width, {cut}, {heads}",
                   cfg, dtype, got, ref, err, rel, r["backend"], shape)
+    return dict(launches=launches, worst=worst)
+
+
+# -- tensor-parallel training on a model axis (phase 34) ---------------------
+
+# (arch, depth cut, dtype) on the (1, 2) mesh, TP_TRAIN_STEPS steps each at
+# TRAIN_BATCH x TRAIN_SEQ: llama3.2-1b at 2 layers in fp32 (the split's
+# parity), at TRAIN_LAYERS in bf16 over the fp32 master (the training path
+# as phase 21 runs it), granite-20b at 2 layers in fp32 (the MQA's wk/wv
+# cut on their input dimension). Memory: granite's 2 layers hold 1.66 B
+# parameters, 16 bytes of state each (params, master, m, v: 26.6 GB) and 4
+# of gradients (6.7 GB) in the one-process reference; it is freed before
+# the ranks start, its master copy and moments kept in host memory (20.0
+# GB) until the ranks' gathered state has streamed past them; each rank
+# draws the whole 6.7 GB of weights, cuts its half and frees the whole,
+# then holds half the state and gradients (~16.6 GB) and its activations
+TP_TRAIN = (("llama3.2-1b", 2, torch.float32),
+            ("llama3.2-1b", TRAIN_LAYERS, torch.bfloat16),
+            ("granite-20b", 2, torch.float32))
+TP_TRAIN_SMALL_MESH = (2, 2)     # tiny llama: ZeRO-1 over data beside the split
+TP_TRAIN_STEPS = 3
+TP_TRAIN_OPT = adamw.AdamWConfig(warmup_steps=1)
+TP_TRAIN_TOL = 1e-4              # fp32 losses and grad norms, relative
+TP_STATE_TOL = 1e-3              # fp32 gathered state, elementwise
+# bf16 bounds: losses (relative), grad norms (relative), first-step
+# gradients (of each leaf's largest |g|); a reading past one is printed as
+# missed, not raised
+TP_TRAIN_BF16 = dict(loss=1e-2, grad_norm=3e-2, grads=3e-2)
+# (B, KV, G, S, D, dtype, what): the ranks' attention at model 2
+TP_TRAIN_FLASH = (
+    (4, 4, 4, 512, 64, torch.float32, "llama3.2-1b rank: 4 of 8 kv heads"),
+    (4, 4, 4, 512, 64, torch.bfloat16, "llama3.2-1b rank: 4 of 8 kv heads"),
+    (4, 1, 24, 512, 128, torch.float32, "granite-20b rank: 24 of 48 heads"))
+# (rows, D, dtype): the ranks' norms, every rank norming all its rows
+TP_TRAIN_NORM = ((2048, 2048, torch.float32), (2048, 2048, torch.bfloat16),
+                 (2048, 6144, torch.float32))
+
+
+def tp_train_kernels(dev) -> dict:
+    """rmsnorm, flash_attention and their backward kernels at phase 34's
+    rank shapes against their plain versions, each twice bit-equal, timed
+    beside their bounds, the plain versions, F.rms_norm / SDPA and those
+    calls' autograd backward. Returns each kernel's worst error."""
+    gen = torch.Generator(device=dev).manual_seed(TP_SEED + 4)
+    F = torch.nn.functional
+    worst = dict.fromkeys(TRAIN_KERNELS, 0.0)
+
+    def note(name, e):
+        worst[name] = max(worst[name], e)
+    for B, KV, G, S, D, dtype, what in TP_TRAIN_FLASH:
+        q, k, v, do = flash_bwd_operands(B, KV, G, S, S, D, dtype, True, gen,
+                                         dev)
+        o = same_twice(lambda: (ops.flash_attention(q, k, v, causal=True),),
+                       f"flash {what}")[0]
+        note("flash_attention", lm_check(o, ops.flash_attention_ref(
+            q, k, v, causal=True), dtype))
+        got = same_twice(lambda: ops.flash_attention_bwd(q, k, v, o, do,
+                                                         causal=True),
+                         f"flash_bwd {what}")
+        note("flash_attention_bwd", bwd_check(
+            got, ops.flash_attention_bwd_ref(q, k, v, o, do, True), dtype,
+            f"flash_bwd {what}"))
+        shape = (f"(B,KV,G,S,D)=({B},{KV},{G},{S},{D}) {str(dtype)[6:]} "
+                 f"causal, {what}")
+        qh = q.reshape(B, KV * G, S, D)
+        kh, vh = k.contiguous(), v.contiguous()
+        t = attention_timing(
+            lambda: ops.flash_attention(q, k, v, causal=True),
+            lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=G > 1), shape,
+            flash_bound(B, KV, G, S, S, D, True, dtype))
+        t["plain_ms"] = cuda_ms(lambda: ops.flash_attention_ref(
+            q, k, v, causal=True), iters=10, warm=2)
+        report_timing("flash_attention", t)
+        lib = backward_timing(
+            lambda a, b_, c: F.scaled_dot_product_attention(
+                a, b_, c, is_causal=True, enable_gqa=G > 1),
+            (qh, kh, vh), do.reshape(B, KV * G, S, D))
+        t = attention_timing(
+            lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=True),
+            lib, f"{shape}, {ops_fa.bwd_route(dtype, D)} route, beside "
+            f"SDPA's autograd backward",
+            flash_bwd_bound(B, KV, G, S, S, D, True, dtype))
+        t["plain_ms"] = cuda_ms(lambda: ops.flash_attention_bwd_ref(
+            q, k, v, o, do, True), iters=10, warm=2)
+        report_timing("flash_attention_bwd", t)
+    for rows, D, dtype in TP_TRAIN_NORM:
+        x = torch.randn((rows, D), generator=gen, device=dev).to(dtype)
+        sc = (1 + 0.1 * torch.randn((D,), generator=gen, device=dev)).to(
+            dtype)
+        g = torch.randn((rows, D), generator=gen, device=dev).to(dtype)
+        shape = f"({rows}, {D}) {str(dtype)[6:]}"
+        y = same_twice(lambda: (ops.rmsnorm(x, sc),), f"rmsnorm {shape}")[0]
+        note("rmsnorm", lm_check(y, ops.rmsnorm_ref(x, sc), dtype))
+        got = same_twice(lambda: ops.rmsnorm_bwd(x, sc, g),
+                         f"rmsnorm_bwd {shape}")
+        note("rmsnorm_bwd", bwd_check(got, rmsnorm_bwd_exact(x, sc, g),
+                                      dtype, f"rmsnorm_bwd {shape}"))
+        fwd = lambda: F.rms_norm(x, (D,), sc, 1e-6)  # noqa: E731
+        t = dict(ms=cuda_ms(lambda: ops.rmsnorm(x, sc)),
+                 plain_ms=cuda_ms(lambda: ops.rmsnorm_ref(x, sc)),
+                 library_ms=cuda_ms(fwd), shape=f"{shape}, beside F.rms_norm",
+                 **device_pair(lambda: ops.rmsnorm(x, sc), fwd))
+        t["bound_ms"], t["bound_by"] = rmsnorm_bound(rows, D, dtype)
+        report_timing("rmsnorm", t)
+        lib = backward_timing(lambda a, s: F.rms_norm(a, (D,), s, 1e-6),
+                              (x, sc), g)
+        t = dict(ms=cuda_ms(lambda: ops.rmsnorm_bwd(x, sc, g)),
+                 plain_ms=cuda_ms(lambda: ops.rmsnorm_bwd_ref(x, sc, g)),
+                 library_ms=cuda_ms(lib),
+                 shape=f"x, g {shape}, beside F.rms_norm's autograd backward",
+                 **device_pair(lambda: ops.rmsnorm_bwd(x, sc, g), lib))
+        t["bound_ms"], t["bound_by"] = rmsnorm_bwd_bound(rows, D, dtype)
+        report_timing("rmsnorm_bwd", t)
+    return worst
+
+
+def tp_train_expected(cfg) -> tuple:
+    """``TRAIN_KERNELS`` launches of one train step (or one
+    ``mesh_grads`` call) on a rank: each rank norms all of its rows and
+    runs every layer's attention on its heads, as one process does: 2L + 1
+    rmsnorm and rmsnorm_bwd, L flash_attention and flash_attention_bwd."""
+    L = cfg.n_layers
+    return (2 * L + 1, 2 * L + 1, L, L)
+
+
+def tp_train_batches(cfg) -> list:
+    """Phase 34's TP_TRAIN_STEPS batches of TRAIN_BATCH x TRAIN_SEQ tokens
+    and labels (``token_batches`` from TP_SEED), as numpy arrays."""
+    return [{k: v.numpy() for k, v in b.items()} for b in token_batches(
+        cfg, TRAIN_BATCH, TRAIN_SEQ, TP_TRAIN_STEPS, torch.device("cpu"),
+        seed=TP_SEED)]
+
+
+def tp_train_streams(cfg) -> str:
+    """What a run's rank 0 streams to the parent process to be held to
+    the one-process run: the first step's gradients, gathered, in bf16
+    (its bound is on them); the gathered master copy and moments after the
+    steps in fp32 (its params equal the master bit for bit, checked on the
+    ranks)."""
+    return "grads" if cfg.compute_dtype == torch.bfloat16 else "state"
+
+
+def batches_on(host: list, dev) -> list:
+    return [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            for b in host]
+
+
+def train_reference(cfg, dev) -> tuple:
+    """The one-process run on the card that phase 34's ranks are held to:
+    the TP_SEED weights through TP_TRAIN_STEPS ``make_train_step`` steps of
+    TP_TRAIN_OPT on ``tp_train_batches``; its losses, grad norms and step
+    times, and in host memory what the ranks stream
+    (``tp_train_streams``), keyed as they send it. The state is freed.
+    Returns (that record, the ranks' run: config, batches, checksum)."""
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    params, check = tp_weights(cfg, dev)
+    host = tp_train_batches(cfg)
+    batches = batches_on(host, dev)
+    kind = tp_train_streams(cfg)
+    leaves = {}
+    if kind == "grads":
+        _, g = ST.loss_and_grads(params, cfg, batches[0])
+        leaves = {f"grads{k}": t.cpu() for k, t in flatten_with_keys(g)}
+        del g
+    state = ST.TrainState(params, adamw.init(TP_TRAIN_OPT, params))
+    step = ST.make_train_step(cfg, TP_TRAIN_OPT)
+    losses, norms, ms = [], [], []
+    for b in batches:
+        sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    if kind == "state":
+        leaves = {f"state{k}": t.cpu() for k, t in flatten_with_keys(state)
+                  if k.startswith(".opt.") and k != ".opt.step"}
+    out = dict(checksum=check, losses=losses, norms=norms, step_ms=ms,
+               leaves=leaves, keys=list(leaves), n_params=sum(t.numel() for t in
+                                           tree_leaves(params)),
+               peak_gib=(torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                         if dev.type == "cuda" else 0.0))
+    del state, params, batches
+    torch.cuda.empty_cache()
+    return out, (cfg, host, check)
+
+
+def leaf_reading(key: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """A streamed leaf against the one-process run's (both in host
+    memory): a gradient's largest |diff| over its largest |g|, a state
+    leaf's largest |diff|."""
+    a, b = got.float(), want.float()
+    if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+        raise AssertionError(f"streamed {key}: shape {tuple(a.shape)} vs "
+                             f"{tuple(b.shape)}, or not finite")
+    d = float((a - b).abs().max())
+    return d / max(float(b.abs().max()), 1e-30) if key.startswith(
+        "grads") else d
+
+
+@contextlib.contextmanager
+def timed_dist(spent: list):
+    """Every ``torch.distributed`` collective the train step calls (the
+    ``model`` axis's sums and gathers, the clip's norm, the data axis's
+    gradient mean or ZeRO-1 reduce-scatter and gather) timed between two
+    synchronisations of the card, its seconds appended to ``spent``."""
+    import torch.distributed as dist
+    names = ["all_reduce",
+             "all_gather_single" if hasattr(dist, "all_gather_single")
+             else "all_gather_into_tensor",
+             "reduce_scatter_single" if hasattr(dist, "reduce_scatter_single")
+             else "reduce_scatter_tensor"]
+    orig = {k: getattr(dist, k) for k in names}
+
+    def timed(fn):
+        def call(t, *args, **kw):
+            sync(t.device)
+            t0 = time.perf_counter()
+            out = fn(t, *args, **kw)
+            sync(t.device)
+            spent.append(time.perf_counter() - t0)
+            return out
+        return call
+    for k, fn in orig.items():
+        setattr(dist, k, timed(fn))
+    try:
+        yield
+    finally:
+        for k, fn in orig.items():
+            setattr(dist, k, fn)
+
+
+def staging(box: dict, n: int, pin: bool) -> torch.Tensor:
+    """``box``'s host buffer of at least ``n`` bytes (pinned with
+    ``pin``), grown as needed and reused: its first ``n`` bytes."""
+    if box.get("buf") is None or box["buf"].numel() < n:
+        box["buf"] = None
+        box["buf"] = torch.empty(n, dtype=torch.uint8, pin_memory=pin)
+    return box["buf"][:n]
+
+
+def send_leaf(conn, k: int, key: str, t: torch.Tensor, box: dict) -> None:
+    """One whole leaf of run ``k`` to the parent process: a header, then
+    its raw bytes written to the pipe, through ``box``'s pinned staging
+    buffer (:class:`LeafSender` calls it). Not ``Connection.send_bytes``:
+    its reader takes a message of gigabytes in small reads, each into a
+    new buffer, many times slower than :func:`recv_raw`'s reads into one
+    buffer."""
+    n = t.numel() * t.element_size()
+    host = staging(box, n, t.device.type == "cuda")
+    host.view(t.dtype).view(t.shape).copy_(t)
+    conn.send(("leaf", k, key, str(t.dtype), tuple(t.shape), n))
+    view, fd = memoryview(host.numpy()), conn.fileno()
+    while len(view):
+        view = view[os.write(fd, view):]
+
+
+class LeafSender:
+    """``send_leaf`` from a background thread, so that rank 0 gathers the
+    next leaf over gloo while the last one is staged and written (both
+    release the interpreter lock): at most one leaf waits. A failed write
+    is raised at the next :meth:`put` or at :meth:`close`."""
+
+    def __init__(self, conn, k: int):
+        self.queue: queue.Queue = queue.Queue(maxsize=1)
+        self.error = None
+        self.thread = threading.Thread(target=self._run, args=(conn, k),
+                                       daemon=True)
+        self.thread.start()
+
+    def _run(self, conn, k: int) -> None:
+        box: dict = {}
+        while (item := self.queue.get()) is not None:
+            if self.error is None:
+                try:
+                    send_leaf(conn, k, *item, box)
+                except BaseException as err:        # noqa: BLE001
+                    self.error = err
+
+    def put(self, key: str, t: torch.Tensor) -> None:
+        if self.error is not None:
+            raise self.error
+        self.queue.put((key, t))
+
+    def close(self) -> None:
+        self.queue.put(None)
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+
+
+def recv_raw(conn, n: int, box: dict) -> torch.Tensor:
+    """The ``n`` raw bytes ``send_leaf`` wrote after its header, read
+    straight into ``box``'s host buffer (valid until the next call)."""
+    out = staging(box, n, False)
+    view = memoryview(out.numpy())
+    f, got = io.FileIO(conn.fileno(), "rb", closefd=False), 0
+    while got < n:
+        k = f.readinto(view[got:])
+        if not k:
+            raise EOFError("a rank's pipe closed inside a leaf")
+        got += k
+    return out
+
+
+def replicated_equal(state, plan) -> int:
+    """The leaves replicated on ``model`` (params, master copy, moments)
+    gathered over the ``model`` ranks of this data row and compared bit
+    for bit; raises if any differs, else returns how many were."""
+    n = 0
+    split = tree_leaves(plan.model.split)
+    for tree in (state.params, *state.opt[1:]):
+        for t, s in zip(tree_leaves(tree), split):
+            if s:
+                continue
+            every = TP.all_gather(local(t).contiguous(), plan.model.group,
+                                  plan.model.size)
+            if not all(torch.equal(every[0], x) for x in every[1:]):
+                raise AssertionError("a leaf replicated on model differs "
+                                     "across the model ranks")
+            n += 1
+    return n
+
+
+def tp_train_rank_run(mesh, dev, conn, k: int, cfg, host: list,
+                      check: float) -> dict:
+    """Phase 34's run ``k`` on this rank: the TP_SEED weights drawn whole,
+    cut to the rank's train blocks (``shard_params``) and laid out with a
+    fresh optimiser state (``mesh_state``), then TP_TRAIN_STEPS
+    ``mesh_step`` train steps, each counted, timed (its collectives timed
+    between synchronisations) and followed by the replicated leaves'
+    check; rank 0 streams ``tp_train_streams``' leaves, gathered whole, to
+    the parent (``send_leaf``). In bf16 the first step's gradients come
+    from ``mesh_grads`` (counted as a step is) before the steps."""
+    import torch.distributed as dist
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    start, stages = time.perf_counter(), {}
+
+    def stage(name):
+        stages[name] = round(time.perf_counter() - start, 1)
+    plan = ST.mesh_plan(cfg, mesh)
+    whole, got = tp_weights(cfg, dev)
+    blocks = TP.shard_params(whole, cfg, mesh, "train")
+    del whole
+    torch.cuda.empty_cache()
+    state = ST.mesh_state(ST.TrainState(blocks, adamw.init(TP_TRAIN_OPT,
+                                                           blocks)), plan)
+    del blocks
+    stage("laid out")
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(
+        [tree_map(local, tr) for tr in (state.params, *state.opt[1:])]))
+    batches = batches_on(host, dev)
+    lead, kind = dist.get_rank() == 0, tp_train_streams(cfg)
+    out = dict(checksum=got, launches=[], losses=[], norms=[], step_ms=[],
+               collectives=[], collective_ms=[], replicated=[], bytes=nbytes)
+    if kind == "grads":
+        zero_train_launches()
+        _, g = ST.mesh_grads(cfg, plan, state.params, batches[0])
+        out["launches"].append(train_launches())
+        g = ST.gather_params(g, plan)
+        if lead:
+            sender = LeafSender(conn, k)
+            for key, t in flatten_with_keys(g):
+                sender.put("grads" + key, t)
+            sender.close()
+        del g
+        stage("gradients streamed")
+    step = ST.mesh_step(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH,
+                                         "train"), mesh, TP_TRAIN_OPT)
+    for b in batches:
+        spent: list = []
+        zero_train_launches()
+        with timed_dist(spent):
+            sync(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            sync(dev)
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append(train_launches())
+        out["losses"].append(float(m["loss"]))
+        out["norms"].append(float(m["grad_norm"]))
+        out["collectives"].append(len(spent))
+        out["collective_ms"].append(sum(spent) * 1e3)
+        out["replicated"].append(replicated_equal(state, plan))
+        stage(f"step {len(out['losses'])}")
+    if cfg.param_dtype == torch.float32:       # params are the master's bits
+        z = plan.zero1
+        out["params_are_master"] = all(
+            torch.equal(adamw.block(local(p), d, z), local(mst))
+            for p, mst, d in zip(tree_leaves(state.params),
+                                 tree_leaves(state.opt.master),
+                                 tree_leaves(z.dims)))
+    if kind == "state":
+        sender = LeafSender(conn, k) if lead else None
+        for key, t in ST.gathered(state, plan, only=lambda key: key not in (
+                ".opt.step",) and key.startswith(".opt.")):
+            if lead:
+                sender.put("state" + key, t)
+        if lead:
+            sender.close()
+        stage("state streamed")
+    out["stages"] = stages
+    out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                       if dev.type == "cuda" else 0.0)
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_train(dev, ranks: dict) -> dict:
+    """34: the dense family's train step on a ``model`` axis
+    (``mesh_step`` of kind train on a (1, 2) mesh, two ranks sharing the
+    card over gloo, :func:`phase_tp_ranks`): the kernels at the ranks'
+    shapes (``tp_train_kernels``), then each TP_TRAIN run held to its
+    one-process run on the same card (``train_reference``): fp32 losses
+    and grad norms within 1e-4 relative and every leaf of the gathered
+    master copy and moments within 1e-3 (the params the master's bits);
+    bf16 losses, grad norms and first-step gradients read against their
+    bounds (a miss printed); the leaves replicated on ``model`` bit-equal
+    across the ranks after every step; each rank's launches exact per
+    step; per-rank step times and collectives; then tiny llama on a (2, 2)
+    mesh, ZeRO-1 over ``data`` beside the split, held as the fp32 runs.
+    Returns the launches (every rank) and the kernels' worst errors."""
+    worst = tp_train_kernels(dev)
+    launches = dict.fromkeys(TRAIN_KERNELS, 0)
+    for r in ranks["train"]:
+        cfg, shape, ref, got, readings = (r[k] for k in (
+            "cfg", "shape", "ref", "got", "readings"))
+        label = f"tp train {cfg.name} ({cfg.n_layers} layers, d " \
+                f"{cfg.d_model}, {str(cfg.compute_dtype)[6:]}, {shape} mesh)"
+        want = tp_train_expected(cfg)
+        for rank, g in enumerate(got):
+            if g["checksum"] != ref["checksum"]:
+                raise AssertionError(f"{label}: rank {rank} drew other "
+                                     f"weights")
+            if any(c != want for c in g["launches"]):
+                raise AssertionError(f"{label}: rank {rank} launches "
+                                     f"{TRAIN_KERNELS} {g['launches']}, "
+                                     f"expected {want} a step")
+            for c in g["launches"]:
+                for name, v in zip(TRAIN_KERNELS, c):
+                    launches[name] += v
+            if g["losses"] != got[0]["losses"] or \
+                    g["norms"] != got[0]["norms"]:
+                raise AssertionError(f"{label}: the ranks' losses or grad "
+                                     f"norms differ")
+            if g.get("params_are_master") is False:
+                raise AssertionError(f"{label}: rank {rank}'s fp32 params "
+                                     f"are not its master's bits")
+        g = got[0]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(g["losses"], ref["losses"]))
+        norm_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(g["norms"], ref["norms"]))
+        clip = ref["norms"][0] > TP_TRAIN_OPT.grad_clip
+        kind = tp_train_streams(cfg)
+        worst_leaf = max(readings.items(), key=lambda kv: kv[1])
+        if len(readings) != len(ref["keys"]):
+            raise AssertionError(f"{label}: {len(readings)} leaves streamed "
+                                 f"of {len(ref['keys'])}")
+        if kind == "state":
+            if not (loss_rel <= TP_TRAIN_TOL and norm_rel <= TP_TRAIN_TOL):
+                raise AssertionError(
+                    f"{label}: losses {g['losses']} vs {ref['losses']}, "
+                    f"grad norms {g['norms']} vs {ref['norms']}")
+            if not worst_leaf[1] <= TP_STATE_TOL:
+                raise AssertionError(f"{label}: gathered {worst_leaf[0]} "
+                                     f"differs by {worst_leaf[1]:.3e}")
+            held = (f"losses within {loss_rel:.3e} and grad norms within "
+                    f"{norm_rel:.3e} relative (bound {TP_TRAIN_TOL}); every "
+                    f"leaf of the gathered master copy and moments within "
+                    f"{worst_leaf[1]:.3e} elementwise (bound {TP_STATE_TOL}; "
+                    f"largest at {worst_leaf[0]}), the params the master's "
+                    f"bits")
+        else:
+            bounds = TP_TRAIN_BF16
+            marks = {k: ("met" if v <= bounds[k] else "NOT MET")
+                     for k, v in (("loss", loss_rel), ("grad_norm", norm_rel),
+                                  ("grads", worst_leaf[1]))}
+            held = (f"losses within {loss_rel:.3e} relative (bound "
+                    f"{bounds['loss']}: {marks['loss']}), grad norms within "
+                    f"{norm_rel:.3e} (bound {bounds['grad_norm']}: "
+                    f"{marks['grad_norm']}); first-step gradients within "
+                    f"{worst_leaf[1]:.3e} of each leaf's largest |g| (bound "
+                    f"{bounds['grads']}: {marks['grads']}; largest at "
+                    f"{worst_leaf[0]}); every leaf's reading: "
+                    + ", ".join(f"{k[5:]} {v:.2e}"
+                                for k, v in readings.items()))
+        print(f"{label}: {TP_TRAIN_STEPS} AdamW steps (warmup 1, the clip "
+              f"{'acting' if clip else 'NOT acting'}: step-1 norm "
+              f"{ref['norms'][0]:.4f} over {TP_TRAIN_OPT.grad_clip}) of "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} on {len(got)} ranks sharing one "
+              f"card over {r['backend']}: losses {g['losses']} (one process "
+              f"{ref['losses']}), grad norms {g['norms']} (one process "
+              f"{ref['norms']}); {held}; leaves replicated on model "
+              f"bit-equal across the ranks after every step "
+              f"({g['replicated'][0]} a step); launches {TRAIN_KERNELS} "
+              f"{want} per rank a step, exact; {ref['n_params']:,} "
+              f"params, state "
+              f"{[round(x['bytes'] / 2 ** 30, 2) for x in got]} GiB a rank")
+        for rank, x in enumerate(got):
+            print(f"{label} rank {rank} (ranks sharing one H100 over gloo, "
+                  f"not a multi-card speed): step ms "
+                  f"{[round(v, 3) for v in x['step_ms']]}, collectives a "
+                  f"step {x['collectives']} taking "
+                  f"{[round(v, 3) for v in x['collective_ms']]} ms (timed "
+                  f"between synchronisations); peak device memory "
+                  f"{x['peak_gib']:.2f} GiB; seconds into the run at each "
+                  f"stage {x['stages']}")
+        print(f"{label} one process on the same card: step ms "
+              f"{[round(v, 3) for v in ref['step_ms']]}, peak device "
+              f"memory {ref['peak_gib']:.2f} GiB")
     return dict(launches=launches, worst=worst)
 
 
@@ -5554,14 +6152,21 @@ def main() -> int:
     moe_tp = timed(phase_moe_tp, dev, ranks)
     ssm_tp = timed(phase_ssm_tp, dev, ranks)
     vlm_encdec_tp = timed(phase_vlm_encdec_tp, dev, ranks)
+    tp_train = timed(phase_tp_train, dev, ranks)
     for k in TP_KERNELS:
         vlm_encdec[k] = (vlm_encdec.get(k, 0) + tp["launches"][k]
                          + moe_tp["launches"][k] + ssm_tp["launches"][k]
                          + vlm_encdec_tp["launches"][k])
+    for k in TRAIN_KERNELS:
+        vlm_encdec[k] = vlm_encdec.get(k, 0) + tp_train["launches"][k]
     for name, e in (*tp["worst"].items(), *vlm_encdec_tp["worst"].items(),
                     ("ssd_scan", ssm_tp["worst"])):
         lm_timing[name]["max_abs_err"] = max(lm_timing[name]["max_abs_err"],
                                              e)
+    new_worst = {k: max(v, tp_train["worst"].get(k, 0.0))
+                 for k, v in new_worst.items()}
+    for k, v in tp_train["worst"].items():
+        new_worst.setdefault(k, v)
     train_launch = {k: train["launches"].get(k, 0)
                     + rocoin["launches"].get(k, 0)
                     + ssm_train["launches"][k] + vlm_encdec.get(k, 0)

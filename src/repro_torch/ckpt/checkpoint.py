@@ -29,7 +29,10 @@ rank 0 of a running process group writes: the file holds whole arrays
 whatever the mesh. :meth:`restore` places leaves on one ``device``, or,
 given ``shardings`` (``NamedSharding`` leaves), onto a mesh as DTensors
 of those placements: the elastic restart of the reference, a checkpoint
-saved at one data-parallel width restored at another.
+saved at one data-parallel width restored at another, or onto a
+``model`` > 1 mesh as ``launch.steps.mesh_state`` lays a state out (a
+SwiGLU ``wi``'s halves cut each, a plain tensor). A mesh state with
+``model`` > 1 is saved through ``launch.steps.gather_state``.
 :func:`snapshot` is that host copy alone, and :func:`from_snapshot`
 restores from it as :meth:`restore` does from disk (same keys, casts and
 placements), with no file between.
@@ -49,6 +52,7 @@ import torch.distributed as dist
 
 from repro_torch.compat import DTensor, distribute_tensor
 from repro_torch.device import DeviceLike
+from repro_torch.parallel import tensor as TP
 
 
 def flatten_with_keys(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -253,8 +257,12 @@ def _rebuild(target: Any, read, shardings: Any, device: DeviceLike) -> Any:
 
 def _place(t: torch.Tensor, sharding) -> Any:
     """``t`` as a DTensor of ``sharding``'s placements on its mesh (on
-    the mesh's device: the current CUDA device, or the CPU)."""
+    the mesh's device: the current CUDA device, or the CPU); a ``paired``
+    leaf (a SwiGLU ``wi`` split on ``model``) as this rank's plain block
+    gate_r ‖ up_r, as ``launch.steps.mesh_state`` lays it out."""
     mesh = sharding.mesh
     dev = torch.device("cuda", torch.cuda.current_device()) \
         if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+    if getattr(sharding, "paired", False):
+        return TP.local_block(t.to(dev), sharding.spec, mesh, paired=True)
     return distribute_tensor(t.to(dev), mesh, sharding.placements)

@@ -26,11 +26,11 @@ the ZeRO-1 blocks (``zero1=True``) or all-reduced, to their mean over the
 data ranks.
 
 With ``model`` > 1 the prefill and serve steps of every LM family
-(dense, MoE, SSM, hybrid, VLM, enc-dec) run tensor-parallel
-(``repro_torch.parallel.tensor``): each rank holds its blocks of the
-params as ``param_specs(cfg, mesh, kind=...)`` place them
-(``tensor.shard_params``) and of the cache as ``cache_specs`` place it,
-and computes its heads (a VLM's padded heads among them, in the
+(dense, MoE, SSM, hybrid, VLM, enc-dec), and the dense family's train
+step, run tensor-parallel (``repro_torch.parallel.tensor``): each rank
+holds its blocks of the params as ``param_specs(cfg, mesh, kind=...)``
+place them (``tensor.shard_params``) and of the cache as ``cache_specs``
+place it, and computes its heads (a VLM's padded heads among them, in the
 reference's grouped-major order), FFN columns (an MoE's experts or their
 ff columns, as the reference's ``_moe_apply_shard_map`` splits them), SSM
 heads or head channels (as the decode cache's ``state`` spec places them)
@@ -39,9 +39,14 @@ reference's GSPMD or ``psum`` would. An enc-dec's encoder, self- and
 cross-attention share one head layout; its cross cache holds exactly the
 encoder's rows (``enc_len``), placed by the KV rule: the rank's kv heads,
 or its block of the rows, merged over the ranks by log-sum-exp. The
-logits come back sharded on the vocabulary. What a mesh with ``model`` >
-1 does not execute, the dry run (``repro_torch.launch.dryrun``) models: a
-train step (the JAX package's tests only compile one).
+logits come back sharded on the vocabulary. A dense train step
+differentiates that split (the sums autograd sees,
+``tensor.reduce_from_model`` / ``copy_to_model``, and the
+vocabulary-parallel cross-entropy): each rank's gradients are its blocks,
+averaged over the data ranks alone, and the clip's norm is summed over
+both axes. What a mesh with ``model`` > 1 does not execute, the dry run
+(``repro_torch.launch.dryrun``) models: the other families' train steps
+(the JAX package's tests only compile one).
 """
 from __future__ import annotations
 
@@ -61,7 +66,7 @@ from repro_torch.parallel import tensor as TP
 from repro_torch.parallel.sharding import (DEFAULT_RULES, NamedSharding,
                                            PartitionSpec, axes_of,
                                            placements, resolve_spec)
-from repro_torch.tree import trainable, tree_map
+from repro_torch.tree import trainable, tree_map, tree_map_with_path
 
 
 class TrainState(NamedTuple):
@@ -256,9 +261,16 @@ def state_shardings(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                     mesh: DeviceMesh, *, zero1: bool = True) -> TrainState:
     """:func:`state_specs` as ``NamedSharding``s on ``mesh``: the
     ``shardings`` that restore a checkpoint onto the mesh for
-    :func:`mesh_step` (``CheckpointManager.restore``)."""
-    return _map_placed(lambda x: NamedSharding(mesh, x.spec),
-                       state_specs(cfg, opt_cfg, mesh, zero1=zero1))
+    :func:`mesh_step` (``CheckpointManager.restore``), giving every rank
+    the blocks :func:`mesh_state` gives it: a leaf a rank holds as two cut
+    halves (:func:`paired_leaves`) is marked ``paired``."""
+    placed = state_specs(cfg, opt_cfg, mesh, zero1=zero1)
+    paired = paired_leaves(cfg, placed.params, mesh)
+    mark = lambda tree: tree_map(  # noqa: E731
+        lambda x, p: NamedSharding(mesh, x.spec, p), tree, paired)
+    return TrainState(mark(placed.params), adamw.OptState(
+        NamedSharding(mesh, placed.opt.step.spec),
+        *(mark(x) for x in placed.opt[1:])))
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,
@@ -282,14 +294,28 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,
 # ---------------------------------------------------------------------------
 
 class MeshPlan(NamedTuple):
-    """What a data-parallel step needs of its mesh: the groups of its
-    data axes of size > 1, this rank's index among all data ranks and
-    their number, and the ZeRO-1 layout (None without)."""
+    """What a step needs of its mesh: the groups of its data axes of size
+    > 1, this rank's index among all data ranks and their number, and the
+    ZeRO-1 layout (None without). A train step with ``model`` > 1 also
+    has the config, the whole params as ``meta`` tensors (``shapes``),
+    their sanitized train specs (``specs``) and the master copy's and
+    moments' (``opt_specs``: ``zero1_specs`` of them where ZeRO-1 is on), the leaves split on ``model``
+    (``model``), those a rank holds as two cut halves (``paired``, a
+    SwiGLU ``wi``: :func:`paired_leaves`) and the rank's
+    :class:`~repro_torch.parallel.tensor.Layout`; all None on one
+    ``model`` rank."""
     mesh: Any
     groups: Tuple
     index: int
     count: int
     zero1: Optional[adamw.Zero1]
+    cfg: Optional[ModelConfig] = None
+    shapes: Any = None
+    specs: Any = None
+    opt_specs: Any = None
+    model: Optional[adamw.ModelSplit] = None
+    paired: Any = None
+    layout: Optional[TP.Layout] = None
 
 
 def _data_axes(mesh) -> Tuple[str, ...]:
@@ -301,28 +327,56 @@ def mesh_plan(cfg: ModelConfig, mesh: DeviceMesh, *,
     """The data axes of ``mesh`` and, with ``zero1``, each leaf's ZeRO-1
     dimension (from ``zero1_specs`` of the sanitized train specs), for a
     step of ``kind``. With ``model`` > 1 every family's prefill and decode
-    steps execute; a train step raises ``NotImplementedError``."""
+    steps execute, and the dense family's train step (the plan then holds
+    the train specs, the leaves split on ``model`` and the rank's layout);
+    another family's train step raises ``NotImplementedError``."""
     sizes = mesh_shape(mesh)
-    if sizes.get("model", 1) > 1 and kind == "train":
+    split = sizes.get("model", 1) > 1 and kind == "train"
+    if split and cfg.family != "dense":
         raise NotImplementedError(
-            "a train step on a mesh with model > 1 is modelled by "
-            "repro_torch.launch.dryrun, not executed: tensor parallelism "
-            "runs the prefill and decode steps only")
+            f"a train step of the {cfg.family} family on a mesh with model "
+            f"> 1 is modelled by repro_torch.launch.dryrun, not executed: "
+            f"tensor parallelism trains the dense family only")
     axes = _data_axes(mesh)
     index = 0
     for a in axes:
         index = index * sizes[a] + mesh.get_local_rank(a)
     groups = tuple(mesh.get_group(a) for a in axes if sizes[a] > 1)
     z = None
+    p = param_specs(cfg, mesh, kind="train")
+    pspecs = ospecs = specs_of(p)
     if zero1 and "data" in sizes:
-        p = param_specs(cfg, mesh, kind="train")
-        shapes = tensors_of(p)
-        specs = SP.zero1_specs(specs_of(p), shapes, mesh, axis="data")
+        ospecs = SP.zero1_specs(pspecs, tensors_of(p), mesh, axis="data")
         dims = tree_map(lambda s: next(
-            (d for d, e in enumerate(s) if e == "data"), None), specs)
+            (d for d, e in enumerate(s) if e == "data"), None), ospecs)
         z = adamw.Zero1(dims, mesh.get_local_rank("data"), sizes["data"],
                         mesh.get_group("data"))
-    return MeshPlan(mesh, groups, index, _dp(mesh), z)
+    plan = MeshPlan(mesh, groups, index, _dp(mesh), z)
+    if not split:
+        return plan
+    model = adamw.ModelSplit(
+        tree_map(lambda s: any("model" in axes_of(e) for e in s), pspecs),
+        mesh.get_group("model"), sizes["model"])
+    return plan._replace(cfg=cfg, shapes=tensors_of(p), specs=pspecs,
+                         opt_specs=ospecs,
+                         model=model, paired=paired_leaves(cfg, p, mesh),
+                         layout=TP.layout(cfg, mesh, pspecs))
+
+
+def paired_leaves(cfg: ModelConfig, placed: Any, mesh) -> Any:
+    """The params' tree (``placed``: :func:`param_specs` on ``mesh``):
+    True for each leaf a rank holds as two cut halves, a SwiGLU ``wi``
+    whose last dimension the spec splits over ranks
+    (``tensor.local_block``), which no DTensor placement describes."""
+    sizes = mesh_shape(mesh)
+
+    def one(path, x):
+        last = x.spec[x.tensor.dim() - 1] \
+            if len(x.spec) == x.tensor.dim() else None
+        return TP.halves("/".join(map(str, path)),
+                         cfg.act == "swiglu") and any(
+            sizes[a] > 1 for a in axes_of(last))
+    return tree_map_with_path(one, placed)
 
 
 def _dtensor(mesh: DeviceMesh, t: torch.Tensor, spec=(), full=None
@@ -338,7 +392,12 @@ def _dtensor(mesh: DeviceMesh, t: torch.Tensor, spec=(), full=None
 def mesh_state(state: TrainState, plan: MeshPlan) -> TrainState:
     """A whole train state (every rank holds the same) laid onto the mesh:
     the params replicated, the master copy and moments cut to this rank's
-    ZeRO-1 blocks (sharded on ``data``), all as DTensors."""
+    ZeRO-1 blocks (sharded on ``data``), all as DTensors. With ``model`` >
+    1 (:func:`_split_state`) the params are this rank's blocks of the
+    train specs, and the master copy and moments those blocks cut further
+    to the ZeRO-1 blocks. Save :func:`gather_state` of a mesh state."""
+    if plan.model is not None:
+        return _split_state(state, plan)
     mesh, z = plan.mesh, plan.zero1
     opt = state.opt if z is None else adamw.shard_state(state.opt, z)
     dims = z.dims if z is not None else tree_map(lambda _: None,
@@ -354,6 +413,87 @@ def mesh_state(state: TrainState, plan: MeshPlan) -> TrainState:
     return TrainState(tree_map(lambda t: _dtensor(mesh, t), state.params),
                       adamw.OptState(_dtensor(mesh, opt.step),
                                      lay(opt.master), lay(opt.m), lay(opt.v)))
+
+
+def _split_state(state: TrainState, plan: MeshPlan) -> TrainState:
+    """:func:`mesh_state` with ``model`` > 1. Each leaf of ``state`` may be
+    whole or already this rank's ``model`` block (a fresh state made from
+    ``tensor.shard_params``' blocks, so that no rank holds a whole state):
+    a whole leaf is cut to compact copies. A block that a DTensor
+    placement describes is a DTensor of the global shape; the others (a
+    SwiGLU ``wi``'s gate_r ‖ up_r) stay the rank's plain tensors, as
+    ``_conv_leaf`` leaves a mamba window."""
+    mesh, cfg, z, shapes = plan.mesh, plan.cfg, plan.zero1, plan.shapes
+
+    def blocks(tree):
+        got = TP.fit(tree, shapes, plan.specs, cfg, mesh)
+        return tree_map(lambda t, b: b if b is t else b.clone(
+            memory_format=torch.contiguous_format), tree, got)
+    params = blocks(state.params)
+    opt = adamw.OptState(state.opt.step, blocks(state.opt.master),
+                         blocks(state.opt.m), blocks(state.opt.v))
+    if z is not None:
+        opt = adamw.shard_state(opt, z)
+    paired = plan.paired
+
+    def place(specs):
+        return lambda tree: tree_map(
+            lambda t, full, spec, pair: t if pair else _dtensor(
+                mesh, t, spec, full), tree, shapes, specs, paired)
+    lay = place(plan.opt_specs)
+    return TrainState(place(plan.specs)(params), adamw.OptState(
+        _dtensor(mesh, opt.step), lay(opt.master), lay(opt.m), lay(opt.v)))
+
+
+def _joins(state: TrainState, plan: MeshPlan) -> TrainState:
+    """``state``'s structure with each leaf a callable giving the whole
+    leaf (its blocks gathered)."""
+    if plan.model is None:
+        def whole(t):
+            return lambda: t.full_tensor() if isinstance(t, DTensor) else t
+        return TrainState(tree_map(whole, state.params), adamw.OptState(
+            whole(state.opt.step), *(tree_map(whole, x)
+                                     for x in state.opt[1:])))
+    paired = plan.paired
+
+    def join(tree, specs):
+        return tree_map(lambda t, s, p: lambda: TP.gather_block(
+            local(t), s, plan.mesh, p), tree, specs, paired)
+    step = local(state.opt.step)
+    return TrainState(join(state.params, plan.specs), adamw.OptState(
+        lambda: step, *(join(x, plan.opt_specs) for x in state.opt[1:])))
+
+
+def gather_state(state: TrainState, plan: MeshPlan) -> TrainState:
+    """The whole train state of a mesh state (:func:`mesh_state`), on
+    every rank, in the reference's layout: each leaf's blocks gathered
+    over the axes that split it (a SwiGLU ``wi``'s halves joined as gate
+    ‖ up; the ZeRO-1 blocks over ``data``). What the tests compare and
+    what a checkpoint saves. :func:`gathered` gives it a leaf at a time."""
+    fns = _joins(state, plan)
+    return TrainState(tree_map(lambda f: f(), fns.params), adamw.OptState(
+        fns.opt.step(), *(tree_map(lambda f: f(), x) for x in fns.opt[1:])))
+
+
+def gathered(state: TrainState, plan: MeshPlan, only=None):
+    """(key, whole leaf) of :func:`gather_state`, one leaf at a time in the
+    checkpoint's key order (``ckpt.checkpoint.flatten_with_keys``): only
+    one whole leaf is held at once. ``only``, a predicate on the keys,
+    skips the other leaves (every rank must pass the same)."""
+    from repro_torch.ckpt.checkpoint import flatten_with_keys
+    for key, fn in flatten_with_keys(_joins(state, plan)):
+        if only is None or only(key):
+            yield key, fn()
+
+
+def gather_params(tree: Any, plan: MeshPlan) -> Any:
+    """A params-shaped tree of this rank's ``model`` blocks (its params or
+    gradients) whole again, on every rank (the params' train specs)."""
+    if plan.model is None:
+        return tree_map(local, tree)
+    return tree_map(lambda t, s, p: TP.gather_block(local(t), s, plan.mesh,
+                                                    p),
+                    tree, plan.specs, plan.paired)
 
 
 def local_rows(batch: Dict[str, Any], plan: MeshPlan) -> Dict[str, Any]:
@@ -374,6 +514,39 @@ def _mean(t: torch.Tensor, plan: MeshPlan) -> torch.Tensor:
     for g in plan.groups:
         dist.all_reduce(t, group=g)
     return t.div_(plan.count)
+
+
+def _rank_grads(cfg: ModelConfig, plan: MeshPlan, params: Any,
+                batch: Dict[str, Any]) -> Tuple[Any, torch.Tensor, Any]:
+    """This rank's params of a mesh state (with ``model`` > 1 its blocks:
+    a whole leaf raises, the update in place would miss the rest) and its
+    loss and gradients on its rows of ``batch`` under the plan's layout."""
+    params = tree_map(local, params)
+    if plan.model is not None:
+        def check(path, t, whole, spec):
+            want = SP.local_shape(tuple(whole.shape), spec, plan.mesh)
+            if tuple(t.shape) != want:
+                raise ValueError(
+                    f"{'/'.join(map(str, path))} of shape {tuple(t.shape)}: "
+                    f"a train step on model > 1 takes this rank's block "
+                    f"{want}; lay the state out with launch.steps.mesh_state")
+        tree_map_with_path(check, params, plan.shapes, plan.specs)
+    with TP.installed(plan.layout):
+        return (params, *loss_and_grads(params, cfg,
+                                        local_rows(batch, plan)))
+
+
+def mesh_grads(cfg: ModelConfig, plan: MeshPlan, params: Any,
+               batch: Dict[str, Any]) -> Tuple[torch.Tensor, Any]:
+    """The loss and gradients that :func:`mesh_step`'s train step takes
+    from a global ``batch``, averaged over the data ranks: this rank's
+    ``model`` blocks of them (whole leaves with :func:`gather_params`),
+    before the clip and without ZeRO-1's cut. ``params`` are the mesh
+    state's."""
+    _, loss, grads = _rank_grads(cfg, plan, params, batch)
+    with torch.no_grad():
+        return _mean(loss.clone(), plan), tree_map(
+            lambda g: _mean(g, plan), grads)
 
 
 def _grad_block(g: torch.Tensor, dim: Optional[int], plan: MeshPlan
@@ -409,7 +582,9 @@ def mesh_step(cfg: ModelConfig, shape: ShapeConfig, mesh: DeviceMesh,
 
     - train ``(state, batch) -> (state, metrics)``: ``state`` from
       :func:`mesh_state` (updated in place), ``batch`` global (each rank
-      takes its rows); ``model`` = 1 only;
+      takes its rows); with ``model`` > 1 the dense family alone, on the
+      rank's blocks under its layout (:func:`mesh_grads`' gradients, the
+      ZeRO-1 blocks reduce-scattered over ``data``);
     - prefill ``(params, batch) -> (logits, cache)``, serve ``(params,
       cache, batch, index) -> (logits, cache)``: params as
       ``param_specs(cfg, mesh, kind=...)`` place them, as DTensors or this
@@ -438,8 +613,7 @@ def mesh_step(cfg: ModelConfig, shape: ShapeConfig, mesh: DeviceMesh,
     rows = axes if len(axes) > 1 else axes[0] if axes else None
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
-        params = tree_map(local, state.params)
-        loss, grads = loss_and_grads(params, cfg, local_rows(batch, plan))
+        params, loss, grads = _rank_grads(cfg, plan, state.params, batch)
         with torch.no_grad():
             dims = plan.zero1.dims if plan.zero1 is not None else \
                 tree_map(lambda _: None, grads)
@@ -447,7 +621,8 @@ def mesh_step(cfg: ModelConfig, shape: ShapeConfig, mesh: DeviceMesh,
                              dims)
             opt = adamw.OptState(*(tree_map(local, x) for x in state.opt))
             _, new_opt, metrics = adamw.apply_updates(
-                opt_cfg, params, grads, opt, zero1=plan.zero1)
+                opt_cfg, params, grads, opt, zero1=plan.zero1,
+                model=plan.model)
             opt.step.copy_(new_opt.step)
             metrics["loss"] = _mean(loss.clone(), plan)
         return state, metrics

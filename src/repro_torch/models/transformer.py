@@ -52,7 +52,16 @@ Differences from the reference:
   with a sum after ``wo``; its vocabulary rows of the embedding
   (:func:`repro_torch.parallel.tensor.embed_lookup`) and columns of the
   logits. GSPMD makes the same split of the reference's forward from its
-  ``constrain`` calls and the params' shardings.
+  ``constrain`` calls and the params' shardings. A dense train step
+  differentiates the same split: a tensor every rank holds whole enters a
+  rank's share of the work through
+  :func:`repro_torch.parallel.tensor.copy_to_model` (the normed input of
+  a split attention or FFN, the final norm's output before a
+  vocabulary-split ``lm_head``, a whole k/v before the rank reads its kv
+  heads), whose gradient is summed over the ranks; a sum of shares
+  passes its gradient through (``reduce_from_model``); the loss over
+  logits split on the vocabulary is :func:`softmax_xent`'s
+  vocabulary-parallel form.
 """
 from __future__ import annotations
 
@@ -115,15 +124,21 @@ def _proj(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return (x @ w.flatten(1)).unflatten(-1, w.shape[1:])
 
 
-def project_kv(p: Params, x: torch.Tensor
+def project_kv(p: Params, x: torch.Tensor, xs: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., d) → k and v (..., KV, hd). Tensor-parallel: k and v of the
     rank's kv heads, or, where ``wk``/``wv`` are cut on their input
-    dimension, ``x[..., d_r] @ w[d_r]`` summed over the ranks (whole)."""
+    dimension, ``x[..., d_r] @ w[d_r]`` summed over the ranks (whole).
+    ``xs`` is ``x`` as it enters the rank's share of the work
+    (:func:`TP.copy_to_model`; ``x`` itself by default): a split
+    projection reads it, a whole one (``wk``/``wv`` replicated) ``x``."""
     tp = TP.current()
-    if tp is None or tp.kv != "input":
+    if tp is None or tp.kv == "whole":
         return _proj(p["wk"], x), _proj(p["wv"], x)
-    xs = x[..., tp.embed[0]:tp.embed[1]].float()
+    xs = x if xs is None else xs
+    if tp.kv == "heads":
+        return _proj(p["wk"], xs), _proj(p["wv"], xs)
+    xs = xs[..., tp.embed[0]:tp.embed[1]].float()
     kv = TP.sum_partials(torch.cat([_proj(p["wk"].float(), xs),
                                     _proj(p["wv"].float(), xs)], -2),
                          tp.group, x.dtype)
@@ -134,7 +149,12 @@ def _project_qkv(p: Params, x: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(..., d) → q (..., Hp, hd) (tensor-parallel: of the rank's heads),
     k and v (..., KV, hd) (:func:`project_kv`)."""
-    return (_proj(p["wq"], x), *project_kv(p, x))
+    tp = TP.current()
+    if tp is None:
+        return (_proj(p["wq"], x), *project_kv(p, x))
+    xs = TP.copy_to_model(x, tp.group)
+    return (_proj(p["wq"], xs if tp.split_heads else x),
+            *project_kv(p, x, xs))
 
 
 def _out_proj(p: Params, out: torch.Tensor) -> torch.Tensor:
@@ -151,10 +171,11 @@ def _out_proj(p: Params, out: torch.Tensor) -> torch.Tensor:
 def _kv_read(t: torch.Tensor) -> torch.Tensor:
     """The kv heads of ``t`` (..., KV, hd) that the rank's query heads read
     (``t`` itself off a tensor-parallel layout and where the rank holds
-    its own kv heads)."""
+    its own kv heads); a whole ``t`` enters the rank's share here."""
     tp = TP.current()
     if tp is None or tp.kv == "heads":
         return t
+    t = TP.copy_to_model(t, tp.group)
     return t[..., tp.kv_read[0]:tp.kv_read[1], :]
 
 
@@ -341,14 +362,15 @@ def ffn_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """The dense FFN. Tensor-parallel: the rank's columns of ``wi`` (a
     SwiGLU's as gate_r ‖ up_r) and rows of ``wo``, summed over the ranks
     before ``wo``'s bias."""
-    h = L.dense_apply(p["wi"], x)
+    tp = TP.current()
+    split = tp is not None and tp.split_ffn
+    h = L.dense_apply(p["wi"], TP.copy_to_model(x, tp.group) if split else x)
     if cfg.act == "swiglu":
         gate, up = h.chunk(2, dim=-1)
         h = L.swiglu(gate, up)
     else:
         h = L.gelu(h)
-    tp = TP.current()
-    if tp is None or not tp.split_ffn:
+    if not split:
         return L.dense_apply(p["wo"], h)
     y = TP.sum_partials(h.float() @ p["wo"]["kernel"].float(), tp.group,
                         h.dtype)
@@ -659,6 +681,9 @@ def _lm_head(params: Params, cfg: ModelConfig, x: torch.Tensor
              ) -> torch.Tensor:
     """Logits of ``x``; tensor-parallel, the rank's vocabulary columns
     (its rows of a tied embedding), left sharded."""
+    tp = TP.current()
+    if tp is not None and tp.split_vocab:
+        x = TP.copy_to_model(x, tp.group)
     if cfg.tie_embeddings or "lm_head" not in params:
         return L.embed_attend(params["embed"], x)
     return L.dense_apply(params["lm_head"], x)
@@ -719,8 +744,36 @@ def lm_decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token cross-entropy; logits (B,S,V) fp32-softmaxed, labels (B,S)."""
+    """Mean token cross-entropy; logits (B,S,V) fp32-softmaxed, labels (B,S).
+    Under a tensor-parallel layout whose logits are split on the
+    vocabulary, :func:`_vocab_parallel_xent`."""
+    tp = TP.current()
+    if tp is not None and tp.split_vocab:
+        return _vocab_parallel_xent(logits, labels, tp)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels[..., None].long())[..., 0]
     return (logz - gold).mean()
+
+
+def _vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor,
+                         tp: TP.Layout) -> torch.Tensor:
+    """The mean cross-entropy of logits (B, S, V_r) holding the rank's
+    vocabulary columns ``tp.vocab`` = [v0, v1): the row max over the
+    ranks (no gradient: it cancels), the sum of exponentials and the gold
+    logit (a masked gather in [v0, v1), 0 elsewhere) each summed over them
+    (:func:`TP.reduce_from_model`). The loss is the whole vocabulary's on
+    every rank, and the gradient of each rank's block of the logits is its
+    block of softmax − one-hot."""
+    logits = logits.float()
+    v0, v1 = tp.vocab
+    with torch.no_grad():
+        m = TP.all_reduce(logits.amax(-1), tp.group, "max")
+    sumexp = TP.reduce_from_model(torch.exp(logits - m[..., None]).sum(-1),
+                                  tp.group, torch.float32)
+    local = labels.long() - v0
+    inside = (local >= 0) & (local < v1 - v0)
+    gold = logits.gather(-1, local.clamp(0, v1 - v0 - 1)[..., None])[..., 0]
+    gold = TP.reduce_from_model(torch.where(inside, gold, 0.0), tp.group,
+                                torch.float32)
+    return (m + torch.log(sumexp) - gold).mean()

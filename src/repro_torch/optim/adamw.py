@@ -25,6 +25,14 @@ sharded leaf's squares over the group before the leaves are summed, so
 the clip is the unsharded one; the arithmetic of each element, and the
 order of the leaves' sum, are the reference's, so a group of one rank is
 bit-equal to the step without ZeRO-1.
+
+Tensor parallelism (``apply_updates(..., model=ModelSplit(...))``): each
+rank of the ``model`` group holds its block of the leaves split on that
+axis (params, gradients, master copy and moments alike; a ZeRO-1 block is
+cut from it on ``data``). The clip's norm sums such a leaf's squares over
+the ``model`` group too; a leaf replicated on ``model`` has the same
+gradient on every rank and counts once. The clip is then the unsharded
+one, and the update of each element is the reference's.
 """
 from __future__ import annotations
 
@@ -119,35 +127,55 @@ def shard_state(state: OptState, zero1: Zero1) -> OptState:
                     tree_map(cut, state.v, zero1.dims))
 
 
-def global_norm(tree: Params, zero1: Optional[Zero1] = None
-                ) -> torch.Tensor:
+class ModelSplit(NamedTuple):
+    """The leaves a rank holds a block of on the ``model`` axis: ``split``
+    (the params' tree) is True for each, False for a leaf every rank of
+    ``group`` (``size`` ranks) holds whole."""
+    split: Any
+    group: Any
+    size: int
+
+
+def _sum_over(leaves: list, picked, size: int, group) -> None:
+    """The sums ``leaves[i]`` for each leaf whose ``picked`` entry holds,
+    summed over the group (in place in the list)."""
+    idx = [i for i, p in enumerate(tree_leaves(picked)) if p]
+    if idx and size > 1:
+        part = torch.stack([leaves[i] for i in idx])
+        dist.all_reduce(part, group=group)
+        for j, i in enumerate(idx):
+            leaves[i] = part[j]
+
+
+def global_norm(tree: Params, zero1: Optional[Zero1] = None,
+                model: Optional[ModelSplit] = None) -> torch.Tensor:
     """sqrt of the sum of every leaf's fp32 sum of squares; with ``zero1``
     a sharded leaf's sum is first summed over the group (``tree`` holds
-    its blocks)."""
+    its blocks), with ``model`` a leaf split on that axis over its group."""
     leaves = [x.float().square().sum() for x in tree_leaves(tree)]
     if zero1 is not None:
-        sharded = [i for i, d in enumerate(tree_leaves(zero1.dims))
-                   if d is not None]
-        if sharded and zero1.size > 1:
-            part = torch.stack([leaves[i] for i in sharded])
-            dist.all_reduce(part, group=zero1.group)
-            for j, i in enumerate(sharded):
-                leaves[i] = part[j]
+        _sum_over(leaves, tree_map(lambda d: d is not None, zero1.dims),
+                  zero1.size, zero1.group)
+    if model is not None:
+        _sum_over(leaves, model.split, model.size, model.group)
     return torch.sqrt(torch.stack(leaves).sum())
 
 
 def clip_by_global_norm(tree: Params, max_norm: float,
-                        zero1: Optional[Zero1] = None
+                        zero1: Optional[Zero1] = None,
+                        model: Optional[ModelSplit] = None
                         ) -> Tuple[Params, torch.Tensor]:
     """Scale every leaf by min(1, max_norm / norm), each in its dtype."""
-    norm = global_norm(tree, zero1)
+    norm = global_norm(tree, zero1, model)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree), norm
 
 
 def _gather(p: torch.Tensor, piece: torch.Tensor, dim: int,
             zero1: Zero1) -> None:
-    """Write every rank's block ``piece`` into the whole leaf ``p``."""
+    """Write every rank's block ``piece`` into the leaf ``p`` (whole on
+    the data axis: this rank's ``model`` block of the leaf where it is
+    split on ``model``, of which ``piece`` is a ZeRO-1 block)."""
     if zero1.size == 1:
         p.copy_(piece)
         return
@@ -160,13 +188,16 @@ def _gather(p: torch.Tensor, piece: torch.Tensor, dim: int,
 
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params: Params, grads: Params,
-                  state: OptState, *, zero1: Optional[Zero1] = None
+                  state: OptState, *, zero1: Optional[Zero1] = None,
+                  model: Optional[ModelSplit] = None
                   ) -> Tuple[Params, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step from ``grads`` (clipped first), in place: returns
     (params, state, {"grad_norm", "lr"}) with the same trees as given.
     With ``zero1`` the state, and the gradients, of a sharded leaf are
-    this rank's blocks; ``params`` are whole, gathered after the update."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, zero1)
+    this rank's blocks; ``params`` are whole, gathered after the update.
+    With ``model`` every tree holds this rank's ``model`` blocks of the
+    leaves split on that axis (:class:`ModelSplit`)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, zero1, model)
     step = state.step + 1
     lr = schedule(cfg, step)
     sf = step.to(torch.float32)

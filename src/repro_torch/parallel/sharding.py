@@ -152,10 +152,14 @@ def constrain(x, logical: Sequence[Optional[str]]):
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
     """A spec on a mesh: the counterpart of ``jax.sharding.NamedSharding``
-    (a leaf of the port's trees)."""
+    (a leaf of the port's trees). ``paired``: the leaf's last dimension
+    holds two halves, each cut by its entry (a SwiGLU ``wi``'s gate_r ‖
+    up_r, ``parallel.tensor.local_block``), which no placement describes:
+    a restore keeps that block as the rank's plain tensor."""
 
     mesh: object
     spec: PartitionSpec
+    paired: bool = False
 
     @property
     def placements(self) -> List:

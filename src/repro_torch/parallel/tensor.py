@@ -1,6 +1,6 @@
 """Tensor parallelism on a mesh's ``model`` axis: the prefill and serve
-steps of all six LM families (dense, MoE, SSM, hybrid, VLM, enc-dec)
-split over the ranks of that axis.
+steps of all six LM families (dense, MoE, SSM, hybrid, VLM, enc-dec), and
+the dense family's train step, split over the ranks of that axis.
 
 The JAX package runs any step on any mesh through ``jit`` with the
 ``in_shardings`` of ``param_specs`` / ``cache_specs``; GSPMD splits the
@@ -19,7 +19,9 @@ head channels, :class:`SSM`), in three parts:
   spec; an enc-dec's cross cache from ``ck``'s spec and the encoder's
   length). :func:`installed` makes a layout current for the model code
   (``models/transformer.py``, ``models/ssm.py``, ``models/hybrid.py``,
-  ``models/encdec.py``), which reads it with :func:`current`;
+  ``models/encdec.py``), which reads it with :func:`current`.
+  :func:`local_block` and :func:`gather_block` cut one leaf and join it
+  again (a SwiGLU ``wi``'s gate_r ‖ up_r included);
 - the collectives: :func:`all_reduce` (a sum, or a max where the
   log-sum-exp merge needs one; :func:`sum_partials`, the sum of the ranks'
   shares of a product, kept in fp32 until it is whole) and
@@ -31,12 +33,28 @@ head channels, :class:`SSM`), in three parts:
   :func:`merge_blocks`, the cross-rank merge of a sequence-sharded decode
   cache's blocks (or an enc-dec's cross cache's) by their log-sum-exp.
 
+Under grad (a train step) the sums are ones autograd sees, two
+``autograd.Function``s over the ``model`` group (Megatron's f and g):
+:func:`reduce_from_model` sums the ranks' shares (the forward of
+:func:`sum_partials`, which takes it under grad) and passes the gradient
+through; :func:`copy_to_model` is the identity where a tensor every rank
+holds whole enters the rank's own part of the work (the normed input of
+a split attention or FFN, the final norm's output before a
+vocabulary-split ``lm_head``, a whole k/v before a rank reads its kv
+heads of it), and sums the ranks' gradients of it in fp32, rounded once
+to the gradient's dtype. The rule: a leaf replicated on ``model`` (the
+norm scales, the FFN's ``wo`` bias, a whole ``wk``/``wv``) gets the same
+full gradient, bit for bit, on every ``model`` rank (every rank computes
+it from the same summed gradients), and no collective is added for it.
+The serving path runs under ``no_grad`` and keeps its in-place sums.
+
 Where a rank's group is gloo and its tensors lie on the card (two ranks
 sharing one card, where NCCL refuses two ranks of one group on one
 device), gloo copies each tensor through host memory itself: with torch
-2.11 + CUDA 12.8 it carries all three collectives used here (a sum, a
-max, a gather) on CUDA tensors in fp32 and bf16
-(``tools/gloo_cuda_probe.py`` on an H100), so nothing is staged here.
+2.11 + CUDA 12.8 it carries the collectives used here (a sum, a max, a
+gather) and the ZeRO-1 reduce-scatter of ``launch.steps`` on CUDA
+tensors in fp32 and bf16 (``tools/gloo_cuda_probe.py`` on an H100), so
+nothing is staged here.
 """
 from __future__ import annotations
 
@@ -74,8 +92,59 @@ def sum_partials(t: torch.Tensor, group, dtype) -> torch.Tensor:
     rounded before the sum would add a rounding for each rank, which a
     deep bf16 model carries to its logits. The caller takes the share's
     product in fp32 (``x.float() @ w.float()``: a bf16 operand's products
-    exact, their sums in fp32)."""
+    exact, their sums in fp32). Under grad, :func:`reduce_from_model`."""
+    if _grad(t):
+        return reduce_from_model(t, group, dtype)
     return all_reduce(t.float().contiguous(), group).to(dtype)
+
+
+def _grad(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def _fp32_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """``t``'s sum over the group in fp32, in a buffer of its own."""
+    buf = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    return all_reduce(buf.copy_(t), group)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dtype):
+        ctx.dtype = t.dtype
+        return _fp32_sum(t, group).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _fp32_sum(g, ctx.group).to(g.dtype), None
+
+
+def reduce_from_model(t: torch.Tensor, group, dtype) -> torch.Tensor:
+    """The ranks' shares ``t`` summed over the group in fp32 and rounded
+    to ``dtype`` once (:func:`sum_partials`' arithmetic, into a new
+    tensor); the gradient passes through unchanged: every rank's share
+    gets the whole sum's gradient."""
+    return _ReduceFromModel.apply(t, group, dtype)
+
+
+def copy_to_model(t: torch.Tensor, group) -> torch.Tensor:
+    """``t``, which every rank of the group holds whole, where it enters
+    this rank's own part of the work: the identity, whose gradient is the
+    sum of the ranks' gradients, in fp32 and rounded once to the
+    gradient's dtype (each rank's is the part its own work gives). ``t``
+    itself where no gradient is taken."""
+    return _CopyToModel.apply(t, group) if _grad(t) else t
 
 
 def all_gather(t: torch.Tensor, group, size: int) -> torch.Tensor:
@@ -486,24 +555,24 @@ def _ssm_cut(t: torch.Tensor, dim: int, kind: str, entry,
     return t.index_select(dim, idx.to(t.device))
 
 
-def _cut(path, t: torch.Tensor, spec, mesh, swiglu: bool,
-         ssm: Optional[SSM] = None) -> torch.Tensor:
-    """This rank's block of the whole leaf ``t`` placed by ``spec``, as a
-    view where one range gives it. A SwiGLU ``wi`` (d, 2·ff) = [gate | up]
-    is cut in each half, giving gate_r ‖ up_r (a copy): ``param_specs``
-    shards its last dimension in two contiguous halves, which at
-    ``model`` 2 would give one rank all of gate and the other all of up.
-    A mamba mixer's leaves (and the decode cache's ``conv`` window) are
-    cut on their channel dimension by the rank's :class:`SSM` channel set
-    (:func:`_ssm_cut`), for the same reason: ``in_proj``'s contiguous
-    block at ``model`` 2 would be all of z and part of x."""
-    name = _path(path)
-    leaf = _ssm_leaf(name) if ssm is not None else None
-    sdim = None if leaf is None else t.dim() - leaf[0]
+def halves(name: str, swiglu: bool) -> bool:
+    """Whether the leaf at path ``name`` is a SwiGLU ``wi`` (…, d, 2·ff)
+    = [gate | up], which a rank holds as gate_r ‖ up_r."""
+    return swiglu and name.endswith("ffn/wi/kernel")
+
+
+def local_block(t: torch.Tensor, spec, mesh, paired: bool = False,
+                skip: Optional[int] = None) -> torch.Tensor:
+    """This rank's block of the whole ``t`` placed by ``spec`` (dimension
+    ``skip`` left whole), a view where one range gives it. ``paired``: the
+    last dimension holds two halves [a | b], each cut by its entry, giving
+    a_r ‖ b_r (a copy): ``param_specs`` shards a SwiGLU ``wi``'s last
+    dimension in two contiguous halves, which at ``model`` 2 would give one
+    rank all of gate and the other all of up."""
     for dim, entry in enumerate(spec):
-        if entry is None or dim == sdim:
+        if entry is None or dim == skip:
             continue
-        if swiglu and dim == t.dim() - 1 and name.endswith("ffn/wi/kernel"):
+        if paired and dim == t.dim() - 1:
             half = t.shape[dim] // 2
             lo, hi = block(half, entry, mesh)
             t = torch.cat([t.narrow(dim, lo, hi - lo),
@@ -511,6 +580,41 @@ def _cut(path, t: torch.Tensor, spec, mesh, swiglu: bool,
         else:
             lo, hi = block(t.shape[dim], entry, mesh)
             t = t.narrow(dim, lo, hi - lo)
+    return t
+
+
+def gather_block(t: torch.Tensor, spec, mesh, paired: bool = False
+                 ) -> torch.Tensor:
+    """The whole tensor, on every rank, from each rank's block ``t``
+    placed by ``spec`` (:func:`local_block`'s inverse, ``paired`` halves
+    included): gathered over each splitting axis, the minor one first."""
+    sizes = mesh_shape(mesh)
+    for dim, entry in enumerate(spec):
+        for a in reversed(axes_of(entry)):
+            if sizes[a] == 1:
+                continue
+            parts = all_gather(t.contiguous(), mesh.get_group(a), sizes[a])
+            if paired and dim == t.dim() - 1:
+                t = torch.cat([p.movedim(0, dim).flatten(dim, dim + 1)
+                               for p in parts.chunk(2, dim + 1)], dim)
+            else:
+                t = parts.movedim(0, dim).flatten(dim, dim + 1)
+    return t
+
+
+def _cut(path, t: torch.Tensor, spec, mesh, swiglu: bool,
+         ssm: Optional[SSM] = None) -> torch.Tensor:
+    """This rank's block of the whole leaf ``t`` placed by ``spec``, as a
+    view where one range gives it (:func:`local_block`; a SwiGLU ``wi`` as
+    gate_r ‖ up_r, a copy). A mamba mixer's leaves (and the decode cache's
+    ``conv`` window) are cut on their channel dimension by the rank's
+    :class:`SSM` channel set (:func:`_ssm_cut`), for the same reason as
+    the SwiGLU halves: ``in_proj``'s contiguous block at ``model`` 2 would
+    be all of z and part of x."""
+    name = _path(path)
+    leaf = _ssm_leaf(name) if ssm is not None else None
+    sdim = None if leaf is None else t.dim() - leaf[0]
+    t = local_block(t, spec, mesh, halves(name, swiglu), sdim)
     if leaf is not None:
         t = _ssm_cut(t, sdim, leaf[1], _entry(spec, sdim), ssm)
     return t
@@ -586,12 +690,16 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
     in its ``[v0, v1)``, fills the others' rows with -0.0 and the ranks'
     rows are summed. Every row is one rank's row plus -0.0s, which is
     that row bit for bit (-0.0 is the identity of an IEEE sum, signed
-    zeros included), so the rows equal the whole table's gather."""
+    zeros included), so the rows equal the whole table's gather. Under
+    grad the sum is :func:`reduce_from_model`'s (exact all the same): each
+    rank's table gets the whole gather's gradient in its rows alone."""
     v0, v1 = lay.vocab
     local = ids - v0
     inside = (local >= 0) & (local < v1 - v0)
     rows = F.embedding(local.clamp(0, v1 - v0 - 1), table)
     rows = torch.where(inside[..., None], rows, -0.0)
+    if _grad(rows):         # the masked rows' gradient is 0: the rank's
+        return reduce_from_model(rows, lay.group, rows.dtype)   # rows only
     return all_reduce(rows, lay.group)
 
 

@@ -240,7 +240,7 @@ def test_mesh_prefill_and_serve_equal_the_plain_steps(solo_group):
         assert torch.equal(out.to_local(), rout)
         cur = rout[:, -1:].argmax(-1)
     with pytest.raises(NotImplementedError, match="dryrun"):
-        ST.mesh_step(cfg, ShapeConfig("t", 8, 2, "train"),
+        ST.mesh_step(_cfg("mamba2-130m"), ShapeConfig("t", 8, 2, "train"),
                      abstract_mesh((1, 2), ("data", "model")))
 
 

@@ -1,8 +1,9 @@
 """Which collectives a gloo group carries for CUDA tensors, on this
 machine's torch: two spawned ranks on one card (a gloo group on a
 ``FileStore``, as two ranks sharing a card run) try each collective that
-``repro_torch.parallel.tensor`` uses, in fp32 and bf16, and check the
-result against the sum, max or stack computed on the host:
+``repro_torch.parallel.tensor`` uses (and the ZeRO-1 reduce-scatter of
+``launch.steps``), in fp32 and bf16, and check the result against the
+sum, max, stack or block computed on the host:
 
     PYTHONPATH=src python3 tools/gloo_cuda_probe.py
 
@@ -22,9 +23,9 @@ import tempfile
 import torch
 import torch.distributed as dist
 
-from repro_torch.compat import all_gather_single
+from repro_torch.compat import all_gather_single, reduce_scatter_single
 
-CASES = ("all_reduce_sum", "all_reduce_max", "all_gather")
+CASES = ("all_reduce_sum", "all_reduce_max", "all_gather", "reduce_scatter")
 
 
 def _rank(rank: int, world: int, store: str, out) -> None:
@@ -41,6 +42,11 @@ def _rank(rank: int, world: int, store: str, out) -> None:
                     y = x.new_empty(world * 6)
                     all_gather_single(y, x)
                     ok = torch.equal(y.cpu().float(), torch.cat(want).float())
+                elif name == "reduce_scatter":
+                    y = x.new_empty(6 // world)
+                    reduce_scatter_single(y, x)
+                    ok = torch.equal(y.cpu().float(), sum(want).float().chunk(
+                        world)[rank])
                 else:
                     op = dist.ReduceOp.SUM if name.endswith("sum") else \
                         dist.ReduceOp.MAX
