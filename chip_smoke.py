@@ -170,7 +170,7 @@ hand-written kernels, ``rmsnorm_bwd`` and ``flash_attention_bwd``
     autograd backward); each of the five serving-only wrappers (no
     backward) raises under grad;
 20. card vs CPU training: llama3.2-1b at full width cut to 2 layers, fp32,
-    weights drawn once on the CPU, 3 AdamW steps on the same batches
+    weights drawn once on the CPU, 2 AdamW steps on the same batches
     (batch 4 x 64): losses within 1e-3 relative, step-1 gradients within
     1e-3 leaf by leaf, every gradient finite and nonzero, launches exactly
     2L+1 / 2L+1 / L / L a step (rmsnorm, rmsnorm_bwd, flash, flash_bwd);
@@ -247,7 +247,7 @@ over a fixed-length cross cache:
     then cut to 4 layers through ``train.run`` for 10 steps without
     checkpoints (loss falling); whisper-medium uncut through
     ``generate(tiny=False, prompt_len=64, gen=32, batch=4, frames=1500)``
-    and ``train.run(tiny=False, steps=20, batch=4, seq=512)`` (loss
+    and ``train.run(tiny=False, steps=10, batch=4, seq=512)`` (loss
     falling, every layer's step-1 gradient finite and nonzero, a rerun
     bit-equal; no checkpoint: phase 21's use most of a call's disk
     writes); launches exact throughout, prefill ms, decode ms/token, step
@@ -303,8 +303,8 @@ Tensor parallelism (``repro_torch.parallel.tensor``; ``mesh_step`` and
     heads, D 128; checked and timed in phase 30's kernel pass), then two
     ranks on the (1, 2) mesh as in phase 30: moonshot at full width cut to
     2 layers in fp32 (expert-parallel: 32 of 64 experts a rank; every
-    logit within rtol/atol 1e-3), then cut to 4 of its 48 layers in bf16
-    (~6.2 GB whole; each logit within 3e-2 of its row's largest
+    logit within rtol/atol 1e-3), then again to 2 of its 48 layers in
+    bf16 (~3.6 GB whole; each logit within 3e-2 of its row's largest
     |logit|), each rank's routes recorded beside the one-process run's:
     only logit rows at or past a position whose route differs may pass
     the bound (printed), and differing router rows stay under 1%; then
@@ -367,7 +367,7 @@ Tensor parallelism (``repro_torch.parallel.tensor``; ``mesh_step`` and
     to its one-process run on the card (``make_train_step``, the same
     TP_SEED weights and batches, run first and freed, its results in
     host memory), 3 AdamW steps of 4 x 512 with warmup 1 and the clip
-    acting: llama3.2-1b at 2 layers and granite-20b at 2 (the MQA's
+    acting: llama3.2-1b at 2 layers and granite-20b at 1 (the MQA's
     wk/wv cut on d) in fp32 (losses and grad norms within 1e-4 relative,
     every leaf of the gathered master copy and moments within 1e-3, the
     params the master's bits), llama3.2-1b at 4 layers in bf16 over the
@@ -381,6 +381,33 @@ Tensor parallelism (``repro_torch.parallel.tensor``; ``mesh_step`` and
     ranks after every step; launches of rmsnorm, rmsnorm_bwd, flash and
     flash_bwd exact per rank and step (2L+1, 2L+1, L, L); per rank step
     ms and collectives a step (timed between synchronisations), none a
+    multi-card speed.
+35. the MoE family's train step on a ``model`` axis (the router's
+    gradient summed over ``model``, an expert matrix cut on d over
+    ``data`` gathered by an all-gather whose backward reduce-scatters
+    its gradient, its ZeRO-1 block that block): ``flash_attention`` and
+    its backward at moonshot-v1-16b-a3b's rank shape (8 of 16 heads, D
+    128) in fp32 and bf16 against their plain versions, twice bit-equal,
+    timed beside their bounds and SDPA (the norms' and the router's rank
+    shapes are phase 34's and phase 13's / 23's); then, in the spawns of
+    phases 30-34, two ranks on the (1, 2) mesh training
+    moonshot-v1-16b-a3b at full width cut to 2 of 48 layers,
+    expert-parallel (32 of 64 experts a rank), 3 AdamW steps of 4 x 512:
+    in fp32 held as phase 34's fp32 runs (losses and grad norms 1e-4
+    relative of the one-process run, the gathered master copy of the
+    router, the experts and the norms within 1e-3 elementwise) with under
+    1% of router rows picking other experts than the one-process run; in
+    bf16 held as phase 34's bf16 run (readings printed, a miss written)
+    against the one-process run replayed on the ranks' experts, its
+    weights recomputed from its own logits so that the router's gradient
+    flows, the unreplayed router rows that differ printed; then four ranks
+    training tiny moonshot in fp32 with 3 experts on (2, 2) (ff-sharded, d
+    over ``data``: the FSDP leaves, ZeRO-1) and with 4 on (1, 4) (one
+    expert a rank), held as the fp32 runs. The leaves replicated on
+    ``model`` (the router among them) bit-equal across the ranks after
+    every step; launches of rmsnorm, rmsnorm_bwd, flash, flash_bwd,
+    topk_gating and topk_gating_bwd exact per rank and step (2L+1, 2L+1,
+    L, L, L, L); per rank step ms and collectives a step, none a
     multi-card speed.
 
 Each phase's wall seconds are printed on a line of their own
@@ -2941,7 +2968,8 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, CKPT_EVERY = 4, 512, 20, 10
 # phase 21's and 29's llama3.2-1b depth: 4 of 16 layers (the call's time
 # limit: uncut, phase 21's two checkpoints wrote 42 GB in ~50 s)
 TRAIN_LAYERS = 4
-CARD_CPU_TRAIN_STEPS, CARD_CPU_TRAIN_SEQ = 3, 64
+# 2 AdamW steps (3 before phase 35 joined the call: the CPU's ~10 s a step)
+CARD_CPU_TRAIN_STEPS, CARD_CPU_TRAIN_SEQ = 2, 64
 TRAIN_TOL = 1e-3                # card vs CPU: losses and step-1 gradients
 # (B, KV, G, Sq, Skv, D) of the flash backward sweep: every head dim, G 1,
 # 2, 3 and 4, Sq != Skv both ways, the CUDA-core route's 32-row/key tile
@@ -3276,7 +3304,8 @@ def token_batches(cfg, batch: int, seq: int, steps: int, dev, seed: int = 0,
 
 def phase_train_card_vs_cpu(dev) -> None:
     """llama3.2-1b at full width cut to 2 layers, fp32: the same weights
-    (drawn once on the CPU) and batches through 3 AdamW steps on the CPU
+    (drawn once on the CPU) and batches through CARD_CPU_TRAIN_STEPS
+    AdamW steps on the CPU
     and on the card; losses within 1e-3 relative, step-1 gradients within
     1e-3, every gradient finite and nonzero, launches exact per step."""
     cfg = get_config(LM_ARCH).with_(n_layers=2, param_dtype=torch.float32,
@@ -3937,6 +3966,9 @@ def phase_ssm_train_full(dev) -> dict:
 VLM_ARCH, ENCDEC_ARCH = "qwen2-vl-7b", "whisper-medium"
 WHISPER_FRAMES, WHISPER_PROMPT = 1500, 64   # its 30-second window; a prompt
 VLM_TRAIN_LAYERS, VLM_TRAIN_STEPS = 4, 10
+# whisper-medium's steps through train.run, each run twice (20 before phase
+# 35 joined the call: its time)
+ENCDEC_TRAIN_STEPS = 10
 # (B, KV, G, Sq, Skv, D, causal, what): phase 26's timed flash shapes, bf16
 NEW_FLASH = ((4, 4, 8, 512, 512, 128, True, "qwen2-vl-7b self"),
              (4, 16, 1, 1500, 1500, 64, False, "whisper-medium encoder"),
@@ -4256,7 +4288,8 @@ def phase_vlm_encdec_full(dev) -> dict:
     ``loss_and_grads``, then cut to 4 layers through ``train.run`` (10
     steps, no checkpoints); whisper-medium uncut served (batch 4, 1500
     encoder frames, a 64-token prompt, 32 tokens) and through
-    ``train.run`` (20 steps, no checkpoints, rerun bit-equal); launches
+    ``train.run`` (ENCDEC_TRAIN_STEPS steps, no checkpoints, rerun
+    bit-equal); launches
     exact throughout, profiles of prefill, decode and a train step."""
     totals = dict.fromkeys(VLM_TRAIN_KERNELS, 0)
 
@@ -4271,8 +4304,9 @@ def phase_vlm_encdec_full(dev) -> dict:
     out[ENCDEC_ARCH] = serve_full(ENCDEC_ARCH, dev, WHISPER_PROMPT,
                                   frames=WHISPER_FRAMES)
     add(out[ENCDEC_ARCH].pop("launches"))
-    out[f"{ENCDEC_ARCH} train"] = train_full(ENCDEC_ARCH, None, TRAIN_STEPS,
-                                             None, dev, rerun=True)
+    out[f"{ENCDEC_ARCH} train"] = train_full(ENCDEC_ARCH, None,
+                                             ENCDEC_TRAIN_STEPS, None, dev,
+                                             rerun=True)
     for key in (f"{VLM_ARCH} train", f"{ENCDEC_ARCH} train"):
         add({k: v for k, v in out[key].pop("launches").items()
              if k in totals})
@@ -4481,9 +4515,10 @@ TP_DECODE = ((4, 4, 4, 544, 64, (528, 513, 1, 0),
 # router, replicated on every rank; ssd_scan: an SSM prefill's scan)
 TP_KERNELS = SERVE_KERNELS + ("ssd_scan", "topk_gating")
 # (arch, depth cut, dtype) of phase 31 on the (1, 2) mesh: moonshot's 64
-# experts split 32 a rank
+# experts split 32 a rank; bf16 at 2 of 48 layers (4 before phase 35
+# joined the call: its time)
 MOE_TP_SERVE = ((MOE_ARCH, 2, torch.float32),
-                (MOE_ARCH, 4, torch.bfloat16))
+                (MOE_ARCH, 2, torch.bfloat16))
 MOE_TP_SMALL_MESH = (2, 2)       # (data, model): tiny moonshot's 3 experts
 MOE_TP_SMALL_EXPERTS = 3         # divide no model axis: ff-sharded
 
@@ -4696,11 +4731,11 @@ def sync(dev: torch.device) -> None:
 
 def tp_rank(rank: int, world: int, store: str, device: str, runs: list,
             out) -> None:
-    """The rank process of phases 30–34: joins the group on ``device``
+    """The rank process of phases 30–35: joins the group on ``device``
     (gloo: the ranks share the one card) and runs each run on a mesh of
     its (data, model) shape, each shape's mesh built once: a serving run
     (config, prompt, forced tokens and whether the ranks draw in turn) or
-    phase 34's train run (config, batches, checksum), which streams leaves
+    a train run of phase 34 or 35 (config, batches, checksum), which streams leaves
     to the parent through ``out``, the rank's end of its pipe, as the
     results go at the end. A failure raises here and ends the process with
     a non-zero exit code, which fails the phase."""
@@ -4954,7 +4989,7 @@ def tp_report(label: str, what: str, cfg, dtype, got: list, ref: dict,
 
 
 def tp_runs() -> list:
-    """Every rank run of phases 30–34, in order: (phase, arch, depth cut
+    """Every rank run of phases 30–35, in order: (phase, arch, depth cut
     or None, config, (data, model) mesh shape)."""
     runs = [("tp", arch, layers, tp_config(arch, layers, dtype), TP_MESH)
             for arch, layers, dtype in TP_SERVE]
@@ -4974,26 +5009,33 @@ def tp_runs() -> list:
              for arch, layers, dtype in TP_TRAIN]
     runs.append(("train", LM_ARCH, None, tiny_version(get_config(LM_ARCH)),
                  TP_TRAIN_SMALL_MESH))
+    runs += [("moetrain", arch, layers, tp_config(arch, layers, dtype),
+              TP_MESH) for arch, layers, dtype in MOE_TRAIN]
+    runs += [("moetrain", MOE_ARCH, None, tiny_version(get_config(
+        MOE_ARCH)).with_(n_experts=E), shape) for E, shape in MOE_TRAIN_SMALL]
     return runs
 
 
 def phase_tp_ranks(dev) -> dict:
-    """The ranks of phases 30–34 (:func:`tp_runs`): each run's one-process
+    """The ranks of phases 30–35 (:func:`tp_runs`): each run's one-process
     reference on the card (``tp_reference``: weights from TP_SEED, the
     prompt, TP_GEN greedy tokens; a train run's ``train_reference``), then
     one set of spawned ranks per world size, two on the (1, 2) mesh and
     four on their (2, 2) and (1, 4) meshes, each running its runs in turn
     (``tp_rank``): one process start per world size where each phase
-    would take its own. A hybrid's ranks draw its weights in turn
-    (``tp_blocks``). A train run's streamed leaves are held to the
+    would take its own. The two sets run side by side (a thread each), so
+    a rank's times include the other set's load on the card and the host.
+    A hybrid's ranks draw its weights in turn (``tp_blocks``). A train run's streamed leaves are held to the
     reference's as they arrive (``leaf_reading``), each reference leaf
     freed after. Returns, by phase, its runs (arch, depth cut, config,
     mesh shape, reference, every rank's result, a train run's readings by
-    leaf), the gloo backend's name and the sets' seconds."""
+    leaf; a bf16 MoE's gradients, which its reference replays after the
+    ranks, kept whole in host memory), the gloo backend's name and the
+    sets' seconds."""
     runs = tp_runs()
     refs, args = [], []
     for phase, _, _, cfg, shape in runs:
-        if phase == "train":
+        if phase in ("train", "moetrain"):
             ref, run = train_reference(cfg, dev)
             args.append((shape, True, run))
         else:
@@ -5003,23 +5045,30 @@ def phase_tp_ranks(dev) -> dict:
         refs.append(ref)
     got, backend, seconds = [None] * len(runs), None, {}
     readings = [{} for _ in runs]
-    for world in sorted({a * b for *_, (a, b) in runs}):
+
+    def spawn(world):
         mine = [i for i, r in enumerate(runs) if r[4][0] * r[4][1] == world]
 
-        def on_leaf(rank, k, key, t, mine=mine):
+        def on_leaf(rank, k, key, t):
             i = mine[k]
-            readings[i][key] = leaf_reading(key, t, refs[i]["leaves"].pop(
-                key))
+            readings[i][key] = t.clone() if refs[i].get("hold") else \
+                leaf_reading(key, t, refs[i]["leaves"].pop(key))
         t0 = time.perf_counter()
         ranks = spawn_ranks(tp_rank, world, dev.type, [args[i] for i in mine],
                             on_leaf=on_leaf)
-        seconds[world] = time.perf_counter() - t0
-        backend = ranks[0][0]
-        for k, i in enumerate(mine):
-            got[i] = [r[1][k] for r in ranks]
-    print(f"tp ranks: {len(runs)} runs of phases 30-34; the two ranks' "
+        return world, mine, ranks, time.perf_counter() - t0
+    worlds = sorted({a * b for *_, (a, b) in runs})
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(worlds)) as pool:     # the sets side by side
+        for world, mine, ranks, secs in pool.map(spawn, worlds):
+            seconds[world] = secs
+            backend = ranks[0][0]
+            for k, i in enumerate(mine):
+                got[i] = [r[1][k] for r in ranks]
+    print(f"tp ranks: {len(runs)} runs of phases 30-35; the two ranks' "
           f"processes ran {seconds.get(2, 0.0):.1f} s, the four ranks' "
-          f"{seconds.get(4, 0.0):.1f} s, their start, weight draws and "
+          f"{seconds.get(4, 0.0):.1f} s, side by side in "
+          f"{time.perf_counter() - t0:.1f} s, their start, weight draws and "
           f"streamed leaves included")
     out = {}
     for (phase, arch, layers, cfg, shape), ref, g, rd in zip(
@@ -5224,7 +5273,7 @@ def phase_moe_tp(dev, ranks: dict) -> dict:
     ``_moe_apply_shard_map``'s paths; the ranks of
     :func:`phase_tp_ranks`). Two ranks sharing the card over gloo on the
     (1, 2) mesh: moonshot-v1-16b-a3b at full width cut to 2 layers in fp32
-    and to 4 of 48 in bf16, expert-parallel (32 of 64 experts a rank),
+    and in bf16, expert-parallel (32 of 64 experts a rank),
     held to the one-process run (``moe_tp_check``); then four ranks on the
     (2, 2) mesh serving tiny moonshot with 3 experts in fp32 (ff-sharded,
     d over ``data``: the prefill's weight gather and the 2-D decode),
@@ -5527,17 +5576,19 @@ def phase_vlm_encdec_tp(dev, ranks: dict) -> dict:
 # (arch, depth cut, dtype) on the (1, 2) mesh, TP_TRAIN_STEPS steps each at
 # TRAIN_BATCH x TRAIN_SEQ: llama3.2-1b at 2 layers in fp32 (the split's
 # parity), at TRAIN_LAYERS in bf16 over the fp32 master (the training path
-# as phase 21 runs it), granite-20b at 2 layers in fp32 (the MQA's wk/wv
-# cut on their input dimension). Memory: granite's 2 layers hold 1.66 B
-# parameters, 16 bytes of state each (params, master, m, v: 26.6 GB) and 4
-# of gradients (6.7 GB) in the one-process reference; it is freed before
-# the ranks start, its master copy and moments kept in host memory (20.0
-# GB) until the ranks' gathered state has streamed past them; each rank
-# draws the whole 6.7 GB of weights, cuts its half and frees the whole,
-# then holds half the state and gradients (~16.6 GB) and its activations
+# as phase 21 runs it), granite-20b at 1 layer in fp32 (the MQA's wk/wv
+# cut on their input dimension; 2 before phase 35 joined the call: its
+# 20.0 GB stream took ~38 s of it). Memory: granite's layer and vocabulary
+# leaves hold 1.13 B parameters, 16 bytes of state each (params, master,
+# m, v: 18.1 GB) and 4 of gradients (4.5 GB) in the one-process
+# reference; it is freed before the ranks start, its master copy and
+# moments kept in host memory (13.6 GB) until the ranks' gathered state
+# has streamed past them; each rank draws the whole 4.5 GB of weights,
+# cuts its half and frees the whole, then holds half the state and
+# gradients (~11.3 GB) and its activations
 TP_TRAIN = (("llama3.2-1b", 2, torch.float32),
             ("llama3.2-1b", TRAIN_LAYERS, torch.bfloat16),
-            ("granite-20b", 2, torch.float32))
+            ("granite-20b", 1, torch.float32))
 TP_TRAIN_SMALL_MESH = (2, 2)     # tiny llama: ZeRO-1 over data beside the split
 TP_TRAIN_STEPS = 3
 TP_TRAIN_OPT = adamw.AdamWConfig(warmup_steps=1)
@@ -5557,18 +5608,20 @@ TP_TRAIN_NORM = ((2048, 2048, torch.float32), (2048, 2048, torch.bfloat16),
                  (2048, 6144, torch.float32))
 
 
-def tp_train_kernels(dev) -> dict:
-    """rmsnorm, flash_attention and their backward kernels at phase 34's
-    rank shapes against their plain versions, each twice bit-equal, timed
-    beside their bounds, the plain versions, F.rms_norm / SDPA and those
-    calls' autograd backward. Returns each kernel's worst error."""
-    gen = torch.Generator(device=dev).manual_seed(TP_SEED + 4)
+def tp_train_kernels(dev, flash=TP_TRAIN_FLASH, norms=TP_TRAIN_NORM,
+                     seed=TP_SEED + 4) -> dict:
+    """rmsnorm, flash_attention and their backward kernels at the ranks'
+    shapes (``flash``, ``norms``; phase 34's by default) against their
+    plain versions, each twice bit-equal, timed beside their bounds, the
+    plain versions, F.rms_norm / SDPA and those calls' autograd backward.
+    Returns each kernel's worst error."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     F = torch.nn.functional
     worst = dict.fromkeys(TRAIN_KERNELS, 0.0)
 
     def note(name, e):
         worst[name] = max(worst[name], e)
-    for B, KV, G, S, D, dtype, what in TP_TRAIN_FLASH:
+    for B, KV, G, S, D, dtype, what in flash:
         q, k, v, do = flash_bwd_operands(B, KV, G, S, S, D, dtype, True, gen,
                                          dev)
         o = same_twice(lambda: (ops.flash_attention(q, k, v, causal=True),),
@@ -5605,7 +5658,7 @@ def tp_train_kernels(dev) -> dict:
         t["plain_ms"] = cuda_ms(lambda: ops.flash_attention_bwd_ref(
             q, k, v, o, do, True), iters=10, warm=2)
         report_timing("flash_attention_bwd", t)
-    for rows, D, dtype in TP_TRAIN_NORM:
+    for rows, D, dtype in norms:
         x = torch.randn((rows, D), generator=gen, device=dev).to(dtype)
         sc = (1 + 0.1 * torch.randn((D,), generator=gen, device=dev)).to(
             dtype)
@@ -5636,15 +5689,6 @@ def tp_train_kernels(dev) -> dict:
     return worst
 
 
-def tp_train_expected(cfg) -> tuple:
-    """``TRAIN_KERNELS`` launches of one train step (or one
-    ``mesh_grads`` call) on a rank: each rank norms all of its rows and
-    runs every layer's attention on its heads, as one process does: 2L + 1
-    rmsnorm and rmsnorm_bwd, L flash_attention and flash_attention_bwd."""
-    L = cfg.n_layers
-    return (2 * L + 1, 2 * L + 1, L, L)
-
-
 def tp_train_batches(cfg) -> list:
     """Phase 34's TP_TRAIN_STEPS batches of TRAIN_BATCH x TRAIN_SEQ tokens
     and labels (``token_batches`` from TP_SEED), as numpy arrays."""
@@ -5658,8 +5702,30 @@ def tp_train_streams(cfg) -> str:
     the one-process run: the first step's gradients, gathered, in bf16
     (its bound is on them); the gathered master copy and moments after the
     steps in fp32 (its params equal the master bit for bit, checked on the
-    ranks)."""
+    ranks), those :func:`streamed_state` picks."""
     return "grads" if cfg.compute_dtype == torch.bfloat16 else "state"
+
+
+def streamed_state(cfg, key: str) -> bool:
+    """Whether rank 0 streams the gathered state leaf ``key`` (a
+    ``flatten_with_keys`` key of the train state) of an fp32 run: every
+    leaf of the master copy and moments of a dense model (phase 34); of
+    an MoE (phase 35) the master copy of its MoE leaves (router, ``wi``,
+    ``wo``) and its norms, which phase 35 compares: ~4.4 GB of
+    moonshot's 2 layers, of its ~29 GB of state."""
+    if not key.startswith(".opt.") or key == ".opt.step":
+        return False
+    return not cfg.n_experts or key.startswith(".opt.master") and (
+        "['ffn']" in key or "norm" in key)
+
+
+def routed(fn):
+    """``fn()`` with the experts of each ``topk_gating`` call recorded
+    (``recording_routes``): (its result, the routes, (N, k) int32 numpy
+    arrays in call order)."""
+    with recording_routes() as routes:
+        out = fn()
+    return out, [r.numpy() for r in routes]
 
 
 def batches_on(host: list, dev) -> list:
@@ -5668,39 +5734,47 @@ def batches_on(host: list, dev) -> list:
 
 
 def train_reference(cfg, dev) -> tuple:
-    """The one-process run on the card that phase 34's ranks are held to:
-    the TP_SEED weights through TP_TRAIN_STEPS ``make_train_step`` steps of
-    TP_TRAIN_OPT on ``tp_train_batches``; its losses, grad norms and step
-    times, and in host memory what the ranks stream
-    (``tp_train_streams``), keyed as they send it. The state is freed.
-    Returns (that record, the ranks' run: config, batches, checksum)."""
+    """The one-process run on the card that the ranks of phases 34 and 35
+    are held to: the TP_SEED weights through TP_TRAIN_STEPS
+    ``make_train_step`` steps of TP_TRAIN_OPT on ``tp_train_batches``; its
+    losses, grad norms, step times and an MoE's routes each step, and in
+    host memory what the ranks stream (``tp_train_streams``), keyed as
+    they send it. A bf16 MoE's gradients are not taken here: the parent
+    holds the ranks' (``hold``) for :func:`replayed_train`, on their
+    routes. The state is freed. Returns (that record, the ranks' run:
+    config, batches, checksum)."""
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     params, check = tp_weights(cfg, dev)
     host = tp_train_batches(cfg)
     batches = batches_on(host, dev)
     kind = tp_train_streams(cfg)
+    hold = kind == "grads" and bool(cfg.n_experts)
     leaves = {}
-    if kind == "grads":
+    if kind == "grads" and not hold:
         _, g = ST.loss_and_grads(params, cfg, batches[0])
         leaves = {f"grads{k}": t.cpu() for k, t in flatten_with_keys(g)}
         del g
+    keys = [f"grads{k}" for k, _ in flatten_with_keys(params)] if hold \
+        else None
     state = ST.TrainState(params, adamw.init(TP_TRAIN_OPT, params))
     step = ST.make_train_step(cfg, TP_TRAIN_OPT)
-    losses, norms, ms = [], [], []
+    losses, norms, ms, routes = [], [], [], []
     for b in batches:
         sync(dev)
         t0 = time.perf_counter()
-        state, m = step(state, b)
+        (state, m), r = routed(lambda: step(state, b))
         sync(dev)
         ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
+        routes.append(r)
     if kind == "state":
         leaves = {f"state{k}": t.cpu() for k, t in flatten_with_keys(state)
-                  if k.startswith(".opt.") and k != ".opt.step"}
+                  if streamed_state(cfg, k)}
     out = dict(checksum=check, losses=losses, norms=norms, step_ms=ms,
-               leaves=leaves, keys=list(leaves), n_params=sum(t.numel() for t in
+               leaves=leaves, keys=keys or list(leaves), hold=hold,
+               routes=routes, n_params=sum(t.numel() for t in
                                            tree_leaves(params)),
                peak_gib=(torch.cuda.max_memory_allocated(dev) / 2 ** 30
                          if dev.type == "cuda" else 0.0))
@@ -5848,14 +5922,15 @@ def replicated_equal(state, plan) -> int:
 
 def tp_train_rank_run(mesh, dev, conn, k: int, cfg, host: list,
                       check: float) -> dict:
-    """Phase 34's run ``k`` on this rank: the TP_SEED weights drawn whole,
-    cut to the rank's train blocks (``shard_params``) and laid out with a
-    fresh optimiser state (``mesh_state``), then TP_TRAIN_STEPS
-    ``mesh_step`` train steps, each counted, timed (its collectives timed
-    between synchronisations) and followed by the replicated leaves'
-    check; rank 0 streams ``tp_train_streams``' leaves, gathered whole, to
-    the parent (``send_leaf``). In bf16 the first step's gradients come
-    from ``mesh_grads`` (counted as a step is) before the steps."""
+    """The run ``k`` of phase 34 or 35 on this rank: the TP_SEED weights
+    drawn whole, cut to the rank's train blocks (``shard_params``) and
+    laid out with a fresh optimiser state (``mesh_state``), then
+    TP_TRAIN_STEPS ``mesh_step`` train steps, each counted, timed (its
+    collectives timed between synchronisations; an MoE's routes recorded)
+    and followed by the replicated leaves' check; rank 0 streams
+    ``tp_train_streams``' leaves, gathered whole, to the parent
+    (``send_leaf``). In bf16 the first step's gradients come from
+    ``mesh_grads`` (counted as a step is) before the steps."""
     import torch.distributed as dist
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -5877,11 +5952,14 @@ def tp_train_rank_run(mesh, dev, conn, k: int, cfg, host: list,
     batches = batches_on(host, dev)
     lead, kind = dist.get_rank() == 0, tp_train_streams(cfg)
     out = dict(checksum=got, launches=[], losses=[], norms=[], step_ms=[],
-               collectives=[], collective_ms=[], replicated=[], bytes=nbytes)
+               collectives=[], collective_ms=[], replicated=[], bytes=nbytes,
+               routes=[], grad_routes=None)
     if kind == "grads":
-        zero_train_launches()
-        _, g = ST.mesh_grads(cfg, plan, state.params, batches[0])
-        out["launches"].append(train_launches())
+        zero_ssm_train_launches()
+        (_, g), routes = routed(lambda: ST.mesh_grads(
+            cfg, plan, state.params, batches[0]))
+        out["grad_routes"] = [routes]
+        out["launches"].append(ssm_train_launches())
         g = ST.gather_params(g, plan)
         if lead:
             sender = LeafSender(conn, k)
@@ -5894,14 +5972,15 @@ def tp_train_rank_run(mesh, dev, conn, k: int, cfg, host: list,
                                          "train"), mesh, TP_TRAIN_OPT)
     for b in batches:
         spent: list = []
-        zero_train_launches()
+        zero_ssm_train_launches()
         with timed_dist(spent):
             sync(dev)
             t0 = time.perf_counter()
-            state, m = step(state, b)
+            (state, m), routes = routed(lambda: step(state, b))
             sync(dev)
         out["step_ms"].append((time.perf_counter() - t0) * 1e3)
-        out["launches"].append(train_launches())
+        out["launches"].append(ssm_train_launches())
+        out["routes"].append(routes)
         out["losses"].append(float(m["loss"]))
         out["norms"].append(float(m["grad_norm"]))
         out["collectives"].append(len(spent))
@@ -5917,8 +5996,8 @@ def tp_train_rank_run(mesh, dev, conn, k: int, cfg, host: list,
                                  tree_leaves(z.dims)))
     if kind == "state":
         sender = LeafSender(conn, k) if lead else None
-        for key, t in ST.gathered(state, plan, only=lambda key: key not in (
-                ".opt.step",) and key.startswith(".opt.")):
+        for key, t in ST.gathered(state, plan,
+                                  only=lambda key: streamed_state(cfg, key)):
             if lead:
                 sender.put("state" + key, t)
         if lead:
@@ -5937,104 +6016,262 @@ def phase_tp_train(dev, ranks: dict) -> dict:
     (``mesh_step`` of kind train on a (1, 2) mesh, two ranks sharing the
     card over gloo, :func:`phase_tp_ranks`): the kernels at the ranks'
     shapes (``tp_train_kernels``), then each TP_TRAIN run held to its
-    one-process run on the same card (``train_reference``): fp32 losses
-    and grad norms within 1e-4 relative and every leaf of the gathered
-    master copy and moments within 1e-3 (the params the master's bits);
-    bf16 losses, grad norms and first-step gradients read against their
-    bounds (a miss printed); the leaves replicated on ``model`` bit-equal
-    across the ranks after every step; each rank's launches exact per
-    step; per-rank step times and collectives; then tiny llama on a (2, 2)
-    mesh, ZeRO-1 over ``data`` beside the split, held as the fp32 runs.
-    Returns the launches (every rank) and the kernels' worst errors."""
+    one-process run on the same card (``train_reference``;
+    :func:`train_run_check`); then tiny llama on a (2, 2) mesh, ZeRO-1
+    over ``data`` beside the split, held as the fp32 runs. Returns the
+    launches (every rank) and the kernels' worst errors."""
     worst = tp_train_kernels(dev)
-    launches = dict.fromkeys(TRAIN_KERNELS, 0)
+    launches = dict.fromkeys(SSM_TRAIN_KERNELS, 0)
     for r in ranks["train"]:
-        cfg, shape, ref, got, readings = (r[k] for k in (
-            "cfg", "shape", "ref", "got", "readings"))
-        label = f"tp train {cfg.name} ({cfg.n_layers} layers, d " \
-                f"{cfg.d_model}, {str(cfg.compute_dtype)[6:]}, {shape} mesh)"
-        want = tp_train_expected(cfg)
-        for rank, g in enumerate(got):
-            if g["checksum"] != ref["checksum"]:
-                raise AssertionError(f"{label}: rank {rank} drew other "
-                                     f"weights")
-            if any(c != want for c in g["launches"]):
-                raise AssertionError(f"{label}: rank {rank} launches "
-                                     f"{TRAIN_KERNELS} {g['launches']}, "
-                                     f"expected {want} a step")
-            for c in g["launches"]:
-                for name, v in zip(TRAIN_KERNELS, c):
-                    launches[name] += v
-            if g["losses"] != got[0]["losses"] or \
-                    g["norms"] != got[0]["norms"]:
-                raise AssertionError(f"{label}: the ranks' losses or grad "
-                                     f"norms differ")
-            if g.get("params_are_master") is False:
-                raise AssertionError(f"{label}: rank {rank}'s fp32 params "
-                                     f"are not its master's bits")
-        g = got[0]
-        loss_rel = max(abs(a - b) / abs(b) for a, b in
-                       zip(g["losses"], ref["losses"]))
-        norm_rel = max(abs(a - b) / abs(b) for a, b in
-                       zip(g["norms"], ref["norms"]))
-        clip = ref["norms"][0] > TP_TRAIN_OPT.grad_clip
-        kind = tp_train_streams(cfg)
-        worst_leaf = max(readings.items(), key=lambda kv: kv[1])
-        if len(readings) != len(ref["keys"]):
-            raise AssertionError(f"{label}: {len(readings)} leaves streamed "
-                                 f"of {len(ref['keys'])}")
-        if kind == "state":
-            if not (loss_rel <= TP_TRAIN_TOL and norm_rel <= TP_TRAIN_TOL):
-                raise AssertionError(
-                    f"{label}: losses {g['losses']} vs {ref['losses']}, "
-                    f"grad norms {g['norms']} vs {ref['norms']}")
-            if not worst_leaf[1] <= TP_STATE_TOL:
-                raise AssertionError(f"{label}: gathered {worst_leaf[0]} "
-                                     f"differs by {worst_leaf[1]:.3e}")
-            held = (f"losses within {loss_rel:.3e} and grad norms within "
-                    f"{norm_rel:.3e} relative (bound {TP_TRAIN_TOL}); every "
-                    f"leaf of the gathered master copy and moments within "
-                    f"{worst_leaf[1]:.3e} elementwise (bound {TP_STATE_TOL}; "
-                    f"largest at {worst_leaf[0]}), the params the master's "
-                    f"bits")
+        for name, v in train_run_check(r).items():
+            launches[name] += v
+    return dict(launches=launches, worst=worst)
+
+
+def train_run_check(r: dict, note: str = "") -> dict:
+    """One train run of phase 34 or 35 against its one-process run: fp32
+    losses and grad norms within 1e-4 relative and every streamed leaf of
+    the gathered state within 1e-3 (the params the master's bits); bf16
+    losses, grad norms and first-step gradients read against their bounds
+    (a miss printed); the ranks' checksums, losses and norms equal; each
+    rank's launches exact per step; per-rank step times and collectives
+    printed (``note`` added to the run's line). Returns the launches of
+    every rank, by kernel."""
+    cfg, shape, ref, got, readings = (r[k] for k in (
+        "cfg", "shape", "ref", "got", "readings"))
+    label = f"tp train {cfg.name} ({cfg.n_layers} layers, d " \
+            f"{cfg.d_model}, {str(cfg.compute_dtype)[6:]}, {shape} mesh)"
+    # a rank norms all of its rows, runs every layer's attention on its
+    # heads and routes all of its rows (the router is replicated), as one
+    # process does
+    want = train_expected(cfg)
+    launches = dict.fromkeys(SSM_TRAIN_KERNELS, 0)
+    for rank, g in enumerate(got):
+        if g["checksum"] != ref["checksum"]:
+            raise AssertionError(f"{label}: rank {rank} drew other "
+                                 f"weights")
+        if any(c != want for c in g["launches"]):
+            raise AssertionError(f"{label}: rank {rank} launches "
+                                 f"{SSM_TRAIN_KERNELS} {g['launches']}, "
+                                 f"expected {want} a step")
+        for c in g["launches"]:
+            for name, v in zip(SSM_TRAIN_KERNELS, c):
+                launches[name] += v
+        if g["losses"] != got[0]["losses"] or \
+                g["norms"] != got[0]["norms"]:
+            raise AssertionError(f"{label}: the ranks' losses or grad "
+                                 f"norms differ")
+        if g.get("params_are_master") is False:
+            raise AssertionError(f"{label}: rank {rank}'s fp32 params "
+                                 f"are not its master's bits")
+    g = got[0]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(g["losses"], ref["losses"]))
+    norm_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(g["norms"], ref["norms"]))
+    clip = ref["norms"][0] > TP_TRAIN_OPT.grad_clip
+    kind = tp_train_streams(cfg)
+    if len(readings) != len(ref["keys"]):
+        raise AssertionError(f"{label}: {len(readings)} leaves streamed "
+                             f"of {len(ref['keys'])}")
+    worst_leaf = max(readings.items(), key=lambda kv: kv[1])
+    if kind == "state":
+        if not (loss_rel <= TP_TRAIN_TOL and norm_rel <= TP_TRAIN_TOL):
+            raise AssertionError(
+                f"{label}: losses {g['losses']} vs {ref['losses']}, "
+                f"grad norms {g['norms']} vs {ref['norms']}")
+        if not worst_leaf[1] <= TP_STATE_TOL:
+            raise AssertionError(f"{label}: gathered {worst_leaf[0]} "
+                                 f"differs by {worst_leaf[1]:.3e}")
+        what = "master copy and moments" if not cfg.n_experts else \
+            "master copy's MoE leaves and norms"
+        held = (f"losses within {loss_rel:.3e} and grad norms within "
+                f"{norm_rel:.3e} relative (bound {TP_TRAIN_TOL}); every "
+                f"leaf of the gathered {what} within "
+                f"{worst_leaf[1]:.3e} elementwise (bound {TP_STATE_TOL}; "
+                f"largest at {worst_leaf[0]}), the params the master's "
+                f"bits")
+    else:
+        bounds = TP_TRAIN_BF16
+        marks = {k: ("met" if v <= bounds[k] else "NOT MET")
+                 for k, v in (("loss", loss_rel), ("grad_norm", norm_rel),
+                              ("grads", worst_leaf[1]))}
+        held = (f"losses within {loss_rel:.3e} relative (bound "
+                f"{bounds['loss']}: {marks['loss']}), grad norms within "
+                f"{norm_rel:.3e} (bound {bounds['grad_norm']}: "
+                f"{marks['grad_norm']}); first-step gradients within "
+                f"{worst_leaf[1]:.3e} of each leaf's largest |g| (bound "
+                f"{bounds['grads']}: {marks['grads']}; largest at "
+                f"{worst_leaf[0]}); every leaf's reading: "
+                + ", ".join(f"{k[5:]} {v:.2e}"
+                            for k, v in readings.items()))
+    print(f"{label}: {TP_TRAIN_STEPS} AdamW steps (warmup 1, the clip "
+          f"{'acting' if clip else 'NOT acting'}: step-1 norm "
+          f"{ref['norms'][0]:.4f} over {TP_TRAIN_OPT.grad_clip}) of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} on {len(got)} ranks sharing one "
+          f"card over {r['backend']}{note}: losses {g['losses']} (one "
+          f"process {ref['losses']}), grad norms {g['norms']} (one process "
+          f"{ref['norms']}); {held}; leaves replicated on model "
+          f"bit-equal across the ranks after every step "
+          f"({g['replicated'][0]} a step); launches {SSM_TRAIN_KERNELS} "
+          f"{want} per rank a step, exact; {ref['n_params']:,} "
+          f"params, state "
+          f"{[round(x['bytes'] / 2 ** 30, 2) for x in got]} GiB a rank")
+    for rank, x in enumerate(got):
+        print(f"{label} rank {rank} (ranks sharing one H100 over gloo, "
+              f"not a multi-card speed): step ms "
+              f"{[round(v, 3) for v in x['step_ms']]}, collectives a "
+              f"step {x['collectives']} taking "
+              f"{[round(v, 3) for v in x['collective_ms']]} ms (timed "
+              f"between synchronisations); peak device memory "
+              f"{x['peak_gib']:.2f} GiB; seconds into the run at each "
+              f"stage {x['stages']}")
+    print(f"{label} one process on the same card: step ms "
+          f"{[round(v, 3) for v in ref['step_ms']]}, peak device "
+          f"memory {ref['peak_gib']:.2f} GiB")
+    return launches
+
+
+# -- MoE training on a model axis (phase 35) ----------------------------------
+
+# (arch, depth cut, dtype) of phase 35 on the (1, 2) mesh: moonshot's 64
+# experts split 32 a rank, 2 of its 48 layers (~1.81 B parameters: 1.11
+# B of experts, 0.67 B of embedding and lm_head; phase 34's granite-20b
+# at 2 layers is this scale and fits: each rank draws the whole weights,
+# cuts its half and frees the whole)
+MOE_TRAIN = ((MOE_ARCH, 2, torch.float32), (MOE_ARCH, 2, torch.bfloat16))
+# (experts, mesh) of tiny fp32 moonshot on four ranks: 3 experts divide
+# no model axis (ff-sharded, d over data at (2, 2): the FSDP leaves, and
+# ZeRO-1); 4 on (1, 4), one expert a rank
+MOE_TRAIN_SMALL = ((MOE_TP_SMALL_EXPERTS, (2, 2)), (4, (1, 4)))
+# (B, KV, G, S, D, dtype, what): the ranks' attention at model 2
+MOE_TRAIN_FLASH = (
+    (4, 8, 1, 512, 128, torch.float32, "moonshot-v1-16b-a3b rank: 8 of 16 "
+     "heads"),
+    (4, 8, 1, 512, 128, torch.bfloat16, "moonshot-v1-16b-a3b rank: 8 of 16 "
+     "heads"))
+
+
+@contextlib.contextmanager
+def replaying_experts(routes: list, dev):
+    """``topk_gating`` picks another run's recorded experts, call after
+    call, while the block runs (no launch), and weighs them from this
+    run's own logits as the kernel's plain version does (softmax,
+    gathered at those experts, renormalised), so that the router's
+    gradient flows (``replaying_routes``' recorded weights would cut
+    it)."""
+    gate = ops.topk_gating
+    calls = iter(routes)
+
+    def replayed(logits, k):
+        i = torch.from_numpy(next(calls)).to(dev)
+        t = torch.softmax(logits.float(), dim=-1).gather(-1, i.long())
+        return t / t.sum(-1, keepdim=True).clamp_min(1e-9), i
+    ops.topk_gating = replayed
+    try:
+        yield
+    finally:
+        ops.topk_gating = gate
+    if next(calls, None) is not None:
+        raise AssertionError("the replayed run made fewer router calls")
+
+
+def replayed_train(cfg, dev, grad_routes: list, step_routes: list,
+                   check: float) -> dict:
+    """The one-process run of a bf16 MoE on the ranks' experts
+    (:func:`replaying_experts`): the first step's gradients on the
+    ``mesh_grads`` call's routes and TP_TRAIN_STEPS steps, each on its
+    step's; losses, grad norms and the gradients in host memory, keyed as
+    the ranks stream them."""
+    params, got = tp_weights(cfg, dev)
+    if got != check:
+        raise AssertionError(f"{cfg.name}: the replay drew other weights")
+    batches = batches_on(tp_train_batches(cfg), dev)
+    with replaying_experts(grad_routes, dev):
+        _, g = ST.loss_and_grads(params, cfg, batches[0])
+    leaves = {f"grads{k}": t.cpu() for k, t in flatten_with_keys(g)}
+    del g
+    state = ST.TrainState(params, adamw.init(TP_TRAIN_OPT, params))
+    step = ST.make_train_step(cfg, TP_TRAIN_OPT)
+    losses, norms = [], []
+    for b, routes in zip(batches, step_routes):
+        with replaying_experts(routes, dev):
+            state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    del state, params, batches
+    torch.cuda.empty_cache()
+    return dict(losses=losses, norms=norms, leaves=leaves)
+
+
+def mesh_routes(got: list, shape: tuple, key: str = "routes") -> list:
+    """The ranks' routes (per forward, per router call) whole: each call's
+    rows joined over the data rows of ranks, the ``model`` ranks of a row
+    routing alike (raised otherwise)."""
+    m = shape[1]
+    for rank, g in enumerate(got):
+        lead = got[rank - rank % m][key]
+        if len(g[key]) != len(lead) or not all(
+                np.array_equal(a, b) for f, h in zip(g[key], lead)
+                for a, b in zip(f, h)):
+            raise AssertionError(f"rank {rank} routed otherwise than the "
+                                 f"first rank of its data row")
+    return [[np.concatenate([got[d * m][key][f][c] for d in range(
+        shape[0])]) for c in range(len(got[0][key][f]))]
+        for f in range(len(got[0][key]))]
+
+
+def route_share(routes: list, ref: list) -> tuple:
+    """(router rows, rows whose experts differ as a set) of two runs'
+    routes, per forward and per call."""
+    n = diff = 0
+    for f, h in zip(routes, ref):
+        for a, b in zip(f, h):
+            d = (np.sort(a, -1) != np.sort(b, -1)).any(-1)
+            n, diff = n + d.size, diff + int(d.sum())
+    return n, diff
+
+
+def phase_moe_train(dev, ranks: dict) -> dict:
+    """35: the MoE family's train step on a ``model`` axis (the ranks of
+    :func:`phase_tp_ranks`): flash and its backward at moonshot's rank
+    shape (``tp_train_kernels``), then each run held to its one-process
+    run on the card (:func:`train_run_check`): moonshot-v1-16b-a3b at 2
+    layers on (1, 2) in fp32, under 1% of its router rows picking other
+    experts than the one-process run's, and in bf16 against the
+    one-process run replayed on the ranks' experts
+    (:func:`replayed_train`), the unreplayed rows that differ printed;
+    tiny moonshot with 3 experts on (2, 2) (ff-sharded, d over ``data``)
+    and with 4 on (1, 4) in fp32. Returns the launches (every rank) and
+    the kernels' worst errors."""
+    worst = tp_train_kernels(dev, MOE_TRAIN_FLASH, (), TP_SEED + 5)
+    launches = dict.fromkeys(SSM_TRAIN_KERNELS, 0)
+    for r in ranks["moetrain"]:
+        cfg, shape, ref, got = (r[k] for k in ("cfg", "shape", "ref", "got"))
+        routes = mesh_routes(got, shape)
+        n, diff = route_share(routes, ref["routes"])
+        share = f"{diff} of {n} ({diff / n:.4%})"
+        if cfg.compute_dtype == torch.float32:
+            if diff > MAX_ROUTE_DIFF * n:
+                raise AssertionError(f"{cfg.name} on {shape}: {share} router "
+                                     f"rows pick other experts")
+            note = (f"; router rows picking other experts than the "
+                    f"one-process run {share} (bound {MAX_ROUTE_DIFF:.0%})")
         else:
-            bounds = TP_TRAIN_BF16
-            marks = {k: ("met" if v <= bounds[k] else "NOT MET")
-                     for k, v in (("loss", loss_rel), ("grad_norm", norm_rel),
-                                  ("grads", worst_leaf[1]))}
-            held = (f"losses within {loss_rel:.3e} relative (bound "
-                    f"{bounds['loss']}: {marks['loss']}), grad norms within "
-                    f"{norm_rel:.3e} (bound {bounds['grad_norm']}: "
-                    f"{marks['grad_norm']}); first-step gradients within "
-                    f"{worst_leaf[1]:.3e} of each leaf's largest |g| (bound "
-                    f"{bounds['grads']}: {marks['grads']}; largest at "
-                    f"{worst_leaf[0]}); every leaf's reading: "
-                    + ", ".join(f"{k[5:]} {v:.2e}"
-                                for k, v in readings.items()))
-        print(f"{label}: {TP_TRAIN_STEPS} AdamW steps (warmup 1, the clip "
-              f"{'acting' if clip else 'NOT acting'}: step-1 norm "
-              f"{ref['norms'][0]:.4f} over {TP_TRAIN_OPT.grad_clip}) of "
-              f"{TRAIN_BATCH} x {TRAIN_SEQ} on {len(got)} ranks sharing one "
-              f"card over {r['backend']}: losses {g['losses']} (one process "
-              f"{ref['losses']}), grad norms {g['norms']} (one process "
-              f"{ref['norms']}); {held}; leaves replicated on model "
-              f"bit-equal across the ranks after every step "
-              f"({g['replicated'][0]} a step); launches {TRAIN_KERNELS} "
-              f"{want} per rank a step, exact; {ref['n_params']:,} "
-              f"params, state "
-              f"{[round(x['bytes'] / 2 ** 30, 2) for x in got]} GiB a rank")
-        for rank, x in enumerate(got):
-            print(f"{label} rank {rank} (ranks sharing one H100 over gloo, "
-                  f"not a multi-card speed): step ms "
-                  f"{[round(v, 3) for v in x['step_ms']]}, collectives a "
-                  f"step {x['collectives']} taking "
-                  f"{[round(v, 3) for v in x['collective_ms']]} ms (timed "
-                  f"between synchronisations); peak device memory "
-                  f"{x['peak_gib']:.2f} GiB; seconds into the run at each "
-                  f"stage {x['stages']}")
-        print(f"{label} one process on the same card: step ms "
-              f"{[round(v, 3) for v in ref['step_ms']]}, peak device "
-              f"memory {ref['peak_gib']:.2f} GiB")
+            rep = replayed_train(cfg, dev, mesh_routes(got, shape,
+                                                       "grad_routes")[0],
+                                 routes, ref["checksum"])
+            readings = {k: leaf_reading(k, t, rep["leaves"].pop(k))
+                        for k, t in r["readings"].items()}
+            note = (f", held to the one-process run replayed on the ranks' "
+                    f"experts (unreplayed, {share} router rows pick other "
+                    f"experts: bf16 rounding flips near-tied ones; "
+                    f"unreplayed losses {ref['losses']}, grad norms "
+                    f"{ref['norms']})")
+            r = dict(r, readings=readings, ref=dict(
+                ref, losses=rep["losses"], norms=rep["norms"]))
+        for name, v in train_run_check(r, note).items():
+            launches[name] += v
     return dict(launches=launches, worst=worst)
 
 
@@ -6153,20 +6390,23 @@ def main() -> int:
     ssm_tp = timed(phase_ssm_tp, dev, ranks)
     vlm_encdec_tp = timed(phase_vlm_encdec_tp, dev, ranks)
     tp_train = timed(phase_tp_train, dev, ranks)
+    moe_train = timed(phase_moe_train, dev, ranks)
     for k in TP_KERNELS:
         vlm_encdec[k] = (vlm_encdec.get(k, 0) + tp["launches"][k]
                          + moe_tp["launches"][k] + ssm_tp["launches"][k]
                          + vlm_encdec_tp["launches"][k])
-    for k in TRAIN_KERNELS:
-        vlm_encdec[k] = vlm_encdec.get(k, 0) + tp_train["launches"][k]
+    for k in SSM_TRAIN_KERNELS:
+        vlm_encdec[k] = (vlm_encdec.get(k, 0) + tp_train["launches"][k]
+                         + moe_train["launches"][k])
     for name, e in (*tp["worst"].items(), *vlm_encdec_tp["worst"].items(),
                     ("ssd_scan", ssm_tp["worst"])):
         lm_timing[name]["max_abs_err"] = max(lm_timing[name]["max_abs_err"],
                                              e)
-    new_worst = {k: max(v, tp_train["worst"].get(k, 0.0))
-                 for k, v in new_worst.items()}
-    for k, v in tp_train["worst"].items():
-        new_worst.setdefault(k, v)
+    for phase in (tp_train, moe_train):
+        new_worst = {k: max(v, phase["worst"].get(k, 0.0))
+                     for k, v in new_worst.items()}
+        for k, v in phase["worst"].items():
+            new_worst.setdefault(k, v)
     train_launch = {k: train["launches"].get(k, 0)
                     + rocoin["launches"].get(k, 0)
                     + ssm_train["launches"][k] + vlm_encdec.get(k, 0)

@@ -26,11 +26,12 @@ the ZeRO-1 blocks (``zero1=True``) or all-reduced, to their mean over the
 data ranks.
 
 With ``model`` > 1 the prefill and serve steps of every LM family
-(dense, MoE, SSM, hybrid, VLM, enc-dec), and the dense family's train
-step, run tensor-parallel (``repro_torch.parallel.tensor``): each rank
-holds its blocks of the params as ``param_specs(cfg, mesh, kind=...)``
-place them (``tensor.shard_params``) and of the cache as ``cache_specs``
-place it, and computes its heads (a VLM's padded heads among them, in the
+(dense, MoE, SSM, hybrid, VLM, enc-dec), and the dense and MoE
+families' train steps, run tensor-parallel
+(``repro_torch.parallel.tensor``): each rank holds its blocks of the
+params as ``param_specs(cfg, mesh, kind=...)`` place them
+(``tensor.shard_params``) and of the cache as ``cache_specs`` place it,
+and computes its heads (a VLM's padded heads among them, in the
 reference's grouped-major order), FFN columns (an MoE's experts or their
 ff columns, as the reference's ``_moe_apply_shard_map`` splits them), SSM
 heads or head channels (as the decode cache's ``state`` spec places them)
@@ -39,14 +40,17 @@ reference's GSPMD or ``psum`` would. An enc-dec's encoder, self- and
 cross-attention share one head layout; its cross cache holds exactly the
 encoder's rows (``enc_len``), placed by the KV rule: the rank's kv heads,
 or its block of the rows, merged over the ranks by log-sum-exp. The
-logits come back sharded on the vocabulary. A dense train step
+logits come back sharded on the vocabulary. A dense or MoE train step
 differentiates that split (the sums autograd sees,
-``tensor.reduce_from_model`` / ``copy_to_model``, and the
+``tensor.reduce_from_model`` / ``copy_to_model``, the gather over
+``data`` of an MoE's ff-sharded experts, ``tensor.all_gather``, and the
 vocabulary-parallel cross-entropy): each rank's gradients are its blocks,
-averaged over the data ranks alone, and the clip's norm is summed over
-both axes. What a mesh with ``model`` > 1 does not execute, the dry run
-(``repro_torch.launch.dryrun``) models: the other families' train steps
-(the JAX package's tests only compile one).
+averaged over the data ranks alone (an expert matrix cut on d over
+``data`` by its own spec is already summed over them by its gather's
+backward, and is its own ZeRO-1 block), and the clip's norm is summed
+over both axes. What a mesh with ``model`` > 1 does not execute, the
+dry run (``repro_torch.launch.dryrun``) models: the other families'
+train steps (the JAX package's tests only compile one).
 """
 from __future__ import annotations
 
@@ -327,16 +331,19 @@ def mesh_plan(cfg: ModelConfig, mesh: DeviceMesh, *,
     """The data axes of ``mesh`` and, with ``zero1``, each leaf's ZeRO-1
     dimension (from ``zero1_specs`` of the sanitized train specs), for a
     step of ``kind``. With ``model`` > 1 every family's prefill and decode
-    steps execute, and the dense family's train step (the plan then holds
-    the train specs, the leaves split on ``model`` and the rank's layout);
-    another family's train step raises ``NotImplementedError``."""
+    steps execute, and the dense and MoE families' train steps (the plan
+    then holds the train specs, the leaves split on ``model``, those whose
+    own spec also cuts them on ``data`` (an MoE's ff-sharded expert
+    matrices, d over ``data``: no ZeRO-1 dimension, their block is cut
+    once) and the rank's layout); another family's train step raises
+    ``NotImplementedError``."""
     sizes = mesh_shape(mesh)
     split = sizes.get("model", 1) > 1 and kind == "train"
-    if split and cfg.family != "dense":
+    if split and cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"a train step of the {cfg.family} family on a mesh with model "
             f"> 1 is modelled by repro_torch.launch.dryrun, not executed: "
-            f"tensor parallelism trains the dense family only")
+            f"tensor parallelism trains the dense and MoE families only")
     axes = _data_axes(mesh)
     index = 0
     for a in axes:
@@ -345,18 +352,22 @@ def mesh_plan(cfg: ModelConfig, mesh: DeviceMesh, *,
     z = None
     p = param_specs(cfg, mesh, kind="train")
     pspecs = ospecs = specs_of(p)
+    held = tree_map(lambda s: split and any(
+        "data" in axes_of(e) for e in s), pspecs)
     if zero1 and "data" in sizes:
         ospecs = SP.zero1_specs(pspecs, tensors_of(p), mesh, axis="data")
-        dims = tree_map(lambda s: next(
-            (d for d, e in enumerate(s) if e == "data"), None), ospecs)
+        dims = tree_map(lambda s, h: None if h else next(
+            (d for d, e in enumerate(s) if e == "data"), None), ospecs, held)
         z = adamw.Zero1(dims, mesh.get_local_rank("data"), sizes["data"],
                         mesh.get_group("data"))
     plan = MeshPlan(mesh, groups, index, _dp(mesh), z)
     if not split:
         return plan
+    data = sizes.get("data", 1)
     model = adamw.ModelSplit(
         tree_map(lambda s: any("model" in axes_of(e) for e in s), pspecs),
-        mesh.get_group("model"), sizes["model"])
+        mesh.get_group("model"), sizes["model"], held,
+        mesh.get_group("data") if data > 1 else None, data)
     return plan._replace(cfg=cfg, shapes=tensors_of(p), specs=pspecs,
                          opt_specs=ospecs,
                          model=model, paired=paired_leaves(cfg, p, mesh),
@@ -509,11 +520,25 @@ def local_rows(batch: Dict[str, Any], plan: MeshPlan) -> Dict[str, Any]:
     return {k: rows(k, v) for k, v in batch.items()}
 
 
-def _mean(t: torch.Tensor, plan: MeshPlan) -> torch.Tensor:
-    """Sum over the data ranks, divided by their number (in place)."""
+def _mean(t: torch.Tensor, plan: MeshPlan, held: bool = False
+          ) -> torch.Tensor:
+    """Sum over the data ranks, divided by their number (in place).
+    ``held``: ``t`` is the gradient of a leaf whose spec cuts it on
+    ``data``, already summed over that axis (the backward of its
+    gather): summed over the other data axes alone."""
+    skip = plan.model.data_group if held else None
     for g in plan.groups:
-        dist.all_reduce(t, group=g)
+        if g is not skip:
+            dist.all_reduce(t, group=g)
     return t.div_(plan.count)
+
+
+def _held(plan: MeshPlan, tree: Any) -> Any:
+    """``tree``'s structure, True for each leaf that its own spec cuts on
+    ``data`` (:class:`~repro_torch.optim.adamw.ModelSplit`'s ``data``)."""
+    if plan.model is None:
+        return tree_map(lambda _: False, tree)
+    return plan.model.data
 
 
 def _rank_grads(cfg: ModelConfig, plan: MeshPlan, params: Any,
@@ -540,22 +565,25 @@ def mesh_grads(cfg: ModelConfig, plan: MeshPlan, params: Any,
                batch: Dict[str, Any]) -> Tuple[torch.Tensor, Any]:
     """The loss and gradients that :func:`mesh_step`'s train step takes
     from a global ``batch``, averaged over the data ranks: this rank's
-    ``model`` blocks of them (whole leaves with :func:`gather_params`),
-    before the clip and without ZeRO-1's cut. ``params`` are the mesh
-    state's."""
+    ``model`` blocks of them (and ``data`` blocks, where a leaf's spec
+    cuts it there; whole leaves with :func:`gather_params`), before the
+    clip and without ZeRO-1's cut. ``params`` are the mesh state's."""
     _, loss, grads = _rank_grads(cfg, plan, params, batch)
     with torch.no_grad():
         return _mean(loss.clone(), plan), tree_map(
-            lambda g: _mean(g, plan), grads)
+            lambda g, h: _mean(g, plan, h), grads, _held(plan, grads))
 
 
-def _grad_block(g: torch.Tensor, dim: Optional[int], plan: MeshPlan
-                ) -> torch.Tensor:
+def _grad_block(g: torch.Tensor, dim: Optional[int], held: bool,
+                plan: MeshPlan) -> torch.Tensor:
     """The mean gradient over the data ranks: this rank's ZeRO-1 block of
-    it where the leaf is sharded (reduce-scattered on ``data``)."""
+    it where the leaf is sharded (reduce-scattered on ``data``); where
+    its own spec cuts it on ``data`` (``held``), the block it already is,
+    summed over ``data`` by its gather's backward: divided, not reduced
+    again."""
     z = plan.zero1
-    if dim is None or z.size == 1:
-        return _mean(g, plan)
+    if held or dim is None or z.size == 1:
+        return _mean(g, plan, held)
     moved = g.movedim(dim, 0).contiguous()
     out = torch.empty((moved.shape[0] // z.size, *moved.shape[1:]),
                       dtype=g.dtype, device=g.device)
@@ -582,9 +610,10 @@ def mesh_step(cfg: ModelConfig, shape: ShapeConfig, mesh: DeviceMesh,
 
     - train ``(state, batch) -> (state, metrics)``: ``state`` from
       :func:`mesh_state` (updated in place), ``batch`` global (each rank
-      takes its rows); with ``model`` > 1 the dense family alone, on the
-      rank's blocks under its layout (:func:`mesh_grads`' gradients, the
-      ZeRO-1 blocks reduce-scattered over ``data``);
+      takes its rows); with ``model`` > 1 the dense and MoE families, on
+      the rank's blocks under its layout (:func:`mesh_grads`' gradients,
+      the ZeRO-1 blocks reduce-scattered over ``data``; a leaf its spec
+      cuts on ``data`` is its own block, divided, not reduced again);
     - prefill ``(params, batch) -> (logits, cache)``, serve ``(params,
       cache, batch, index) -> (logits, cache)``: params as
       ``param_specs(cfg, mesh, kind=...)`` place them, as DTensors or this
@@ -617,8 +646,8 @@ def mesh_step(cfg: ModelConfig, shape: ShapeConfig, mesh: DeviceMesh,
         with torch.no_grad():
             dims = plan.zero1.dims if plan.zero1 is not None else \
                 tree_map(lambda _: None, grads)
-            grads = tree_map(lambda g, d: _grad_block(g, d, plan), grads,
-                             dims)
+            grads = tree_map(lambda g, d, h: _grad_block(g, d, h, plan),
+                             grads, dims, _held(plan, grads))
             opt = adamw.OptState(*(tree_map(local, x) for x in state.opt))
             _, new_opt, metrics = adamw.apply_updates(
                 opt_cfg, params, grads, opt, zero1=plan.zero1,

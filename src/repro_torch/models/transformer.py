@@ -52,8 +52,10 @@ Differences from the reference:
   with a sum after ``wo``; its vocabulary rows of the embedding
   (:func:`repro_torch.parallel.tensor.embed_lookup`) and columns of the
   logits. GSPMD makes the same split of the reference's forward from its
-  ``constrain`` calls and the params' shardings. A dense train step
-  differentiates the same split: a tensor every rank holds whole enters a
+  ``constrain`` calls and the params' shardings. A dense or MoE train
+  step differentiates the same split (an MoE's input and router kernel
+  enter the rank's share through ``copy_to_model``, its experts' weights
+  gathered over ``data`` through the autograd ``all_gather``): a tensor every rank holds whole enters a
   rank's share of the work through
   :func:`repro_torch.parallel.tensor.copy_to_model` (the normed input of
   a split attention or FFN, the final norm's output before a
@@ -495,7 +497,13 @@ def _moe_sharded(p: Params, cfg: ModelConfig, x: torch.Tensor,
       one-token step takes :func:`_moe_decode_2d`.
 
     The partial outputs are summed over the ``model`` ranks in fp32
-    (:func:`TP.sum_partials`)."""
+    (:func:`TP.sum_partials`). Under grad (a train step) each rank's work
+    is a share of the whole: ``x`` and the router's kernel, which every
+    ``model`` rank holds whole, enter it through
+    :func:`TP.copy_to_model`, so that the input's and the router's
+    gradients are summed over the ranks (the router's then the same bits
+    on every rank); an expert matrix gathered over ``data`` takes its
+    gradient back by reduce-scatter (:func:`TP.all_gather`)."""
     ex = tp.moe
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
@@ -511,7 +519,9 @@ def _moe_sharded(p: Params, cfg: ModelConfig, x: torch.Tensor,
     fsdp = (d0, d1) != (0, d)
     if fsdp and S == 1:
         return _moe_decode_2d(p, cfg, x, tp)
-    top_w, flat_e, pos, keep, C = _moe_route(p["router"]["kernel"], cfg, x)
+    router = TP.copy_to_model(p["router"]["kernel"], tp.group)
+    x = TP.copy_to_model(x, tp.group)
+    top_w, flat_e, pos, keep, C = _moe_route(router, cfg, x)
     if ex.split_experts:
         mine = (flat_e >= e0) & (flat_e < e1) & keep
         dest = torch.where(mine, (flat_e - e0) * C + pos, (e1 - e0) * C)

@@ -29,10 +29,12 @@ bit-equal to the step without ZeRO-1.
 Tensor parallelism (``apply_updates(..., model=ModelSplit(...))``): each
 rank of the ``model`` group holds its block of the leaves split on that
 axis (params, gradients, master copy and moments alike; a ZeRO-1 block is
-cut from it on ``data``). The clip's norm sums such a leaf's squares over
-the ``model`` group too; a leaf replicated on ``model`` has the same
-gradient on every rank and counts once. The clip is then the unsharded
-one, and the update of each element is the reference's.
+cut from it on ``data``, unless the leaf's own spec already cuts it on
+``data``: then that block is the ZeRO-1 block, cut once). The clip's norm
+sums such a leaf's squares over the ``model`` group too (and over
+``data`` for a leaf its spec cuts there); a leaf replicated on ``model``
+has the same gradient on every rank and counts once. The clip is then
+the unsharded one, and the update of each element is the reference's.
 """
 from __future__ import annotations
 
@@ -97,8 +99,10 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 class Zero1(NamedTuple):
     """Where a rank's ZeRO-1 blocks lie: ``dims`` (the params' tree) holds
-    each leaf's sharded dimension, or None for a leaf every rank holds
-    whole; this rank is ``rank`` of the ``size`` ranks of ``group``."""
+    each leaf's sharded dimension, or None for a leaf that ZeRO-1 does not
+    cut (every rank holds it whole, or its params already are the rank's
+    block on the data axis: :class:`ModelSplit`'s ``data``); this rank is
+    ``rank`` of the ``size`` ranks of ``group``."""
     dims: Any
     rank: int
     size: int
@@ -130,10 +134,17 @@ def shard_state(state: OptState, zero1: Zero1) -> OptState:
 class ModelSplit(NamedTuple):
     """The leaves a rank holds a block of on the ``model`` axis: ``split``
     (the params' tree) is True for each, False for a leaf every rank of
-    ``group`` (``size`` ranks) holds whole."""
+    ``group`` (``size`` ranks) holds whole. ``data`` (None: no leaf) is
+    True for a leaf whose params, gradients, master copy and moments are
+    also the rank's block on the data axis (``data_group``, ``data_size``
+    ranks), as the leaf's own spec places them (an MoE's expert matrix
+    cut on d over ``data``): its ZeRO-1 block is that block."""
     split: Any
     group: Any
     size: int
+    data: Any = None
+    data_group: Any = None
+    data_size: int = 1
 
 
 def _sum_over(leaves: list, picked, size: int, group) -> None:
@@ -151,12 +162,15 @@ def global_norm(tree: Params, zero1: Optional[Zero1] = None,
                 model: Optional[ModelSplit] = None) -> torch.Tensor:
     """sqrt of the sum of every leaf's fp32 sum of squares; with ``zero1``
     a sharded leaf's sum is first summed over the group (``tree`` holds
-    its blocks), with ``model`` a leaf split on that axis over its group."""
+    its blocks), with ``model`` a leaf split on that axis over its group
+    (and one split on the data axis by its spec over that axis's)."""
     leaves = [x.float().square().sum() for x in tree_leaves(tree)]
     if zero1 is not None:
         _sum_over(leaves, tree_map(lambda d: d is not None, zero1.dims),
                   zero1.size, zero1.group)
     if model is not None:
+        if model.data is not None:
+            _sum_over(leaves, model.data, model.data_size, model.data_group)
         _sum_over(leaves, model.split, model.size, model.group)
     return torch.sqrt(torch.stack(leaves).sum())
 

@@ -1,6 +1,7 @@
 """Tensor parallelism on a mesh's ``model`` axis: the prefill and serve
 steps of all six LM families (dense, MoE, SSM, hybrid, VLM, enc-dec), and
-the dense family's train step, split over the ranks of that axis.
+the dense and MoE families' train steps, split over the ranks of that
+axis.
 
 The JAX package runs any step on any mesh through ``jit`` with the
 ``in_shardings`` of ``param_specs`` / ``cache_specs``; GSPMD splits the
@@ -41,11 +42,17 @@ through; :func:`copy_to_model` is the identity where a tensor every rank
 holds whole enters the rank's own part of the work (the normed input of
 a split attention or FFN, the final norm's output before a
 vocabulary-split ``lm_head``, a whole k/v before a rank reads its kv
-heads of it), and sums the ranks' gradients of it in fp32, rounded once
-to the gradient's dtype. The rule: a leaf replicated on ``model`` (the
-norm scales, the FFN's ``wo`` bias, a whole ``wk``/``wv``) gets the same
-full gradient, bit for bit, on every ``model`` rank (every rank computes
-it from the same summed gradients), and no collective is added for it.
+heads of it, an MoE's input and its router's kernel), and sums the
+ranks' gradients of it in fp32, rounded once to the gradient's dtype.
+The rule: a leaf replicated on ``model`` (the norm scales, the FFN's
+``wo`` bias, a whole ``wk``/``wv``) gets the same full gradient, bit for
+bit, on every ``model`` rank (every rank computes it from the same
+summed gradients), and no collective is added for it; the MoE's router,
+which each rank reaches through its own share of the combine, gets it
+from its ``copy_to_model``. :func:`all_gather` under grad (an MoE's
+expert matrices cut on d over ``data``, gathered for the product)
+reduce-scatters the gradient back: each rank's block summed over the
+group in fp32.
 The serving path runs under ``no_grad`` and keeps its in-place sums.
 
 Where a rank's group is gloo and its tensors lie on the card (two ranks
@@ -67,7 +74,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from repro_torch.compat import all_gather_single, mesh_shape
+from repro_torch.compat import (all_gather_single, mesh_shape,
+                                reduce_scatter_single)
 from repro_torch.parallel import specs as SP
 from repro_torch.parallel.sharding import axes_of
 from repro_torch.tree import tree_map_with_path
@@ -147,12 +155,37 @@ def copy_to_model(t: torch.Tensor, group) -> torch.Tensor:
     return _CopyToModel.apply(t, group) if _grad(t) else t
 
 
-def all_gather(t: torch.Tensor, group, size: int) -> torch.Tensor:
-    """Every rank's ``t`` stacked in rank order: (size, *t.shape)."""
+def _gather(t: torch.Tensor, group, size: int) -> torch.Tensor:
     src = t.reshape(-1)
     out = src.new_empty(size * src.numel())
     all_gather_single(out, src, group=group)
     return out.view(size, *t.shape)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, size):
+        ctx.group, ctx.size = group, size
+        return _gather(t, group, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        src = g.float().contiguous().reshape(-1)
+        out = src.new_empty(src.numel() // ctx.size)
+        reduce_scatter_single(out, src, group=ctx.group)
+        return out.view(g.shape[1:]).to(g.dtype), None, None
+
+
+def all_gather(t: torch.Tensor, group, size: int) -> torch.Tensor:
+    """Every rank's ``t`` stacked in rank order: (size, *t.shape). Under
+    grad its backward is the reduce-scatter: each rank's ``t`` gets the
+    sum over the group of the gradients of its own block, in fp32 and
+    rounded once to the gradient's dtype (an expert matrix's d block, cut
+    over ``data`` and gathered for the product: the sum of every data
+    rank's rows' gradient)."""
+    if _grad(t):
+        return _AllGather.apply(t, group, size)
+    return _gather(t, group, size)
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,13 @@ holds each rank's MoE layer to.
 ``IN.npz`` holds, for each case ``c`` (``c`` = 0, 1, ...), ``c/E`` (the
 expert count of tiny moonshot), ``c/mesh`` (data, model), the layer's
 ``c/router``, ``c/wi``, ``c/wo`` and inputs ``c/x/<i>`` (B, S, d);
-``OUT.npz`` gets ``c/y/<i>``. Four host devices are forced before JAX
-starts, so this runs in a process of its own.
+``OUT.npz`` gets ``c/y/<i>``. Where an input has a cotangent ``c/dy/<i>``
+(B, S, d) beside it, ``OUT.npz`` also gets the gradient of ``sum(y ·
+dy)`` through the sharded MoE (``jax.grad``, the reference's own
+differentiation of its ``shard_map``) in ``c/g/<i>/router``,
+``c/g/<i>/wi``, ``c/g/<i>/wo`` and ``c/g/<i>/x``, each of the whole
+leaf. Four host devices are forced before JAX starts, so this runs in a
+process of its own.
 """
 import os
 import sys
@@ -40,9 +45,20 @@ def main(src: str, dst: str) -> None:
         p = {"router": {"kernel": inp[f"{c}/router"]}, "wi": inp[f"{c}/wi"],
              "wo": inp[f"{c}/wo"]}
         run = jax.jit(lambda p, x: T._moe_apply_shard_map(p, cfg, x, mesh))
+        grad = jax.jit(jax.grad(
+            lambda p, x, dy: (run(p, x) * dy).sum(), argnums=(0, 1)))
         xs = sorted(k for k in inp.files if k.startswith(f"{c}/x/"))
         for k in xs:
             out[k.replace("/x/", "/y/")] = np.asarray(run(p, inp[k]))
+            dy = k.replace("/x/", "/dy/")
+            if dy not in inp.files:
+                continue
+            gp, gx = grad(p, inp[k], inp[dy])
+            g = k.replace("/x/", "/g/")
+            out.update({f"{g}/router": np.asarray(gp["router"]["kernel"]),
+                        f"{g}/wi": np.asarray(gp["wi"]),
+                        f"{g}/wo": np.asarray(gp["wo"]),
+                        f"{g}/x": np.asarray(gx)})
     np.savez(dst, **out)
 
 

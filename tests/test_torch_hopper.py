@@ -1474,6 +1474,41 @@ def test_topk_gating_bwd_empty_batch_launches_nothing(hopper):
     assert out.shape == (0, 8) and ops.topk_gating_bwd.launches == before
 
 
+def test_topk_gating_under_grad_at_the_tensor_parallel_ranks_shape(hopper):
+    """The router of a moonshot-v1-16b-a3b rank in a tensor-parallel train
+    step (every ``model`` rank routes all of its 4 x 512 rows over 64
+    experts, top 6): ``topk_gating`` under grad gives weights with a
+    ``grad_fn``; the forward and ``topk_gating_bwd`` each launch once a
+    pass; the logits' gradient equals the plain backward's on the same
+    routes within 1e-5 and autograd of the plain forward's, the indices
+    equal; a rerun is bit-equal."""
+    N, E, k = 2048, 64, 6
+    g = torch.Generator(device=hopper).manual_seed(35)
+    logits = 2 * torch.randn((N, E), generator=g, device=hopper)
+    c = torch.randn((N, k), generator=g, device=hopper)
+    runs = []
+    for _ in range(2):
+        leaf = logits.clone().requires_grad_()
+        fwd, bwd = ops.topk_gating.launches, ops.topk_gating_bwd.launches
+        w, idx = ops.topk_gating(leaf, k)
+        assert w.grad_fn is not None and not idx.requires_grad
+        (w * c).sum().backward()
+        torch.cuda.synchronize()
+        assert ops.topk_gating.launches == fwd + 1
+        assert ops.topk_gating_bwd.launches == bwd + 1
+        runs.append((w.detach(), idx, leaf.grad))
+    (w, idx, grad), again = runs
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], again))
+    want = ops.topk_gating_bwd_ref(logits, idx, w, c)
+    np.testing.assert_allclose(grad.cpu().numpy(), want.cpu().numpy(), **TOL)
+    leaf = logits.clone().requires_grad_()
+    rw, ri = ops.topk_gating_ref(leaf, k)
+    (rw * c).sum().backward()
+    assert torch.equal(idx, ri)
+    np.testing.assert_allclose(grad.cpu().numpy(), leaf.grad.cpu().numpy(),
+                               **TOL)
+
+
 @pytest.mark.parametrize("arch", ["mamba2-130m", "moonshot-v1-16b-a3b",
                                   "jamba-v0.1-52b"])
 def test_ssm_moe_hybrid_train_step_on_the_card_matches_the_cpu(hopper, arch):

@@ -395,11 +395,18 @@ def test_layout_refuses_expert_placements_it_does_not_execute(wi, wo, error):
 
 
 def test_moe_steps_run_where_the_other_families_raise():
-    """``mesh_plan`` lets the MoE's prefill and decode through at
-    ``model`` > 1 and still refuses its train step, naming the dry run."""
+    """``mesh_plan`` lets the MoE's prefill, decode and train steps
+    through at ``model`` > 1 (the train plan holds the leaves split on
+    ``model`` and the rank's experts) and still refuses the hybrid's
+    train step, whose mamba mixers it does not train, naming the dry
+    run."""
     mesh = _Rank((1, 2), NAMES, (0, 1))
+    plan = ST.mesh_plan(_cfg(4), mesh, zero1=False, kind="train")
+    assert plan.model is not None and plan.model.size == 2
+    assert plan.layout.moe.split_experts and plan.layout.moe.experts == (2, 4)
     with pytest.raises(NotImplementedError, match="dryrun"):
-        ST.mesh_plan(_cfg(4), mesh, zero1=False, kind="train")
+        ST.mesh_plan(tiny_version(get_config("jamba-v0.1-52b")), mesh,
+                     zero1=False, kind="train")
     for kind in ("prefill", "decode"):
         plan = ST.mesh_plan(_cfg(4), mesh, zero1=False, kind=kind)
         assert (plan.index, plan.count, plan.groups) == (0, 1, ())

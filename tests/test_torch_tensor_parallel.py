@@ -402,17 +402,17 @@ def test_prefill_takes_its_mqa_block_as_a_view_of_the_decode_layout():
 
 
 @pytest.mark.parametrize("arch,kind", [
-    ("mamba2-130m", "train"),
-    ("moonshot-v1-16b-a3b", "train"), ("jamba-v0.1-52b", "train"),
+    ("mamba2-130m", "train"), ("jamba-v0.1-52b", "train"),
     ("qwen2-vl-7b", "train"), ("whisper-medium", "train")])
 def test_what_model_above_1_does_not_execute_raises(arch, kind):
     """Training at ``model`` > 1 raises ``NotImplementedError`` naming the
-    dry run that models it, for every family but the dense one (each
-    family's prefill and decode serve: this file,
+    dry run that models it, for every family but the dense and MoE ones
+    (each family's prefill and decode serve: this file,
     ``test_torch_moe_tensor_parallel.py``,
     ``test_torch_ssm_tensor_parallel.py`` and
     ``test_torch_vlm_encdec_tensor_parallel.py``; the dense family trains:
-    ``test_torch_tensor_parallel_train.py``)."""
+    ``test_torch_tensor_parallel_train.py``, the MoE family:
+    ``test_torch_moe_tensor_parallel_train.py``)."""
     with pytest.raises(NotImplementedError, match="dryrun"):
         ST.mesh_step(_cfg(arch), ShapeConfig("s", 16, 2, kind),
                      abstract_mesh((1, 2), ("data", "model")))
